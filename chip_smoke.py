@@ -9,25 +9,38 @@ Run from the repository root on a machine with a CUDA card:
 Phases, each printing one JSON line (``"phase": ...``):
 
 1. build     nvcc-build ``parameter_server_tpu_torch/csrc/scatter_kernels.cu``.
-2. kernels   each of the four kernels against its plain version at dim 1, 128
-             and 1024, ids with trash pads, apply under all four optimizers.
+2. kernels   each of the four kernels against its plain version at dim 1, 3,
+             4, 128 and 1024 and on misaligned views (storage offset 1), ids
+             with trash pads: gather of 1 to 4 planes in one launch, apply
+             under all four optimizers (the trash row must keep its fill);
+             then ``KVTable.push`` at the main path's full width on the card
+             and on the CPU, every row of every plane, trash rows at their
+             fill.
 3. main      BASELINE config #1 at full width: 2 KVServers + 2 KVWorkers on a
              LoopbackVan, 2^22 x 1 AdaGrad (lr 0.05) table, batch 16384 x 39
              keys of SyntheticCTR(2^26 keys), AsyncLRLearner under BSP.  The
-             loss must fall, every table must be on the card, and the fused
-             apply and gather kernels must have launched; then a small run of
-             the same loop on the card must agree with it on the CPU, and a
-             seeded push sequence at full width must give bitwise-equal
-             tables twice (the worker pre-combine is deterministic).
+             loss must fall, every table must be on the card, the fused
+             apply and gather kernels must have launched (one gather per
+             pull), and every trash row must still hold its fill; then a
+             small run of the same loop on the card must agree with it on
+             the CPU, and a seeded push sequence at full width must give
+             bitwise-equal tables twice (the worker pre-combine is
+             deterministic).
 4. three_pass  the same loop with ``fused_apply=False`` (scatter-set kernel).
 5. bundled   ``handle_request_batch`` at the apply-engine shape (16 x 2048
              ids from a 2048-row hot set, dim 128, Adam, 2^15 rows) under both
              duplicate policies, twice each: bitwise-equal tables, and close
              to the same bundle on the CPU.
 6. combine   ``combine_and_scatter_add`` on one batch's slots (scatter-add).
-7. times     every kernel at the main path's shapes: CUDA-event time, the
-             byte bound at 3.35 TB/s, the plain version's time and one
-             PyTorch library call's time; the worker pre-combine's time.
+7. times     every kernel at the main path's shapes: device time per call
+             (CUDA-graph replay), the byte bound at 3.35 TB/s, the plain
+             version's time and one PyTorch library call's time; an empty
+             kernel's time (the launch floor); a pull's value + sum_sq gather
+             as one launch, held against its plain version and timed; at
+             dim 1, gather and apply through their dim-1 forms and through
+             the general row kernel; gather and Adam apply at a wide shape (dim 128,
+             2^20 + 1 rows, 8 disjoint id sets so L2 holds no round); the
+             worker pre-combine's time.
 
 Then the card's name and power limit (nvidia-smi), one JSON line of
 per-kernel results, and ``{"ok": true, "device": {...}}`` last.  Any failed
@@ -37,6 +50,8 @@ nonzero on a machine without a card.
 
 from __future__ import annotations
 
+import ctypes
+import itertools
 import json
 import subprocess
 import sys
@@ -49,6 +64,9 @@ HBM_BYTES_PER_S = 3.35e12
 #: the main path's configuration (BASELINE config #1)
 ROWS, DIM, BATCH, NNZ, KEY_SPACE = 1 << 22, 1, 16384, 39, 1 << 26
 MAIN_STEPS = 8
+#: the wide shape of phase ``times``: dim-128 rows, as the apply engine and
+#: the embedding tables use them
+WIDE_ROWS, WIDE_DIM, WIDE_N, WIDE_SETS = 1 << 20, 128, 32768, 8
 THREE_PASS_STEPS = 2
 DEVICE = "cuda"
 SOURCE = "parameter_server_tpu_torch/csrc/scatter_kernels.cu"
@@ -90,8 +108,12 @@ def main() -> int:
          library=_build.library_path().name)
 
     # -- 2. kernels vs plain ---------------------------------------------------
-    for dim in (1, 128, 1024):
+    for dim in (1, 3, 4, 128, 1024):
         emit("kernels", dim=dim, **kernels_vs_plain(torch, scatter, dev, dim, errs))
+    for dim in (1, 128):
+        emit("kernels", dim=dim, storage_offset=1,
+             **kernels_vs_plain(torch, scatter, dev, dim, errs, offset=1))
+    emit("kernels", case="table_push_vs_cpu", **table_push_vs_cpu(torch, dev))
 
     # -- 3. main path ------------------------------------------------------------
     launches = {}
@@ -100,11 +122,14 @@ def main() -> int:
     counts = scatter.launch_counts()
     launches["apply"], launches["gather"] = counts["apply"], counts["gather"]
     check(counts["apply"] > 0 and counts["gather"] > 0, f"main path launches {counts}")
+    check(counts["gather"] == main["pulls"],
+          f"{counts['gather']} gather launches for {main['pulls']} pulls")
     first, last = np.mean(main["losses"][:2]), np.mean(main["losses"][-2:])
     check(last < first - 0.01, f"loss did not fall: {first} -> {last}")
     emit("main", steps_per_worker=MAIN_STEPS, workers=2, servers=2,
          examples_per_s=main["examples_per_s"], loss_first=float(first),
-         loss_last=float(last), launches=counts, tables_on=main["devices"])
+         loss_last=float(last), launches=counts, pulls=main["pulls"],
+         trash_rows_at_fill=True, tables_on=main["devices"])
     emit("main_reference", **small_reference(torch, dev))
     emit("main_determinism", **determinism(torch, dev))
     emit("main_profile", **profile_loop(torch, dev))
@@ -154,29 +179,54 @@ def _ids_with_pads(rng, rows, n_real, n_pad):
     ).astype(np.int32)
 
 
-def kernels_vs_plain(torch, scatter, dev, dim, errs):
+def _on_card(torch, arr, dev, offset):
+    """``arr`` on the card; with ``offset`` > 0 as a contiguous view that
+    starts ``offset`` elements into its storage (not 16-byte aligned)."""
+    t = torch.as_tensor(arr)
+    flat = torch.empty(offset + t.numel(), dtype=t.dtype, device=dev)
+    view = flat[offset:].view(t.shape)
+    view.copy_(t)
+    return view
+
+
+def kernels_vs_plain(torch, scatter, dev, dim, errs, offset=0):
+    """Each kernel against its plain version at ``dim`` on 1,001 real ids and
+    22 trash pads (an id count that is not a multiple of 4, so the kernels'
+    masked tails run).  Gather takes 1 to 4 planes in one launch; apply runs
+    all four optimizers and must leave the trash row untouched.  ``offset``
+    > 0 runs every tensor as a misaligned view, which the wrappers send to
+    the scalar form of each kernel."""
     from parameter_server_tpu_torch.config import OptimizerConfig
     from parameter_server_tpu_torch.kv.optim import make_optimizer
 
-    rng = np.random.default_rng(dim)
-    rows, n_real, n_pad = 4096, 1000, 24
-    table = torch.tensor(rng.normal(size=(rows + 1, dim)), dtype=torch.float32, device=dev)
-    table[rows] = 0
-    ids = torch.tensor(_ids_with_pads(rng, rows, n_real, n_pad), device=dev)
-    vals = torch.tensor(rng.normal(size=(n_real + n_pad, dim)), dtype=torch.float32, device=dev)
-    vals[n_real:] = 0
+    rng = np.random.default_rng(dim + 1000 * offset)
+    rows, n_real, n_pad = 4096, 1001, 22
+    planes_np = rng.normal(size=(4, rows + 1, dim)).astype(np.float32)
+    planes_np[:, rows] = 0
+    planes = [_on_card(torch, p, dev, offset) for p in planes_np]
+    table = planes[0]
+    ids = _on_card(torch, _ids_with_pads(rng, rows, n_real, n_pad), dev, offset)
+    vals_np = rng.normal(size=(n_real + n_pad, dim)).astype(np.float32)
+    vals_np[n_real:] = 0
+    vals = _on_card(torch, vals_np, dev, offset)
+    if offset:
+        check(not scatter._aligned(table, ids, vals), "misaligned views are aligned")
     out = {}
 
     def record(name, got, want, rtol, atol):
         err = float((got - want).abs().max())
         ok = torch.allclose(got, want, rtol=rtol, atol=atol)
-        check(bool(ok), f"{name} dim {dim}: kernel vs plain max err {err}")
-        errs[name] = max(errs[name], err)
+        check(bool(ok), f"{name} dim {dim} offset {offset}: kernel vs plain max err {err}")
+        key = "apply" if name.startswith("apply") else name
+        errs[key] = max(errs[key], err)
+        err = max(err, out.get(name, {}).get("max_abs_err", 0.0))
         out[name] = {"max_abs_err": err, "rtol": rtol, "atol": atol}
 
     # row moves copy bytes: exact
-    record("gather", scatter.cuda_gather(table, ids),
-           scatter.gather_rows_torch(table, ids), 0.0, 0.0)
+    for p in range(1, 5):
+        got = scatter.cuda_gather_planes(planes[:p], ids)
+        want = [scatter.gather_rows_torch(t, ids) for t in planes[:p]]
+        record("gather", torch.cat(got), torch.cat(want), 0.0, 0.0)
     record("scatter_set", scatter.cuda_scatter_set(table.clone(), ids, vals),
            scatter.scatter_update_rows_torch(table.clone(), ids, vals), 0.0, 0.0)
     # one float add per element either way: exact
@@ -190,26 +240,70 @@ def kernels_vs_plain(torch, scatter, dev, dim, errs):
     }
     for kind, cfg in opts.items():
         opt = make_optimizer(OptimizerConfig(**cfg))
-        state = {
-            k: torch.tensor(np.abs(rng.normal(size=(rows + 1, dim))), dtype=torch.float32,
-                            device=dev)
-            for k in opt.state_shapes()
-        }
-        if "t" in state:
-            state["t"] = torch.floor(state["t"] * 3)
-        kv, ks = scatter.cuda_apply(table.clone(), {k: v.clone() for k, v in state.items()},
-                                    ids, vals, opt)
-        pv, ps = scatter.apply_rows_torch(table.clone(),
-                                          {k: v.clone() for k, v in state.items()},
-                                          ids, vals, opt)
+        state_np = {k: np.abs(rng.normal(size=(rows + 1, dim))).astype(np.float32)
+                    for k in opt.state_shapes()}
+        if "t" in state_np:
+            state_np["t"] = np.floor(state_np["t"] * 3)
+        before = [planes_np[0]] + [state_np[k] for k in sorted(state_np)]
+        kv, ks = scatter.cuda_apply(
+            _on_card(torch, planes_np[0], dev, offset),
+            {k: _on_card(torch, x, dev, offset) for k, x in state_np.items()},
+            ids, vals, opt)
+        pv, ps = scatter.apply_rows_torch(
+            torch.tensor(planes_np[0], device=dev),
+            {k: torch.tensor(x, device=dev) for k, x in state_np.items()},
+            ids, vals, opt)
+        got = [kv] + [ks[k] for k in sorted(ks)]
         # multi-op float math in the same order (-fmad=false); pow and
-        # division by a scalar may round differently by an ulp: 1e-5 relative.
-        # The trash row is excluded: pads race there and the table re-zeros it.
-        got = torch.cat([kv[:rows]] + [ks[k][:rows] for k in sorted(ks)])
-        want = torch.cat([pv[:rows]] + [ps[k][:rows] for k in sorted(ps)])
-        record("apply", got, want, 1e-5, 1e-6)
-        out[f"apply_{kind}"] = out.pop("apply")
+        # division by a scalar may round differently by an ulp: 1e-5
+        # relative.  Every row, the trash row included: both sides must
+        # leave it as it was.
+        record(f"apply_{kind}", torch.cat(got),
+               torch.cat([pv] + [ps[k] for k in sorted(ps)]), 1e-5, 1e-6)
+        for g, b in zip(got, before):
+            check(bool(torch.equal(g[rows].cpu(), torch.from_numpy(b[rows]))),
+                  f"apply_{kind} dim {dim}: the kernel wrote the trash row")
     torch.cuda.synchronize()
+    return out
+
+
+def table_push_vs_cpu(torch, dev):
+    """``KVTable.push`` at the main path's full width (a 2^21 + 1 row shard,
+    dim 1, server 0's request: 32,768 ids of which 12,851 trash pads), three
+    pushes per optimizer, on the card and on the CPU: every row of every
+    plane, the trash row included, within rtol 1e-5 / atol 1e-6, and on the
+    card the trash row of every plane still exactly at its fill (the fused
+    push never resets it: neither the kernel nor the plain version writes
+    it)."""
+    from parameter_server_tpu_torch.config import OptimizerConfig, TableConfig
+    from parameter_server_tpu_torch.kv.table import KVTable
+
+    shard, n, n_real = ROWS // 2, 32768, 19917
+    out = {}
+    for kind in ("sgd", "adagrad", "adam", "ftrl"):
+        cfg = TableConfig(name="w", rows=shard, dim=DIM,
+                          optimizer=OptimizerConfig(kind=kind, learning_rate=0.05, l1=0.01))
+        tables = [KVTable(cfg, device=dev), KVTable(cfg, device="cpu")]
+        rng = np.random.default_rng(17)
+        for _ in range(3):
+            ids = np.full(n, shard, dtype=np.int32)
+            ids[:n_real] = np.sort(rng.choice(shard, size=n_real, replace=False))
+            grads = np.zeros((n, DIM), np.float32)
+            grads[:n_real] = rng.normal(size=(n_real, DIM))
+            for t in tables:
+                t.push(torch.tensor(ids, device=t.device), torch.tensor(grads, device=t.device))
+        card, cpu = tables
+        err = 0.0
+        fills = card.optimizer.state_shapes()
+        for name in ["value", *sorted(card.state)]:
+            a = (card.value if name == "value" else card.state[name]).cpu()
+            b = cpu.value if name == "value" else cpu.state[name]
+            err = max(err, float((a - b).abs().max()))
+            check(bool(torch.allclose(a, b, rtol=1e-5, atol=1e-6)),
+                  f"{kind} KVTable.push card vs cpu, plane {name}: max err {err}")
+            fill = 0.0 if name == "value" else fills[name]
+            check(bool((a[shard] == fill).all()), f"{kind}: trash row of {name} left its fill")
+        out[kind] = {"max_abs_err": err, "rtol": 1e-5, "atol": 1e-6, "trash_rows_at_fill": True}
     return out
 
 
@@ -261,8 +355,13 @@ def run_loop(torch, dev, *, fused, steps):
         w = workers[0].pull_sync("w", keys, timeout=300)
         check(w.shape == keys.shape and bool(np.isfinite(w).all()), "pulled weights")
         check(float(np.abs(w).max()) > 0, "pulled weights are all zero")
+        for tbl in (t for srv in servers for t in srv.tables.values()):
+            fills = {"value": 0.0, **tbl.optimizer.state_shapes()}
+            for name, plane in [("value", tbl.value), *tbl.state.items()]:
+                check(bool((plane[-1] == fills[name]).all()),
+                      f"trash row of {name} left its fill {fills[name]}")
         return {"losses": losses, "examples_per_s": 2 * steps * BATCH / wall,
-                "devices": devices}
+                "devices": devices, "pulls": sum(srv.pulls for srv in servers)}
     finally:
         van.close()
 
@@ -511,6 +610,7 @@ def times_phase(torch, scatter, dev, errs, launches):
     from parameter_server_tpu_torch.kv.optim import make_optimizer
     from parameter_server_tpu_torch.kv.routing import RoutingTable
     from parameter_server_tpu_torch.kv.server import _bucket
+    from parameter_server_tpu_torch.ops import _build
 
     keys, slots, inverse, n_unique = _main_batch_slots()
     # server 0's request of one main-path pull/push: its slice, localized and
@@ -586,12 +686,18 @@ def times_phase(torch, scatter, dev, errs, launches):
             sum_sq.copy_(base["sum_sq"])
             add_table.copy_(base["add"])
             r = specs[name][which]()
-            r = torch.cat([r[0][:-1], r[1]["sum_sq"][:-1]]) if name == "apply" else r
+            r = torch.cat([r[0], r[1]["sum_sq"]]) if name == "apply" else r
             outs.append(r[:-1].clone() if name in ("scatter_set", "scatter_add") else r.clone())
         err = float((outs[0] - outs[1]).abs().max())
         tol = 1e-5 * float(outs[1].abs().max()) + 1e-6 if name == "apply" else 0.0
         check(err <= tol, f"{name} at main shape: kernel vs plain {err}")
         errs[name] = max(errs[name], err)
+    # the pull's gather as the main path runs it: value + sum_sq in one launch
+    got = scatter.cuda_gather_planes([table, sum_sq], ids)
+    want = [scatter.gather_rows_torch(table, ids), scatter.gather_rows_torch(sum_sq, ids)]
+    err = max(float((g - w).abs().max()) for g, w in zip(got, want))
+    check(err == 0.0, f"two-plane gather at main shape: kernel vs plain {err}")
+    errs["gather"] = max(errs["gather"], err)
 
     kernels = []
     for name, spec in specs.items():
@@ -616,8 +722,118 @@ def times_phase(torch, scatter, dev, errs, launches):
         })
         emit("times", kernel=name, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
              bound_ms=b, bytes=int(spec["nbytes"]), **call, **spec["shape"])
+
+    # the launch floor: an empty kernel, timed the same way
+    lib = _build.load_library()
+
+    def noop():
+        err = lib.ps_noop(ctypes.c_void_p(torch.cuda.current_stream().cuda_stream))
+        check(err == 0, f"ps_noop launch failed: cudaError {err}")
+
+    floor_ms = _graph_ms(torch, noop)
+    emit("times", kernel="noop", ms=floor_ms)
+    # one pull's gather at server 0's request: the value and sum_sq planes
+    pull_ms = _graph_ms(torch, lambda: scatter.cuda_gather_planes([table, sum_sq], ids))
+    pull_bytes = f * n + 2 * (f * u * DIM + f * n * DIM)
+    emit("times", kernel="gather", case="pull_value_sum_sq", ms=pull_ms,
+         bound_ms=bound(pull_bytes), bytes=pull_bytes, planes=2, n=n, dim=DIM)
+    # the dim-1 forms against the general row kernel (float lanes) on the same
+    # work: ids 4 bytes off a 16-byte boundary send a call to the latter
+    ids_off = _on_card(torch, ids_np, dev, 1)
+    check(not scatter._aligned(ids_off), "offset ids are aligned")
+    route = {
+        "gather_value_sum_sq": lambda i: scatter.cuda_gather_planes([table, sum_sq], i),
+        "apply_adagrad": lambda i: scatter.cuda_apply(table, {"sum_sq": sum_sq}, i, rows, opt),
+    }
+    for name, fn in route.items():
+        form, row = [], []
+        for _ in range(2):  # interleaved: form, row, form, row
+            form.append(_graph_ms(torch, lambda: fn(ids)))
+            row.append(_graph_ms(torch, lambda: fn(ids_off)))
+        emit("times", case="dim1_route", kernel=name, dim1_form_ms=form, row_kernel_ms=row,
+             n=n, dim=DIM)
+    wide = wide_times(torch, scatter, dev, errs, bound)
+    for k in kernels:
+        k["floor_ms"] = floor_ms
+        if k["name"] in wide:
+            k["wide"] = wide[k["name"]]
     emit("times", step="worker_precombine", **precombine_ms(torch, dev, keys))
     return kernels
+
+
+def wide_times(torch, scatter, dev, errs, bound):
+    """Gather (one plane) and Adam apply (value + 3 planes) at dim 128: 32,768
+    unique sorted ids into a 2^20 + 1 row table (512 MiB a plane).  Each graph
+    cycles through 8 disjoint id sets, so one round touches more rows than the
+    50 MB L2 holds and every call reads its rows from device memory."""
+    from parameter_server_tpu_torch.config import OptimizerConfig
+    from parameter_server_tpu_torch.kv.optim import make_optimizer
+
+    rng = np.random.default_rng(13)
+    perm = rng.permutation(WIDE_ROWS)[: WIDE_SETS * WIDE_N].reshape(WIDE_SETS, WIDE_N)
+    id_sets = [torch.tensor(np.sort(p).astype(np.int32), device=dev) for p in perm]
+    gen = torch.Generator(device=dev).manual_seed(13)
+    shape = (WIDE_ROWS + 1, WIDE_DIM)
+    value = torch.randn(shape, generator=gen, device=dev)
+    value[-1] = 0
+    opt = make_optimizer(OptimizerConfig(kind="adam", learning_rate=0.01))
+    state = {
+        "m": torch.randn(shape, generator=gen, device=dev),
+        "t": torch.floor(torch.rand(shape, generator=gen, device=dev) * 3),
+        "v": torch.rand(shape, generator=gen, device=dev),
+    }
+    grads = [torch.randn((WIDE_N, WIDE_DIM), generator=gen, device=dev)
+             for _ in range(WIDE_SETS)]
+    f, n, d = 4, WIDE_N, WIDE_DIM
+
+    # kernel vs plain on the first id set, every row of every plane
+    got = scatter.cuda_gather(value, id_sets[0])
+    err = float((got - scatter.gather_rows_torch(value, id_sets[0])).abs().max())
+    check(err == 0.0, f"gather at dim {d}: kernel vs plain {err}")
+    plain = scatter.apply_rows_torch(value.clone(), {k: p.clone() for k, p in state.items()},
+                                     id_sets[0], grads[0], opt)
+    scatter.cuda_apply(value, state, id_sets[0], grads[0], opt)
+    for a, b in zip([value] + [state[k] for k in sorted(state)],
+                    [plain[0]] + [plain[1][k] for k in sorted(state)]):
+        aerr = float((a - b).abs().max())
+        check(bool(torch.allclose(a, b, rtol=1e-5, atol=1e-6)),
+              f"adam apply at dim {d}: kernel vs plain {aerr}")
+        errs["apply"] = max(errs["apply"], aerr)
+    del plain
+
+    def cycle(fn):
+        it = itertools.cycle(range(WIDE_SETS))
+        return lambda: fn(next(it))
+
+    specs = {
+        "gather": dict(
+            kernel=cycle(lambda i: scatter.cuda_gather(value, id_sets[i])),
+            plain=cycle(lambda i: scatter.gather_rows_torch(value, id_sets[i])),
+            library=cycle(lambda i: torch.index_select(value, 0, id_sets[i].long())),
+            nbytes=f * n + 2 * f * n * d, planes=1,
+        ),
+        "apply": dict(
+            kernel=cycle(lambda i: scatter.cuda_apply(value, state, id_sets[i], grads[i], opt)),
+            plain=cycle(lambda i: scatter.apply_rows_torch(value, state, id_sets[i],
+                                                           grads[i], opt)),
+            library=None,
+            # ids + grads read; value, m, t, v rows read and written once
+            nbytes=f * n + f * n * d + 2 * 4 * f * n * d, planes=4,
+        ),
+    }
+    out = {}
+    for name, spec in specs.items():
+        row = {
+            "ms": _graph_ms(torch, spec["kernel"], per_graph=2 * WIDE_SETS, replays=10),
+            "plain_ms": _graph_ms(torch, spec["plain"], per_graph=2 * WIDE_SETS, replays=10),
+            "library_ms": (_graph_ms(torch, spec["library"], per_graph=2 * WIDE_SETS,
+                                     replays=10) if spec["library"] else None),
+            "bound_ms": bound(spec["nbytes"]), "bytes": int(spec["nbytes"]),
+        }
+        out[name] = row
+        emit("times", kernel=name, case="wide", n=n, dim=d, table_rows=WIDE_ROWS + 1,
+             id_sets=WIDE_SETS, planes=spec["planes"], optimizer="adam", **row)
+    return out
 
 
 def precombine_ms(torch, dev, keys):

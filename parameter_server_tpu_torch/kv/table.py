@@ -6,8 +6,10 @@ trash row that bucket pads point at) plus one tensor of the same shape per
 optimizer state plane.  Where the JAX table donates its buffers to a jitted
 step, this one updates its tensors in place: ``push`` runs the fused apply
 kernel (or, with ``fused_apply=False``, gather kernels -> plain rule ->
-scatter-set kernels) straight into ``value`` and ``state``, then re-zeros the
-trash row in place.  ``pull`` gathers rows and derives servable weights.
+scatter-set kernels) straight into ``value`` and ``state``.  The trash row is
+set to its fill when a shard is installed; the fused apply never touches it
+and the three-pass path resets it after each push.  ``pull`` gathers the
+value and state rows in one launch and derives servable weights.
 """
 
 from __future__ import annotations
@@ -58,24 +60,32 @@ class KVTable:
         }
         self.fused_apply = cfg.fused_apply
 
-    def _apply_core(self, ids: torch.Tensor, grads: torch.Tensor) -> None:
-        """Apply ``grads`` at unique ``ids`` (fused or three-pass), then reset
-        the trash row; shared by every push entry point."""
-        if self.fused_apply:
-            scatter.apply_rows(self.value, self.state, ids, grads, self.optimizer)
-        else:
-            v_rows = scatter.gather_rows(self.value, ids)
-            s_rows = {k: scatter.gather_rows(v, ids) for k, v in self.state.items()}
-            new_v, new_s = self.optimizer.apply(v_rows, s_rows, grads)
-            scatter.scatter_update_rows(self.value, ids, new_v.contiguous())
-            for k in self.state:
-                scatter.scatter_update_rows(self.state[k], ids, new_s[k].contiguous())
-        # pads route (zero) gradients to the trash row and may race there;
-        # resetting keeps pulls of padded positions exactly zero
+    def _gather(self, ids: torch.Tensor):
+        """Value and state rows at ``ids``: one gather launch for all planes."""
+        rows = scatter.gather_rows_planes([self.value, *self.state.values()], ids)
+        return rows[0], dict(zip(self.state, rows[1:]))
+
+    def _reset_trash_row(self) -> None:
+        """Zero value and init state fills in the trash row, so pulls of
+        padded positions read exactly zero."""
         self.value[-1].zero_()
         fills = self.optimizer.state_shapes()
         for k, plane in self.state.items():
             plane[-1].fill_(fills[k])
+
+    def _apply_core(self, ids: torch.Tensor, grads: torch.Tensor) -> None:
+        """Apply ``grads`` at unique ``ids`` (fused or three-pass), keeping the
+        trash row at its fill; shared by every push entry point."""
+        if self.fused_apply:  # leaves the trash row alone
+            scatter.apply_rows(self.value, self.state, ids, grads, self.optimizer)
+            return
+        v_rows, s_rows = self._gather(ids)
+        new_v, new_s = self.optimizer.apply(v_rows, s_rows, grads)
+        scatter.scatter_update_rows(self.value, ids, new_v.contiguous())
+        for k in self.state:
+            scatter.scatter_update_rows(self.state[k], ids, new_s[k].contiguous())
+        # pads write the rule's output for the trash row there
+        self._reset_trash_row()
 
     # -- public ops ---------------------------------------------------------
     def push(self, ids: torch.Tensor, combined_grads: torch.Tensor) -> torch.Tensor:
@@ -117,9 +127,7 @@ class KVTable:
 
     def pull(self, ids: torch.Tensor) -> torch.Tensor:
         """Servable weight rows for unique ``ids``."""
-        v_rows = scatter.gather_rows(self.value, ids)
-        s_rows = {k: scatter.gather_rows(v, ids) for k, v in self.state.items()}
-        return self.optimizer.pull_weights(v_rows, s_rows)
+        return self.optimizer.pull_weights(*self._gather(ids))
 
     # -- direct row access (checkpoint, tests, model eval) ------------------
     def weights(self) -> torch.Tensor:
@@ -130,6 +138,7 @@ class KVTable:
         if tuple(value.shape) != (self.rows + 1, self.dim):
             raise ValueError(f"expected {(self.rows + 1, self.dim)}, got {value.shape}")
         self.value = _to_device(value, self.device)
+        self.value[-1].zero_()
 
     def install_rows(self, value: np.ndarray, state: Dict[str, np.ndarray]) -> None:
         """Replace the shard with ``[rows, dim]`` host arrays (NO trash row):
@@ -151,7 +160,8 @@ class KVTable:
 
     def resize(self, value, state) -> None:
         """Replace the shard wholesale, possibly with a different row count;
-        ``value``/``state`` are ``[new_rows + 1, dim]`` INCLUDING the trash row."""
+        ``value``/``state`` are ``[new_rows + 1, dim]`` INCLUDING the trash row,
+        which is set to its fill here (the fused push never rewrites it)."""
         if value.ndim != 2 or value.shape[1] != self.dim or value.shape[0] < 1:
             raise ValueError(f"bad resize value shape {tuple(value.shape)}")
         if set(state) != set(self.state):
@@ -161,6 +171,7 @@ class KVTable:
         self.rows = int(value.shape[0]) - 1
         self.value = _to_device(value, self.device)
         self.state = {k: _to_device(v, self.device) for k, v in state.items()}
+        self._reset_trash_row()
 
 
 def _to_device(arr, device: torch.device) -> torch.Tensor:

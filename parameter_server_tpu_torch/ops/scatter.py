@@ -22,7 +22,7 @@ from __future__ import annotations
 
 import ctypes
 import threading
-from typing import Dict, Tuple
+from typing import Dict, List, Sequence, Tuple
 
 import torch
 
@@ -31,6 +31,8 @@ from parameter_server_tpu_torch.ops import _build
 #: launches per kernel wrapper; incremented only where a kernel is launched
 LAUNCHES: Dict[str, int] = {"apply": 0, "gather": 0, "scatter_set": 0, "scatter_add": 0}
 _launch_lock = threading.Lock()
+#: planes one gather launch takes (a value table and up to 3 state planes)
+_MAX_PLANES = 4
 
 
 def reset_launch_counts() -> None:
@@ -84,13 +86,16 @@ def scatter_add_rows_torch(
 
 
 def apply_rows_torch(value, state, ids, grads, optimizer):
-    """Gather -> ``optimizer.apply`` -> scatter-update, in place."""
+    """Gather -> ``optimizer.apply`` -> scatter-update, in place.  Ids at the
+    trash row (``value.shape[0] - 1``) write back what they gathered, so the
+    trash row keeps its contents, as under the kernel."""
     v_rows = gather_rows_torch(value, ids)
     s_rows = {k: gather_rows_torch(v, ids) for k, v in state.items()}
     new_v, new_s = optimizer.apply(v_rows, s_rows, grads)
-    scatter_update_rows_torch(value, ids, new_v)
+    pad = (ids == value.shape[0] - 1).unsqueeze(1)
+    scatter_update_rows_torch(value, ids, torch.where(pad, v_rows, new_v))
     for k in state:
-        scatter_update_rows_torch(state[k], ids, new_s[k])
+        scatter_update_rows_torch(state[k], ids, torch.where(pad, s_rows[k], new_s[k]))
     return value, state
 
 
@@ -145,22 +150,51 @@ def _launch(name: str, fn, device: torch.device, *args) -> None:
         LAUNCHES[name] += 1
 
 
+def _check_plane_count(tables: Sequence[torch.Tensor]) -> None:
+    if not 1 <= len(tables) <= _MAX_PLANES:
+        raise ValueError(f"gather: 1 to {_MAX_PLANES} planes, got {len(tables)}")
+
+
+def _aligned(*tensors: torch.Tensor) -> bool:
+    """Every tensor starts on a 16-byte boundary: the kernels may move rows,
+    ids and gradients as float4 / int4 (else they take their scalar form)."""
+    return all(t.data_ptr() % 16 == 0 for t in tensors)
+
+
 # Replaces _gather_kernel / _pallas_gather (parameter_server_tpu/ops/
-# scatter.py:157, :167).  Bound: bytes, n*4 ids + n*dim*4 read + n*dim*4
-# written, over 3.35 TB/s.  Design: one thread per element, so a dim = 1
-# gather is 32 ids per warp and wide rows read coalesced.
-def cuda_gather(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
-    _check_table("gather", table)
+# scatter.py:157, :167).  Bound: bytes, n*4 ids + P*n*dim*4 read + P*n*dim*4
+# written for P planes, over 3.35 TB/s; at dim 1 one launch is ~10x that.
+# Design: one launch gathers up to 4 planes that share the ids (the value and
+# its state planes, which a pull reads together), reading each id once;
+# float4 rows, several rows in flight per thread (csrc/scatter_kernels.cu).
+def cuda_gather_planes(
+    tables: Sequence[torch.Tensor], ids: torch.Tensor
+) -> List[torch.Tensor]:
+    """``[t[ids] for t in tables]`` in one kernel launch."""
+    _check_plane_count(tables)
+    for t in tables:
+        _check_table("gather", t)
+        if t.shape != tables[0].shape or t.device != tables[0].device:
+            raise ValueError("gather: planes must share one shape and device")
+    table = tables[0]
     n = _check_ids("gather", ids, table.device)
-    out = torch.empty((n, table.shape[1]), dtype=table.dtype, device=table.device)
+    outs = [torch.empty((n, table.shape[1]), dtype=table.dtype, device=table.device)
+            for _ in tables]
     if n and table.shape[1]:
+        pad = [None] * (_MAX_PLANES - len(tables))
         lib = _build.load_library()
         _launch(
-            "gather", lib.ps_gather, table.device,
-            table.data_ptr(), ids.data_ptr(), out.data_ptr(),
-            n, table.shape[1], table.shape[0],
+            "gather", lib.ps_gather, table.device, len(tables),
+            *[t.data_ptr() for t in tables], *pad, *[o.data_ptr() for o in outs], *pad,
+            ids.data_ptr(), n, table.shape[1], table.shape[0],
+            int(_aligned(ids, *tables, *outs)),
         )
-    return out
+    return outs
+
+
+def cuda_gather(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
+    """``table[ids]``: the one-plane case of :func:`cuda_gather_planes`."""
+    return cuda_gather_planes([table], ids)[0]
 
 
 # Replaces _scatter_set_kernel / _pallas_scatter_set (:307, :322).  Bound:
@@ -204,9 +238,11 @@ def cuda_scatter_add(
 
 # Replaces _apply_kernel / _pallas_apply (:385, :467).  Bound: bytes,
 # n*4 ids + n*dim*4 grads + 2*(1+S)*n*dim*4 for the value and S state planes
-# read and written once.  One launch gathers, steps and writes all 1+S planes
-# per element in registers; one template specialisation per optimizer,
-# hyperparameters as kernel arguments.
+# read and written once (pads excluded).  One launch gathers, steps and writes
+# all 1+S planes in registers, several rows in flight per thread; one
+# template specialisation per optimizer, hyperparameters as kernel arguments.
+# Ids at the trash row (``table_rows - 1``) are neither loaded nor stored, so
+# the trash row keeps its fill and bucket pads cost nothing.
 def cuda_apply(
     value: torch.Tensor,
     state: Dict[str, torch.Tensor],
@@ -237,6 +273,7 @@ def cuda_apply(
             cfg.learning_rate, cfg.l1, cfg.l2, cfg.eps,
             cfg.beta1, 1 - cfg.beta1, cfg.beta2, 1 - cfg.beta2,
             cfg.ftrl_alpha, cfg.ftrl_beta,
+            int(_aligned(ids, grads, value, *planes)),
         )
     return value, state
 
@@ -261,6 +298,17 @@ def gather_rows(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
     return gather_rows_torch(table, ids)
 
 
+def gather_rows_planes(
+    tables: Sequence[torch.Tensor], ids: torch.Tensor
+) -> List[torch.Tensor]:
+    """``[t[ids] for t in tables]`` for up to 4 planes of one shape (a value
+    table and its state planes): one kernel launch on the card."""
+    _check_plane_count(tables)
+    if _on_card(tables[0], "gather_rows_planes"):
+        return cuda_gather_planes(tables, ids)
+    return [gather_rows_torch(t, ids) for t in tables]
+
+
 def scatter_add_rows(
     table: torch.Tensor, ids: torch.Tensor, rows: torch.Tensor
 ) -> torch.Tensor:
@@ -283,7 +331,7 @@ def apply_rows(value, state, ids, grads, optimizer):
     """Fused push apply: gather -> ``optimizer`` rule -> scatter, in place.
 
     ``ids`` must be unique real rows; pads all point at the trash row, which
-    the caller re-zeros afterwards.
+    the kernel and the plain version both leave untouched.
     """
     if _on_card(value, "apply_rows"):
         return cuda_apply(value, state, ids, grads, optimizer)

@@ -64,6 +64,35 @@ def test_gather_matches_jax(dim):
         np.testing.assert_array_equal(got.numpy(), want, err_msg=name)
 
 
+@pytest.mark.parametrize("dim", [1, 3, 4, 128])
+@pytest.mark.parametrize("planes", [1, 2, 3, 4])
+def test_gather_rows_planes_matches_jax(planes, dim):
+    """One call gathers every plane at the shared ids, trash pads included:
+    each output equals the JAX package's per-plane ``gather_rows`` exactly
+    (dims 3 and 4 are the card's scalar and smallest float4 layouts)."""
+    rng = np.random.default_rng(10 * planes + dim)
+    tables = rng.normal(size=(planes, ROWS + 1, dim)).astype(np.float32)
+    tables[:, ROWS] = 0.0
+    _, ids, _ = _case(dim, seed=planes)
+    got = scatter.gather_rows_planes(
+        [torch.from_numpy(t) for t in tables], torch.from_numpy(ids)
+    )
+    assert len(got) == planes
+    for p, (table, out) in enumerate(zip(tables, got)):
+        want = np.asarray(jax_scatter.gather_rows(jnp.asarray(table), jnp.asarray(ids)))
+        np.testing.assert_array_equal(out.numpy(), want, err_msg=f"plane {p}")
+
+
+def test_gather_rows_planes_takes_one_to_four_planes():
+    table, ids, _ = _case(4)
+    t, i = torch.from_numpy(table), torch.from_numpy(ids)
+    for planes in ([], [t] * 5):
+        with pytest.raises(ValueError, match="1 to 4 planes"):
+            scatter.gather_rows_planes(planes, i)
+        with pytest.raises(ValueError, match="1 to 4 planes"):
+            scatter.cuda_gather_planes(planes, i)
+
+
 @pytest.mark.parametrize("dim", [1, 128])
 def test_scatter_set_matches_jax(dim):
     table, ids, rows = _case(dim, seed=1)
@@ -137,8 +166,9 @@ _OPT_CFGS = {
 @pytest.mark.parametrize("dim", [1, 128])
 @pytest.mark.parametrize("kind", sorted(_OPT_CFGS))
 def test_apply_rows_matches_jax(kind, dim):
-    """Fused push apply over value + state planes; the trash row is excluded
-    (both sides re-zero it in the table layer)."""
+    """Fused push apply over value + state planes.  The trash row is excluded
+    from the comparison (the JAX table re-zeros it after the apply); the
+    port's plain version must leave it exactly as it was, as its kernel does."""
     table, ids, grads = _case(dim, seed=5)
     opt = make_optimizer(OptimizerConfig(**_OPT_CFGS[kind]))
     jopt = jax_make_optimizer(JaxOptimizerConfig(**_OPT_CFGS[kind]))
@@ -154,6 +184,9 @@ def test_apply_rows_matches_jax(kind, dim):
         {k: torch.from_numpy(x.copy()) for k, x in state.items()},
         torch.from_numpy(ids), torch.from_numpy(grads), opt,
     )
+    np.testing.assert_array_equal(v.numpy()[ROWS], table[ROWS])
+    for k in state:
+        np.testing.assert_array_equal(s[k].numpy()[ROWS], state[k][ROWS], err_msg=k)
     jax_paths = [("xla", lambda *a: jax_scatter.apply_rows(*a))]
     if dim == 128 and kind == "adagrad":  # the main path's rule; interpret
         # mode costs seconds per rule, and the XLA path checks every rule
@@ -195,6 +228,24 @@ def test_cpu_tensors_never_touch_the_kernel_library(monkeypatch):
     }
 
 
+@pytest.mark.parametrize("planes", [1, 2, 4])
+def test_gather_rows_planes_on_the_cpu_never_loads_the_kernel_library(monkeypatch, planes):
+    """The plural dispatcher takes the plain per-plane loop for CPU tensors:
+    loading (or building) the CUDA library would raise here."""
+
+    def refuse():
+        raise AssertionError("kernel library loaded for a CPU tensor")
+
+    monkeypatch.setattr(_build, "load_library", refuse)
+    scatter.reset_launch_counts()
+    table, ids, _ = _case(4)
+    tables = [torch.from_numpy(table + p) for p in range(planes)]
+    got = scatter.gather_rows_planes(tables, torch.from_numpy(ids))
+    for t, out in zip(tables, got):
+        assert torch.equal(out, t[torch.from_numpy(ids).long()])
+    assert scatter.launch_counts()["gather"] == 0
+
+
 def test_kernel_wrappers_reject_what_the_kernels_do_not_take():
     table, ids, rows = _case(4)
     t, i, r = (torch.from_numpy(x) for x in (table, ids, rows))
@@ -209,7 +260,8 @@ def test_kernel_wrappers_reject_what_the_kernels_do_not_take():
 @pytest.mark.cuda
 def test_cuda_tensors_always_launch_the_kernels():
     """On the card every dispatcher launches its kernel and agrees with the
-    plain version (run on the H100: ``python -m pytest -m cuda tests/``)."""
+    plain version, and ``cuda_apply`` leaves the trash row of every plane as
+    it was (run on the H100: ``python -m pytest -m cuda tests/``)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the kernels have no CPU mode")
     table, ids, rows = _case(128)
@@ -218,10 +270,29 @@ def test_cuda_tensors_always_launch_the_kernels():
     np.testing.assert_array_equal(
         scatter.gather_rows(t, i).cpu().numpy(), table[ids]
     )
+    got = scatter.gather_rows_planes([t, t + 1], i)
+    np.testing.assert_array_equal(got[1].cpu().numpy(), table[ids] + 1)
     scatter.scatter_update_rows(t, i, r)
     scatter.scatter_add_rows(t, i, r)
     opt = make_optimizer(OptimizerConfig(kind="adagrad"))
     state = {k: torch.zeros_like(t) for k in opt.state_shapes()}
     scatter.apply_rows(t, state, i, r, opt)
     torch.cuda.synchronize()
-    assert all(v == 1 for v in scatter.launch_counts().values())
+    assert scatter.launch_counts() == {
+        "apply": 1, "gather": 2, "scatter_set": 1, "scatter_add": 1
+    }
+    # pads point at the trash row; a marker there must survive every rule
+    for dim in (1, 128):
+        table, ids, grads = _case(dim, seed=7)
+        for kind in sorted(_OPT_CFGS):
+            opt = make_optimizer(OptimizerConfig(**_OPT_CFGS[kind]))
+            value = torch.from_numpy(table.copy()).cuda()
+            state = {k: torch.full_like(value, fill) for k, fill in opt.state_shapes().items()}
+            planes = [value, *state.values()]
+            for p in planes:
+                p[ROWS] = 7.0
+            scatter.cuda_apply(value, state, torch.from_numpy(ids).cuda(),
+                               torch.from_numpy(grads).cuda(), opt)
+            torch.cuda.synchronize()
+            for p in planes:
+                assert bool((p[ROWS] == 7.0).all()), f"{kind} dim {dim} wrote the trash row"

@@ -15,6 +15,7 @@ from parameter_server_tpu.config import TableConfig as JaxTableConfig
 from parameter_server_tpu.kv.table import KVTable as JaxKVTable
 from parameter_server_tpu_torch.config import OptimizerConfig, TableConfig
 from parameter_server_tpu_torch.kv.table import KVTable
+from parameter_server_tpu_torch.ops import scatter
 
 TOL = dict(rtol=1e-5, atol=1e-5)
 ROWS = 48
@@ -85,6 +86,62 @@ def test_push_pull_matches_jax(dim, impl, kind, fused):
         )
         _assert_tables_close(jt, pt)
     np.testing.assert_allclose(pt.weights().numpy(), np.asarray(jt.weights()), **TOL)
+
+
+@pytest.mark.parametrize("dim", [1, 4, 128])
+def test_ftrl_pull_gathers_z_and_n_in_one_call(dim, monkeypatch):
+    """FTRL serves weights derived from ``z`` and its ``n`` plane: the port's
+    pull gathers both in one call and matches the JAX ``KVTable.pull``."""
+    jt, pt = _pair("ftrl", dim, "auto", True, seed=3)
+    calls = []
+    gather = scatter.gather_rows_planes
+
+    def counting(tables, ids):
+        calls.append(len(tables))
+        return gather(tables, ids)
+
+    monkeypatch.setattr(scatter, "gather_rows_planes", counting)
+    rng = np.random.default_rng(4)
+    ids = np.concatenate(
+        [np.sort(rng.choice(ROWS, size=11, replace=False)), np.full(5, ROWS)]
+    ).astype(np.int32)
+    got = pt.pull(torch.from_numpy(ids)).numpy()
+    np.testing.assert_allclose(got, np.asarray(jt.pull(jnp.asarray(ids))), **TOL)
+    assert calls == [2]
+    assert np.any(got[:11] != 0.0) and np.all(got[11:] == 0.0)
+
+
+@pytest.mark.parametrize("fused", [True, False], ids=["fused", "three_pass"])
+@pytest.mark.parametrize("kind", sorted(OPTS))
+def test_installed_trash_row_is_at_its_fill_after_a_push(kind, fused):
+    """A shard installed with a nonzero trash row (``resize``, which
+    ``KVServer.import_shard`` calls) holds the row at its fill, which the
+    fused push never rewrites: after a push every row of every plane matches
+    the JAX table, which resets the row after each push."""
+    jt, pt = _pair(kind, 4, "auto", fused, seed=5)
+    value = np.asarray(jt.value).copy()
+    state = {k: np.asarray(v).copy() for k, v in jt.state.items()}
+    for plane in (value, *state.values()):
+        plane[ROWS] = 3.5
+    jt.resize(value, state)
+    pt.resize(value, state)
+    rng = np.random.default_rng(6)
+    ids = np.concatenate(
+        [np.sort(rng.choice(ROWS, size=5, replace=False)), np.full(3, ROWS)]
+    ).astype(np.int32)
+    grads = rng.normal(size=(8, 4)).astype(np.float32)
+    grads[5:] = 0.0
+    jt.push(jnp.asarray(ids), jnp.asarray(grads))
+    pt.push(torch.from_numpy(ids), torch.from_numpy(grads))
+    _assert_tables_close(jt, pt)
+
+
+def test_set_value_puts_the_trash_row_at_zero():
+    _, pt = _pair("adagrad", 4, "auto", True)
+    value = np.full((ROWS + 1, 4), 2.0, np.float32)
+    pt.set_value(value)
+    assert torch.all(pt.value[ROWS] == 0.0)
+    assert torch.all(pt.value[:ROWS] == 2.0)
 
 
 def test_combine_matches_jax():
