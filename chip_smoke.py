@@ -11,11 +11,12 @@ Phases, each printing one JSON line (``"phase": ...``):
 1. build     nvcc-build ``parameter_server_tpu_torch/csrc/scatter_kernels.cu``.
 2. kernels   each of the four kernels against its plain version at dim 1, 3,
              4, 128 and 1024 and on misaligned views (storage offset 1), ids
-             with trash pads: gather of 1 to 4 planes in one launch, apply
-             under all four optimizers (the trash row must keep its fill);
-             then ``KVTable.push`` at the main path's full width on the card
-             and on the CPU, every row of every plane, trash rows at their
-             fill.
+             with trash pads: gather and scatter-set of 1 to 4 planes in one
+             launch, scatter-add, apply under all four optimizers (the trash
+             row must keep its fill); the public ``scatter_add_rows`` with
+             repeated ids against ``index_put_(accumulate=True)``; then
+             ``KVTable.push`` at the main path's full width on the card and
+             on the CPU, every row of every plane, trash rows at their fill.
 3. main      BASELINE config #1 at full width: 2 KVServers + 2 KVWorkers on a
              LoopbackVan, 2^22 x 1 AdaGrad (lr 0.05) table, batch 16384 x 39
              keys of SyntheticCTR(2^26 keys), AsyncLRLearner under BSP.  The
@@ -26,7 +27,8 @@ Phases, each printing one JSON line (``"phase": ...``):
              the CPU, and a seeded push sequence at full width must give
              bitwise-equal tables twice (the worker pre-combine is
              deterministic).
-4. three_pass  the same loop with ``fused_apply=False`` (scatter-set kernel).
+4. three_pass  the same loop with ``fused_apply=False``: one scatter-set
+             launch (value + sum_sq) per push.
 5. bundled   ``handle_request_batch`` at the apply-engine shape (16 x 2048
              ids from a 2048-row hot set, dim 128, Adam, 2^15 rows) under both
              duplicate policies, twice each: bitwise-equal tables, and close
@@ -36,11 +38,13 @@ Phases, each printing one JSON line (``"phase": ...``):
              (CUDA-graph replay), the byte bound at 3.35 TB/s, the plain
              version's time and one PyTorch library call's time; an empty
              kernel's time (the launch floor); a pull's value + sum_sq gather
-             as one launch, held against its plain version and timed; at
-             dim 1, gather and apply through their dim-1 forms and through
-             the general row kernel; gather and Adam apply at a wide shape (dim 128,
-             2^20 + 1 rows, 8 disjoint id sets so L2 holds no round); the
-             worker pre-combine's time.
+             and a three-pass push's value + sum_sq scatter-set, each as one
+             launch, held against their plain versions and timed; at dim 1,
+             gather and apply through their dim-1 forms and through the
+             general row kernel; gather, Adam apply, scatter-set of 1 and 4
+             planes and scatter-add at a wide shape (dim 128, 2^20 + 1 rows,
+             8 disjoint id sets so L2 holds no round); the worker
+             pre-combine's time.
 
 Then the card's name and power limit (nvidia-smi), one JSON line of
 per-kernel results, and ``{"ok": true, "device": {...}}`` last.  Any failed
@@ -140,7 +144,10 @@ def main() -> int:
     counts = scatter.launch_counts()
     launches["scatter_set"] = counts["scatter_set"]
     check(counts["scatter_set"] > 0 and counts["apply"] == 0, f"three-pass launches {counts}")
-    emit("three_pass", examples_per_s=tp["examples_per_s"], launches=counts)
+    check(counts["scatter_set"] == tp["pushes"],
+          f"{counts['scatter_set']} scatter-set launches for {tp['pushes']} pushes")
+    emit("three_pass", examples_per_s=tp["examples_per_s"], launches=counts,
+         pushes=tp["pushes"])
 
     # -- 5. bundled apply ----------------------------------------------------------
     emit("bundled", **bundled_apply(torch, dev))
@@ -192,10 +199,11 @@ def _on_card(torch, arr, dev, offset):
 def kernels_vs_plain(torch, scatter, dev, dim, errs, offset=0):
     """Each kernel against its plain version at ``dim`` on 1,001 real ids and
     22 trash pads (an id count that is not a multiple of 4, so the kernels'
-    masked tails run).  Gather takes 1 to 4 planes in one launch; apply runs
-    all four optimizers and must leave the trash row untouched.  ``offset``
-    > 0 runs every tensor as a misaligned view, which the wrappers send to
-    the scalar form of each kernel."""
+    masked tails run).  Gather and scatter-set take 1 to 4 planes in one
+    launch; apply runs all four optimizers and must leave the trash row
+    untouched; ``scatter_add_rows`` takes 1,023 ids drawn with repeats from
+    300 rows.  ``offset`` > 0 runs every tensor as a misaligned view, which
+    the wrappers send to the scalar form of each kernel."""
     from parameter_server_tpu_torch.config import OptimizerConfig
     from parameter_server_tpu_torch.kv.optim import make_optimizer
 
@@ -206,9 +214,11 @@ def kernels_vs_plain(torch, scatter, dev, dim, errs, offset=0):
     planes = [_on_card(torch, p, dev, offset) for p in planes_np]
     table = planes[0]
     ids = _on_card(torch, _ids_with_pads(rng, rows, n_real, n_pad), dev, offset)
-    vals_np = rng.normal(size=(n_real + n_pad, dim)).astype(np.float32)
-    vals_np[n_real:] = 0
-    vals = _on_card(torch, vals_np, dev, offset)
+    # one row set per plane; pad rows are identical (zero), as the contract asks
+    vals_np = rng.normal(size=(4, n_real + n_pad, dim)).astype(np.float32)
+    vals_np[:, n_real:] = 0
+    vals_planes = [_on_card(torch, v, dev, offset) for v in vals_np]
+    vals = vals_planes[0]
     if offset:
         check(not scatter._aligned(table, ids, vals), "misaligned views are aligned")
     out = {}
@@ -217,8 +227,9 @@ def kernels_vs_plain(torch, scatter, dev, dim, errs, offset=0):
         err = float((got - want).abs().max())
         ok = torch.allclose(got, want, rtol=rtol, atol=atol)
         check(bool(ok), f"{name} dim {dim} offset {offset}: kernel vs plain max err {err}")
-        key = "apply" if name.startswith("apply") else name
-        errs[key] = max(errs[key], err)
+        key = next((k for k in errs if name.startswith(k)), None)
+        if key:  # a kernel against its plain version
+            errs[key] = max(errs[key], err)
         err = max(err, out.get(name, {}).get("max_abs_err", 0.0))
         out[name] = {"max_abs_err": err, "rtol": rtol, "atol": atol}
 
@@ -227,11 +238,26 @@ def kernels_vs_plain(torch, scatter, dev, dim, errs, offset=0):
         got = scatter.cuda_gather_planes(planes[:p], ids)
         want = [scatter.gather_rows_torch(t, ids) for t in planes[:p]]
         record("gather", torch.cat(got), torch.cat(want), 0.0, 0.0)
-    record("scatter_set", scatter.cuda_scatter_set(table.clone(), ids, vals),
-           scatter.scatter_update_rows_torch(table.clone(), ids, vals), 0.0, 0.0)
+        got = scatter.cuda_scatter_set_planes([t.clone() for t in planes[:p]], ids,
+                                              vals_planes[:p])
+        want = [scatter.scatter_update_rows_torch(t.clone(), ids, v)
+                for t, v in zip(planes[:p], vals_planes[:p])]
+        record("scatter_set", torch.cat(got), torch.cat(want), 0.0, 0.0)
     # one float add per element either way: exact
     record("scatter_add", scatter.cuda_scatter_add(table.clone(), ids, vals),
            scatter.scatter_add_rows_torch(table.clone(), ids, vals), 0.0, 0.0)
+    # repeated ids through the public dispatcher: merged, then one kernel
+    # launch.  Exact against the plain add of the same merged rows; against
+    # index_put_(accumulate=True), which adds the repeats to the table one by
+    # one, the sums associate differently: rtol = atol = 1e-5.
+    rep_ids = _on_card(torch, rng.integers(0, 300, size=n_real + n_pad).astype(np.int32),
+                       dev, offset)
+    got = scatter.scatter_add_rows(table.clone(), rep_ids, vals)
+    merged_ids, merged = scatter._merge_repeats(rep_ids, vals)
+    record("scatter_add_repeats_merged", got,
+           scatter.scatter_add_rows_torch(table.clone(), merged_ids, merged), 0.0, 0.0)
+    record("repeats_vs_index_put", got,
+           scatter.scatter_add_rows_torch(table.clone(), rep_ids, vals), 1e-5, 1e-5)
     opts = {
         "sgd": dict(kind="sgd", learning_rate=0.1, l2=0.01),
         "adagrad": dict(kind="adagrad", learning_rate=0.05, l1=0.001, l2=0.01),
@@ -361,7 +387,8 @@ def run_loop(torch, dev, *, fused, steps):
                 check(bool((plane[-1] == fills[name]).all()),
                       f"trash row of {name} left its fill {fills[name]}")
         return {"losses": losses, "examples_per_s": 2 * steps * BATCH / wall,
-                "devices": devices, "pulls": sum(srv.pulls for srv in servers)}
+                "devices": devices, "pulls": sum(srv.pulls for srv in servers),
+                "pushes": sum(srv.pushes for srv in servers)}
     finally:
         van.close()
 
@@ -630,6 +657,8 @@ def times_phase(torch, scatter, dev, errs, launches):
     rows[real.size:] = 0
     opt = make_optimizer(OptimizerConfig(kind="adagrad", learning_rate=0.05))
     sum_sq = torch.rand((shard_rows + 1, DIM), device=dev)
+    sum_sq_rows = torch.rand((n, DIM), device=dev)  # a push's new sum_sq rows
+    sum_sq_rows[real.size:] = 0
     idx64 = ids.long()
     f = 4  # bytes per float32 / int32
 
@@ -698,6 +727,15 @@ def times_phase(torch, scatter, dev, errs, launches):
     err = max(float((g - w).abs().max()) for g, w in zip(got, want))
     check(err == 0.0, f"two-plane gather at main shape: kernel vs plain {err}")
     errs["gather"] = max(errs["gather"], err)
+    # the three-pass push's write-back as the main path runs it: value +
+    # sum_sq in one launch
+    push_planes, push_rows = [table, sum_sq], [rows, sum_sq_rows]
+    got = scatter.cuda_scatter_set_planes([t.clone() for t in push_planes], ids, push_rows)
+    want = [scatter.scatter_update_rows_torch(t.clone(), ids, r)
+            for t, r in zip(push_planes, push_rows)]
+    err = max(float((g - w).abs().max()) for g, w in zip(got, want))
+    check(err == 0.0, f"two-plane scatter-set at main shape: kernel vs plain {err}")
+    errs["scatter_set"] = max(errs["scatter_set"], err)
 
     kernels = []
     for name, spec in specs.items():
@@ -737,6 +775,20 @@ def times_phase(torch, scatter, dev, errs, launches):
     pull_bytes = f * n + 2 * (f * u * DIM + f * n * DIM)
     emit("times", kernel="gather", case="pull_value_sum_sq", ms=pull_ms,
          bound_ms=bound(pull_bytes), bytes=pull_bytes, planes=2, n=n, dim=DIM)
+    # one three-pass push's write-back: ids read once, each plane's rows read
+    # and its touched rows written
+    push_bytes = f * n + 2 * (f * n * DIM + f * u * DIM)
+    push = {
+        "ms": _graph_ms(torch, lambda: scatter.cuda_scatter_set_planes(push_planes, ids,
+                                                                       push_rows)),
+        "plain_ms": _graph_ms(torch, lambda: [scatter.scatter_update_rows_torch(t, ids, r)
+                                              for t, r in zip(push_planes, push_rows)]),
+        "library_ms": _graph_ms(torch, lambda: [t.index_copy_(0, idx64, r)
+                                                for t, r in zip(push_planes, push_rows)]),
+    }
+    emit("times", kernel="scatter_set", case="push_value_sum_sq", **push,
+         bound_ms=bound(push_bytes), bytes=push_bytes, planes=2, n=n, dim=DIM,
+         library="index_copy_ x2")
     # the dim-1 forms against the general row kernel (float lanes) on the same
     # work: ids 4 bytes off a 16-byte boundary send a call to the latter
     ids_off = _on_card(torch, ids_np, dev, 1)
@@ -755,23 +807,28 @@ def times_phase(torch, scatter, dev, errs, launches):
     wide = wide_times(torch, scatter, dev, errs, bound)
     for k in kernels:
         k["floor_ms"] = floor_ms
-        if k["name"] in wide:
-            k["wide"] = wide[k["name"]]
+        k["wide"] = wide[k["name"]]
+        if k["name"] == "scatter_set":
+            k["wide_4_planes"] = wide["scatter_set_4"]
     emit("times", step="worker_precombine", **precombine_ms(torch, dev, keys))
     return kernels
 
 
 def wide_times(torch, scatter, dev, errs, bound):
-    """Gather (one plane) and Adam apply (value + 3 planes) at dim 128: 32,768
-    unique sorted ids into a 2^20 + 1 row table (512 MiB a plane).  Each graph
-    cycles through 8 disjoint id sets, so one round touches more rows than the
-    50 MB L2 holds and every call reads its rows from device memory."""
+    """Gather (one plane), Adam apply (value + 3 planes), scatter-set of 1 and
+    4 planes and scatter-add at dim 128: 32,768 unique sorted ids into a
+    2^20 + 1 row table (512 MiB a plane).  Each graph cycles through 8
+    disjoint id sets, so one round touches more rows than the 50 MB L2 holds
+    and every call reads its rows from device memory.  The scatters run after
+    the apply (scatter-set overwrites Adam's planes); scatter-set writes rows
+    of its own per id set and plane, scatter-add adds the finite gradients."""
     from parameter_server_tpu_torch.config import OptimizerConfig
     from parameter_server_tpu_torch.kv.optim import make_optimizer
 
     rng = np.random.default_rng(13)
     perm = rng.permutation(WIDE_ROWS)[: WIDE_SETS * WIDE_N].reshape(WIDE_SETS, WIDE_N)
     id_sets = [torch.tensor(np.sort(p).astype(np.int32), device=dev) for p in perm]
+    id_longs = [i.long() for i in id_sets]  # the library calls' index type
     gen = torch.Generator(device=dev).manual_seed(13)
     shape = (WIDE_ROWS + 1, WIDE_DIM)
     value = torch.randn(shape, generator=gen, device=dev)
@@ -809,7 +866,7 @@ def wide_times(torch, scatter, dev, errs, bound):
         "gather": dict(
             kernel=cycle(lambda i: scatter.cuda_gather(value, id_sets[i])),
             plain=cycle(lambda i: scatter.gather_rows_torch(value, id_sets[i])),
-            library=cycle(lambda i: torch.index_select(value, 0, id_sets[i].long())),
+            library=cycle(lambda i: torch.index_select(value, 0, id_longs[i])),
             nbytes=f * n + 2 * f * n * d, planes=1,
         ),
         "apply": dict(
@@ -822,6 +879,58 @@ def wide_times(torch, scatter, dev, errs, bound):
         ),
     }
     out = {}
+    _time_wide(torch, specs, out, n, d, bound)
+
+    # scatter-set and scatter-add, kernel vs plain on the first id set, every
+    # row of every plane; then timed
+    planes = [value] + [state[k] for k in sorted(state)]
+    set_rows = [list(torch.randn((4, n, d), generator=gen, device=dev))
+                for _ in range(WIDE_SETS)]
+    want = [scatter.scatter_update_rows_torch(p.clone(), id_sets[0], r)
+            for p, r in zip(planes, set_rows[0])]
+    scatter.cuda_scatter_set_planes(planes, id_sets[0], set_rows[0])
+    err = max(float((a - b).abs().max()) for a, b in zip(planes, want))
+    check(err == 0.0, f"4-plane scatter-set at dim {d}: kernel vs plain {err}")
+    errs["scatter_set"] = max(errs["scatter_set"], err)
+    want = scatter.scatter_add_rows_torch(value.clone(), id_sets[0], grads[0])
+    scatter.cuda_scatter_add(value, id_sets[0], grads[0])
+    err = float((value - want).abs().max())
+    check(err == 0.0, f"scatter-add at dim {d}: kernel vs plain {err}")
+    errs["scatter_add"] = max(errs["scatter_add"], err)
+    del want
+    specs = {
+        "scatter_set": dict(
+            kernel=cycle(lambda i: scatter.cuda_scatter_set(value, id_sets[i], set_rows[i][0])),
+            plain=cycle(lambda i: scatter.scatter_update_rows_torch(value, id_sets[i],
+                                                                    set_rows[i][0])),
+            library=cycle(lambda i: value.index_copy_(0, id_longs[i], set_rows[i][0])),
+            nbytes=f * n + 2 * f * n * d, planes=1,
+        ),
+        "scatter_set_4": dict(
+            kernel=cycle(lambda i: scatter.cuda_scatter_set_planes(planes, id_sets[i],
+                                                                   set_rows[i])),
+            plain=cycle(lambda i: [scatter.scatter_update_rows_torch(p, id_sets[i], r)
+                                   for p, r in zip(planes, set_rows[i])]),
+            # four calls: no one PyTorch call writes four tables
+            library=cycle(lambda i: [p.index_copy_(0, id_longs[i], r)
+                                     for p, r in zip(planes, set_rows[i])]),
+            nbytes=f * n + 4 * 2 * f * n * d, planes=4,
+        ),
+        "scatter_add": dict(
+            kernel=cycle(lambda i: scatter.cuda_scatter_add(value, id_sets[i], grads[i])),
+            plain=cycle(lambda i: scatter.scatter_add_rows_torch(value, id_sets[i], grads[i])),
+            library=cycle(lambda i: value.index_add_(0, id_longs[i], grads[i])),
+            # ids and update rows read, table rows read and written
+            nbytes=f * n + 3 * f * n * d, planes=1,
+        ),
+    }
+    _time_wide(torch, specs, out, n, d, bound)
+    return out
+
+
+def _time_wide(torch, specs, out, n, d, bound):
+    """Time each spec's kernel, plain and library calls (2 rounds of the id
+    sets per CUDA graph); record and print a row per spec into ``out``."""
     for name, spec in specs.items():
         row = {
             "ms": _graph_ms(torch, spec["kernel"], per_graph=2 * WIDE_SETS, replays=10),
@@ -832,8 +941,7 @@ def wide_times(torch, scatter, dev, errs, bound):
         }
         out[name] = row
         emit("times", kernel=name, case="wide", n=n, dim=d, table_rows=WIDE_ROWS + 1,
-             id_sets=WIDE_SETS, planes=spec["planes"], optimizer="adam", **row)
-    return out
+             id_sets=WIDE_SETS, planes=spec["planes"], **row)
 
 
 def precombine_ms(torch, dev, keys):

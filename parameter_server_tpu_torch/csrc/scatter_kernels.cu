@@ -1,8 +1,8 @@
 // Row kernels of the parameter-server tables, hand-written for Hopper (sm_90a).
 //
 // They replace the four Pallas kernels of parameter_server_tpu/ops/scatter.py:
-//   ps_gather      <- _gather_kernel       / _pallas_gather       out[k] = table[ids[k]]
-//   ps_scatter_set <- _scatter_set_kernel  / _pallas_scatter_set  table[ids[k]] = rows[k]
+//   ps_gather      <- _gather_kernel       / _pallas_gather       out_p[k] = table_p[ids[k]]
+//   ps_scatter_set <- _scatter_set_kernel  / _pallas_scatter_set  table_p[ids[k]] = rows_p[k]
 //   ps_scatter_add <- _scatter_add_kernel  / _pallas_scatter_add  table[ids[k]] += rows[k]
 //   ps_apply       <- _apply_kernel        / _pallas_apply        fused gather -> rule -> scatter
 //
@@ -14,34 +14,42 @@
 // Ids that fall outside [0, table_rows) are skipped (gather writes NaN there)
 // rather than faulting.
 //
-// Bound: every kernel moves each touched row once and does a few flops per
-// element, so it is bound by device-memory bytes (3.35 TB/s on an H100 SXM).
-// At the LR table's dim 1 a request moves well under a megabyte, which the
-// card could move in ~0.2 us, far below one launch (~1 us): there the design
-// aims at fewer dependent round trips per thread, and fewer launches.
+// Bound: every kernel moves each touched row once and does at most a few
+// flops per element, so it is bound by device-memory bytes (3.35 TB/s on an
+// H100 SXM): gather and scatter-set read ids and one row and write one row
+// per id and plane; scatter-add also reads the table row; apply reads and
+// writes the value and each state plane and reads the gradient.  At the LR
+// table's dim 1 a request moves well under a megabyte, which the card could
+// move in ~0.1-0.3 us, far below one launch (~1 us): there the design aims at
+// fewer dependent round trips per thread, and fewer launches.
 //
-// ps_gather and ps_apply are laid out for the card:
-//   - dim 1: each thread takes 4 consecutive ids with one int4 load, issues
-//     the 4 rows' table loads before it uses any of them, and moves gathered
-//     rows and gradients as float4.  The tail of the id list is masked.
-//     Small blocks spread a short id list over every SM; on the main path's
-//     request this form takes about two thirds of the row kernel's time at
-//     dim 1 (PERF.md).
+// Gather, scatter-set and scatter-add are one row-move kernel in three modes
+// (Move); gather and scatter-set take up to 4 planes that share the ids (a
+// value table and its state planes) in one launch and read each id once.
+// Every kernel has three forms:
+//   - dim 1: each thread takes 4 consecutive ids with one int4 load and
+//     moves the 4 rows' list side (gathered rows, rows to write, gradients)
+//     as float4.  All table loads of the 4 rows are issued before any is
+//     used.  The tail of the id list is masked.  Small blocks (64 threads)
+//     spread a short id list over every SM.
 //   - dim % 4 == 0: a group of lanes (a power of two, at most a warp) shares a
 //     row and moves it as float4, loading the row's id once.  Each group keeps
-//     R rows in flight: all loads of the R rows (for apply: the value, every
-//     state plane and the gradient) are issued before any is used, the
-//     register form of the Pallas kernel's "start block i+1's DMAs before
-//     waiting on block i".  Consecutive groups take consecutive rows, so ids,
-//     gradients and gathered rows move coalesced.
+//     R rows in flight: all loads of the R rows (for scatter-add: the table
+//     rows and the update rows; for apply: the value, every state plane and
+//     the gradient) are issued before any store, the register form of the
+//     Pallas kernel's "start block i+1's DMAs before waiting on block i".
+//     Consecutive groups take consecutive rows, so ids and the list side move
+//     coalesced.
 //   - any other width, or a pointer that is not 16-byte aligned: the same row
 //     kernel with float lanes.
 // Row offsets are computed in int64 once per row; nothing divides per element.
 //
 // Trash row: ps_apply neither loads nor stores a row whose id is the trash row
 // (table_rows - 1), so bucket pads cost nothing and the trash row keeps its
-// fill.  scatter_set writes identical bytes there and scatter_add adds exact
-// zeros, so their races on it are benign.
+// fill.  scatter_set writes identical rows there and scatter_add adds exact
+// zeros, so their races on it are benign.  No kernel uses atomics: results
+// are bitwise deterministic, and scatter-add needs unique ids (the wrapper
+// merges duplicates before the launch).
 //
 // Every entry point is a plain C function: pointers and the stream arrive as
 // void*, it launches on the caller's stream without synchronising, and it
@@ -54,21 +62,9 @@
 namespace {
 
 constexpr int kThreads = 256;
-// 16 resident blocks of 256 threads on each of 132 SMs; the grid-stride loop
-// covers the rest.
-constexpr int64_t kMaxBlocks = 132 * 16;
-
-int grid_for(int64_t total) {
-  int64_t blocks = (total + kThreads - 1) / kThreads;
-  if (blocks > kMaxBlocks) blocks = kMaxBlocks;
-  if (blocks < 1) blocks = 1;
-  return static_cast<int>(blocks);
-}
-
-// Layout of the redesigned kernels.
 constexpr int kIds = 4;            // dim-1 kernels: ids per thread
 constexpr int kThreads1 = 64;      // dim-1 kernels: a short id list spreads over every SM
-constexpr int kGatherRows = 4;     // rows in flight per lane group, gather
+constexpr int kMoveRows = 4;       // rows in flight per lane group, row moves
 constexpr int kMaxPlanes = 4;      // the value and at most 3 state planes
 
 // Read once; a function-local static is initialised thread-safely, and the
@@ -115,11 +111,15 @@ template <>
 struct Vec<float> {
   static constexpr int kWidth = 1;
   __device__ static float nan() { return NAN; }
+  __device__ static float add(float a, float b) { return a + b; }
 };
 template <>
 struct Vec<float4> {
   static constexpr int kWidth = 4;
   __device__ static float4 nan() { return make_float4(NAN, NAN, NAN, NAN); }
+  __device__ static float4 add(const float4& a, const float4& b) {
+    return make_float4(a.x + b.x, a.y + b.y, a.z + b.z, a.w + b.w);
+  }
 };
 
 // K consecutive elements moved by one vector load or store (K = 4: int4 or
@@ -129,9 +129,12 @@ struct alignas(sizeof(T) * K) Pack {
   T v[K];
 };
 
+// Plane p of a row move.  Gather: tab[p] is read at the ids and list[p] is
+// written at the list positions.  Scatter-set / -add: list[p] is read and
+// tab[p] written (for add also read).
 struct Planes {
-  const float* src[kMaxPlanes];
-  float* dst[kMaxPlanes];
+  float* tab[kMaxPlanes];
+  float* list[kMaxPlanes];
 };
 
 struct ApplyPlanes {
@@ -159,33 +162,69 @@ __host__ __device__ constexpr int apply_rows() {
   return KIND == kAdam ? 2 : 4;
 }
 
-// -- gather ----------------------------------------------------------------
+// -- row moves: gather, scatter-set, scatter-add ----------------------------
 
-// dim 1: K consecutive ids a thread; ids and outputs 16-byte aligned.
-template <int NP, int K>
+enum Move { kGather = 0, kSet = 1, kAdd = 2 };
+
+// dim 1: K consecutive ids a thread; ids and the list planes 16-byte aligned.
+template <int MOVE, int NP, int K>
 __global__ void __launch_bounds__(kThreads1)
-    gather_dim1_kernel(Planes p, const int32_t* __restrict__ ids, int64_t n,
-                       int64_t table_rows) {
+    move_dim1_kernel(Planes p, const int32_t* __restrict__ ids, int64_t n,
+                     int64_t table_rows) {
   const int64_t stride = static_cast<int64_t>(gridDim.x) * blockDim.x * K;
   for (int64_t k0 = (static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x) * K;
        k0 < n; k0 += stride) {
     if (k0 + K <= n) {
       const Pack<int32_t, K> id = *reinterpret_cast<const Pack<int32_t, K>*>(ids + k0);
+      bool ok[K];
+#pragma unroll
+      for (int j = 0; j < K; ++j) ok[j] = id.v[j] >= 0 && id.v[j] < table_rows;
       Pack<float, K> x[NP];
+      if constexpr (MOVE == kGather) {
 #pragma unroll
-      for (int j = 0; j < K; ++j) {
-        const bool ok = id.v[j] >= 0 && id.v[j] < table_rows;
+        for (int j = 0; j < K; ++j) {
 #pragma unroll
-        for (int pl = 0; pl < NP; ++pl) x[pl].v[j] = ok ? p.src[pl][id.v[j]] : NAN;
+          for (int pl = 0; pl < NP; ++pl) x[pl].v[j] = ok[j] ? p.tab[pl][id.v[j]] : NAN;
+        }
+#pragma unroll
+        for (int pl = 0; pl < NP; ++pl) {
+          *reinterpret_cast<Pack<float, K>*>(p.list[pl] + k0) = x[pl];
+        }
+      } else {
+        float y[NP][K];  // scatter-add: the table rows, all loaded before any store
+#pragma unroll
+        for (int pl = 0; pl < NP; ++pl) {
+          x[pl] = *reinterpret_cast<const Pack<float, K>*>(p.list[pl] + k0);
+          if constexpr (MOVE == kAdd) {
+#pragma unroll
+            for (int j = 0; j < K; ++j) y[pl][j] = ok[j] ? p.tab[pl][id.v[j]] : 0.f;
+          }
+        }
+#pragma unroll
+        for (int j = 0; j < K; ++j) {
+          if (!ok[j]) continue;
+#pragma unroll
+          for (int pl = 0; pl < NP; ++pl) {
+            if constexpr (MOVE == kAdd) {
+              p.tab[pl][id.v[j]] = y[pl][j] + x[pl].v[j];
+            } else {
+              p.tab[pl][id.v[j]] = x[pl].v[j];
+            }
+          }
+        }
       }
-#pragma unroll
-      for (int pl = 0; pl < NP; ++pl) *reinterpret_cast<Pack<float, K>*>(p.dst[pl] + k0) = x[pl];
     } else {
       for (int64_t k = k0; k < n; ++k) {
         const int64_t id = ids[k];
         const bool ok = id >= 0 && id < table_rows;
 #pragma unroll
-        for (int pl = 0; pl < NP; ++pl) p.dst[pl][k] = ok ? p.src[pl][id] : NAN;
+        for (int pl = 0; pl < NP; ++pl) {
+          if constexpr (MOVE == kGather) {
+            p.list[pl][k] = ok ? p.tab[pl][id] : NAN;
+          } else if (ok) {
+            p.tab[pl][id] = MOVE == kAdd ? p.tab[pl][id] + p.list[pl][k] : p.list[pl][k];
+          }
+        }
       }
     }
   }
@@ -193,17 +232,17 @@ __global__ void __launch_bounds__(kThreads1)
 
 // Any dim: 2^lane_shift lanes a row, R rows in flight per lane group; a row
 // is row_vecs vectors of V.
-template <typename V, int NP, int R>
+template <int MOVE, typename V, int NP, int R>
 __global__ void __launch_bounds__(kThreads)
-    gather_rows_kernel(Planes p, const int32_t* __restrict__ ids, int64_t n,
-                       int64_t row_vecs, int64_t table_rows, int lane_shift) {
+    move_rows_kernel(Planes p, const int32_t* __restrict__ ids, int64_t n,
+                     int64_t row_vecs, int64_t table_rows, int lane_shift) {
   const int lanes = 1 << lane_shift;
   const int lane = threadIdx.x & (lanes - 1);
   const int64_t groups = blockDim.x >> lane_shift;
   const int64_t group = threadIdx.x >> lane_shift;
   const int64_t tile_rows = groups * R;
   for (int64_t tile = blockIdx.x * tile_rows; tile < n; tile += gridDim.x * tile_rows) {
-    int64_t src[R], dst[R];
+    int64_t toff[R], loff[R];  // vector offsets of the table row and the list row
     bool ok[R], live[R];
 #pragma unroll
     for (int j = 0; j < R; ++j) {
@@ -211,24 +250,40 @@ __global__ void __launch_bounds__(kThreads)
       live[j] = k < n;
       const int64_t id = live[j] ? ids[k] : -1;
       ok[j] = id >= 0 && id < table_rows;
-      src[j] = id * row_vecs;
-      dst[j] = k * row_vecs;
+      toff[j] = id * row_vecs;
+      loff[j] = k * row_vecs;
     }
     for (int64_t c = lane; c < row_vecs; c += lanes) {
       V x[NP][R];
+      V y[NP][R];  // scatter-add: the table rows
 #pragma unroll
       for (int j = 0; j < R; ++j) {
 #pragma unroll
         for (int pl = 0; pl < NP; ++pl) {
-          x[pl][j] = ok[j] ? reinterpret_cast<const V*>(p.src[pl])[src[j] + c]
-                           : Vec<V>::nan();
+          if constexpr (MOVE == kGather) {
+            x[pl][j] = ok[j] ? reinterpret_cast<const V*>(p.tab[pl])[toff[j] + c]
+                             : Vec<V>::nan();
+          } else if (ok[j]) {
+            x[pl][j] = reinterpret_cast<const V*>(p.list[pl])[loff[j] + c];
+            if constexpr (MOVE == kAdd) {
+              y[pl][j] = reinterpret_cast<const V*>(p.tab[pl])[toff[j] + c];
+            }
+          }
         }
       }
 #pragma unroll
       for (int j = 0; j < R; ++j) {
-        if (!live[j]) continue;
+        if (MOVE == kGather ? !live[j] : !ok[j]) continue;
 #pragma unroll
-        for (int pl = 0; pl < NP; ++pl) reinterpret_cast<V*>(p.dst[pl])[dst[j] + c] = x[pl][j];
+        for (int pl = 0; pl < NP; ++pl) {
+          if constexpr (MOVE == kGather) {
+            reinterpret_cast<V*>(p.list[pl])[loff[j] + c] = x[pl][j];
+          } else if constexpr (MOVE == kAdd) {
+            reinterpret_cast<V*>(p.tab[pl])[toff[j] + c] = Vec<V>::add(y[pl][j], x[pl][j]);
+          } else {
+            reinterpret_cast<V*>(p.tab[pl])[toff[j] + c] = x[pl][j];
+          }
+        }
       }
     }
   }
@@ -375,66 +430,55 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-// -- scatter (element per thread) ------------------------------------------
-
-__global__ void scatter_set_kernel(float* __restrict__ table,
-                                   const int32_t* __restrict__ ids,
-                                   const float* __restrict__ rows, int64_t n,
-                                   int64_t dim, int64_t table_rows) {
-  const int64_t total = n * dim;
-  const int64_t stride = static_cast<int64_t>(gridDim.x) * blockDim.x;
-  for (int64_t e = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-       e < total; e += stride) {
-    const int64_t k = e / dim;
-    const int64_t id = ids[k];
-    if (id < 0 || id >= table_rows) continue;
-    table[id * dim + (e - k * dim)] = rows[e];
-  }
-}
-
-__global__ void scatter_add_kernel(float* __restrict__ table,
-                                   const int32_t* __restrict__ ids,
-                                   const float* __restrict__ rows, int64_t n,
-                                   int64_t dim, int64_t table_rows) {
-  const int64_t total = n * dim;
-  const int64_t stride = static_cast<int64_t>(gridDim.x) * blockDim.x;
-  for (int64_t e = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-       e < total; e += stride) {
-    const int64_t k = e / dim;
-    const int64_t id = ids[k];
-    if (id < 0 || id >= table_rows) continue;
-    const int64_t off = id * dim + (e - k * dim);
-    table[off] = table[off] + rows[e];
-  }
-}
-
 __global__ void noop_kernel() {}
+
+// A plane pointer as the kernels take it; which side of a move is written is
+// fixed by the entry point.
+float* floats(const void* x) { return static_cast<float*>(const_cast<void*>(x)); }
 
 // -- launchers ---------------------------------------------------------------
 
-template <typename V, int NP>
-void launch_gather_rows(const Planes& p, const int32_t* ids, int64_t n, int64_t dim,
-                        int64_t table_rows, cudaStream_t st) {
+template <int MOVE, typename V, int NP>
+void launch_move_rows(const Planes& p, const int32_t* ids, int64_t n, int64_t dim,
+                      int64_t table_rows, cudaStream_t st) {
   const int64_t row_vecs = dim / Vec<V>::kWidth;
   const int shift = lane_shift_for(row_vecs);
-  const int64_t rows_per_block = (kThreads >> shift) * kGatherRows;
-  gather_rows_kernel<V, NP, kGatherRows>
+  const int64_t rows_per_block = (kThreads >> shift) * kMoveRows;
+  move_rows_kernel<MOVE, V, NP, kMoveRows>
       <<<blocks_for(n, rows_per_block, 2048 / kThreads), kThreads, 0, st>>>(
           p, ids, n, row_vecs, table_rows, shift);
 }
 
-template <int NP>
-void launch_gather(const Planes& p, const int32_t* ids, int64_t n, int64_t dim,
-                   int64_t table_rows, bool vec, cudaStream_t st) {
+template <int MOVE, int NP>
+void launch_move(const Planes& p, const int32_t* ids, int64_t n, int64_t dim,
+                 int64_t table_rows, bool vec, cudaStream_t st) {
   if (vec && dim == 1) {
-    gather_dim1_kernel<NP, kIds>
+    move_dim1_kernel<MOVE, NP, kIds>
         <<<blocks_for(n, kThreads1 * kIds, 2048 / kThreads1), kThreads1, 0, st>>>(
             p, ids, n, table_rows);
   } else if (vec && dim % 4 == 0) {
-    launch_gather_rows<float4, NP>(p, ids, n, dim, table_rows, st);
+    launch_move_rows<MOVE, float4, NP>(p, ids, n, dim, table_rows, st);
   } else {
-    launch_gather_rows<float, NP>(p, ids, n, dim, table_rows, st);
+    launch_move_rows<MOVE, float, NP>(p, ids, n, dim, table_rows, st);
   }
+}
+
+// One launch over nplanes (1..4) planes that share the ids.
+template <int MOVE>
+int launch_planes(int nplanes, const Planes& p, const void* ids, int64_t n, int64_t dim,
+                  int64_t table_rows, int vec, void* stream) {
+  if (nplanes < 1 || nplanes > kMaxPlanes) return static_cast<int>(cudaErrorInvalidValue);
+  if (n > 0 && dim > 0) {
+    const int32_t* i = static_cast<const int32_t*>(ids);
+    cudaStream_t st = static_cast<cudaStream_t>(stream);
+    switch (nplanes) {
+      case 1: launch_move<MOVE, 1>(p, i, n, dim, table_rows, vec, st); break;
+      case 2: launch_move<MOVE, 2>(p, i, n, dim, table_rows, vec, st); break;
+      case 3: launch_move<MOVE, 3>(p, i, n, dim, table_rows, vec, st); break;
+      default: launch_move<MOVE, 4>(p, i, n, dim, table_rows, vec, st); break;
+    }
+  }
+  return static_cast<int>(cudaGetLastError());
 }
 
 template <int KIND, typename V>
@@ -477,44 +521,31 @@ int ps_noop(void* stream) {
 int ps_gather(int nplanes, const void* t0, const void* t1, const void* t2, const void* t3,
               void* o0, void* o1, void* o2, void* o3, const void* ids, int64_t n,
               int64_t dim, int64_t table_rows, int vec, void* stream) {
-  if (nplanes < 1 || nplanes > kMaxPlanes) return static_cast<int>(cudaErrorInvalidValue);
+  const Planes p{{floats(t0), floats(t1), floats(t2), floats(t3)},
+                 {floats(o0), floats(o1), floats(o2), floats(o3)}};
+  return launch_planes<kGather>(nplanes, p, ids, n, dim, table_rows, vec, stream);
+}
+
+// table_p[ids[k]] = rows_p[k] for planes p < nplanes (1..4), one launch; the
+// tables are [table_rows, dim] and must not overlap, the rows [n, dim].
+// Repeated ids must carry identical rows (trash pads).  vec: every pointer is
+// 16-byte aligned.
+int ps_scatter_set(int nplanes, void* t0, void* t1, void* t2, void* t3, const void* r0,
+                   const void* r1, const void* r2, const void* r3, const void* ids,
+                   int64_t n, int64_t dim, int64_t table_rows, int vec, void* stream) {
+  const Planes p{{floats(t0), floats(t1), floats(t2), floats(t3)},
+                 {floats(r0), floats(r1), floats(r2), floats(r3)}};
+  return launch_planes<kSet>(nplanes, p, ids, n, dim, table_rows, vec, stream);
+}
+
+// table[ids[k]] += rows[k]; ids unique except trash pads whose rows are zero.
+// vec: every pointer is 16-byte aligned.
+int ps_scatter_add(void* table, const void* ids, const void* rows, int64_t n, int64_t dim,
+                   int64_t table_rows, int vec, void* stream) {
+  const Planes p{{floats(table)}, {floats(rows)}};
   if (n > 0 && dim > 0) {
-    const Planes p{{static_cast<const float*>(t0), static_cast<const float*>(t1),
-                    static_cast<const float*>(t2), static_cast<const float*>(t3)},
-                   {static_cast<float*>(o0), static_cast<float*>(o1), static_cast<float*>(o2),
-                    static_cast<float*>(o3)}};
-    const int32_t* i = static_cast<const int32_t*>(ids);
-    cudaStream_t st = static_cast<cudaStream_t>(stream);
-    switch (nplanes) {
-      case 1: launch_gather<1>(p, i, n, dim, table_rows, vec, st); break;
-      case 2: launch_gather<2>(p, i, n, dim, table_rows, vec, st); break;
-      case 3: launch_gather<3>(p, i, n, dim, table_rows, vec, st); break;
-      default: launch_gather<4>(p, i, n, dim, table_rows, vec, st); break;
-    }
-  }
-  return static_cast<int>(cudaGetLastError());
-}
-
-int ps_scatter_set(void* table, const void* ids, const void* rows, int64_t n,
-                   int64_t dim, int64_t table_rows, void* stream) {
-  const int64_t total = n * dim;
-  if (total > 0) {
-    scatter_set_kernel<<<grid_for(total), kThreads, 0,
-                         static_cast<cudaStream_t>(stream)>>>(
-        static_cast<float*>(table), static_cast<const int32_t*>(ids),
-        static_cast<const float*>(rows), n, dim, table_rows);
-  }
-  return static_cast<int>(cudaGetLastError());
-}
-
-int ps_scatter_add(void* table, const void* ids, const void* rows, int64_t n,
-                   int64_t dim, int64_t table_rows, void* stream) {
-  const int64_t total = n * dim;
-  if (total > 0) {
-    scatter_add_kernel<<<grid_for(total), kThreads, 0,
-                         static_cast<cudaStream_t>(stream)>>>(
-        static_cast<float*>(table), static_cast<const int32_t*>(ids),
-        static_cast<const float*>(rows), n, dim, table_rows);
+    launch_move<kAdd, 1>(p, static_cast<const int32_t*>(ids), n, dim, table_rows, vec,
+                         static_cast<cudaStream_t>(stream));
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -5,8 +5,8 @@ fixed ``[rows + 1, dim]`` float32 tensor on ``device`` (the last row is the
 trash row that bucket pads point at) plus one tensor of the same shape per
 optimizer state plane.  Where the JAX table donates its buffers to a jitted
 step, this one updates its tensors in place: ``push`` runs the fused apply
-kernel (or, with ``fused_apply=False``, gather kernels -> plain rule ->
-scatter-set kernels) straight into ``value`` and ``state``.  The trash row is
+kernel (or, with ``fused_apply=False``, one gather launch -> plain rule ->
+one scatter-set launch) straight into ``value`` and ``state``.  The trash row is
 set to its fill when a shard is installed; the fused apply never touches it
 and the three-pass path resets it after each push.  ``pull`` gathers the
 value and state rows in one launch and derives servable weights.
@@ -81,9 +81,11 @@ class KVTable:
             return
         v_rows, s_rows = self._gather(ids)
         new_v, new_s = self.optimizer.apply(v_rows, s_rows, grads)
-        scatter.scatter_update_rows(self.value, ids, new_v.contiguous())
-        for k in self.state:
-            scatter.scatter_update_rows(self.state[k], ids, new_s[k].contiguous())
+        # one write-back launch for the value and every state plane
+        scatter.scatter_update_rows_planes(
+            [self.value, *self.state.values()], ids,
+            [new_v.contiguous(), *(new_s[k].contiguous() for k in self.state)],
+        )
         # pads write the rule's output for the trash row there
         self._reset_trash_row()
 

@@ -42,8 +42,8 @@ _I64 = ctypes.c_int64
 _F = ctypes.c_float
 _SIGNATURES = {
     "ps_gather": [ctypes.c_int] + [_P] * 9 + [_I64, _I64, _I64, ctypes.c_int, _P],
-    "ps_scatter_set": [_P, _P, _P, _I64, _I64, _I64, _P],
-    "ps_scatter_add": [_P, _P, _P, _I64, _I64, _I64, _P],
+    "ps_scatter_set": [ctypes.c_int] + [_P] * 9 + [_I64, _I64, _I64, ctypes.c_int, _P],
+    "ps_scatter_add": [_P, _P, _P, _I64, _I64, _I64, ctypes.c_int, _P],
     "ps_apply": [ctypes.c_int, _P, _P, _P, _P, _P, _P, _I64, _I64, _I64]
     + [_F] * 10
     + [ctypes.c_int, _P],

@@ -31,7 +31,8 @@ from parameter_server_tpu_torch.ops import _build
 #: launches per kernel wrapper; incremented only where a kernel is launched
 LAUNCHES: Dict[str, int] = {"apply": 0, "gather": 0, "scatter_set": 0, "scatter_add": 0}
 _launch_lock = threading.Lock()
-#: planes one gather launch takes (a value table and up to 3 state planes)
+#: planes one gather or scatter-set launch takes (a value table and up to 3
+#: state planes)
 _MAX_PLANES = 4
 
 
@@ -61,6 +62,15 @@ def segment_combine(
     order = torch.sort(inverse, stable=True).indices
     counts = torch.bincount(inverse, minlength=num_rows)
     return torch.segment_reduce(values[order], "sum", lengths=counts, axis=0)
+
+
+def _merge_repeats(
+    ids: torch.Tensor, rows: torch.Tensor
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The unique ``ids`` (int32) and, for each, the sum of its ``rows``
+    (deterministic, :func:`segment_combine`)."""
+    uniq, inverse = torch.unique(ids, return_inverse=True)
+    return uniq.to(torch.int32), segment_combine(rows, inverse, int(uniq.shape[0]))
 
 
 # ---------------------------------------------------------------------------
@@ -150,9 +160,20 @@ def _launch(name: str, fn, device: torch.device, *args) -> None:
         LAUNCHES[name] += 1
 
 
-def _check_plane_count(tables: Sequence[torch.Tensor]) -> None:
+def _check_plane_count(name: str, tables: Sequence[torch.Tensor]) -> None:
     if not 1 <= len(tables) <= _MAX_PLANES:
-        raise ValueError(f"gather: 1 to {_MAX_PLANES} planes, got {len(tables)}")
+        raise ValueError(f"{name}: 1 to {_MAX_PLANES} planes, got {len(tables)}")
+
+
+def _check_planes(name: str, tables: Sequence[torch.Tensor]) -> torch.Tensor:
+    """1 to 4 contiguous float32 CUDA tables of one shape and device; returns
+    the first."""
+    _check_plane_count(name, tables)
+    for t in tables:
+        _check_table(name, t)
+        if t.shape != tables[0].shape or t.device != tables[0].device:
+            raise ValueError(f"{name}: planes must share one shape and device")
+    return tables[0]
 
 
 def _aligned(*tensors: torch.Tensor) -> bool:
@@ -171,12 +192,7 @@ def cuda_gather_planes(
     tables: Sequence[torch.Tensor], ids: torch.Tensor
 ) -> List[torch.Tensor]:
     """``[t[ids] for t in tables]`` in one kernel launch."""
-    _check_plane_count(tables)
-    for t in tables:
-        _check_table("gather", t)
-        if t.shape != tables[0].shape or t.device != tables[0].device:
-            raise ValueError("gather: planes must share one shape and device")
-    table = tables[0]
+    table = _check_planes("gather", tables)
     n = _check_ids("gather", ids, table.device)
     outs = [torch.empty((n, table.shape[1]), dtype=table.dtype, device=table.device)
             for _ in tables]
@@ -198,28 +214,49 @@ def cuda_gather(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
 
 
 # Replaces _scatter_set_kernel / _pallas_scatter_set (:307, :322).  Bound:
-# bytes, n*4 ids + n*dim*4 read + n*dim*4 written.  Write-only, one thread per
-# element; repeated ids are allowed only with identical rows (trash pads).
+# bytes, n*4 ids + P*n*dim*4 rows read + P*u*dim*4 written for P planes and
+# u touched rows.  Design: one launch writes up to 4 planes that share the ids
+# (the three-pass push's value and state planes), reading each id once;
+# float4 rows, several rows in flight per thread (csrc/scatter_kernels.cu).
+# Repeated ids are allowed only with identical rows (trash pads).
+def cuda_scatter_set_planes(
+    tables: Sequence[torch.Tensor], ids: torch.Tensor, rows: Sequence[torch.Tensor]
+) -> List[torch.Tensor]:
+    """``t[ids] = r`` for each table ``t`` and its rows ``r``, in place, in
+    one kernel launch.  The tables must not overlap: the kernel would race."""
+    table = _check_planes("scatter_set", tables)
+    n = _check_ids("scatter_set", ids, table.device)
+    if len(rows) != len(tables):
+        raise ValueError(f"scatter_set: {len(tables)} tables, {len(rows)} row sets")
+    for r in rows:
+        _check_rows("scatter_set", r, n, table)
+    starts = sorted(t.data_ptr() for t in tables)
+    if any(b - a < table.nbytes for a, b in zip(starts, starts[1:])):
+        raise ValueError("scatter_set: tables overlap in memory")
+    if n and table.shape[1]:
+        pad = [None] * (_MAX_PLANES - len(tables))
+        lib = _build.load_library()
+        _launch(
+            "scatter_set", lib.ps_scatter_set, table.device, len(tables),
+            *[t.data_ptr() for t in tables], *pad, *[r.data_ptr() for r in rows], *pad,
+            ids.data_ptr(), n, table.shape[1], table.shape[0],
+            int(_aligned(ids, *tables, *rows)),
+        )
+    return list(tables)
+
+
 def cuda_scatter_set(
     table: torch.Tensor, ids: torch.Tensor, rows: torch.Tensor
 ) -> torch.Tensor:
-    _check_table("scatter_set", table)
-    n = _check_ids("scatter_set", ids, table.device)
-    _check_rows("scatter_set", rows, n, table)
-    if n and table.shape[1]:
-        lib = _build.load_library()
-        _launch(
-            "scatter_set", lib.ps_scatter_set, table.device,
-            table.data_ptr(), ids.data_ptr(), rows.data_ptr(),
-            n, table.shape[1], table.shape[0],
-        )
-    return table
+    """``table[ids] = rows``: the one-plane case of :func:`cuda_scatter_set_planes`."""
+    return cuda_scatter_set_planes([table], ids, [rows])[0]
 
 
 # Replaces _scatter_add_kernel / _pallas_scatter_add (:202, :264).  Bound:
-# bytes, n*4 ids + n*dim*4 rows read + n*dim*4 table read + n*dim*4 written.
-# Plain read-modify-write per element (no atomics): ids must be unique, pads
-# at the trash row carry zeros, so their races rewrite identical bytes.
+# bytes, n*4 ids + n*dim*4 rows read + u*dim*4 table rows read and written.
+# Read-modify-write with every load of a thread's rows issued before any
+# store, no atomics (bitwise deterministic): ids must be unique, and pads at
+# the trash row carry zeros, so their races rewrite identical bytes.
 def cuda_scatter_add(
     table: torch.Tensor, ids: torch.Tensor, rows: torch.Tensor
 ) -> torch.Tensor:
@@ -231,7 +268,7 @@ def cuda_scatter_add(
         _launch(
             "scatter_add", lib.ps_scatter_add, table.device,
             table.data_ptr(), ids.data_ptr(), rows.data_ptr(),
-            n, table.shape[1], table.shape[0],
+            n, table.shape[1], table.shape[0], int(_aligned(ids, table, rows)),
         )
     return table
 
@@ -303,7 +340,7 @@ def gather_rows_planes(
 ) -> List[torch.Tensor]:
     """``[t[ids] for t in tables]`` for up to 4 planes of one shape (a value
     table and its state planes): one kernel launch on the card."""
-    _check_plane_count(tables)
+    _check_plane_count("gather", tables)
     if _on_card(tables[0], "gather_rows_planes"):
         return cuda_gather_planes(tables, ids)
     return [gather_rows_torch(t, ids) for t in tables]
@@ -312,19 +349,38 @@ def gather_rows_planes(
 def scatter_add_rows(
     table: torch.Tensor, ids: torch.Tensor, rows: torch.Tensor
 ) -> torch.Tensor:
-    """``table[ids] += rows`` in place; ids unique except trash pads."""
+    """``table[ids] += rows`` in place; repeated ids sum, as in the JAX
+    package's default path.  On the card the repeats are merged first
+    (deterministic ``segment_combine``), so the kernel sees unique ids."""
     if _on_card(table, "scatter_add_rows"):
-        return cuda_scatter_add(table, ids, rows)
+        _check_table("scatter_add", table)
+        _check_rows("scatter_add", rows, _check_ids("scatter_add", ids, table.device), table)
+        if ids.numel():  # segment_combine takes no empty list
+            ids, rows = _merge_repeats(ids, rows)
+        return cuda_scatter_add(table, ids, rows.contiguous())
     return scatter_add_rows_torch(table, ids, rows)
+
+
+def scatter_update_rows_planes(
+    tables: Sequence[torch.Tensor], ids: torch.Tensor, rows: Sequence[torch.Tensor]
+) -> List[torch.Tensor]:
+    """``t[ids] = r`` in place for up to 4 tables of one shape and their rows
+    (the three-pass push write-back of a value table and its state planes):
+    one kernel launch on the card."""
+    _check_plane_count("scatter_set", tables)
+    if len(rows) != len(tables):
+        raise ValueError(f"scatter_set: {len(tables)} tables, {len(rows)} row sets")
+    if _on_card(tables[0], "scatter_update_rows_planes"):
+        return cuda_scatter_set_planes(tables, ids, rows)
+    return [scatter_update_rows_torch(t, ids, r) for t, r in zip(tables, rows)]
 
 
 def scatter_update_rows(
     table: torch.Tensor, ids: torch.Tensor, rows: torch.Tensor
 ) -> torch.Tensor:
-    """``table[ids] = rows`` in place (the three-pass push write-back)."""
-    if _on_card(table, "scatter_update_rows"):
-        return cuda_scatter_set(table, ids, rows)
-    return scatter_update_rows_torch(table, ids, rows)
+    """``table[ids] = rows`` in place: the one-plane case of
+    :func:`scatter_update_rows_planes`."""
+    return scatter_update_rows_planes([table], ids, [rows])[0]
 
 
 def apply_rows(value, state, ids, grads, optimizer):
@@ -355,7 +411,8 @@ def combine_and_scatter_add(
     """
     combined = segment_combine(values, inverse, num_rows)
     if not unique_ids:
-        ids, slot_inv = torch.unique(ids, return_inverse=True)
-        combined = segment_combine(combined, slot_inv, int(ids.shape[0]))
-        ids = ids.to(torch.int32)
-    return scatter_add_rows(table, ids.contiguous(), combined.contiguous())
+        ids, combined = _merge_repeats(ids, combined)
+    ids, combined = ids.contiguous(), combined.contiguous()
+    if _on_card(table, "combine_and_scatter_add"):  # ids are unique here
+        return cuda_scatter_add(table, ids, combined)
+    return scatter_add_rows_torch(table, ids, combined)

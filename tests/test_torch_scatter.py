@@ -104,6 +104,65 @@ def test_scatter_set_matches_jax(dim):
         np.testing.assert_array_equal(got.numpy(), want, err_msg=name)
 
 
+@pytest.mark.parametrize("dim", [1, 3, 4, 128])
+@pytest.mark.parametrize("planes", [1, 2, 3, 4])
+def test_scatter_update_rows_planes_matches_jax(planes, dim):
+    """One call writes every plane at the shared ids, trash pads (identical
+    zero rows) included: each table equals the JAX package's per-plane
+    ``scatter_update_rows`` exactly."""
+    rng = np.random.default_rng(20 * planes + dim)
+    tables = rng.normal(size=(planes, ROWS + 1, dim)).astype(np.float32)
+    tables[:, ROWS] = 0.0
+    _, ids, _ = _case(dim, seed=planes)
+    rows = rng.normal(size=(planes, ids.size, dim)).astype(np.float32)
+    rows[:, N_REAL:] = 0.0
+    got = scatter.scatter_update_rows_planes(
+        [torch.from_numpy(t.copy()) for t in tables], torch.from_numpy(ids),
+        [torch.from_numpy(r) for r in rows],
+    )
+    assert len(got) == planes
+    for p, (table, r, out) in enumerate(zip(tables, rows, got)):
+        want = np.asarray(jax_scatter.scatter_update_rows(
+            jnp.asarray(table), jnp.asarray(ids), jnp.asarray(r)))
+        np.testing.assert_array_equal(out.numpy(), want, err_msg=f"plane {p}")
+
+
+def test_scatter_update_rows_planes_takes_one_to_four_planes_and_a_row_set_each():
+    table, ids, rows = _case(4)
+    t, i, r = torch.from_numpy(table), torch.from_numpy(ids), torch.from_numpy(rows)
+    for planes in ([], [t] * 5):
+        with pytest.raises(ValueError, match="1 to 4 planes"):
+            scatter.scatter_update_rows_planes(planes, i, [r] * len(planes))
+        with pytest.raises(ValueError, match="1 to 4 planes"):
+            scatter.cuda_scatter_set_planes(planes, i, [r] * len(planes))
+    with pytest.raises(ValueError, match="2 tables, 1 row sets"):
+        scatter.scatter_update_rows_planes([t, t.clone()], i, [r])
+
+
+@pytest.mark.parametrize("route", ["cpu", "card_merge"])
+@pytest.mark.parametrize("dim", [1, 128])
+def test_scatter_add_rows_with_repeated_ids_matches_jax(dim, route):
+    """Repeated ids sum, as under the JAX package's default ``scatter_add_rows``
+    (``table.at[ids].add(rows)``).  ``cpu``: the port's dispatcher on CPU
+    tensors.  ``card_merge``: what the dispatcher does on the card, with the
+    plain add in place of the kernel: merge the repeats, then add unique
+    rows."""
+    rng = np.random.default_rng(30 + dim)
+    table = rng.normal(size=(ROWS + 1, dim)).astype(np.float32)
+    ids = rng.integers(0, 12, size=40).astype(np.int32)  # ~3 repeats per id
+    rows = rng.normal(size=(40, dim)).astype(np.float32)
+    t, i, r = torch.from_numpy(table.copy()), torch.from_numpy(ids), torch.from_numpy(rows)
+    if route == "cpu":
+        got = scatter.scatter_add_rows(t, i, r)
+    else:
+        merged_ids, merged = scatter._merge_repeats(i, r)
+        assert merged_ids.dtype == torch.int32
+        assert torch.equal(merged_ids, torch.unique(i))
+        got = scatter.scatter_add_rows_torch(t, merged_ids, merged)
+    want = jax_scatter.scatter_add_rows(jnp.asarray(table), jnp.asarray(ids), jnp.asarray(rows))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+
+
 @pytest.mark.parametrize("dim", [1, 128])
 def test_scatter_add_matches_jax(dim):
     table, ids, rows = _case(dim, seed=2)
@@ -218,7 +277,9 @@ def test_cpu_tensors_never_touch_the_kernel_library(monkeypatch):
     t, i, r = (torch.from_numpy(x.copy()) for x in (table, ids, rows))
     scatter.gather_rows(t, i)
     scatter.scatter_update_rows(t, i, r)
+    scatter.scatter_update_rows_planes([t, t.clone()], i, [r, r])
     scatter.scatter_add_rows(t, i, r)
+    scatter.scatter_add_rows(t, torch.zeros_like(i), r)  # repeated ids
     opt = make_optimizer(OptimizerConfig(kind="adam"))
     state = {k: torch.zeros_like(t) for k in opt.state_shapes()}
     scatter.apply_rows(t, state, i, r, opt)
@@ -260,7 +321,8 @@ def test_kernel_wrappers_reject_what_the_kernels_do_not_take():
 @pytest.mark.cuda
 def test_cuda_tensors_always_launch_the_kernels():
     """On the card every dispatcher launches its kernel and agrees with the
-    plain version, and ``cuda_apply`` leaves the trash row of every plane as
+    plain version, ``scatter_add_rows`` sums repeated ids as the plain
+    version does, and ``cuda_apply`` leaves the trash row of every plane as
     it was (run on the H100: ``python -m pytest -m cuda tests/``)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the kernels have no CPU mode")
@@ -273,13 +335,25 @@ def test_cuda_tensors_always_launch_the_kernels():
     got = scatter.gather_rows_planes([t, t + 1], i)
     np.testing.assert_array_equal(got[1].cpu().numpy(), table[ids] + 1)
     scatter.scatter_update_rows(t, i, r)
+    s2 = t + 2
+    scatter.scatter_update_rows_planes([t, s2], i, [r, r + 1])
+    np.testing.assert_array_equal(s2[i.long()].cpu().numpy(), rows + 1)
+    with pytest.raises(ValueError, match="overlap"):
+        scatter.cuda_scatter_set_planes([t, t], i, [r, r])
     scatter.scatter_add_rows(t, i, r)
+    # repeated ids: merged, then one launch; equal to the plain sum
+    rep_ids = torch.from_numpy(np.random.default_rng(8).integers(0, 12, size=8)
+                               .astype(np.int32)).cuda()
+    before = t.clone()
+    scatter.scatter_add_rows(t, rep_ids, r)
+    want = scatter.scatter_add_rows_torch(before, rep_ids, r)
+    torch.testing.assert_close(t, want, rtol=1e-5, atol=1e-5)
     opt = make_optimizer(OptimizerConfig(kind="adagrad"))
     state = {k: torch.zeros_like(t) for k in opt.state_shapes()}
     scatter.apply_rows(t, state, i, r, opt)
     torch.cuda.synchronize()
     assert scatter.launch_counts() == {
-        "apply": 1, "gather": 2, "scatter_set": 1, "scatter_add": 1
+        "apply": 1, "gather": 2, "scatter_set": 2, "scatter_add": 2
     }
     # pads point at the trash row; a marker there must survive every rule
     for dim in (1, 128):

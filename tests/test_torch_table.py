@@ -111,6 +111,33 @@ def test_ftrl_pull_gathers_z_and_n_in_one_call(dim, monkeypatch):
     assert np.any(got[:11] != 0.0) and np.all(got[11:] == 0.0)
 
 
+@pytest.mark.parametrize("kind", sorted(OPTS))
+def test_three_pass_push_writes_every_plane_in_one_call(kind, monkeypatch):
+    """A three-pass push writes the value and every state plane back with one
+    ``scatter_update_rows_planes`` call (one launch on the card) and matches
+    the JAX table."""
+    jt, pt = _pair(kind, 4, "auto", False, seed=7)
+    calls = []
+    write_back = scatter.scatter_update_rows_planes
+
+    def counting(tables, ids, rows):
+        calls.append(len(tables))
+        return write_back(tables, ids, rows)
+
+    monkeypatch.setattr(scatter, "scatter_update_rows_planes", counting)
+    rng = np.random.default_rng(8)
+    for _ in range(2):
+        ids = np.concatenate(
+            [np.sort(rng.choice(ROWS, size=5, replace=False)), np.full(3, ROWS)]
+        ).astype(np.int32)
+        grads = rng.normal(size=(8, 4)).astype(np.float32)
+        grads[5:] = 0.0
+        jt.push(jnp.asarray(ids), jnp.asarray(grads))
+        pt.push(torch.from_numpy(ids), torch.from_numpy(grads))
+    assert calls == [1 + len(pt.state)] * 2
+    _assert_tables_close(jt, pt)
+
+
 @pytest.mark.parametrize("fused", [True, False], ids=["fused", "three_pass"])
 @pytest.mark.parametrize("kind", sorted(OPTS))
 def test_installed_trash_row_is_at_its_fill_after_a_push(kind, fused):
