@@ -34,7 +34,25 @@ Phases, each printing one JSON line (``"phase": ...``):
              duplicate policies, twice each: bitwise-equal tables, and close
              to the same bundle on the CPU.
 6. combine   ``combine_and_scatter_add`` on one batch's slots (scatter-add).
-7. times     every kernel at the main path's shapes: device time per call
+7. local     bench.py's headline path at full width: ``LocalLRTrainer(mode=
+             "dense", device_hash=True)`` on the same 2^22 x 1 AdaGrad table,
+             blocks of 32 steps of 16384 x 39 raw uint32 keys hashed on the
+             card, fed by ``PrefetchPipeline(depth=2)`` from a pool of 4
+             distinct blocks: 2 warm-up blocks, then timed blocks.  The loss
+             must fall, the tables must be on the card, the trash row 0.
+   local_reference  one 4-step block from the trained state on the card and
+             on the CPU (losses 1e-4, every row 1e-5, trash row exactly 0);
+             the same block twice on the card gives bitwise-equal tables;
+             ``mix32_torch`` and ``device_slots`` on the card equal the host
+             hash bit for bit.
+   local_sync_free  one ``step_block_device`` under
+             ``torch.cuda.set_sync_debug_mode("error")``.
+   local_rows  rows mode at full width, 4 steps on the card and the CPU from
+             one state: one gather and one apply launch per step (three-pass:
+             one gather and one scatter-set), card and CPU agree.
+   local_profile  ``torch.profiler`` over 2 blocks of the local path: wall,
+             device busy, idle share, top device ops, the segment sum's share.
+8. times     every kernel at the main path's shapes: device time per call
              (CUDA-graph replay), the byte bound at 3.35 TB/s, the plain
              version's time and one PyTorch library call's time; an empty
              kernel's time (the launch floor); a pull's value + sum_sq gather
@@ -72,6 +90,10 @@ MAIN_STEPS = 8
 #: the embedding tables use them
 WIDE_ROWS, WIDE_DIM, WIDE_N, WIDE_SETS = 1 << 20, 128, 32768, 8
 THREE_PASS_STEPS = 2
+#: the local (single-device) path: steps per block, distinct blocks in the
+#: pool, warm-up and timed blocks, steps of the reference and rows legs
+BLOCK, LOCAL_POOL, LOCAL_WARM, LOCAL_TIMED = 32, 4, 2, 8
+LOCAL_REF_STEPS, LOCAL_ROWS_STEPS = 4, 4
 DEVICE = "cuda"
 SOURCE = "parameter_server_tpu_torch/csrc/scatter_kernels.cu"
 REPLACES = {
@@ -160,8 +182,25 @@ def main() -> int:
     check(counts["scatter_add"] > 0, f"combine launches {counts}")
     emit("combine", launches=counts, **comb)
 
-    # -- 7. times ----------------------------------------------------------------
+    # -- 7. the local (single-device) path ------------------------------------------
+    pool = local_pool()
+    scatter.reset_launch_counts()
+    trainer, fields = local_phase(torch, dev, pool)
+    counts = scatter.launch_counts()
+    emit("local", launches=counts, **fields)
+    state = trained_state(trainer)
+    emit("local_reference", **local_reference(torch, dev, state, pool))
+    emit("local_sync_free", **local_sync_free(torch, dev, trainer, pool))
+    rows = local_rows(torch, scatter, dev, pool)
+    emit("local_rows", **rows)
+    emit("local_profile", **local_profile(torch, dev, trainer, pool))
+    del trainer, state
+
+    # -- 8. times ----------------------------------------------------------------
     kernels = times_phase(torch, scatter, dev, errs, launches)
+    for k in kernels:
+        if k["name"] in ("apply", "gather"):
+            k["local_rows_launches"] = rows["launches"][k["name"]]
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60,
@@ -590,7 +629,274 @@ def combine_phase(torch, scatter, dev, errs):
 
 
 # ---------------------------------------------------------------------------
-# phase 7
+# phase 7: the local (single-device) path
+# ---------------------------------------------------------------------------
+
+
+def local_pool():
+    """4 distinct host blocks of 32 batches each (``bench.py``'s memoised
+    pool): keys validated to uint32 once, as the bench's producer does."""
+    from parameter_server_tpu_torch.data.synthetic import SyntheticCTR
+    from parameter_server_tpu_torch.utils.keys import ensure_uint32_keys
+
+    data = SyntheticCTR(key_space=KEY_SPACE, nnz=NNZ, batch_size=BATCH, seed=0,
+                        informative=0.1)
+    pool = []
+    for _ in range(LOCAL_POOL):
+        batches = [data.next_batch() for _ in range(BLOCK)]
+        pool.append((ensure_uint32_keys(np.stack([b[0] for b in batches])),
+                     np.stack([b[1] for b in batches])))
+    return pool
+
+
+def _local_trainer(device, **kw):
+    from parameter_server_tpu_torch.config import OptimizerConfig, TableConfig
+    from parameter_server_tpu_torch.learner.sgd import LocalLRTrainer
+
+    cfg = TableConfig(name="w", rows=ROWS, dim=DIM,
+                      optimizer=OptimizerConfig(kind="adagrad", learning_rate=0.05),
+                      fused_apply=kw.pop("fused_apply", True))
+    return LocalLRTrainer(cfg, device=device, **kw)
+
+
+def _dense_trainer(device):
+    return _local_trainer(device, mode="dense", device_hash=True)
+
+
+def _check_local_tables(torch, trainer, dev):
+    planes = [trainer.table.value, *trainer.table.state.values(), trainer.bias]
+    devices = sorted({str(t.device) for t in planes})
+    check(devices == [str(torch.empty(0, device=dev).device)], f"local tables on {devices}")
+    for name, plane in [("value", trainer.table.value), *trainer.table.state.items()]:
+        check(float(plane[ROWS].abs().max()) == 0.0, f"local trash row of {name} is not 0")
+    return devices
+
+
+def local_phase(torch, dev, pool):
+    """bench.py's pipelined headline loop: blocks through the prefetch
+    pipeline into ``step_block_device``, a barrier at the end."""
+    from parameter_server_tpu_torch.data.prefetch import PrefetchPipeline
+
+    trainer = _dense_trainer(dev)
+    losses = []
+    with PrefetchPipeline(lambda i: pool[i % LOCAL_POOL], depth=2, device=dev) as pf:
+        for _ in range(LOCAL_WARM):
+            losses.append(trainer.step_block_device(*pf.get()))
+        torch.cuda.synchronize()
+        warm = pf.counters()
+        t0 = time.perf_counter()
+        for _ in range(LOCAL_TIMED):
+            losses.append(trainer.step_block_device(*pf.get()))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        timed = pf.counters()
+    losses = torch.cat(losses).cpu().numpy()
+    check(losses.shape == ((LOCAL_WARM + LOCAL_TIMED) * BLOCK,) and bool(np.isfinite(losses).all()),
+          f"local losses {losses.shape}")
+    first, last = float(losses[:BLOCK].mean()), float(losses[-BLOCK:].mean())
+    check(last < first - 0.01, f"local loss did not fall: {first} -> {last}")
+    check(trainer.step_count == (LOCAL_WARM + LOCAL_TIMED) * BLOCK, "local step count")
+    devices = _check_local_tables(torch, trainer, dev)
+    return trainer, {
+        "rows": ROWS, "batch": BATCH, "nnz": NNZ, "block": BLOCK, "pool_blocks": LOCAL_POOL,
+        "prefetch_depth": 2, "warm_blocks": LOCAL_WARM, "timed_blocks": LOCAL_TIMED,
+        "wall_s": wall, "examples_per_s": LOCAL_TIMED * BLOCK * BATCH / wall,
+        "ms_per_step": wall * 1e3 / (LOCAL_TIMED * BLOCK),
+        "loss_first": float(losses[0]), "loss_last": float(losses[-1]),
+        "loss_first_block_mean": first, "loss_last_block_mean": last,
+        "prefetch_timed": {k: timed[k] - warm[k] for k in timed},
+        "prefetch_total": timed, "tables_on": devices, "trash_rows_zero": True,
+    }
+
+
+def trained_state(trainer):
+    """The trainer's table and bias as numpy (for ``trainer_from_numpy``)."""
+    return (trainer.table.value.cpu().numpy(),
+            {k: v.cpu().numpy() for k, v in trainer.table.state.items()},
+            trainer.bias.cpu().numpy(),
+            {k: v.cpu().numpy() for k, v in trainer.bias_state.items()})
+
+
+def _planes(trainer):
+    return [trainer.table.value, trainer.table.state["sum_sq"], trainer.bias,
+            trainer.bias_state["sum_sq"]]
+
+
+def local_reference(torch, dev, state, pool):
+    """One 4-step block from the trained state (every row it touches has
+    sum_sq > 0) on the card twice and on the CPU once; then the device hash
+    against the host hash."""
+    from parameter_server_tpu_torch.convert import trainer_from_numpy
+    from parameter_server_tpu_torch.models import linear
+    from parameter_server_tpu_torch.utils.keys import (
+        PAD_KEY, HashLocalizer, ensure_uint32_keys, mix32)
+
+    keys, labels = pool[0][0][:LOCAL_REF_STEPS], pool[0][1][:LOCAL_REF_STEPS]
+    runs = []
+    for device in (dev, dev, torch.device("cpu")):
+        tr = _dense_trainer(device)
+        trainer_from_numpy(tr, *state)
+        losses = tr.step_block(keys, labels)
+        runs.append((losses.cpu(), [p.cpu() for p in _planes(tr)]))
+        del tr
+    (l1, p1), (l2, p2), (lc, pc) = runs
+    check(torch.equal(l1, l2) and all(torch.equal(a, b) for a, b in zip(p1, p2)),
+          "the same block twice on the card gave different tables")
+    loss_err = float((l1 - lc).abs().max())
+    check(bool(torch.allclose(l1, lc, rtol=1e-4, atol=1e-4)), f"local losses vs cpu: {loss_err}")
+    table_err = 0.0
+    for a, b in zip(p1, pc):
+        table_err = max(table_err, float((a - b).abs().max()))
+        check(bool(torch.allclose(a, b, rtol=1e-5, atol=1e-5)), f"local tables vs cpu: {table_err}")
+    check(float(p1[0][ROWS].abs().max()) == 0.0 and float(p1[1][ROWS].abs().max()) == 0.0,
+          "local reference: trash row is not 0")
+    # the device hash, bit for bit: 2^20 random keys and the edge keys
+    rng = np.random.default_rng(21)
+    hkeys = np.concatenate([np.array([0, 1, 2**31, 2**32 - 2, 2**32 - 1], np.uint32),
+                            rng.integers(0, 2**32, size=1 << 20, dtype=np.uint64)
+                            .astype(np.uint32)])
+    for seed in (0, 7):
+        got = linear.mix32_torch(torch.from_numpy(hkeys.view(np.int32)).to(dev), seed)
+        check(np.array_equal(got.cpu().numpy().astype(np.uint32),
+                             mix32(hkeys, np.uint32(seed))), f"mix32_torch seed {seed}")
+    # one batch's slots (and PAD) against the host localizer
+    k64 = np.concatenate([pool[0][0][0].reshape(-1).astype(np.uint64),
+                          np.array([0, 2**32 - 2, PAD_KEY], np.uint64)])
+    got = linear.device_slots(torch.from_numpy(ensure_uint32_keys(k64).view(np.int32)).to(dev),
+                              ROWS, 0)
+    check(np.array_equal(got.cpu().numpy(), HashLocalizer(ROWS, hash_bits=32).assign(k64)),
+          "device_slots vs HashLocalizer")
+    return {"steps": LOCAL_REF_STEPS, "loss_max_abs_err": loss_err,
+            "table_max_abs_err": table_err, "loss_tol": 1e-4, "table_tol": 1e-5,
+            "bitwise_equal_runs": True, "trash_row_zero": True,
+            "mix32_keys": int(hkeys.size), "mix32_bit_equal": True,
+            "slots_keys": int(k64.size), "slots_equal": True}
+
+
+def local_sync_free(torch, dev, trainer, pool):
+    """One block through ``step_block_device`` with the card's sync debug
+    mode set to raise on any host synchronisation."""
+    from parameter_server_tpu_torch.data.prefetch import host_tensor
+
+    kd, yd = host_tensor(pool[1][0]).to(dev), torch.from_numpy(pool[1][1]).to(dev)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        losses = trainer.step_block_device(kd, yd)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    losses = losses.cpu()
+    check(bool(torch.isfinite(losses).all()), "sync-free block gave non-finite losses")
+    return {"steps": int(losses.numel()), "sync_debug_mode": "error", "raised": False}
+
+
+def _random_rows_state(rng):
+    """A full-width AdaGrad state with every sum_sq > 0 (no row at its first
+    touch, where the step's sign decides the update)."""
+    value = rng.normal(scale=0.05, size=(ROWS + 1, 1)).astype(np.float32)
+    sum_sq = rng.uniform(0.01, 1.0, size=(ROWS + 1, 1)).astype(np.float32)
+    value[ROWS], sum_sq[ROWS] = 0, 0
+    return (value, {"sum_sq": sum_sq}, np.full((1, 1), -0.5, np.float32),
+            {"sum_sq": np.full((1, 1), 0.5, np.float32)})
+
+
+def local_rows(torch, scatter, dev, pool):
+    """Rows mode at full width: the card (kernels) against the CPU (plain
+    versions) from one state; launches counted over the card's steps."""
+    from parameter_server_tpu_torch.convert import trainer_from_numpy
+
+    state = _random_rows_state(np.random.default_rng(22))
+    batches = [(pool[0][0][k], pool[0][1][k]) for k in range(LOCAL_ROWS_STEPS)]
+    out = {}
+    for fused, steps in ((True, LOCAL_ROWS_STEPS), (False, 2)):
+        runs = {}
+        for side, device in (("card", dev), ("cpu", torch.device("cpu"))):
+            tr = _local_trainer(device, fused_apply=fused)
+            trainer_from_numpy(tr, *state)
+            torch.cuda.synchronize()
+            scatter.reset_launch_counts()
+            t0 = time.perf_counter()
+            losses = [tr.step(k, y) for k, y in batches[:steps]]
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            runs[side] = (np.asarray(losses), [p.cpu() for p in _planes(tr)],
+                          scatter.launch_counts(), wall)
+            if side == "card":
+                _check_local_tables(torch, tr, dev)
+            del tr
+        (lg, pg, counts, wall), (lc, pc, cpu_counts, _) = runs["card"], runs["cpu"]
+        check(cpu_counts == dict.fromkeys(cpu_counts, 0), f"cpu rows steps launched {cpu_counts}")
+        want = {"apply": steps, "gather": steps, "scatter_set": 0, "scatter_add": 0}
+        if not fused:
+            want.update(apply=0, scatter_set=steps)
+        check(counts == want, f"rows-mode launches {counts}, want {want}")
+        check(np.allclose(lg, lc, rtol=1e-4, atol=1e-4), f"rows losses {lg} vs cpu {lc}")
+        err = max(float((a - b).abs().max()) for a, b in zip(pg, pc))
+        for a, b in zip(pg, pc):
+            check(bool(torch.allclose(a, b, rtol=1e-5, atol=1e-5)), f"rows tables vs cpu: {err}")
+        leg = {"steps": steps, "launches": counts, "loss_max_abs_err": float(np.abs(lg - lc).max()),
+               "table_max_abs_err": err, "examples_per_s": steps * BATCH / wall}
+        if fused:
+            out.update(leg)
+        else:
+            out["three_pass"] = leg
+    out.update(loss_tol=1e-4, table_tol=1e-5)
+    return out
+
+
+def local_profile(torch, dev, trainer, pool, blocks=2):
+    """Device busy time, idle share and the top device ops over ``blocks``
+    prefetch-fed blocks (after one warm block); then the dense segment sum
+    of one batch timed alone in its shipped [N, 1] form and as 1-D data."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from parameter_server_tpu_torch.data.prefetch import PrefetchPipeline
+    from parameter_server_tpu_torch.models import linear
+    from parameter_server_tpu_torch.ops.scatter import segment_combine
+
+    with PrefetchPipeline(lambda i: pool[(i + 2) % LOCAL_POOL], depth=2, device=dev) as pf:
+        trainer.step_block_device(*pf.get())
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for _ in range(blocks):
+                trainer.step_block_device(*pf.get())
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+    on_device = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    busy_ms = sum(e.self_device_time_total for e in on_device) / 1e3
+    top = sorted(on_device, key=lambda e: -e.self_device_time_total)[:10]
+    seg_ms = sum(e.self_device_time_total for e in on_device
+                 if "segment_reduce" in e.key) / 1e3
+    # the segment sum of one batch alone: [N, 1] (as shipped) and 1-D data
+    slots = linear.device_slots(torch.from_numpy(pool[0][0][0].view(np.int32)).to(dev),
+                                ROWS).reshape(-1)
+    vals = torch.randn((slots.numel(), 1), generator=torch.Generator(device=dev).manual_seed(3),
+                       device=dev) / BATCH
+    seg = {
+        "rows_2d_ms": _time_ms(torch, lambda: segment_combine(vals, slots, ROWS + 1),
+                               reps=20, warmup=3),
+        "flat_1d_ms": _time_ms(torch, lambda: segment_combine(vals.reshape(-1), slots,
+                                                              ROWS + 1), reps=20, warmup=3),
+    }
+    a = segment_combine(vals, slots, ROWS + 1).reshape(-1)
+    b = segment_combine(vals.reshape(-1), slots, ROWS + 1)
+    seg["flat_vs_2d_max_abs_err"] = float((a - b).abs().max())
+    return {
+        "blocks": blocks, "steps": blocks * BLOCK, "wall_ms": wall_ms,
+        "examples_per_s": blocks * BLOCK * BATCH / (wall_ms / 1e3),
+        "device_busy_ms": busy_ms if on_device else "not measured",
+        "device_idle_share": 1 - busy_ms / wall_ms if on_device else "not measured",
+        "segment_sum_share": seg_ms / busy_ms if on_device else "not measured",
+        "top_device_ms": [[e.key[:70], e.self_device_time_total / 1e3, e.count]
+                          for e in top],
+        "segment_sum_one_batch": seg,
+    }
+
+
+# ---------------------------------------------------------------------------
+# phase 8
 # ---------------------------------------------------------------------------
 
 

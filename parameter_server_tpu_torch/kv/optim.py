@@ -26,6 +26,9 @@ class ServerOptimizer:
     name = "base"
     #: kernel selector passed to ``ps_apply`` (see ``csrc/scatter_kernels.cu``)
     kernel_kind = -1
+    #: True iff apply(value, state, 0) == (value, state) when l1 == l2 == 0:
+    #: required by the dense (full-table elementwise) apply of the LR step.
+    g0_stable = False
 
     def __init__(self, cfg: OptimizerConfig) -> None:
         self.cfg = cfg
@@ -46,6 +49,7 @@ class ServerOptimizer:
 
 
 class SGD(ServerOptimizer):
+    g0_stable = True
     name = "sgd"
     kernel_kind = 0
 
@@ -58,6 +62,7 @@ class SGD(ServerOptimizer):
 class AdaGrad(ServerOptimizer):
     """AdaGrad with optional L1 truncation (the async-SGD sparse LR rule)."""
 
+    g0_stable = True
     name = "adagrad"
     kernel_kind = 1
 
@@ -101,6 +106,7 @@ class FTRL(ServerOptimizer):
     """FTRL-proximal: value stores ``z``; state stores ``n``; the weight is
     computed lazily on Pull (and inside ``apply``)."""
 
+    g0_stable = True
     name = "ftrl"
     kernel_kind = 3
 
@@ -140,3 +146,18 @@ def make_optimizer(cfg: OptimizerConfig) -> ServerOptimizer:
         raise ValueError(
             f"unknown optimizer {cfg.kind!r}; have {sorted(_REGISTRY)}"
         ) from None
+
+
+def require_dense_apply(cfg: OptimizerConfig) -> None:
+    """Validate that ``cfg`` is safe for the dense-apply (full-table) paths.
+
+    Dense apply touches every row each step, so the update must be exactly
+    zero at g=0: no penalties, and a ``g0_stable`` rule.
+    """
+    opt = make_optimizer(cfg)
+    if cfg.l1 != 0.0 or cfg.l2 != 0.0 or not opt.g0_stable:
+        raise ValueError(
+            "dense-apply requires l1=l2=0 and a g0-stable optimizer "
+            f"(got kind={cfg.kind!r}, l1={cfg.l1}, l2={cfg.l2}); "
+            "use the row-apply path instead"
+        )

@@ -56,12 +56,20 @@ def segment_combine(
     position maps to receive zero (the pad contract).  Deterministic on every
     device: a stable sort groups each slot's positions in position order and
     ``segment_reduce`` sums each group sequentially, so the float order never
-    changes from run to run (``index_add_`` on CUDA uses atomics and does).
+    changes from run to run (a float ``index_add_`` on CUDA uses atomics and
+    does).  No host sync: the slot counts are an integer ``index_add_`` of
+    ones into a ``[num_rows]`` buffer (integer sums are order-free) where
+    ``torch.bincount`` would read its maximum back, and ``unsafe=True``
+    skips ``segment_reduce``'s read-back checks of what the counts
+    guarantee (none negative, summing to the position count).
     """
     inverse = inverse.reshape(-1).long()
     order = torch.sort(inverse, stable=True).indices
-    counts = torch.bincount(inverse, minlength=num_rows)
-    return torch.segment_reduce(values[order], "sum", lengths=counts, axis=0)
+    counts = torch.zeros(num_rows, dtype=torch.int64, device=inverse.device)
+    counts.index_add_(0, inverse, torch.ones_like(inverse))
+    return torch.segment_reduce(
+        torch.index_select(values, 0, order), "sum", lengths=counts, axis=0, unsafe=True
+    )
 
 
 def _merge_repeats(

@@ -5,6 +5,10 @@
 - The server's ``_ack_push`` (and every method of the server it calls) never
   reads device state back: no ``.item()``, ``.cpu()``, ``.tolist()``,
   ``.numpy()``, ``.to()``, ``synchronize()`` or numpy conversion.
+- ``LocalLRTrainer.step_block_device`` and the dense steps of
+  ``models/linear.py`` never wait on the device: no ``.item()``, ``.cpu()``,
+  ``.tolist()``, ``.numpy()``, ``float(...)``, ``torch.unique``,
+  ``torch.bincount`` or ``synchronize()``.
 - Every entry point's ``device`` defaults to ``"cuda"``.
 - ``chip_smoke.py`` fails, and prints no result, where there is no card or
   no package beside it.
@@ -20,10 +24,11 @@ import sys
 
 import pytest
 
+from parameter_server_tpu_torch.data.prefetch import PrefetchPipeline
 from parameter_server_tpu_torch.kv.server import KVServer
 from parameter_server_tpu_torch.kv.table import KVTable
 from parameter_server_tpu_torch.kv.worker import KVWorker
-from parameter_server_tpu_torch.learner.sgd import AsyncLRLearner
+from parameter_server_tpu_torch.learner.sgd import AsyncLRLearner, LocalLRTrainer
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 PORT = ROOT / "parameter_server_tpu_torch"
@@ -93,7 +98,85 @@ def test_the_sync_scan_catches_a_readback():
     assert attrs & SYNCING == {"cpu"}
 
 
-@pytest.mark.parametrize("entry", [KVTable, KVServer, KVWorker, AsyncLRLearner],
+#: calls that read device state back, wait for the device, or (unique,
+#: bincount) read a size back before they return
+DENSE_BANNED_ATTRS = {"item", "cpu", "tolist", "numpy", "synchronize", "unique",
+                      "bincount"}
+DENSE_ROOTS = {
+    "learner/sgd.py": ["LocalLRTrainer.step_block_device"],
+    "models/linear.py": ["dense_scan_train_step", "dense_fused_step"],
+}
+
+
+def _functions(rel):
+    """Module-level functions and ``Class.method``s of a port module."""
+    tree = ast.parse((PORT / rel).read_text())
+    out = {}
+    for node in tree.body:
+        if isinstance(node, ast.FunctionDef):
+            out[node.name] = node
+        elif isinstance(node, ast.ClassDef):
+            out.update({f"{node.name}.{f.name}": f for f in node.body
+                        if isinstance(f, ast.FunctionDef)})
+    return out
+
+
+def _dense_violations(fn, banned=DENSE_BANNED_ATTRS):
+    """Banned calls in ``fn``: ``x.<banned>(...)`` and ``float(...)``; also
+    the names of functions it calls, to follow."""
+    bad, called = [], set()
+    for node in ast.walk(fn):
+        if not isinstance(node, ast.Call):
+            continue
+        f = node.func
+        if isinstance(f, ast.Attribute):
+            if f.attr in banned:
+                bad.append(f.attr)
+            called.add(f.attr)
+        elif isinstance(f, ast.Name):
+            if f.id == "float":
+                bad.append("float")
+            called.add(f.id)
+    return bad, called
+
+
+def test_dense_block_path_is_sync_free():
+    """``step_block_device`` and the dense steps, with every function of
+    ``models/linear.py`` and ``ops/scatter.py`` they reach, never wait on
+    the device: that is what lets the prefetch producer stage block i + 1
+    while block i runs."""
+    linear_fns = {**_functions("ops/scatter.py"), **_functions("models/linear.py")}
+    bad, seen = [], set()
+    for rel, roots in DENSE_ROOTS.items():
+        fns = _functions(rel)
+        todo = [fns[r] for r in roots]
+        while todo:
+            fn = todo.pop()
+            if fn.name in seen:
+                continue
+            seen.add(fn.name)
+            found, called = _dense_violations(fn)
+            bad += [(fn.name, b) for b in found]
+            todo += [linear_fns[c] for c in called if c in linear_fns]
+    assert {"step_block_device", "dense_scan_train_step", "dense_fused_step",
+            "segment_combine", "device_slots", "_fmix32", "_mul32",
+            "_loss_and_residual", "_apply_bias", "logloss"} <= seen
+    assert not bad, f"host syncs on the dense block path: {bad}"
+
+
+@pytest.mark.parametrize("src,want", [
+    ("def f(x):\n    return float(x.sum())\n", ["float"]),
+    ("def f(x):\n    return torch.unique(x)\n", ["unique"]),
+    ("def f(x):\n    return torch.bincount(x, minlength=4)\n", ["bincount"]),
+    ("def f(x):\n    torch.cuda.synchronize()\n", ["synchronize"]),
+    ("def f(x):\n    return x.sum().item()\n", ["item"]),
+])
+def test_the_dense_sync_scan_catches_a_readback(src, want):
+    assert _dense_violations(ast.parse(src).body[0])[0] == want
+
+
+@pytest.mark.parametrize("entry", [KVTable, KVServer, KVWorker, AsyncLRLearner,
+                                   LocalLRTrainer, PrefetchPipeline],
                          ids=lambda c: c.__name__)
 def test_entry_points_default_to_the_card(entry):
     param = inspect.signature(entry.__init__).parameters["device"]
