@@ -26,7 +26,9 @@ Phases, each printing one JSON line (``"phase": ...``):
              small run of the same loop on the card must agree with it on
              the CPU, and a seeded push sequence at full width must give
              bitwise-equal tables twice (the worker pre-combine is
-             deterministic).
+             deterministic).  Every server runs its default apply ledger:
+             after the run, applies submitted == retired == pushes, none
+             censored, one ``apply.w`` digest sample a push.
 4. three_pass  the same loop with ``fused_apply=False``: one scatter-set
              launch (value + sum_sq) per push.
 5. bundled   ``handle_request_batch`` at the apply-engine shape (16 x 2048
@@ -34,7 +36,35 @@ Phases, each printing one JSON line (``"phase": ...``):
              duplicate policies, twice each: bitwise-equal tables, and close
              to the same bundle on the CPU.
 6. combine   ``combine_and_scatter_add`` on one batch's slots (scatter-add).
-7. local     bench.py's headline path at full width: ``LocalLRTrainer(mode=
+7. ledger    the main run's ledger digests (p50/p99 of apply, apply_host,
+             apply_h2d, apply_dev); the PS loop with the ledger on and off in
+             10 pairs, alternating which runs first (examples/s medians and
+             quartiles, pairs won); the push ack path
+             (single push and a bundle) under ``set_sync_debug_mode("error")``
+             and a stale-epoch push fenced; a blocking and a spinning CUDA
+             event waited on from a second thread (does the wait release the
+             GIL); ``LedgerConfig(backlog_bundles=1)`` at the apply-engine
+             shape with 16 pushes back to back, as sent and with the card held
+             behind a ``torch.cuda._sleep``: ``server_busy()`` and
+             ``apply.backlog`` enter then clear.
+   coalesce  the PS loop on ``CoalescingVan(LoopbackVan())`` (counters,
+             launches); an ordered full-width loop (each worker's push and
+             next pull in one window) on the plain and the coalescing stack:
+             bitwise-equal tables; the apply-engine shape sent by one worker
+             in one ``coalesce_window``: one bundle, one
+             ``handle_request_batch``, one ledger entry, ``ps_apply`` launches
+             per bundle, and bench.py's ms per bundle against the same pushes
+             one request each, under both duplicate policies ("rounds"
+             bitwise equal to per-request; "combine" within 1e-5 of one push
+             of the per-row sums).
+   localizer one config #1 batch through ``Localizer(2^22)``: the native
+             keymap must have built (g++) and give the numpy engine's slots;
+             keys per second of both engines (host clock).
+   flightrec a failing handler on a throwaway node journals
+             ``recv.exception`` and keeps serving; ``dump()`` of the run's
+             ring, each bundle read back with the fields
+             ``tools/postmortem.py`` reads; events by kind.
+8. local     bench.py's headline path at full width: ``LocalLRTrainer(mode=
              "dense", device_hash=True)`` on the same 2^22 x 1 AdaGrad table,
              blocks of 32 steps of 16384 x 39 raw uint32 keys hashed on the
              card, fed by ``PrefetchPipeline(depth=2)`` from a pool of 4
@@ -52,7 +82,7 @@ Phases, each printing one JSON line (``"phase": ...``):
              one gather and one scatter-set), card and CPU agree.
    local_profile  ``torch.profiler`` over 2 blocks of the local path: wall,
              device busy, idle share, top device ops, the segment sum's share.
-8. times     every kernel at the main path's shapes: device time per call
+9. times     every kernel at the main path's shapes: device time per call
              (CUDA-graph replay), the byte bound at 3.35 TB/s, the plain
              version's time and one PyTorch library call's time; an empty
              kernel's time (the launch floor); a pull's value + sum_sq gather
@@ -90,6 +120,9 @@ MAIN_STEPS = 8
 #: the embedding tables use them
 WIDE_ROWS, WIDE_DIM, WIDE_N, WIDE_SETS = 1 << 20, 128, 32768, 8
 THREE_PASS_STEPS = 2
+#: depth of the new planes' loops: ledger on/off runs and their pairs, the
+#: learner's loop on the coalescing stack, the ordered loop on both stacks
+LEDGER_STEPS, LEDGER_PAIRS, COALESCE_STEPS, ORDERED_STEPS = 4, 10, 4, 3
 #: the local (single-device) path: steps per block, distinct blocks in the
 #: pool, warm-up and timed blocks, steps of the reference and rows legs
 BLOCK, LOCAL_POOL, LOCAL_WARM, LOCAL_TIMED = 32, 4, 2, 8
@@ -121,7 +154,10 @@ def main() -> int:
               "needs an NVIDIA card", file=sys.stderr)
         return 2
     torch.backends.cuda.matmul.allow_tf32 = False
+    from parameter_server_tpu_torch.core import flightrec
     from parameter_server_tpu_torch.ops import _build, scatter
+
+    flightrec.configure(capacity=1 << 15, clear=True)  # no wrap in one run
 
     dev = torch.device(DEVICE)
     errs = {k: 0.0 for k in REPLACES}
@@ -155,7 +191,7 @@ def main() -> int:
     emit("main", steps_per_worker=MAIN_STEPS, workers=2, servers=2,
          examples_per_s=main["examples_per_s"], loss_first=float(first),
          loss_last=float(last), launches=counts, pulls=main["pulls"],
-         trash_rows_at_fill=True, tables_on=main["devices"])
+         trash_rows_at_fill=True, tables_on=main["devices"], ledger=main["ledger"])
     emit("main_reference", **small_reference(torch, dev))
     emit("main_determinism", **determinism(torch, dev))
     emit("main_profile", **profile_loop(torch, dev))
@@ -182,7 +218,13 @@ def main() -> int:
     check(counts["scatter_add"] > 0, f"combine launches {counts}")
     emit("combine", launches=counts, **comb)
 
-    # -- 7. the local (single-device) path ------------------------------------------
+    # -- 7. the server's default planes ----------------------------------------------
+    emit("ledger", **ledger_phase(torch, dev, main["ledger"]))
+    emit("coalesce", **coalesce_phase(torch, scatter, dev))
+    emit("localizer", **localizer_phase())
+    emit("flightrec", **flightrec_phase())
+
+    # -- 8. the local (single-device) path ------------------------------------------
     pool = local_pool()
     scatter.reset_launch_counts()
     trainer, fields = local_phase(torch, dev, pool)
@@ -196,7 +238,7 @@ def main() -> int:
     emit("local_profile", **local_profile(torch, dev, trainer, pool))
     del trainer, state
 
-    # -- 8. times ----------------------------------------------------------------
+    # -- 9. times ----------------------------------------------------------------
     kernels = times_phase(torch, scatter, dev, errs, launches)
     for k in kernels:
         if k["name"] in ("apply", "gather"):
@@ -377,8 +419,13 @@ def table_push_vs_cpu(torch, dev):
 # ---------------------------------------------------------------------------
 
 
-def build_cluster(torch, device, *, rows, fused, n_workers, min_bucket=256):
+def build_cluster(torch, device, *, rows, fused, n_workers, min_bucket=256,
+                  devobs=None, coalesce=False):
+    """2 servers and ``n_workers`` workers of config #1 on a LoopbackVan (or,
+    with ``coalesce``, a CoalescingVan over one); ``devobs`` is the servers'
+    ledger config (None: the default, enabled ledger)."""
     from parameter_server_tpu_torch.config import OptimizerConfig, TableConfig
+    from parameter_server_tpu_torch.core.coalesce import CoalescingVan
     from parameter_server_tpu_torch.core.postoffice import Postoffice
     from parameter_server_tpu_torch.core.van import LoopbackVan
     from parameter_server_tpu_torch.kv.server import KVServer
@@ -389,8 +436,8 @@ def build_cluster(torch, device, *, rows, fused, n_workers, min_bucket=256):
         optimizer=OptimizerConfig(kind="adagrad", learning_rate=0.05),
         fused_apply=fused,
     )}
-    van = LoopbackVan()
-    servers = [KVServer(Postoffice(f"S{i}", van), cfgs, i, 2, device=device)
+    van = CoalescingVan(LoopbackVan()) if coalesce else LoopbackVan()
+    servers = [KVServer(Postoffice(f"S{i}", van), cfgs, i, 2, device=device, devobs=devobs)
                for i in range(2)]
     workers = [KVWorker(Postoffice(f"W{i}", van), cfgs, 2, min_bucket=min_bucket,
                         device=device)
@@ -398,12 +445,54 @@ def build_cluster(torch, device, *, rows, fused, n_workers, min_bucket=256):
     return van, servers, workers
 
 
-def run_loop(torch, dev, *, fused, steps):
+def close_cluster(van, servers):
+    van.close()
+    for srv in servers:
+        if srv.ledger is not None:
+            srv.ledger.close()
+
+
+def ledger_stats(servers, per_push=True):
+    """Drain every server's apply ledger and hold it to its pushes: applies
+    submitted == retired (== pushes where every push is its own apply,
+    ``per_push``), none censored, one ``apply.w`` digest sample an entry;
+    the four digests merged over the servers, as p50 / p99 in ms (bucket
+    upper bounds, 25% wide)."""
+    from parameter_server_tpu_torch.utils.trace import LatencyHistogram
+
+    totals = dict.fromkeys(("pushes", "applies_submitted", "applies_retired",
+                            "applies_censored"), 0)
+    merged = {name: LatencyHistogram() for name in ("apply", "apply_host", "apply_h2d",
+                                                    "apply_dev")}
+    for srv in servers:
+        check(srv.ledger.drain(60.0), f"{srv.post.node_id}: the ledger did not drain")
+        c = srv.ledger.counters()
+        entries = srv.pushes if per_push else c["applies_submitted"]
+        check(c["applies_submitted"] == c["applies_retired"] == entries,
+              f"{srv.post.node_id}: ledger {c} for {srv.pushes} pushes")
+        check(c["applies_censored"] == 0, f"{srv.post.node_id}: censored applies {c}")
+        digests = srv.latency_digests()
+        check(digests["apply.w"]["count"] == entries,
+              f"{srv.post.node_id}: apply.w digest {digests['apply.w']['count']} samples "
+              f"for {entries} entries")
+        totals["pushes"] += srv.pushes
+        for k in ("applies_submitted", "applies_retired", "applies_censored"):
+            totals[k] += c[k]
+        for name, hist in merged.items():
+            hist.merge_dict(digests[f"{name}.w"])
+    totals["ms"] = {name: {"p50": 1e3 * h.percentile(0.5), "p99": 1e3 * h.percentile(0.99),
+                           "count": h.count}
+                    for name, h in merged.items()}
+    return totals
+
+
+def run_loop(torch, dev, *, fused, steps, devobs=None, coalesce=False):
     from parameter_server_tpu_torch.config import ConsistencyConfig
     from parameter_server_tpu_torch.data.synthetic import SyntheticCTR
     from parameter_server_tpu_torch.learner.sgd import AsyncLRLearner
 
-    van, servers, workers = build_cluster(torch, dev, rows=ROWS, fused=fused, n_workers=2)
+    van, servers, workers = build_cluster(torch, dev, rows=ROWS, fused=fused, n_workers=2,
+                                          devobs=devobs, coalesce=coalesce)
     try:
         data = [SyntheticCTR(key_space=KEY_SPACE, nnz=NNZ, batch_size=BATCH, seed=i,
                              informative=0.1) for i in range(2)]
@@ -425,11 +514,16 @@ def run_loop(torch, dev, *, fused, steps):
             for name, plane in [("value", tbl.value), *tbl.state.items()]:
                 check(bool((plane[-1] == fills[name]).all()),
                       f"trash row of {name} left its fill {fills[name]}")
-        return {"losses": losses, "examples_per_s": 2 * steps * BATCH / wall,
-                "devices": devices, "pulls": sum(srv.pulls for srv in servers),
-                "pushes": sum(srv.pushes for srv in servers)}
+        out = {"losses": losses, "examples_per_s": 2 * steps * BATCH / wall,
+               "devices": devices, "pulls": sum(srv.pulls for srv in servers),
+               "pushes": sum(srv.pushes for srv in servers)}
+        if servers[0].ledger is not None:
+            out["ledger"] = ledger_stats(servers)
+        if coalesce:
+            out["van"] = van.counters()
+        return out
     finally:
-        van.close()
+        close_cluster(van, servers)
 
 
 def profile_loop(torch, dev, steps=2):
@@ -442,7 +536,7 @@ def profile_loop(torch, dev, steps=2):
     from parameter_server_tpu_torch.data.synthetic import SyntheticCTR
     from parameter_server_tpu_torch.learner.sgd import AsyncLRLearner
 
-    van, _servers, workers = build_cluster(torch, dev, rows=ROWS, fused=True, n_workers=2)
+    van, servers, workers = build_cluster(torch, dev, rows=ROWS, fused=True, n_workers=2)
     try:
         data = [SyntheticCTR(key_space=KEY_SPACE, nnz=NNZ, batch_size=BATCH, seed=20 + i,
                              informative=0.1) for i in range(2)]
@@ -455,7 +549,7 @@ def profile_loop(torch, dev, steps=2):
             torch.cuda.synchronize()
             wall_ms = (time.perf_counter() - t0) * 1e3
     finally:
-        van.close()
+        close_cluster(van, servers)
     on_device = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
     busy_ms = sum(e.self_device_time_total for e in on_device) / 1e3
     top = sorted(on_device, key=lambda e: -e.self_device_time_total)[:6]
@@ -486,7 +580,7 @@ def small_reference(torch, dev):
                 [data.next_batch], 6, timeout=300)
             out[side] = (losses, [s.export_shard()["w"] for s in servers])
         finally:
-            van.close()
+            close_cluster(van, servers)
     lc, lg = np.asarray(out["cpu"][0]), np.asarray(out["card"][0])
     check(np.allclose(lg, lc, rtol=1e-4, atol=1e-4), f"losses {lg} vs cpu {lc}")
     err = 0.0
@@ -516,7 +610,7 @@ def determinism(torch, dev):
                 check(worker.wait(worker.push("w", keys, grads), timeout=300), "push ack")
             shards.append([s.export_shard()["w"] for s in servers])
         finally:
-            van.close()
+            close_cluster(van, servers)
     for a, b in zip(*shards):
         check(np.array_equal(a["value"], b["value"]), "value differs between runs")
         check(np.array_equal(a["state"]["sum_sq"], b["state"]["sum_sq"]),
@@ -576,6 +670,7 @@ def bundled_apply(torch, dev):
                 shards.append(srv.export_shard()["w"])
             finally:
                 van.close()
+                srv.ledger.close()
         planes = ["value"] + sorted(shards[0]["state"])
 
         def plane(s, p):
@@ -629,7 +724,540 @@ def combine_phase(torch, scatter, dev, errs):
 
 
 # ---------------------------------------------------------------------------
-# phase 7: the local (single-device) path
+# phase 7: the server's default planes (ledger, coalescing, localizer, flight recorder)
+# ---------------------------------------------------------------------------
+
+
+def _ms_quantiles(samples):
+    return {"median": float(np.median(samples)), "min": float(np.min(samples)),
+            "max": float(np.max(samples)), "n": len(samples)}
+
+
+def _server0_request(seed=0):
+    """Server 0's slice of one main-path batch as a wire PUSH: global ids
+    (pads == ROWS) and one gradient row each, pads zero."""
+    from parameter_server_tpu_torch.core.messages import Message, Task, TaskKind
+    from parameter_server_tpu_torch.kv.routing import RoutingTable
+
+    _keys, slots, _inverse, _n = _main_batch_slots()
+    _, _pos, ids0 = next(RoutingTable.uniform({"w": ROWS}, 2).slice_ids("w", slots))
+    vals = np.random.default_rng(seed).normal(size=(ids0.size, DIM)).astype(np.float32)
+    vals[ids0 >= ROWS] = 0
+
+    def msg(epoch=0):
+        return Message(task=Task(TaskKind.PUSH, "kv",
+                                 payload={"table": "w", "__repoch__": epoch}),
+                       sender="W0", recver="S0", keys=ids0.astype(np.int32), values=[vals])
+    return msg
+
+
+def ack_sync_free(torch, dev):
+    """The push ack path at server 0's main-path request under
+    ``torch.cuda.set_sync_debug_mode("error")``: one single push and one
+    bundled apply of two members, ledger registration included; then a
+    push with a stale routing epoch, which must be fenced (``fence.routing``).
+    Also whether a CUDA event's ``query()`` / ``synchronize()`` (the reaper's
+    calls) trip the mode."""
+    from parameter_server_tpu_torch.config import OptimizerConfig, TableConfig
+    from parameter_server_tpu_torch.core.postoffice import Postoffice
+    from parameter_server_tpu_torch.core.van import LoopbackVan
+    from parameter_server_tpu_torch.kv.server import KVServer
+
+    cfgs = {"w": TableConfig(name="w", rows=ROWS, dim=DIM,
+                             optimizer=OptimizerConfig(kind="adagrad", learning_rate=0.05))}
+    van = LoopbackVan()
+    srv = KVServer(Postoffice("S0", van), cfgs, 0, 2, device=dev)
+    msg = _server0_request()
+    try:
+        srv.handle_request(msg())  # warm: pinned pool, reaper thread
+        torch.cuda.synchronize()
+        check(srv.ledger.drain(30.0), "ack path warm-up did not retire")
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            single = srv.handle_request(msg())
+            batch = srv.handle_request_batch([msg(), msg()])
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        check("__error__" not in single.task.payload, "sync-free single push failed")
+        check(all("__error__" not in r.task.payload for r in batch), "sync-free bundle failed")
+        event_trips = {}
+        for call in ("query", "synchronize"):
+            event = torch.cuda.Event(blocking=True)
+            event.record()
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                getattr(event, call)()
+                event_trips[call] = False
+            except RuntimeError:
+                event_trips[call] = True
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+        fenced = srv.handle_request(msg(epoch=5))
+        check(fenced.task.payload.get("__fenced__") is True, "stale-epoch push not fenced")
+        # warm-up, single push, one bundle: three applies for four pushes
+        stats = ledger_stats([srv], per_push=False)
+        check(stats["applies_submitted"] == 3 and stats["pushes"] == 4,
+              f"ack path ledger entries {stats}")
+    finally:
+        van.close()
+        srv.ledger.close()
+    return {"ids": int(msg().keys.size), "sync_debug_mode": "error", "raised": False,
+            "single_push": True, "bundle_members": 2,
+            "ledger_entries_after_warmup": stats["applies_submitted"] - 1,
+            "event_trips_debug_mode": event_trips, "fenced": True}
+
+
+def event_wait(torch, dev, cycles=200_000_000):
+    """A blocking and a spinning ``torch.cuda.Event`` waited on from a second
+    thread behind a ~0.1 s ``torch.cuda._sleep``: the waiter's wall and CPU
+    time, and how far the main thread's Python loop got meanwhile (it runs
+    only while the waiter has released the GIL)."""
+    import threading
+
+    out = {}
+    for name, blocking in (("sleeping_thread", None), ("blocking", True), ("spinning", False),
+                           ("blocking_2", True)):
+        torch.cuda.synchronize()
+        event = torch.cuda.Event(blocking=bool(blocking))
+        torch.cuda._sleep(cycles)
+        event.record()
+        res = {}
+
+        def waiter():
+            c0, t0 = time.thread_time(), time.perf_counter()
+            if blocking is None:  # the reference: a thread that sleeps
+                time.sleep(0.1)
+            else:
+                event.synchronize()
+            res["wall_ms"] = (time.perf_counter() - t0) * 1e3
+            res["cpu_ms"] = (time.thread_time() - c0) * 1e3
+
+        th = threading.Thread(target=waiter)
+        th.start()
+        iters, t0 = 0, time.perf_counter()
+        while th.is_alive():
+            iters += 1
+        main_ms = (time.perf_counter() - t0) * 1e3
+        th.join()
+        res["main_thread_iters_per_ms"] = iters / main_ms
+        res["waiter_cpu_share"] = res["cpu_ms"] / res["wall_ms"]
+        out[name] = res
+    torch.cuda.synchronize()
+    base = out["sleeping_thread"]["main_thread_iters_per_ms"]
+    for name in ("blocking", "blocking_2"):
+        check(out[name]["main_thread_iters_per_ms"] > 0.5 * base,
+              f"{name} event wait held the GIL: {out}")
+    return out
+
+
+def backlog_leg(torch, dev, hold_cycles=400_000_000):
+    """``LedgerConfig(backlog_bundles=1)`` at the apply-engine shape: 16
+    single pushes of 2048 ids (2048-row pool, dim 128, Adam, 2^15 rows) sent
+    back to back by one worker, their pre-combine done beforehand.  First as
+    they come; then with the card held behind a ~0.2 s ``torch.cuda._sleep``
+    queued first, so the applies wait on the stream: the acks must carry
+    ``__busy__`` (``server_busy``), and ``apply.backlog`` enter then clear
+    must land in the flight recorder."""
+    from parameter_server_tpu_torch.config import LedgerConfig, OptimizerConfig, TableConfig
+    from parameter_server_tpu_torch.core import flightrec
+    from parameter_server_tpu_torch.core.postoffice import Postoffice
+    from parameter_server_tpu_torch.core.van import LoopbackVan
+    from parameter_server_tpu_torch.kv.server import KVServer
+    from parameter_server_tpu_torch.kv.worker import KVWorker
+    from parameter_server_tpu_torch.utils.keys import IdentityLocalizer
+
+    k, batch, pool, dim, rows = 16, 2048, 2048, 128, 1 << 15
+    cfgs = {"w": TableConfig(name="w", rows=rows, dim=dim,
+                             optimizer=OptimizerConfig(kind="adam", learning_rate=0.05))}
+    van = LoopbackVan()
+    srv = KVServer(Postoffice("S0", van), cfgs, 0, 1, device=dev,
+                   devobs=LedgerConfig(backlog_bundles=1))
+    worker = KVWorker(Postoffice("W0", van), cfgs, 1, device=dev,
+                      localizers={"w": IdentityLocalizer(rows)})
+    rng = np.random.default_rng(1)
+    prepared = [worker._prepare_push("w", rng.choice(pool, size=batch, replace=False)
+                                     .astype(np.uint64),
+                                     rng.standard_normal((batch, dim)).astype(np.float32))
+                for _ in range(k)]
+    out = {}
+    try:
+        for leg in ("as_sent", "card_held"):
+            torch.cuda.synchronize()
+            check(srv.ledger.drain(30.0), "backlog leg: ledger did not drain")
+            hints0 = worker.busy_hints
+            seq0 = flightrec.get().events()[-1]["seq"] if len(flightrec.get()) else -1
+            if leg == "card_held":
+                torch.cuda._sleep(hold_cycles)
+            t0 = time.perf_counter()
+            ts = [worker._submit_push("w", slots, comb)[0] for slots, comb in prepared]
+            check(all(worker.wait(t, timeout=120) for t in ts), "backlog leg: acks")
+            acks_ms = (time.perf_counter() - t0) * 1e3
+            busy_now = worker.server_busy("S0")
+            inflight = srv.ledger.counters()["inflight_bundles"]
+            torch.cuda.synchronize()
+            check(srv.ledger.drain(30.0), "backlog leg: ledger did not drain")
+            edges = [e["state"] for e in flightrec.get().events_since(seq0)
+                     if e["kind"] == "apply.backlog" and e.get("node") == "S0"]
+            out[leg] = {"pushes": k, "acks_ms": acks_ms, "busy_hints": worker.busy_hints - hints0,
+                        "server_busy": busy_now, "inflight_after_acks": inflight,
+                        "backlog_events": edges, "overloaded_after_drain": srv.ledger.overloaded()}
+        held = out["card_held"]
+        check(held["server_busy"] and held["busy_hints"] > 0,
+              f"backlog leg: the worker never saw __busy__ ({held})")
+        check(held["backlog_events"][:1] == ["enter"] and held["backlog_events"][-1:] == ["clear"],
+              f"backlog leg: apply.backlog events {held['backlog_events']}")
+        check(not held["overloaded_after_drain"], "backlog leg: still overloaded after drain")
+        c = srv.ledger.counters()
+        check(c["applies_submitted"] == c["applies_retired"] == 2 * k
+              and c["applies_censored"] == 0, f"backlog leg ledger {c}")
+    finally:
+        van.close()
+        srv.ledger.close()
+    out["hold_cycles"] = hold_cycles
+    return out
+
+
+def ledger_phase(torch, dev, main_ledger):
+    """The main run's ledger, then the PS loop with the ledger on and off in
+    ``LEDGER_PAIRS`` pairs, alternating which runs first (medians,
+    quartiles, pairs the ledger-on run won), the ack path under sync debug
+    mode, the event wait, and the backlog leg."""
+    from parameter_server_tpu_torch.config import LedgerConfig
+
+    rates = {"on": [], "off": []}
+    for pair in range(LEDGER_PAIRS):
+        for which in (("on", "off"), ("off", "on"))[pair % 2]:
+            r = run_loop(torch, dev, fused=True, steps=LEDGER_STEPS,
+                         devobs=None if which == "on" else LedgerConfig(enabled=False))
+            check(("ledger" in r) == (which == "on"), f"ledger {which}: {sorted(r)}")
+            rates[which].append(r["examples_per_s"])
+    med = {k: float(np.median(v)) for k, v in rates.items()}
+    return {
+        "main": main_ledger, "steps_per_worker": LEDGER_STEPS, "pairs": LEDGER_PAIRS,
+        "examples_per_s": rates, "examples_per_s_median": med,
+        "examples_per_s_quartiles": {k: [float(q) for q in np.percentile(v, [25, 75])]
+                                     for k, v in rates.items()},
+        "pairs_on_faster": int(sum(a > b for a, b in zip(rates["on"], rates["off"]))),
+        "on_vs_off": med["on"] / med["off"] - 1.0,
+        "ack_sync_free": ack_sync_free(torch, dev),
+        "event_wait": event_wait(torch, dev),
+        "backlog": backlog_leg(torch, dev),
+    }
+
+
+def ordered_loop(torch, dev, *, coalesce, steps=ORDERED_STEPS):
+    """The config #1 loop driven in a fixed order, at full width: each step,
+    W0 then W1 pushes its gradient and pulls the next batch's weights in one
+    ``coalesce_window`` (on the coalescing stack, one bundle per server of a
+    PUSH and a PULL through the apply engine).  The same operations reach
+    the servers in the same order on either stack."""
+    from parameter_server_tpu_torch.data.synthetic import SyntheticCTR
+    from parameter_server_tpu_torch.models import linear
+
+    van, servers, workers = build_cluster(torch, dev, rows=ROWS, fused=True, n_workers=2,
+                                          coalesce=coalesce)
+    try:
+        data = [SyntheticCTR(key_space=KEY_SPACE, nnz=NNZ, batch_size=BATCH, seed=30 + i,
+                             informative=0.1) for i in range(2)]
+        batches = [d.next_batch() for d in data]
+        weights = [w.pull_sync("w", b[0], timeout=300) for w, b in zip(workers, batches)]
+        for _ in range(steps):
+            for i, (w, d) in enumerate(zip(workers, data)):
+                keys, labels = batches[i]
+                g, _gb, _loss = linear.grad_rows(torch.tensor(weights[i], device=dev),
+                                                 torch.tensor(labels, device=dev))
+                batches[i] = d.next_batch()
+                with w.coalesce_window():
+                    push_ts = w.push("w", keys, g.cpu().numpy() / labels.shape[0])
+                    pull_ts = w.pull("w", batches[i][0])
+                check(w.wait(push_ts, timeout=300), "ordered loop push ack")
+                weights[i] = w.pull_result(pull_ts, timeout=300)
+        torch.cuda.synchronize()
+        out = {"tables": [s.export_shard()["w"] for s in servers],
+               "pushes": sum(s.pushes for s in servers), "pulls": sum(s.pulls for s in servers),
+               "ledger": ledger_stats(servers)}
+        if coalesce:
+            out["van"] = van.counters()
+        return out
+    finally:
+        close_cluster(van, servers)
+
+
+def apply_engine_leg(torch, scatter, dev, policy, reps=7):
+    """bench.py's apply-engine shape (``bench.py:1778-1789``): 16 pushes of
+    2048 ids from a 2048-row pool, dim 128, Adam, 2^15 rows.  One worker
+    sends them in one ``coalesce_window``: one bundle, one
+    ``handle_request_batch`` call, one ledger entry.  Then bench.py's timing
+    (``bench.py:1842-1864``) on the bundle the server received, replayed on
+    fresh servers: ms per bundle through ``handle_request_batch`` and the
+    same 16 pushes one ``handle_request`` each, device completion included
+    (``torch.cuda.synchronize`` outside the server), interleaved, medians."""
+    from parameter_server_tpu_torch.config import ApplyEngineConfig, OptimizerConfig, TableConfig
+    from parameter_server_tpu_torch.core.coalesce import CoalescingVan
+    from parameter_server_tpu_torch.core.messages import Message, Task, TaskKind
+    from parameter_server_tpu_torch.core.postoffice import Postoffice
+    from parameter_server_tpu_torch.core.van import LoopbackVan
+    from parameter_server_tpu_torch.kv.server import KVServer
+    from parameter_server_tpu_torch.kv.worker import KVWorker
+    from parameter_server_tpu_torch.utils.keys import IdentityLocalizer
+
+    k, batch, pool, dim, rows = 16, 2048, 2048, 128, 1 << 15
+    cfgs = {"w": TableConfig(name="w", rows=rows, dim=dim,
+                             optimizer=OptimizerConfig(kind="adam", learning_rate=0.05))}
+    engine = ApplyEngineConfig(apply_batch=k, dup_policy=policy)
+    rng = np.random.default_rng(0)
+    pushes = [(np.sort(rng.choice(pool, size=batch, replace=False)).astype(np.uint64),
+               rng.standard_normal((batch, dim)).astype(np.float32)) for _ in range(k)]
+
+    def server(van):
+        return KVServer(Postoffice("S0", van), cfgs, 0, 1, apply=engine, device=dev)
+
+    van = CoalescingVan(LoopbackVan())
+    srv = server(van)
+    bundles = []
+    real_batch = srv.handle_request_batch
+
+    def spy(msgs):
+        bundles.append(list(msgs))
+        return real_batch(msgs)
+
+    srv.handle_request_batch = spy
+    try:
+        worker = KVWorker(Postoffice("W0", van), cfgs, 1, device=dev,
+                          localizers={"w": IdentityLocalizer(rows)})
+        torch.cuda.synchronize()
+        scatter.reset_launch_counts()
+        with worker.coalesce_window():
+            ts = [worker.push("w", keys, g) for keys, g in pushes]
+        check(all(worker.wait(t, timeout=120) for t in ts), f"{policy}: bundle acks")
+        torch.cuda.synchronize()
+        launches = scatter.launch_counts()
+        check(srv.ledger.drain(30.0), f"{policy}: ledger did not drain")
+        ledger = srv.ledger.counters()
+        coalesce = van.counters()
+        window_table = srv.export_shard()["w"]
+    finally:
+        van.close()
+        srv.ledger.close()
+    check(len(bundles) == 1 and len(bundles[0]) == k,
+          f"{policy}: {[len(b) for b in bundles]} handle_request_batch calls for {k} pushes")
+    check(ledger["applies_submitted"] == ledger["applies_retired"] == 1
+          and ledger["applies_censored"] == 0, f"{policy}: ledger {ledger}")
+    msgs = bundles[0]
+    ids_all = np.concatenate([m.keys for m in msgs]).astype(np.int64)
+    want_launches = int(np.bincount(ids_all).max()) if policy == "rounds" else 1
+    check(launches["apply"] == want_launches,
+          f"{policy}: {launches['apply']} ps_apply launches, want {want_launches}")
+
+    # the per-request reference ("rounds": the same pushes one by one,
+    # bitwise) or the sum reference ("combine": one push of the per-row
+    # sums in member order, 1e-5)
+    van = LoopbackVan()
+    ref_srv = server(van)
+    try:
+        if policy == "rounds":
+            for m in msgs:
+                ref_srv.handle_request(m)
+        else:
+            acc = np.zeros((rows, dim), np.float32)
+            for m in msgs:
+                acc[m.keys] += np.asarray(m.values[0]).reshape(-1, dim)
+            uids = np.unique(ids_all)
+            ref_srv.handle_request(Message(
+                task=Task(TaskKind.PUSH, "kv", payload={"table": "w"}), sender="W0",
+                recver="S0", keys=uids.astype(np.int32), values=[acc[uids]]))
+        ref_table = ref_srv.export_shard()["w"]
+    finally:
+        van.close()
+        ref_srv.ledger.close()
+    err = 0.0
+    for name in ["value", *sorted(window_table["state"])]:
+        a = window_table["value"] if name == "value" else window_table["state"][name]
+        b = ref_table["value"] if name == "value" else ref_table["state"][name]
+        err = max(err, float(np.abs(a - b).max()))
+        if policy == "rounds":
+            check(np.array_equal(a, b), f"rounds: {name} differs from the per-request table")
+        else:
+            check(np.allclose(a, b, rtol=1e-5, atol=1e-5),
+                  f"combine: {name} vs the summed push, max err {err}")
+
+    # bench.py's timing on the received bundle, replayed
+    samples = {"bundled": [], "per_request": []}
+    vans = [LoopbackVan(), LoopbackVan()]
+    arms = {"bundled": server(vans[0]), "per_request": server(vans[1])}
+    try:
+        def once(arm):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            if arm == "bundled":
+                arms[arm].handle_request_batch(list(msgs))
+            else:
+                for m in msgs:
+                    arms[arm].handle_request(m)
+            torch.cuda.synchronize()
+            return (time.perf_counter() - t0) * 1e3
+
+        once("bundled"), once("per_request")  # warm-up
+        for rep in range(reps):  # interleaved: b, p, p, b, b, p, ...
+            for arm in (("bundled", "per_request"), ("per_request", "bundled"))[rep % 2]:
+                samples[arm].append(once(arm))
+    finally:
+        for v in vans:
+            v.close()
+        for a in arms.values():
+            a.ledger.close()
+    med = {arm: float(np.median(v)) for arm, v in samples.items()}
+    return {"members": k, "ids_per_push": batch, "pool": pool, "dim": dim, "rows": rows,
+            "handle_request_batch_calls": len(bundles), "bundle_members": len(msgs),
+            "ps_apply_launches_per_bundle": launches["apply"],
+            "ledger_entries_per_bundle": ledger["applies_submitted"],
+            "launches": launches, "coalesce": coalesce,
+            "max_abs_err_vs_reference": err,
+            "reference": "per-request, bitwise" if policy == "rounds"
+            else "one push of the per-row sums, rtol=atol=1e-5",
+            "ms_per_bundle": _ms_quantiles(samples["bundled"]),
+            "ms_per_request_arm": _ms_quantiles(samples["per_request"]),
+            "per_request_over_bundled": med["per_request"] / med["bundled"]}
+
+
+def coalesce_phase(torch, scatter, dev):
+    """The PS loop on ``CoalescingVan(LoopbackVan())``: the learner's loop
+    (timer-flushed frames), the ordered loop on both stacks (bitwise-equal
+    tables), and the apply-engine shape under both duplicate policies."""
+    scatter.reset_launch_counts()
+    loop = run_loop(torch, dev, fused=True, steps=COALESCE_STEPS, coalesce=True)
+    counts = scatter.launch_counts()
+    check(counts["apply"] == loop["pushes"] and counts["gather"] == loop["pulls"],
+          f"coalesced loop launches {counts} for {loop['pushes']} pushes, {loop['pulls']} pulls")
+    check(all(np.isfinite(loop["losses"])), "coalesced loop losses")
+    runs = {side: ordered_loop(torch, dev, coalesce=side == "coalesced")
+            for side in ("plain", "coalesced")}
+    for a, b in zip(runs["plain"]["tables"], runs["coalesced"]["tables"]):
+        check(np.array_equal(a["value"], b["value"])
+              and np.array_equal(a["state"]["sum_sq"], b["state"]["sum_sq"]),
+              "ordered loop: coalesced tables differ from the plain stack's")
+    van = runs["coalesced"]["van"]
+    check(van["coalesce_msgs"] > van["coalesce_frames"], f"ordered loop never bundled: {van}")
+    return {
+        "loop": {"steps_per_worker": COALESCE_STEPS, "examples_per_s": loop["examples_per_s"],
+                 "loss_first": float(np.mean(loop["losses"][:2])),
+                 "loss_last": float(np.mean(loop["losses"][-2:])),
+                 "launches": counts, "van": loop["van"], "ledger": loop["ledger"]},
+        "ordered": {"steps": ORDERED_STEPS, "workers": 2, "servers": 2,
+                    "pushes": runs["coalesced"]["pushes"], "pulls": runs["coalesced"]["pulls"],
+                    "bitwise_equal_tables": True, "van": van,
+                    "ledger": runs["coalesced"]["ledger"]},
+        "apply_engine": {p: apply_engine_leg(torch, scatter, dev, p)
+                         for p in ("rounds", "combine")},
+    }
+
+
+def localizer_phase():
+    """One config #1 batch (638,976 keys) through ``Localizer(2^22)`` on the
+    native keymap (built with g++ at first use) and on the numpy engine:
+    identical slots; keys per second of a first pass (inserts) and a second
+    pass (lookups), host clock."""
+    from parameter_server_tpu_torch import native
+    from parameter_server_tpu_torch.utils import keys as keys_mod
+
+    flat = _main_batch_slots()[0].reshape(-1).astype(np.uint64)
+    t0 = time.perf_counter()
+    engines = {"native": keys_mod.Localizer(ROWS)}
+    build_s = time.perf_counter() - t0
+    check(engines["native"]._native is not None,
+          "the native keymap did not build: Localizer fell back to numpy")
+    real = keys_mod._native_keymap
+    keys_mod._native_keymap = lambda cap: None
+    try:
+        engines["numpy"] = keys_mod.Localizer(ROWS)
+    finally:
+        keys_mod._native_keymap = real
+    check(engines["numpy"]._native is None, "numpy engine")
+    out, slots = {}, {}
+    for name, loc in engines.items():
+        passes = []
+        for _ in range(2):
+            t0 = time.perf_counter()
+            got = loc.assign(flat)
+            passes.append(time.perf_counter() - t0)
+            slots.setdefault(name, got)
+            check(np.array_equal(got, slots[name]), f"{name}: second pass moved a slot")
+        out[name] = {"insert_keys_per_s": flat.size / passes[0],
+                     "lookup_keys_per_s": flat.size / passes[1],
+                     "vocab": len(loc), "overflowed": bool(loc.overflowed)}
+    check(np.array_equal(slots["native"], slots["numpy"]), "native slots differ from numpy's")
+    return {"keys": int(flat.size), "unique": int(np.unique(flat).size), "capacity": ROWS,
+            "engine": "native", "library": native.library_path("keymap").split("/")[-1],
+            "first_load_s": build_s, "slots_equal": True, **out}
+
+
+def flightrec_phase():
+    """The flight recorder after the phases above: a failing handler on a
+    throwaway node journals ``recv.exception`` and its receive thread keeps
+    serving; then ``dump()`` into the build directory, every bundle read
+    back as JSON with the fields ``tools/postmortem.py`` reads."""
+    import collections
+    import pathlib
+    import shutil
+
+    from parameter_server_tpu_torch.core import flightrec
+    from parameter_server_tpu_torch.core.messages import Message, Task, TaskKind
+    from parameter_server_tpu_torch.core.van import LoopbackVan
+
+    van = LoopbackVan()
+    served = []
+
+    def handler(msg):
+        if msg.task.time == 0:
+            raise RuntimeError("chip_smoke: deliberate handler failure")
+        served.append(msg.task.time)
+
+    try:
+        van.bind("SMOKE_X", handler)
+        for t in (0, 1):
+            van.send(Message(task=Task(TaskKind.CONTROL, "c", time=t), sender="SMOKE_W",
+                             recver="SMOKE_X"))
+        deadline = time.monotonic() + 10
+        while served != [1] and time.monotonic() < deadline:
+            time.sleep(0.005)
+    finally:
+        van.close()
+    check(served == [1], f"the receive thread stopped serving: {served}")
+    exc = [e for e in flightrec.get().events()
+           if e["kind"] == "recv.exception" and e.get("node") == "SMOKE_X"]
+    check(len(exc) == 1 and exc[0]["exc_type"] == "RuntimeError", f"recv.exception {exc}")
+
+    out_dir = (pathlib.Path(__file__).resolve().parent / "parameter_server_tpu_torch"
+               / "build" / "flightrec_dump")
+    shutil.rmtree(out_dir, ignore_errors=True)
+    try:
+        paths = flightrec.dump(str(out_dir), reason="chip_smoke")
+        kinds, nodes = collections.Counter(), []
+        for path in paths:
+            with open(path) as f:
+                doc = json.load(f)
+            for field in ("node", "events", "wall_anchor_s", "mono_anchor_s", "clock_offset_s",
+                          "counters"):
+                check(field in doc, f"{path}: no {field!r}")
+            check(all({"kind", "seq", "t_mono_s"} <= set(e) for e in doc["events"]),
+                  f"{path}: an event without kind/seq/t_mono_s")
+            kinds.update(e["kind"] for e in doc["events"])
+            nodes.append(doc["node"])
+    finally:
+        shutil.rmtree(out_dir, ignore_errors=True)
+    for kind in ("apply.submit", "apply.done", "apply.backlog", "bundle.flush", "fence.routing",
+                 "recv.exception", "postmortem.dump"):
+        check(kinds[kind] > 0, f"no {kind} event in the dump")
+    check(kinds["apply.submit"] == kinds["apply.done"],
+          f"apply.submit {kinds['apply.submit']} != apply.done {kinds['apply.done']}")
+    check(set(kinds) <= flightrec.EVENTS, f"unregistered kinds {set(kinds) - flightrec.EVENTS}")
+    return {"bundles": len(paths), "nodes": sorted(nodes), "events": sum(kinds.values()),
+            "ring_capacity": flightrec.get()._ring.maxlen, "by_kind": dict(sorted(kinds.items())),
+            "recv_exception_kept_serving": True}
+
+
+# ---------------------------------------------------------------------------
+# phase 8: the local (single-device) path
 # ---------------------------------------------------------------------------
 
 
@@ -896,7 +1524,7 @@ def local_profile(torch, dev, trainer, pool, blocks=2):
 
 
 # ---------------------------------------------------------------------------
-# phase 8
+# phase 9
 # ---------------------------------------------------------------------------
 
 
@@ -1258,8 +1886,8 @@ def precombine_ms(torch, dev, keys):
     from parameter_server_tpu_torch.ops.scatter import segment_combine
     from parameter_server_tpu_torch.utils.keys import HashLocalizer, localize_to_slots
 
-    van, _servers, (worker,) = build_cluster(torch, dev, rows=ROWS, fused=True,
-                                             n_workers=1)
+    van, servers, (worker,) = build_cluster(torch, dev, rows=ROWS, fused=True,
+                                            n_workers=1)
     try:
         grads = np.random.default_rng(3).normal(size=keys.shape).astype(np.float32)
         slots, inverse, _n = localize_to_slots(keys, HashLocalizer(ROWS), min_bucket=256)
@@ -1281,7 +1909,7 @@ def precombine_ms(torch, dev, keys):
         out["positions"] = int(keys.size)
         return out
     finally:
-        van.close()
+        close_cluster(van, servers)
 
 
 if __name__ == "__main__":

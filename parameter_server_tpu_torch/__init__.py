@@ -1,4 +1,6 @@
-"""PyTorch/CUDA port of the parameter server (first slice: the sparse-LR loop).
+"""PyTorch/CUDA port of the parameter server: the sparse-LR PS loop with its
+server's default planes (apply ledger, flight recorder, wire coalescing, the
+native ``Localizer``) and the single-device trainer.
 
 The JAX package ``parameter_server_tpu`` is the reference; this package keeps
 its module layout and names so each counterpart sits at the same path.  It

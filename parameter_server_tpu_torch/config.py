@@ -1,5 +1,6 @@
 """Configuration dataclasses: the fields of the JAX package's ``config.py``
-that the sparse-LR push/pull loop reads, with the same names and defaults."""
+that the sparse-LR push/pull loop and the server's apply ledger read, with
+the same names and defaults."""
 
 from __future__ import annotations
 
@@ -63,6 +64,41 @@ class ApplyEngineConfig:
 
     apply_batch: int = 16
     dup_policy: str = "rounds"
+
+
+@dataclasses.dataclass(frozen=True)
+class LedgerConfig:
+    """Device-plane observability knobs (the server's ApplyLedger).
+
+    Push acks are sync-free, so the ack never observes the device apply:
+    true apply latency, device queue depth, and the host-assembly/H2D/compute
+    split are invisible to it.  The ledger (``kv/ledger.py``) registers every
+    in-flight apply at dispatch and retires it from a background reaper
+    thread once its completion handle (a CUDA event on the card) reports
+    done — never from the ack path, so the sync-free contract holds.  Between
+    completions the reaper waits on the oldest in-flight handle;
+    ``reap_interval_s`` is only the degraded-mode poll cadence (a handle
+    whose poll raises, ``drain``).
+
+    Backlog bounds drive the soft-backpressure hint: when any configured
+    bound is exceeded, the server stamps ``__busy__`` into push acks and the
+    ``apply.backlog`` flight-recorder event fires edge-triggered.  A bound
+    of 0 disables that bound; all bounds 0 (the default) means the ledger
+    observes but never hints.
+    """
+
+    enabled: bool = True
+    #: reaper poll period; also bounds device-latency measurement error.
+    reap_interval_s: float = 0.001
+    #: reaper self-stops after this long with nothing in flight (restarted
+    #: lazily on the next submit) — idle servers pay zero poll cost.
+    idle_stop_s: float = 2.0
+    #: backpressure bounds (0 = unbounded): in-flight device applies ...
+    backlog_bundles: int = 0
+    #: ... in-flight rows across those applies ...
+    backlog_rows: int = 0
+    #: ... and age of the oldest un-retired apply, in seconds.
+    backlog_age_s: float = 0.0
 
 
 @dataclasses.dataclass(frozen=True)

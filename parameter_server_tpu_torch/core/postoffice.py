@@ -10,8 +10,10 @@ therefore satisfied structurally; cross-worker staleness gating happens at
 dispatch time via :class:`~parameter_server_tpu_torch.core.clock.ConsistencyController`
 (SURVEY.md §7 design stance: gate dispatch, don't park device work).
 
-Copied from the JAX package's ``core/postoffice.py`` (which imports no JAX)
-without its flight-recorder hook, which is not ported yet.
+Copied from the JAX package's ``core/postoffice.py`` (which imports no JAX),
+its ``cancel.drop`` flight-recorder record included.  ``recv_batch`` is the
+grouped route a :class:`~parameter_server_tpu_torch.core.coalesce.CoalescingVan`
+bundle takes to the server's apply engine.
 """
 
 from __future__ import annotations
@@ -22,6 +24,7 @@ import logging
 import threading
 from typing import Callable, Optional
 
+from parameter_server_tpu_torch.core import flightrec
 from parameter_server_tpu_torch.core.messages import (
     Message,
     Task,
@@ -110,6 +113,10 @@ class Postoffice:
         ):
             return False
         self.cancelled_drops += 1
+        flightrec.record(
+            "cancel.drop", node=self.node_id, sender=msg.sender,
+            customer=msg.task.customer, ts=msg.task.time,
+        )
         logging.getLogger(__name__).info(
             "%s: dropped cancelled request ts=%s from %s/%s",
             self.node_id,

@@ -1,12 +1,15 @@
 """Van: the transport layer.
 
 Counterpart of ``parameter_server_tpu/core/van.py``: the :class:`Van`
-interface and the in-process :class:`LoopbackVan` (queues plus one receive
-thread per bound node, per-sender FIFO).  Handlers run on those receive
-threads, so a server's kernels launch off the main thread, on the current
-CUDA stream of that thread (the device's default stream).  Filter chains,
-fault injection, the TCP van and the flight recorder hook are not ported
-yet.
+interface, the :class:`VanWrapper` base of decorator vans (the port's
+:class:`~parameter_server_tpu_torch.core.coalesce.CoalescingVan`), and the
+in-process :class:`LoopbackVan` (queues plus one receive thread per bound
+node, per-sender FIFO, ``sent`` / ``dropped`` counters).  Handlers run on
+those receive threads, so a server's kernels launch off the main thread, on
+the current CUDA stream of that thread (the device's default stream).  A
+handler exception is logged and journaled to the flight recorder
+(``recv.exception``); the thread keeps serving.  Filter chains, fault
+injection (``disconnect``) and the TCP van are not ported yet.
 """
 
 from __future__ import annotations
@@ -16,6 +19,7 @@ import queue
 import threading
 from typing import Callable, Optional
 
+from parameter_server_tpu_torch.core import flightrec
 from parameter_server_tpu_torch.core.messages import Message
 
 
@@ -37,6 +41,52 @@ class Van:
     def close(self) -> None:
         pass
 
+    def flush(self, timeout: float = 5.0) -> bool:
+        """Block until buffered / in-flight frames are settled.
+
+        Base transports deliver synchronously, so this is a no-op; layers
+        that buffer (``CoalescingVan``) override it.  Returns False on
+        timeout.
+        """
+        return True
+
+    def counters(self) -> dict:
+        """Dashboard counters (summed across a wrapper stack)."""
+        return {}
+
+
+class VanWrapper(Van):
+    """Base for decorator Vans (coalescing).
+
+    Delegates the Van interface to ``inner`` explicitly and everything else
+    through ``__getattr__``, so a stack like ``CoalescingVan(LoopbackVan())``
+    is a drop-in Van for the Postoffice.
+    """
+
+    def __init__(self, inner: Van) -> None:
+        self.inner = inner
+
+    def bind(self, node_id: str, handler: Callable[[Message], None]) -> None:
+        self.inner.bind(node_id, handler)
+
+    def send(self, msg: Message) -> bool:
+        return self.inner.send(msg)
+
+    def unbind(self, node_id: str) -> None:
+        self.inner.unbind(node_id)
+
+    def close(self) -> None:
+        self.inner.close()
+
+    def flush(self, timeout: float = 5.0) -> bool:
+        # explicit (not via __getattr__: the base-class no-op would shadow
+        # delegation) so flush() on any stack reaches every buffering layer
+        return self.inner.flush(timeout)
+
+    def __getattr__(self, name):
+        # only reached for attributes not defined on the wrapper itself
+        return getattr(self.inner, name)
+
 
 class _Endpoint:
     """A bound node: its inbox queue and receive thread."""
@@ -57,11 +107,17 @@ class _Endpoint:
                 return
             try:
                 self.handler(msg)
-            except Exception:  # noqa: BLE001 — a bad message must not kill
-                # the node's only receive thread
+            except Exception as e:  # noqa: BLE001 — a bad message must not
+                # kill the node's only receive thread
                 logging.getLogger(__name__).exception(
                     "van: handler error on node %r; message dropped", self.node_id
                 )
+                # black-box trigger: journal the exception and, when a dump
+                # dir is configured, capture the ring before it wraps
+                try:
+                    flightrec.on_recv_exception(self.node_id, e)
+                except Exception:  # noqa: BLE001 — observability must never
+                    pass  # take down the recv thread it exists to debug
 
     def stop(self) -> None:
         self.inbox.put(None)
@@ -78,6 +134,9 @@ class LoopbackVan(Van):
     def __init__(self) -> None:
         self._endpoints: dict[str, _Endpoint] = {}
         self._lock = threading.Lock()
+        #: counters for the dashboard (reference network_usage.h role).
+        self.sent_messages = 0
+        self.dropped_messages = 0
 
     def bind(self, node_id: str, handler: Callable[[Message], None]) -> None:
         with self._lock:
@@ -88,6 +147,10 @@ class LoopbackVan(Van):
     def send(self, msg: Message) -> bool:
         with self._lock:
             ep = self._endpoints.get(msg.recver)
+            if ep is None:
+                self.dropped_messages += 1
+            else:
+                self.sent_messages += 1
         if ep is None:
             return False
         ep.inbox.put(msg)
@@ -98,6 +161,13 @@ class LoopbackVan(Van):
             ep = self._endpoints.pop(node_id, None)
         if ep is not None:
             ep.stop()
+
+    def counters(self) -> dict:
+        with self._lock:
+            return {
+                "sent": self.sent_messages,
+                "dropped": self.dropped_messages,
+            }
 
     def close(self) -> None:
         with self._lock:

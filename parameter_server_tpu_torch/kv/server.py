@@ -17,9 +17,17 @@ pinned buffer is fresh per request; PyTorch's caching host allocator does not
 hand it out again before that copy has completed).  Pull replies are numpy,
 read back once per bundle.  The push ack never waits for the device.
 
-Not ported yet: the apply ledger, hot-row cache and read-only serving path,
-replica forwarding, live migration, snapshots, the consistency gate and
-request tracing.
+The apply ledger (``kv/ledger.py``, on by default as in the JAX server)
+registers every device apply — one entry per single push, one per grouped
+apply of a bundle — with a completion handle: on the card a CUDA event
+recorded on the receive thread's current stream right after the last
+launch.  Its reaper thread retires the entries; the ack only reads the
+ledger's ``overloaded()`` flag and stamps ``__busy__`` from it.  Routing
+fences journal ``fence.routing`` to the flight recorder.
+
+Not ported yet: hot-row cache and read-only serving path, replica
+forwarding, live migration, snapshots, the consistency gate and request
+tracing.
 """
 
 from __future__ import annotations
@@ -32,11 +40,14 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
-from parameter_server_tpu_torch.config import ApplyEngineConfig, TableConfig
+from parameter_server_tpu_torch.config import ApplyEngineConfig, LedgerConfig, TableConfig
 from parameter_server_tpu_torch.convert import shard_from_numpy
+from parameter_server_tpu_torch.core import flightrec
 from parameter_server_tpu_torch.core.messages import Message, TaskKind
 from parameter_server_tpu_torch.core.postoffice import Customer, Postoffice
+from parameter_server_tpu_torch.kv.ledger import COMPLETED, ApplyLedger
 from parameter_server_tpu_torch.kv.routing import (
+    BUSY_KEY,
     FENCED_KEY,
     ROUTING_EPOCH_KEY,
     ROUTING_KEY,
@@ -65,8 +76,11 @@ class KVServer(Customer):
         name: str = "kv",
         routing: Optional[RoutingTable] = None,
         apply: Optional[ApplyEngineConfig] = None,
+        devobs: Optional[LedgerConfig] = None,
         device: str | torch.device = "cuda",
     ) -> None:
+        """``devobs``: the apply ledger's knobs; the default builds an
+        enabled ledger, ``LedgerConfig(enabled=False)`` none."""
         super().__init__(name, post)
         self.device = torch.device(device)
         self.apply_cfg = apply or ApplyEngineConfig()
@@ -74,6 +88,14 @@ class KVServer(Customer):
             raise ValueError(
                 f"dup_policy must be rounds|combine, got {self.apply_cfg.dup_policy!r}"
             )
+        #: device-plane observability: the ApplyLedger registers every
+        #: launched device apply and retires it from its own reaper thread —
+        #: the ack path only READS the level-triggered ``overloaded()`` flag
+        #: (the ``__busy__`` hint), never device state.
+        devobs = devobs or LedgerConfig()
+        self.ledger: Optional[ApplyLedger] = (
+            ApplyLedger(post.node_id, devobs) if devobs.enabled else None
+        )
         self.server_index = server_index
         self.table_cfgs = table_cfgs
         self.routing = routing or RoutingTable.uniform(table_cfgs, num_servers)
@@ -141,6 +163,10 @@ class KVServer(Customer):
         """Typed reject: ``__error__`` + ``__fenced__`` + the current table
         and the shard's version stamp."""
         self.fenced_rejects += 1
+        flightrec.record(
+            "fence.routing", node=self.post.node_id, sender=msg.sender,
+            epoch=self.routing.epoch, why=why[:120],
+        )
         reply = msg.reply()
         payload = {
             "__error__": why,
@@ -198,11 +224,13 @@ class KVServer(Customer):
         return buf.to(self.device, non_blocking=True)
 
     def _stack_planes(
-        self, table: KVTable, group: List[tuple], k: int, bm: int
+        self, table: KVTable, group: List[tuple], k: int, bm: int, tok=None
     ) -> torch.Tensor:
         """The bundle's ``(k, bm, dim)`` value stack: wire planes pack into
         ONE pinned buffer and ride a single H2D copy; device-resident planes
-        stack on the device.  Pads are exact zeros either way."""
+        stack on the device.  Pads are exact zeros either way.  ``tok``: the
+        apply's ledger entry, whose host and H2D split points are marked
+        here."""
         dim = table.dim
         if all(not isinstance(m.values[0], torch.Tensor) for _, m, *_ in group):
             buf = self._pinned((k, bm, dim), torch.float32)
@@ -211,12 +239,45 @@ class KVServer(Customer):
                 n = int(ids_np.shape[0])
                 arr[i, :n] = np.asarray(m.values[0]).reshape(n, dim)
                 arr[i, n:] = 0.0
-            return buf.to(self.device, non_blocking=True)
+            if tok is not None:
+                tok.mark_host()  # pinned-buffer pack done; H2D is next
+            stack = buf.to(self.device, non_blocking=True)
+            if tok is not None:
+                tok.mark_h2d()
+            return stack
         planes = [
             self._upload_values(m.values[0], bm, int(ids_np.shape[0]), dim)
             for _, m, _, ids_np, _, _ in group
         ]
-        return torch.stack(planes)
+        if tok is not None:
+            tok.mark_host()  # device-resident planes: no host pack phase
+        stack = torch.stack(planes)
+        if tok is not None:
+            tok.mark_h2d()
+        return stack
+
+    def _completion_handle(self, stream=None):
+        """Completion handle of every apply launched so far on ``stream``:
+        a blocking CUDA event recorded there (no timing; ``synchronize()``
+        sleeps inside CUDA), or, on the CPU, where an apply has finished
+        when it returns, the completed handle."""
+        if self.device.type != "cuda":
+            return COMPLETED
+        event = torch.cuda.Event(blocking=True)
+        event.record(stream)
+        return event
+
+    def _submit_apply(self, tok) -> None:
+        """Register a launched apply with the ledger.  Its handle is recorded
+        on the stream the kernels went to (this receive thread's current
+        stream), after the last launch; the fallback records a fresh one on
+        the same stream."""
+        stream = (
+            torch.cuda.current_stream(self.device) if self.device.type == "cuda" else None
+        )
+        self.ledger.submit(
+            tok, self._completion_handle(stream), lambda: self._completion_handle(stream)
+        )
 
     def _readback(self, tensors: List[torch.Tensor]) -> List[np.ndarray]:
         """Device rows -> numpy with ONE synchronisation for all of them."""
@@ -269,9 +330,17 @@ class KVServer(Customer):
         table = self.tables[tname]
         n = int(ids_np.shape[0])
         b = _bucket(n)
-        ids = self._upload_ids(self._pad_ids(table, ids_np, b))
+        tok = self.ledger.begin(tname, 1, n) if self.ledger is not None else None
+        ids_host = self._pad_ids(table, ids_np, b)
+        if tok is not None:
+            tok.mark_host()
+        ids = self._upload_ids(ids_host)
         vals = self._upload_values(msg.values[0], b, n, table.dim)
+        if tok is not None:
+            tok.mark_h2d()
         table.push(ids, vals)
+        if tok is not None:
+            self._submit_apply(tok)
         return self._ack_push(msg, tname, kn, segs)
 
     def _ack_push(
@@ -290,7 +359,15 @@ class KVServer(Customer):
             sver = int(ver[segs].max())
         else:
             sver = self.version_max(tname)
-        return self._stamp_version(msg, msg.reply(), sver)
+        reply = self._stamp_version(msg, msg.reply(), sver)
+        if self.ledger is not None and self.ledger.overloaded():
+            # soft backpressure: the update WAS applied; the hint tells the
+            # worker to slow down.  overloaded() is a host-side flag the
+            # reaper maintains, so reading it keeps the ack sync-free;
+            # _stamp_version built a fresh payload dict, so the hint cannot
+            # leak into the sender's payload on a Loopback plane.
+            reply.task.payload[BUSY_KEY] = True
+        return reply
 
     def _pull_device(
         self, msg: Message, tname: str, ids_np: np.ndarray, segs: np.ndarray
@@ -412,7 +489,12 @@ class KVServer(Customer):
         table = self.tables[tname]
         k = len(group)
         bm = _bucket(max(int(g[3].shape[0]) for g in group))
-        stack = self._stack_planes(table, group, k, bm)
+        tok = (
+            self.ledger.begin(tname, k, sum(int(g[3].shape[0]) for g in group))
+            if self.ledger is not None
+            else None
+        )
+        stack = self._stack_planes(table, group, k, bm, tok)
         # flat positions of every REAL id occurrence, in member order
         ids_list = [g[3] for g in group]
         all_ids = np.concatenate(ids_list).astype(np.int64)
@@ -426,6 +508,8 @@ class KVServer(Customer):
             self._push_group_combined(table, k, bm, rid, rpos, stack)
         else:
             self._push_group_rounds(table, k, bm, rid, rpos, stack)
+        if tok is not None:  # one ledger entry for the whole grouped apply
+            self._submit_apply(tok)
         for i, m, tname_, _, kn, segs in group:
             replies[i] = self._ack_push(m, tname_, kn, segs)
 
@@ -478,6 +562,24 @@ class KVServer(Customer):
         inverse = np.full(k * bm, min(nu, bu - 1), dtype=np.int32)
         inverse[rpos] = inv_real.astype(np.int32)
         table.push_combined(self._upload_ids(ids_np), self._upload_ids(inverse), stack)
+
+    # -- telemetry-facing reads -------------------------------------------------
+    def counters(self) -> dict:
+        """Fence and version counters plus the ledger's gauges and totals
+        (``inflight_bundles``/``inflight_rows``, ``backlog_age_s``,
+        ``applies_*``), Dashboard-mergeable."""
+        out = {
+            "fenced_rejects": self.fenced_rejects,
+            "seg_version_max": sum(self.version_max(t) for t in self.tables),
+        }
+        if self.ledger is not None:
+            out.update(self.ledger.counters())
+        return out
+
+    def latency_digests(self) -> Dict[str, dict]:
+        """The ledger's cumulative per-table apply digests: ``apply.<t>``
+        total and the ``apply_host`` / ``apply_h2d`` / ``apply_dev`` split."""
+        return self.ledger.latency_digests() if self.ledger is not None else {}
 
     # -- shard transfer ---------------------------------------------------------
     def export_shard(self) -> Dict[str, dict]:

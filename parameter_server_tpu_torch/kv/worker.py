@@ -15,13 +15,20 @@ Pipeline per call:
 4. Van: responses complete the timestamp; pull replies are numpy and are
    reassembled on the host.
 
-Not ported yet: worker groups and wire coalescing, routing-fence and deadline
-retries, the consistency stamp, ``pull_serve`` and the hot-row cache,
-snapshots, request tracing and the staleness histograms.
+``coalesce_window`` / ``push_many`` bundle a burst of sends per server when
+the van stack has a ``CoalescingVan`` (a no-op otherwise), and every ack is
+tapped for the server's ``__busy__`` backpressure hint (``server_busy``).
+
+Not ported yet: worker groups, routing-fence and deadline retries, the
+consistency stamp, ``pull_serve`` and the hot-row cache, snapshots, request
+tracing and the staleness histograms.
 """
 
 from __future__ import annotations
 
+import contextlib
+import threading
+import time
 from typing import Dict, Optional, Tuple
 
 import numpy as np
@@ -31,6 +38,7 @@ from parameter_server_tpu_torch.config import TableConfig
 from parameter_server_tpu_torch.core.messages import Message, Task, TaskKind, server_id
 from parameter_server_tpu_torch.core.postoffice import Customer, Postoffice
 from parameter_server_tpu_torch.kv.routing import (
+    BUSY_KEY,
     ROUTING_EPOCH_KEY,
     VERSION_KEY,
     RoutingTable,
@@ -64,6 +72,34 @@ class KVWorker(Customer):
         }
         #: per-timestamp reassembly info for pulls
         self._pull_plans: Dict[int, dict] = {}
+        # -- device-plane backpressure -----------------------------------------
+        #: total ``__busy__``-hinted acks seen (Dashboard-mergeable)
+        self.busy_hints = 0
+        #: monotonic stamp of the last busy hint per server — the admission
+        #: signal a throttling training loop polls via :meth:`server_busy`
+        self._busy_last: Dict[str, float] = {}
+        self._busy_lock = threading.Lock()
+
+    def server_busy(self, server: str, within_s: float = 1.0) -> bool:
+        """True if ``server`` stamped ``__busy__`` onto an ack within the
+        last ``within_s`` seconds — the soft-backpressure poll a throttling
+        training loop consumes (the hint is advisory: pushes were applied)."""
+        with self._busy_lock:
+            t = self._busy_last.get(server)
+        return t is not None and (time.monotonic() - t) <= within_s
+
+    def _on_response(self, msg) -> None:
+        """Tap every reply for the server's ``__busy__`` hint (the server's
+        apply ledger was over a backlog bound when it stamped the ack), then
+        complete the task.  Runs on the receive thread; fail-safe: the
+        super() call that completes the task always runs."""
+        try:
+            if msg.task.payload.get(BUSY_KEY):
+                with self._busy_lock:
+                    self.busy_hints += 1
+                    self._busy_last[msg.sender] = time.monotonic()
+        finally:
+            super()._on_response(msg)
 
     # -- push ---------------------------------------------------------------
     def _submit_push(
@@ -133,6 +169,36 @@ class KVWorker(Customer):
         )
         ts, _ = self._submit_push(table, slots, combined)
         return ts
+
+    def coalesce_window(self):
+        """Context manager batching this worker's sends per destination.
+
+        When the Postoffice's Van stack includes a
+        :class:`~parameter_server_tpu_torch.core.coalesce.CoalescingVan`,
+        every message sent inside the window is bundled per server — a
+        multi-table or multi-push burst pays the per-frame overhead once and
+        reaches each server's apply engine as one group.  A no-op (null
+        context) on plain stacks, so callers never need to know what the Van
+        is.
+        """
+        win = getattr(self.post.van, "window", None)
+        return win() if callable(win) else contextlib.nullcontext()
+
+    def push_many(
+        self, updates: Dict[str, Tuple[np.ndarray, np.ndarray]]
+    ) -> Dict[str, int]:
+        """Push several tables' gradients in one coalescing window.
+
+        ``updates``: ``{table: (keys, values)}``.  Returns ``{table: ts}``
+        — one timestamp per table (responses from the same server must not
+        share a ts), all of whose wire messages coalesce into one frame per
+        server.  ``wait()`` each ts as usual.
+        """
+        with self.coalesce_window():
+            return {
+                t: self.push(t, keys, values)
+                for t, (keys, values) in updates.items()
+            }
 
     # -- pull ---------------------------------------------------------------
     def pull(self, table: str, keys: np.ndarray) -> int:

@@ -4,9 +4,11 @@ Host-side numpy code, copied from ``parameter_server_tpu/utils/keys.py`` (the
 port imports nothing of the JAX package) so slot assignments match it bit
 for bit: the hash mixes, power-of-two bucketing, per-batch dedup
 (:func:`localize_batch`), the full key -> unique-slot pipeline
-(:func:`localize_to_slots`), and the deterministic :class:`HashLocalizer` /
-:class:`IdentityLocalizer`.  The growing native ``Localizer`` is not ported
-yet.
+(:func:`localize_to_slots`), the deterministic :class:`HashLocalizer` /
+:class:`IdentityLocalizer`, the growing :class:`Localizer` with both of its
+engines (the C++ keymap of ``native/src/keymap.cc``, built with g++ at first
+use, and the windowed numpy probe that stands in where no toolchain is
+found), and ``localizer_meta`` / ``localizer_from_meta``.
 """
 
 from __future__ import annotations
@@ -36,8 +38,8 @@ def mix64(x: np.ndarray, seed: int | np.uint64 = 0) -> np.ndarray:
 
 
 #: murmur3 fmix32 constants — the 32-bit avalanche used when hashing happens
-#: ON DEVICE (the device-hash LR step, not ported yet, hashes 32-bit keys
-#: with them so host and device slot assignments agree).
+#: ON DEVICE (``models/linear.py``'s ``mix32_torch`` hashes 32-bit keys with
+#: them, so host and device slot assignments agree).
 MIX32_A = 0x85EB_CA6B
 MIX32_B = 0xC2B2_AE35
 
@@ -230,3 +232,280 @@ class IdentityLocalizer:
         return np.where(
             is_pad, np.int64(self.capacity), keys.astype(np.int64)
         ).astype(np.int32)
+
+
+class _NativeKeyMap:
+    """ctypes wrapper around the C++ keymap (``native/src/keymap.cc``)."""
+
+    def __init__(self, lib, capacity: int) -> None:
+        self._lib = lib
+        self._h = lib.ps_keymap_new(capacity)
+        if not self._h:
+            raise MemoryError("ps_keymap_new failed")
+
+    def assign(self, flat_keys: np.ndarray) -> np.ndarray:
+        import ctypes
+
+        flat_keys = np.ascontiguousarray(flat_keys, dtype=np.uint64)
+        out = np.empty(flat_keys.shape[0], dtype=np.int32)
+        self._lib.ps_keymap_assign(
+            self._h,
+            flat_keys.ctypes.data_as(ctypes.POINTER(ctypes.c_uint64)),
+            flat_keys.shape[0],
+            out.ctypes.data_as(ctypes.POINTER(ctypes.c_int32)),
+        )
+        return out
+
+    def len(self) -> int:
+        return int(self._lib.ps_keymap_len(self._h))
+
+    def overflowed(self) -> bool:
+        return bool(self._lib.ps_keymap_overflowed(self._h))
+
+    def __del__(self) -> None:  # pragma: no cover — interpreter teardown
+        h, self._h = getattr(self, "_h", None), None
+        if h:
+            try:
+                self._lib.ps_keymap_free(h)
+            except Exception:
+                pass
+
+
+def _native_keymap(capacity: int):
+    """Load the native keymap engine, or None (numpy fallback)."""
+    import ctypes
+
+    from parameter_server_tpu_torch import native
+
+    lib = native.load("keymap")
+    if lib is None:
+        return None
+    if not getattr(lib, "_ps_keymap_sigs", False):
+        lib.ps_keymap_new.argtypes = [ctypes.c_int64]
+        lib.ps_keymap_new.restype = ctypes.c_void_p
+        lib.ps_keymap_free.argtypes = [ctypes.c_void_p]
+        lib.ps_keymap_len.argtypes = [ctypes.c_void_p]
+        lib.ps_keymap_len.restype = ctypes.c_int64
+        lib.ps_keymap_overflowed.argtypes = [ctypes.c_void_p]
+        lib.ps_keymap_assign.argtypes = [
+            ctypes.c_void_p,
+            ctypes.POINTER(ctypes.c_uint64),
+            ctypes.c_int64,
+            ctypes.POINTER(ctypes.c_int32),
+        ]
+        lib._ps_keymap_sigs = True
+    return _NativeKeyMap(lib, capacity)
+
+
+class Localizer:
+    """Persistent global-key -> stable dense row-slot mapping.
+
+    Streaming learners (async SGD / FTRL over an unbounded key stream) need a
+    key to map to the *same* table row every time so its optimizer state
+    accumulates.  The reference keeps this in the server's hash map
+    (``src/parameter/kv_map.h`` :: ``KVMap`` [U]); here the table is a fixed
+    ``[capacity + 1, dim]`` tensor in device memory, so the hash lives on the
+    host and hands the device dense row ids.
+
+    When the vocabulary overflows ``capacity``, new keys hash-share rows
+    (feature hashing) rather than erroring — matching large-scale CTR practice
+    and the reference's countmin-based tail filtering spirit.
+
+    The mapping is a flat open-addressing hash table (linear probing, load
+    factor <= 1/2) with two interchangeable engines: the native C++ one
+    (``native/src/keymap.cc``, the reference's KVMap/Localizer analogue —
+    ~10-20x the old per-key dict loop) and a vectorized numpy fallback
+    (windowed batch probing) for toolchain-less hosts.  A per-key Python
+    dict loop is the host bottleneck at Criteo batch rates.  Both engines
+    hand out the same slots as the JAX package's, bit for bit.
+    """
+
+    #: empty bucket sentinel in the probe table (PAD_KEY never enters it —
+    #: assign() short-circuits pads to the trash row first).
+    _EMPTY = PAD_KEY
+    #: probe window: each vectorized round inspects W consecutive buckets
+    #: per key, so a linear-probe cluster walk of length L costs ceil(L/W)
+    #: rounds instead of L (rounds are the Python-level cost).
+    _W = 8
+
+    def __init__(self, capacity: int):
+        if not (0 < capacity < 2**31 - 1):
+            raise ValueError("capacity must be positive and fit int32 row ids")
+        self.capacity = capacity
+        self._native = _native_keymap(capacity)
+        if self._native is None:
+            self._size = 1 << 16
+            self._tkeys = np.full(self._size, self._EMPTY, dtype=np.uint64)
+            self._tvals = np.zeros(self._size, dtype=np.int32)
+        self._n = 0
+        self._overflowed = False
+
+    def __len__(self) -> int:
+        if self._native is not None:
+            return self._native.len()
+        return self._n
+
+    @property
+    def overflowed(self) -> bool:
+        if self._native is not None:
+            return self._native.overflowed()
+        return self._overflowed
+
+    def _lookup(self, keys: np.ndarray) -> np.ndarray:
+        """Vectorized windowed probe: slot for each key, -1 where absent."""
+        mask = np.int64(self._size - 1)
+        offs = np.arange(self._W, dtype=np.int64)
+        pos = (mix64(keys) & np.uint64(mask)).astype(np.int64)
+        vals = np.full(keys.shape[0], -1, dtype=np.int32)
+        active = np.arange(keys.shape[0])
+        while active.size:
+            win = (pos[active][:, None] + offs) & mask  # [n, W]
+            cur = self._tkeys[win]
+            hit = cur == keys[active][:, None]
+            stop = hit | (cur == self._EMPTY)  # absent iff EMPTY before hit
+            stopped = stop.any(axis=1)
+            first = stop.argmax(axis=1)
+            rows = np.nonzero(stopped)[0]
+            is_hit = hit[rows, first[rows]]
+            hrows = rows[is_hit]
+            vals[active[hrows]] = self._tvals[win[hrows, first[hrows]]]
+            cont = active[~stopped]
+            pos[cont] = (pos[cont] + self._W) & mask
+            active = cont
+        return vals
+
+    def _insert(self, keys: np.ndarray, vals: np.ndarray) -> None:
+        """Vectorized insert of NEW unique keys (callers grow first)."""
+        mask = np.int64(self._size - 1)
+        offs = np.arange(self._W, dtype=np.int64)
+        pos = (mix64(keys) & np.uint64(mask)).astype(np.int64)
+        remaining = np.arange(keys.shape[0])
+        while remaining.size:
+            win = (pos[remaining][:, None] + offs) & mask
+            empty = self._tkeys[win] == self._EMPTY
+            has_empty = empty.any(axis=1)
+            # fully occupied window: jump that key ahead by W
+            full = remaining[~has_empty]
+            pos[full] = (pos[full] + self._W) & mask
+            rows = np.nonzero(has_empty)[0]
+            if rows.size:
+                # claim each key's first empty bucket; duplicate targets
+                # resolve by numpy scatter last-writer-wins, verified by
+                # re-gather (keys are unique, so the winner re-reads itself).
+                # Losers re-probe the SAME window next round: the bucket they
+                # lost is occupied now, so they fall to a later empty slot.
+                target = win[rows, empty[rows].argmax(axis=1)]
+                cand = remaining[rows]
+                self._tkeys[target] = keys[cand]
+                self._tvals[target] = vals[cand]
+                won = self._tkeys[target] == keys[cand]
+                keep = np.zeros(keys.shape[0], dtype=bool)
+                keep[remaining] = True
+                keep[cand[won]] = False
+                remaining = remaining[keep[remaining]]
+            else:
+                remaining = full
+
+    def _grow_for(self, n_new: int) -> None:
+        grew = False
+        while (self._n + n_new) * 2 > self._size:
+            self._size *= 2
+            grew = True
+        if grew:
+            live = self._tkeys != self._EMPTY
+            old_keys = self._tkeys[live]
+            old_vals = self._tvals[live]
+            self._tkeys = np.full(self._size, self._EMPTY, dtype=np.uint64)
+            self._tvals = np.zeros(self._size, dtype=np.int32)
+            if old_keys.size:
+                self._insert(old_keys, old_vals)
+
+    def assign(self, unique_keys: np.ndarray) -> np.ndarray:
+        """Map unique global keys to row slots, growing the vocab as needed.
+
+        PAD_KEY maps to slot ``capacity`` (the trash row — tables allocate
+        ``capacity + 1`` rows; see ops.scatter).  Slot order matches the
+        sequential first-appearance order of the old dict implementation:
+        new keys get ids ``len(self)..`` in batch order.
+        """
+        keys = np.asarray(unique_keys, dtype=np.uint64)
+        flat = keys.ravel()
+        if self._native is not None:
+            return self._native.assign(flat).reshape(keys.shape)
+        out = np.empty(flat.shape[0], dtype=np.int32)
+        is_pad = flat == PAD_KEY
+        out[is_pad] = self.capacity
+        real = np.nonzero(~is_pad)[0]
+        rk = flat[real]
+        vals = self._lookup(rk)
+        missing = vals < 0
+        if missing.any():
+            new_keys = rk[missing]
+            # dedup first (the contract says unique keys, but duplicates must
+            # still share ONE slot, like the native engine / old dict — else
+            # a dupe would burn an unreachable vocab row); slots are handed
+            # out in first-appearance order
+            uniq_new, first_idx, inv = np.unique(
+                new_keys, return_index=True, return_inverse=True
+            )
+            arrival = np.argsort(first_idx, kind="stable")
+            rank = np.empty(arrival.size, dtype=np.int64)
+            rank[arrival] = np.arange(arrival.size)
+            n_take = min(max(self.capacity - self._n, 0), arrival.size)
+            taken = rank < n_take
+            slots_u = np.empty(arrival.size, dtype=np.int32)
+            slots_u[taken] = (self._n + rank[taken]).astype(np.int32)
+            if n_take < arrival.size:
+                # Feature-hashing fallback on overflow. Deterministic pure
+                # function of the key — deliberately NOT cached, so host
+                # memory stays bounded by ``capacity`` on unbounded
+                # streaming key sets.
+                self._overflowed = True
+                slots_u[~taken] = (
+                    uniq_new[~taken] % np.uint64(self.capacity)
+                ).astype(np.int32)
+            if n_take:
+                self._grow_for(n_take)
+                self._insert(uniq_new[taken], slots_u[taken])
+                self._n += n_take
+            vals[missing] = slots_u[inv]
+        out[real] = vals
+        return out.reshape(keys.shape)
+
+
+def localizer_meta(loc) -> dict:
+    """Reconstruction metadata for a localizer (checkpoint manifest extras).
+
+    A checkpointed table is only servable with the SAME key->row mapping it
+    was trained with (the reference writes raw key ranges so the mapping is
+    the identity; here the mapping is a host-side function and must be
+    recorded alongside the shards).
+    """
+    meta = {"kind": type(loc).__name__, "capacity": int(loc.capacity)}
+    if isinstance(loc, HashLocalizer):
+        meta["seed"] = int(loc.seed)
+        meta["hash_bits"] = int(loc.hash_bits)
+    return meta
+
+
+def localizer_from_meta(meta: dict):
+    """Rebuild the key->row mapping recorded by :func:`localizer_meta`.
+
+    Only deterministic localizers reconstruct (``HashLocalizer``,
+    ``IdentityLocalizer``); the stateful :class:`Localizer` depends on key
+    arrival order, which the checkpoint does not capture — pass the live
+    instance (or re-stream the training keys) instead.
+    """
+    kind = meta.get("kind")
+    if kind == "HashLocalizer":
+        return HashLocalizer(
+            int(meta["capacity"]),
+            seed=int(meta.get("seed", 0)),
+            hash_bits=int(meta.get("hash_bits", 64)),
+        )
+    if kind == "IdentityLocalizer":
+        return IdentityLocalizer(int(meta["capacity"]))
+    raise ValueError(
+        f"cannot reconstruct localizer from meta {meta!r} (stateful "
+        "Localizer mappings are arrival-order-dependent; pass the instance)"
+    )

@@ -2,9 +2,18 @@
 
 - ``parameter_server_tpu_torch/`` and ``chip_smoke.py`` import neither
   ``jax`` nor anything of the JAX package ``parameter_server_tpu``.
-- The server's ``_ack_push`` (and every method of the server it calls) never
-  reads device state back: no ``.item()``, ``.cpu()``, ``.tolist()``,
-  ``.numpy()``, ``.to()``, ``synchronize()`` or numpy conversion.
+- The server's push-ack path — ``_ack_push`` and the grouped apply
+  (``_apply_push_group``, ``_push_group_rounds``, ``_push_group_combined``),
+  with every method of the server they call — never reads device state
+  back: no ``.item()``, ``.cpu()``, ``.tolist()``, ``.numpy()``, ``.to()``,
+  ``synchronize()`` or numpy conversion.  The upload helpers they call fill
+  pinned host buffers and copy them up without waiting on the device.
+- The apply ledger's submit side (``ApplyLedger.begin`` / ``submit`` /
+  ``overloaded``, ``_Inflight.mark_host`` / ``mark_h2d``) never waits on or
+  polls a completion handle: no ``synchronize()``, ``query()`` or the calls
+  above.
+- Every ``flightrec.record("<kind>", ...)`` in the port names a literal kind
+  of the ``EVENTS`` registry, and the ledger's ``apply.*`` kinds are there.
 - ``LocalLRTrainer.step_block_device`` and the dense steps of
   ``models/linear.py`` never wait on the device: no ``.item()``, ``.cpu()``,
   ``.tolist()``, ``.numpy()``, ``float(...)``, ``torch.unique``,
@@ -24,6 +33,9 @@ import sys
 
 import pytest
 
+from parameter_server_tpu_torch.config import LedgerConfig
+from parameter_server_tpu_torch.core.postoffice import Postoffice
+from parameter_server_tpu_torch.core.van import LoopbackVan
 from parameter_server_tpu_torch.data.prefetch import PrefetchPipeline
 from parameter_server_tpu_torch.kv.server import KVServer
 from parameter_server_tpu_torch.kv.table import KVTable
@@ -71,10 +83,24 @@ def _method_bodies():
     return {f.name: f for f in cls.body if isinstance(f, ast.FunctionDef)}
 
 
-def test_ack_push_is_sync_free():
-    methods = _method_bodies()
-    seen, todo, calls = set(), ["_ack_push"], []
-    while todo:  # _ack_push and every server method it reaches
+#: the push-ack path's roots: the JAX package's ``SYNC_FREE_FUNCS``
+#: (``tools/check_wrappers.py``)
+SYNC_FREE_ROOTS = ("_ack_push", "_apply_push_group", "_push_group_rounds",
+                   "_push_group_combined")
+#: host -> device staging the grouped apply calls before its launches: they
+#: fill pinned host buffers (``.numpy()`` of a host tensor) and upload them
+UPLOAD_HELPERS = {"_upload_ids", "_upload_values", "_stack_planes", "_pinned"}
+#: what an upload helper may not do either: wait, or read the device back
+UPLOAD_BANNED = {"item", "cpu", "tolist", "synchronize", "_readback",
+                 "block_until_ready", "query"}
+
+
+def _reached_calls(methods, roots, skip=()):
+    """``(seen, [(method, attr)])``: the attribute calls of ``roots`` and of
+    every server method they reach through ``self.<method>(...)``, not
+    entering ``skip``."""
+    seen, todo, calls = set(), list(roots), []
+    while todo:
         name = todo.pop()
         if name in seen:
             continue
@@ -83,11 +109,110 @@ def test_ack_push_is_sync_free():
             if isinstance(node, ast.Call) and isinstance(node.func, ast.Attribute):
                 calls.append((name, node.func.attr))
                 if (isinstance(node.func.value, ast.Name) and node.func.value.id == "self"
-                        and node.func.attr in methods):
+                        and node.func.attr in methods and node.func.attr not in skip):
                     todo.append(node.func.attr)
+    return seen, calls
+
+
+def test_ack_push_is_sync_free():
+    seen, calls = _reached_calls(_method_bodies(), ["_ack_push"])
     assert {"_ack_push", "_stamp_version"} <= seen
     bad = [(fn, attr) for fn, attr in calls if attr in SYNCING]
     assert not bad, f"device reads in the push ack path: {bad}"
+
+
+def test_grouped_apply_is_sync_free():
+    """The bundled apply's launches, its ledger registration and its acks
+    never wait for the device (JAX's ``SYNC_FREE_FUNCS``)."""
+    methods = _method_bodies()
+    seen, calls = _reached_calls(methods, SYNC_FREE_ROOTS, skip=UPLOAD_HELPERS)
+    assert set(SYNC_FREE_ROOTS) | {"_submit_apply", "_completion_handle"} <= seen
+    bad = [(fn, attr) for fn, attr in calls if attr in SYNCING]
+    assert not bad, f"device reads in the grouped apply: {bad}"
+
+
+def test_upload_helpers_copy_without_waiting():
+    methods = _method_bodies()
+    bad = {name: _banned_attr_calls(methods[name], UPLOAD_BANNED)
+           for name in sorted(UPLOAD_HELPERS)}
+    assert not any(bad.values()), f"an upload helper waits: {bad}"
+
+
+#: the ledger's submit side (JAX's ``LEDGER_SYNC_FREE_FUNCS``): SYNCING plus
+#: the completion handle's poll and wait
+LEDGER_SYNC_FREE = ("ApplyLedger.begin", "ApplyLedger.submit", "ApplyLedger.overloaded",
+                    "_Inflight.mark_host", "_Inflight.mark_h2d")
+LEDGER_BANNED = SYNCING | {"synchronize", "query"}
+
+
+def _banned_attr_calls(fn, banned):
+    return [n.func.attr for n in ast.walk(fn)
+            if isinstance(n, ast.Call) and isinstance(n.func, ast.Attribute)
+            and n.func.attr in banned]
+
+
+def test_ledger_submit_side_is_sync_free():
+    fns = _functions("kv/ledger.py")
+    bad = {name: _banned_attr_calls(fns[name], LEDGER_BANNED) for name in LEDGER_SYNC_FREE}
+    assert not any(bad.values()), f"the ledger's submit side waits: {bad}"
+    # the reaper is where the waiting belongs
+    assert _banned_attr_calls(fns["ApplyLedger._reap_loop"], LEDGER_BANNED) == ["synchronize"]
+    assert _banned_attr_calls(fns["ApplyLedger._reap_once"], LEDGER_BANNED) == ["query"]
+
+
+def test_the_ledger_scan_catches_a_planted_query():
+    src = "def submit(self, tok, ref, fallback):\n    if ref.query():\n        pass\n"
+    assert _banned_attr_calls(ast.parse(src).body[0], LEDGER_BANNED) == ["query"]
+
+
+#: event kinds the ledger journals (JAX's ``REQUIRED_EVENTS`` ``apply.*``)
+REQUIRED_APPLY_EVENTS = {"apply.submit", "apply.done", "apply.backlog"}
+
+
+def _events_registry():
+    tree = ast.parse((PORT / "core" / "flightrec.py").read_text())
+    for node in tree.body:
+        if (isinstance(node, ast.Assign) and len(node.targets) == 1
+                and getattr(node.targets[0], "id", None) == "EVENTS"):
+            (arg,) = node.value.args  # frozenset({...}) of string literals
+            return {e.value for e in arg.elts}
+    raise AssertionError("no EVENTS literal in core/flightrec.py")
+
+
+def _record_sites(tree):
+    """``(kind or None, lineno)`` of every ``flightrec.record(...)`` call and
+    of the ledger's aliased ``self._record(...)`` calls."""
+    for node in ast.walk(tree):
+        if not (isinstance(node, ast.Call) and isinstance(node.func, ast.Attribute)):
+            continue
+        f = node.func
+        direct = f.attr == "record" and isinstance(f.value, ast.Name) and f.value.id == "flightrec"
+        alias = f.attr == "_record" and isinstance(f.value, ast.Name) and f.value.id == "self"
+        if not (direct or alias):
+            continue
+        first = node.args[0] if node.args else None
+        literal = isinstance(first, ast.Constant) and isinstance(first.value, str)
+        if direct or literal:  # the alias's own forwarding call passes a name
+            yield (first.value if literal else None), node.lineno
+
+
+def test_every_flightrec_record_uses_a_registered_literal_kind():
+    events = _events_registry()
+    assert REQUIRED_APPLY_EVENTS <= events
+    seen = {}
+    for path in sorted(PORT.rglob("*.py")):
+        for kind, line in _record_sites(ast.parse(path.read_text())):
+            where = f"{path.relative_to(ROOT)}:{line}"
+            assert kind is not None, f"{where}: the kind is not a literal"
+            assert kind in events, f"{where}: unregistered kind {kind!r}"
+            seen[kind] = where
+    assert {"fence.routing", "cancel.drop", "bundle.flush",
+            *REQUIRED_APPLY_EVENTS} <= set(seen)
+
+
+def test_the_record_scan_catches_a_non_literal_kind():
+    tree = ast.parse("def f(k):\n    flightrec.record(k, node='S0')\n")
+    assert list(_record_sites(tree)) == [(None, 2)]
 
 
 def test_the_sync_scan_catches_a_readback():
@@ -182,6 +307,24 @@ def test_entry_points_default_to_the_card(entry):
     param = inspect.signature(entry.__init__).parameters["device"]
     assert param.default == "cuda"
     assert param.kind is inspect.Parameter.KEYWORD_ONLY
+
+
+def test_server_builds_a_ledger_by_default():
+    """``KVServer(devobs=...)``: keyword-only, ``None`` by default, which
+    builds an enabled ledger as the JAX server does; the server's ``device``
+    keeps its card default (above)."""
+    param = inspect.signature(KVServer.__init__).parameters["devobs"]
+    assert param.default is None and param.kind is inspect.Parameter.KEYWORD_ONLY
+    assert LedgerConfig().enabled
+    van = LoopbackVan()
+    try:
+        srv = KVServer(Postoffice("S0", van), {}, 0, 1, device="cpu")
+        assert srv.ledger is not None and srv.ledger.cfg == LedgerConfig()
+        off = KVServer(Postoffice("S1", van), {}, 0, 1, device="cpu",
+                       devobs=LedgerConfig(enabled=False))
+        assert off.ledger is None
+    finally:
+        van.close()
 
 
 def _run_smoke(cwd):
