@@ -64,7 +64,25 @@ Phases, each printing one JSON line (``"phase": ...``):
              ``recv.exception`` and keeps serving; ``dump()`` of the run's
              ring, each bundle read back with the fields
              ``tools/postmortem.py`` reads; events by kind.
-8. local     bench.py's headline path at full width: ``LocalLRTrainer(mode=
+   hier      bench.py's hierarchical-push arm at config #1 width: 4 workers x
+             2 servers on ``CoalescingVan(MeteredVan(LoopbackVan()))``, every
+             worker on the same SyntheticCTR(seed 5) batches, barrier-locked
+             pull_sync -> card gradient -> push_sync; group sizes 1, 2 and 4,
+             3 warm-up then 5 timed steps.  PUSH requests into the servers per
+             timed step must be 2 x 4 / size, no fallback, the servers' group
+             booking one apply per group step; ``ps_gather`` launches =
+             served pulls, ``ps_apply`` = applied pushes.  Then the size-2 arm
+             for 2 steps on the card and on the CPU: tables within 1e-5.
+   consist   the wire gate at the same width: 3 workers x 2 servers on a
+             LoopbackVan, ``gate_deadline_s=30``, arms bsp, ssp1, ssp4 and
+             asp, 8 steps a worker, worker 0 pausing 0.06 s at seeded steps;
+             the servers' fleet clocks sampled about every millisecond must
+             never spread past bound + 1 (bsp: 1), every arm must end within
+             its budget with nothing forced through; launches as in ``hier``.
+             A park leg (bsp, worker 0 pausing 0.5 s before step 1) must be
+             deferred at the gate and released.  Then 2 workers strictly alternating 6 steps under BSP: tables
+             bitwise equal to the ungated run.
+8. local    bench.py's headline path at full width: ``LocalLRTrainer(mode=
              "dense", device_hash=True)`` on the same 2^22 x 1 AdaGrad table,
              blocks of 32 steps of 16384 x 39 raw uint32 keys hashed on the
              card, fed by ``PrefetchPipeline(depth=2)`` from a pool of 4
@@ -103,6 +121,7 @@ nonzero on a machine without a card.
 from __future__ import annotations
 
 import ctypes
+import functools
 import itertools
 import json
 import subprocess
@@ -127,6 +146,17 @@ LEDGER_STEPS, LEDGER_PAIRS, COALESCE_STEPS, ORDERED_STEPS = 4, 10, 4, 3
 #: pool, warm-up and timed blocks, steps of the reference and rows legs
 BLOCK, LOCAL_POOL, LOCAL_WARM, LOCAL_TIMED = 32, 4, 2, 8
 LOCAL_REF_STEPS, LOCAL_ROWS_STEPS = 4, 4
+#: the synchronous push plane: bench.py's hierarchical-push arm (4 workers x
+#: 2 servers, group sizes 1, 2, 4; warm-up and timed steps) and its
+#: consistency arms (3 workers x 2 servers, steps a worker, worker 0's
+#: seeded pauses, a budget per arm)
+HIER_WORKERS, HIER_SERVERS, HIER_WARM, HIER_TIMED, HIER_SIZES = 4, 2, 3, 5, (1, 2, 4)
+CONSIST_WORKERS, CONSIST_STEPS, CONSIST_SLOW_P, CONSIST_SLOW_S = 3, 8, 0.25, 0.06
+CONSIST_BUDGET_S = 120.0
+#: the park leg: under BSP, worker 0 pauses longer than a step before step 1,
+#: so its peers must be deferred at the gate and released
+CONSIST_PARK_S = 0.5
+CONSIST_ARMS = (("bsp", "bsp", 0), ("ssp1", "ssp", 1), ("ssp4", "ssp", 4), ("asp", "asp", 0))
 DEVICE = "cuda"
 SOURCE = "parameter_server_tpu_torch/csrc/scatter_kernels.cu"
 REPLACES = {
@@ -224,6 +254,14 @@ def main() -> int:
     emit("localizer", **localizer_phase())
     emit("flightrec", **flightrec_phase())
 
+    # -- 7b. the synchronous push plane --------------------------------------------
+    hier_batches, consist_streams = sync_plane_batches()
+    hier = hier_phase(torch, scatter, dev, hier_batches)
+    emit("hier", **hier)
+    consist = consist_phase(torch, scatter, dev, consist_streams)
+    emit("consist", **consist)
+    del hier_batches, consist_streams
+
     # -- 8. the local (single-device) path ------------------------------------------
     pool = local_pool()
     scatter.reset_launch_counts()
@@ -243,6 +281,8 @@ def main() -> int:
     for k in kernels:
         if k["name"] in ("apply", "gather"):
             k["local_rows_launches"] = rows["launches"][k["name"]]
+            k["hier_launches"] = hier["launches"][k["name"]]
+            k["consist_launches"] = consist["launches"][k["name"]]
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60,
@@ -420,10 +460,11 @@ def table_push_vs_cpu(torch, dev):
 
 
 def build_cluster(torch, device, *, rows, fused, n_workers, min_bucket=256,
-                  devobs=None, coalesce=False):
+                  devobs=None, coalesce=False, tables=None):
     """2 servers and ``n_workers`` workers of config #1 on a LoopbackVan (or,
     with ``coalesce``, a CoalescingVan over one); ``devobs`` is the servers'
-    ledger config (None: the default, enabled ledger)."""
+    ledger config (None: the default, enabled ledger); ``tables`` replaces
+    the table configs."""
     from parameter_server_tpu_torch.config import OptimizerConfig, TableConfig
     from parameter_server_tpu_torch.core.coalesce import CoalescingVan
     from parameter_server_tpu_torch.core.postoffice import Postoffice
@@ -431,7 +472,7 @@ def build_cluster(torch, device, *, rows, fused, n_workers, min_bucket=256,
     from parameter_server_tpu_torch.kv.server import KVServer
     from parameter_server_tpu_torch.kv.worker import KVWorker
 
-    cfgs = {"w": TableConfig(
+    cfgs = tables or {"w": TableConfig(
         name="w", rows=rows, dim=DIM,
         optimizer=OptimizerConfig(kind="adagrad", learning_rate=0.05),
         fused_apply=fused,
@@ -1254,6 +1295,328 @@ def flightrec_phase():
     return {"bundles": len(paths), "nodes": sorted(nodes), "events": sum(kinds.values()),
             "ring_capacity": flightrec.get()._ring.maxlen, "by_kind": dict(sorted(kinds.items())),
             "recv_exception_kept_serving": True}
+
+
+# ---------------------------------------------------------------------------
+# phase 7b: the synchronous push plane (worker groups, the consistency gate)
+# ---------------------------------------------------------------------------
+
+
+def _config1_tables(consistency=None):
+    from parameter_server_tpu_torch.config import OptimizerConfig, TableConfig
+
+    return {"w": TableConfig(name="w", rows=ROWS, dim=DIM,
+                             optimizer=OptimizerConfig(kind="adagrad", learning_rate=0.05),
+                             consistency=consistency)}
+
+
+def _card_grad(torch, device, w_pos, labels):
+    """The LR gradient of one batch, computed on ``device``, as the host
+    plane ``push_sync`` takes; and the batch's loss."""
+    from parameter_server_tpu_torch.models import linear
+
+    g, _gb, loss = linear.grad_rows(torch.tensor(w_pos, device=device),
+                                    torch.tensor(labels, device=device))
+    return g.cpu().numpy() / labels.shape[0], float(loss)
+
+
+def _run_threads(fns, budget_s, on_tick=None):
+    """Run ``fns`` on threads; call ``on_tick`` about every millisecond until
+    they end or ``budget_s`` passes.  Returns (seconds, every thread ended)."""
+    import threading
+
+    errors = []
+
+    def guard(fn):
+        try:
+            fn()
+        except BaseException as e:  # noqa: BLE001 — re-raised below
+            errors.append(e)
+
+    threads = [threading.Thread(target=guard, args=(fn,), daemon=True) for fn in fns]
+    t0 = time.perf_counter()
+    for th in threads:
+        th.start()
+    while any(th.is_alive() for th in threads) and time.perf_counter() - t0 < budget_s:
+        if on_tick is not None:
+            on_tick()
+        time.sleep(0.001)
+    wall = time.perf_counter() - t0
+    ended = not any(th.is_alive() for th in threads)
+    for th in threads:
+        th.join(timeout=5)
+    if errors:
+        raise errors[0]
+    return wall, ended
+
+
+def _inbound_push(metered):
+    """PUSH requests and payload bytes into the servers, from MeteredVan."""
+    tot = {"msgs": 0, "bytes": 0}
+    for link, d in metered.links().items():
+        if link.partition("->")[2].startswith("S"):
+            vb = d["verbs"].get("PUSH")
+            if vb:
+                tot["msgs"] += vb["msgs"]
+                tot["bytes"] += vb["bytes"]
+    return tot
+
+
+def sync_plane_batches():
+    """The config #1 batches of phases ``hier`` (one stream, seed 5, every
+    worker trains on it) and ``consist`` (one stream a worker, seeds 300 +
+    i), made once and shared by every arm."""
+    from parameter_server_tpu_torch.data.synthetic import SyntheticCTR
+
+    def stream(seed, n):
+        data = SyntheticCTR(key_space=KEY_SPACE, nnz=NNZ, batch_size=BATCH, seed=seed,
+                            informative=0.1)
+        return [data.next_batch() for _ in range(n)]
+
+    return (stream(5, HIER_WARM + HIER_TIMED),
+            [stream(300 + i, CONSIST_STEPS) for i in range(CONSIST_WORKERS)])
+
+
+def hier_arm(torch, device, size, batches, warm):
+    """bench.py's ``_hier_arm`` (``bench.py:2775-2907``) on the port: 4
+    workers x 2 servers on ``CoalescingVan(MeteredVan(LoopbackVan()))``, the
+    config #1 table, groups of ``size`` (1: direct pushes).  Every worker
+    trains on the same batches, barrier-locked: pull_sync, the gradient on
+    ``device``, push_sync.  ``warm`` steps, then the timed rest."""
+    import threading
+
+    from parameter_server_tpu_torch.config import GroupConfig
+    from parameter_server_tpu_torch.core.coalesce import CoalescingVan
+    from parameter_server_tpu_torch.core.netmon import MeteredVan
+    from parameter_server_tpu_torch.core.postoffice import Postoffice
+    from parameter_server_tpu_torch.core.van import LoopbackVan
+    from parameter_server_tpu_torch.kv.routing import WorkerGroup
+    from parameter_server_tpu_torch.kv.server import KVServer
+    from parameter_server_tpu_torch.kv.worker import KVWorker
+
+    cfgs = _config1_tables()
+    metered = MeteredVan(LoopbackVan())
+    van = CoalescingVan(metered)
+    servers = [KVServer(Postoffice(f"S{s}", van), cfgs, s, HIER_SERVERS, device=device)
+               for s in range(HIER_SERVERS)]
+    try:
+        names = [f"W{i}" for i in range(HIER_WORKERS)]
+        workers = []
+        for i, name in enumerate(names):
+            group = group_cfg = None
+            if size > 1:
+                base = (i // size) * size
+                group = WorkerGroup(members=tuple(names[base:base + size]))
+                # as bench.py: the clean path must never fall back because a
+                # thread was descheduled
+                group_cfg = GroupConfig(size=size, fallback_timeout=30.0)
+            workers.append(KVWorker(Postoffice(name, van), cfgs, HIER_SERVERS, group=group,
+                                    group_cfg=group_cfg, device=device))
+        losses = [[] for _ in workers]
+        barrier = threading.Barrier(HIER_WORKERS)
+
+        def loop(i, kv, phase_batches):
+            try:
+                for keys, labels in phase_batches:
+                    barrier.wait()
+                    w_pos = kv.pull_sync("w", keys, timeout=300)
+                    g, loss = _card_grad(torch, device, w_pos, labels)
+                    kv.push_sync("w", keys, g, timeout=300)
+                    losses[i].append(loss)
+            except BaseException:
+                barrier.abort()
+                raise
+
+        def phase(phase_batches):
+            wall, ended = _run_threads(
+                [functools.partial(loop, i, kv, phase_batches) for i, kv in enumerate(workers)],
+                600)
+            check(ended, f"hier size {size}: a worker did not finish")
+            return wall
+
+        if warm:
+            phase(batches[:warm])
+        push0 = _inbound_push(metered)
+        _sync(torch, device)
+        elapsed = phase(batches[warm:])
+        _sync(torch, device)
+        push1 = _inbound_push(metered)
+        return {
+            "examples_per_s": HIER_WORKERS * BATCH * (len(batches) - warm) / elapsed,
+            "elapsed_s": elapsed, "loss_first": losses[0][0], "loss_last": losses[0][-1],
+            "push_msgs": push1["msgs"] - push0["msgs"],
+            "push_bytes": push1["bytes"] - push0["bytes"],
+            "group_pushes": sum(s.group_pushes for s in servers),
+            "group_members": sum(s.group_members for s in servers),
+            "group_fallbacks": sum(w.counters().get("group_fallbacks", 0) for w in workers),
+            "pushes": sum(s.pushes for s in servers), "pulls": sum(s.pulls for s in servers),
+            "tables": [s.export_shard()["w"] for s in servers],
+        }
+    finally:
+        close_cluster(van, servers)
+
+
+def _sync(torch, device):
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+
+
+def hier_phase(torch, scatter, dev, batches):
+    """Group sizes 1, 2 and 4 at config #1's full width: PUSH requests per
+    timed step must be 2 servers x 4 workers / size, with no fallback; then
+    the size-2 arm for 2 steps on the card and on the CPU (1e-5)."""
+    arms = {}
+    scatter.reset_launch_counts()
+    for size in HIER_SIZES:
+        r = hier_arm(torch, dev, size, batches, HIER_WARM)
+        r.pop("tables")
+        want = HIER_TIMED * HIER_SERVERS * HIER_WORKERS // size
+        check(r["push_msgs"] == want,
+              f"hier size {size}: {r['push_msgs']} PUSH requests in {HIER_TIMED} steps, "
+              f"want {want}")
+        check(r["group_fallbacks"] == 0, f"hier size {size}: {r['group_fallbacks']} fallbacks")
+        if size > 1:
+            check(r["group_pushes"] == r["pushes"]
+                  and r["group_members"] == size * r["group_pushes"],
+                  f"hier size {size}: group booking {r}")
+        check(r["loss_last"] < r["loss_first"], f"hier size {size}: loss did not fall")
+        r["push_msgs_per_step"] = r["push_msgs"] / HIER_TIMED
+        arms[size] = r
+    launches = scatter.launch_counts()
+    pulls = sum(r["pulls"] for r in arms.values())
+    pushes = sum(r["pushes"] for r in arms.values())
+    check(launches["gather"] == pulls and launches["apply"] == pushes,
+          f"hier launches {launches} for {pulls} pulls and {pushes} pushes")
+    # the size-2 arm, 2 steps, on the card and on the CPU (plain versions)
+    tables = {side: hier_arm(torch, device, 2, batches[:2], 0)["tables"]
+              for side, device in (("card", dev), ("cpu", torch.device("cpu")))}
+    err = 0.0
+    for sg, sc in zip(tables["card"], tables["cpu"]):
+        for a, b in [(sg["value"], sc["value"]), (sg["state"]["sum_sq"], sc["state"]["sum_sq"])]:
+            err = max(err, float(np.abs(a - b).max()))
+    check(err <= 1e-5, f"hier size 2: card vs cpu tables differ by {err}")
+    return {"workers": HIER_WORKERS, "servers": HIER_SERVERS, "warm_steps": HIER_WARM,
+            "timed_steps": HIER_TIMED, "arms": {str(k): v for k, v in arms.items()},
+            "launches": launches, "size2_card_vs_cpu_max_abs_err": err, "tol": 1e-5}
+
+
+def consist_arm(torch, dev, mode, bound, batches, slow_steps, slow_s=CONSIST_SLOW_S,
+                budget_s=CONSIST_BUDGET_S):
+    """bench.py's ``_consistency_one`` (``bench.py:3995-4150``) on the port:
+    3 workers x 2 servers on a LoopbackVan, the config #1 table gated by
+    ``mode`` / ``bound`` (deadline 30 s), every worker registered by
+    ``consist_hello``; worker 0 sleeps ``slow_s`` at ``slow_steps``.
+    The servers' fleet clocks are sampled about every millisecond."""
+    from parameter_server_tpu_torch.config import ConsistencyConfig, ConsistencyMode
+
+    van, servers, workers = build_cluster(torch, dev, rows=ROWS, fused=True,
+                                          n_workers=CONSIST_WORKERS, tables=_config1_tables(
+                                              ConsistencyConfig(mode=ConsistencyMode(mode),
+                                                                max_delay=bound,
+                                                                gate_deadline_s=30.0)))
+    try:
+        for kv in workers:
+            kv.consist_hello(table="w")
+        spread = [0]
+
+        def sample():
+            for s in servers:
+                snap = s._consist["w"]["clock"].snapshot()
+                if len(snap) == CONSIST_WORKERS:
+                    spread[0] = max(spread[0], max(snap.values()) - min(snap.values()))
+
+        def loop(i, kv):
+            for t, (keys, labels) in enumerate(batches[i]):
+                if i == 0 and t in slow_steps:
+                    time.sleep(slow_s)
+                w_pos = kv.pull_sync("w", keys, timeout=120)
+                g, _loss = _card_grad(torch, dev, w_pos, labels)
+                kv.push_sync("w", keys, g, timeout=120)
+
+        wall, ended = _run_threads([functools.partial(loop, i, kv)
+                                    for i, kv in enumerate(workers)], budget_s, sample)
+        sample()
+        sc = [s.counters() for s in servers]
+        return {
+            "mode": mode, "bound": bound, "ended_within_budget": ended, "wall_s": wall,
+            "examples_per_s": CONSIST_WORKERS * CONSIST_STEPS * BATCH / wall,
+            "consist_defers": sum(c["consist_defers"] for c in sc),
+            "consist_releases": sum(c["consist_releases"] for c in sc),
+            "max_clock_spread": spread[0],
+            "worker_waits": sum(kv.consist_waits for kv in workers),
+            "worker_forced": sum(kv.consist_forced for kv in workers),
+            "steps": [kv.consist_step("w") for kv in workers],
+            "pushes": sum(s.pushes for s in servers), "pulls": sum(s.pulls for s in servers),
+        }
+    finally:
+        close_cluster(van, servers)
+
+
+def bsp_alternation(torch, dev, batches, gated):
+    """tests/test_consistency.py:300-326 at full width: 2 workers strictly
+    alternating 6 steps (pull, card gradient, push), gated by BSP or not."""
+    from parameter_server_tpu_torch.config import ConsistencyConfig, ConsistencyMode
+
+    gate = ConsistencyConfig(mode=ConsistencyMode.BSP, gate_deadline_s=30.0) if gated else None
+    van, servers, (wa, wb) = build_cluster(torch, dev, rows=ROWS, fused=True, n_workers=2,
+                                           tables=_config1_tables(gate))
+    try:
+        if gated:
+            wa.consist_hello(table="w")
+            wb.consist_hello(table="w")
+        for i in range(6):
+            kv = (wa, wb)[i % 2]
+            keys, labels = batches[i]
+            g, _loss = _card_grad(torch, dev, kv.pull_sync("w", keys, timeout=120), labels)
+            kv.push_sync("w", keys, g, timeout=120)
+        return ([s.export_shard()["w"] for s in servers],
+                sum(kv.consist_waits for kv in (wa, wb)))
+    finally:
+        close_cluster(van, servers)
+
+
+def consist_phase(torch, scatter, dev, streams):
+    """The four arms of ``bench.py``'s ``_CONSIST_ARMS`` (``bench.py:
+    3986-3992``) but ssp16, 8 steps a worker, worker 0 a seeded straggler
+    (``bench.py:4045-4048``): the fleet clocks never spread past bound + 1
+    under SSP and BSP, no arm deadlocks; then BSP under strict alternation
+    bitwise equal to the ungated run."""
+    srng = np.random.default_rng(777)
+    slow_steps = set(np.nonzero(srng.random(CONSIST_STEPS) < CONSIST_SLOW_P)[0].tolist())
+    arms = {}
+    scatter.reset_launch_counts()
+    for name, mode, bound in CONSIST_ARMS:
+        r = consist_arm(torch, dev, mode, bound, streams, slow_steps)
+        check(r["ended_within_budget"], f"consist {name}: not done in {CONSIST_BUDGET_S} s")
+        check(r["steps"] == [CONSIST_STEPS] * CONSIST_WORKERS, f"consist {name}: {r['steps']}")
+        check(r["worker_forced"] == 0, f"consist {name}: {r['worker_forced']} forced requests")
+        if mode != "asp":
+            check(r["max_clock_spread"] <= bound + 1,
+                  f"consist {name}: fleet clocks spread {r['max_clock_spread']} > {bound + 1}")
+        arms[name] = r
+    # the park leg: a pause longer than a step must be waited out at the gate
+    park = consist_arm(torch, dev, "bsp", 0, streams, {1}, CONSIST_PARK_S)
+    check(park["ended_within_budget"] and park["worker_forced"] == 0
+          and park["max_clock_spread"] <= 1, f"consist park: {park}")
+    check(park["consist_defers"] > 0 and park["consist_releases"] > 0,
+          f"consist park: worker 0 paused {CONSIST_PARK_S} s and nobody was deferred: {park}")
+    arms["bsp_park"] = park
+    launches = scatter.launch_counts()
+    pulls = sum(r["pulls"] for r in arms.values())
+    pushes = sum(r["pushes"] for r in arms.values())
+    check(launches["gather"] == pulls and launches["apply"] == pushes,
+          f"consist launches {launches} for {pulls} pulls and {pushes} pushes")
+    (gated, waits), (ungated, _) = (bsp_alternation(torch, dev, streams[0], g)
+                                     for g in (True, False))
+    for a, b in zip(gated, ungated):
+        check(np.array_equal(a["value"], b["value"])
+              and np.array_equal(a["state"]["sum_sq"], b["state"]["sum_sq"]),
+              "BSP under strict alternation differs from the ungated run")
+    return {"workers": CONSIST_WORKERS, "servers": 2, "steps_per_worker": CONSIST_STEPS,
+            "slow_steps_worker0": sorted(slow_steps), "slow_s": CONSIST_SLOW_S, "park_s": CONSIST_PARK_S, "arms": arms,
+            "launches": launches,
+            "bsp_alternation": {"steps": 6, "bitwise_equal_to_ungated": True,
+                                "gate_waits": waits}}
 
 
 # ---------------------------------------------------------------------------

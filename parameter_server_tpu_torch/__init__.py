@@ -1,6 +1,9 @@
 """PyTorch/CUDA port of the parameter server: the sparse-LR PS loop with its
 server's default planes (apply ledger, flight recorder, wire coalescing, the
-native ``Localizer``) and the single-device trainer.
+native ``Localizer``), the synchronous push plane (``KVWorker.push_sync``
+with fence, deadline and consistency-gate retries, worker groups that
+pre-reduce before the wire, the servers' SSP/BSP/ASP gate) and the
+single-device trainer.
 
 The JAX package ``parameter_server_tpu`` is the reference; this package keeps
 its module layout and names so each counterpart sits at the same path.  It

@@ -1,6 +1,7 @@
 """Configuration dataclasses: the fields of the JAX package's ``config.py``
-that the sparse-LR push/pull loop and the server's apply ledger read, with
-the same names and defaults."""
+that the sparse-LR push/pull loop, the server's apply ledger, the
+consistency gate and worker groups read, with the same names, defaults and
+validation."""
 
 from __future__ import annotations
 
@@ -23,6 +24,13 @@ class ConsistencyConfig:
     mode: ConsistencyMode = ConsistencyMode.BSP
     #: SSP staleness bound; ignored for BSP (0) and ASP (unbounded).
     max_delay: int = 0
+    #: graceful-degradation deadline of the wire-enforced gate: a request
+    #: held by ``__wait__`` defers longer than this is forced through
+    #: ungated (counted, never dropped).  <= 0 waits forever.
+    gate_deadline_s: float = 5.0
+    #: base sleep between gate retries when the server's ``__wait__`` reply
+    #: advertises no ``retry_after`` hint.
+    gate_retry_s: float = 0.005
 
     @property
     def bound(self) -> Optional[int]:
@@ -36,6 +44,8 @@ class ConsistencyConfig:
     def __post_init__(self) -> None:
         if self.max_delay < 0:
             raise ValueError(f"max_delay must be >= 0, got {self.max_delay!r}")
+        if self.gate_retry_s <= 0:
+            raise ValueError(f"gate_retry_s must be > 0, got {self.gate_retry_s!r}")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -102,6 +112,45 @@ class LedgerConfig:
 
 
 @dataclasses.dataclass(frozen=True)
+class GroupConfig:
+    """Hierarchical push: a worker group pre-reduces its PUSH value planes
+    before the wire, and one elected member pushes the reduced tensor,
+    booked by the servers as ONE logical apply.
+
+    ``election``: ``"rotate"`` spreads the pushing leg across members per
+    ``(table, step)``, ``"fixed"`` pins member 0.  ``fallback``: ``"direct"``
+    re-pushes a member's own gradient within the same step when the leader
+    is dead or partitioned, ``"none"`` raises instead.  ``reduce``:
+    ``"auto"`` / ``"psum"`` sum same-key contributions in member order (a
+    one-card host has no collective across members, as the JAX package on a
+    one-device host), ``"merge"`` always takes the sorted-union merge.
+    ``fallback_timeout``: seconds a member waits on the leader before
+    falling back; also the age at which a leader flushes an incomplete
+    rendezvous as a partial reduction.
+    """
+
+    size: int = 1
+    election: str = "rotate"
+    fallback: str = "direct"
+    reduce: str = "auto"
+    fallback_timeout: float = 0.25
+
+    def __post_init__(self) -> None:
+        if self.size < 1:
+            raise ValueError(f"size must be >= 1, got {self.size!r}")
+        if self.election not in ("rotate", "fixed"):
+            raise ValueError(f"election must be rotate|fixed, got {self.election!r}")
+        if self.fallback not in ("direct", "none"):
+            raise ValueError(f"fallback must be direct|none, got {self.fallback!r}")
+        if self.reduce not in ("auto", "psum", "merge"):
+            raise ValueError(f"reduce must be auto|psum|merge, got {self.reduce!r}")
+        if self.fallback_timeout <= 0:
+            raise ValueError(
+                f"fallback_timeout must be > 0, got {self.fallback_timeout!r}"
+            )
+
+
+@dataclasses.dataclass(frozen=True)
 class TableConfig:
     """A KV table: the unit that is range-partitioned across servers."""
 
@@ -118,3 +167,8 @@ class TableConfig:
     #: fused push apply (one gather -> rule -> scatter kernel); False selects
     #: the three-pass path (gathers, plain rule, scatter-sets).
     fused_apply: bool = True
+    #: wire-enforced consistency gate: when set, workers stamp their
+    #: committed step (``__cstep__``) on this table's PUSH/PULL requests and
+    #: servers gate them against the fleet's vector clock (SSP / BSP / ASP).
+    #: None = ungated, no extra payload.
+    consistency: Optional[ConsistencyConfig] = None

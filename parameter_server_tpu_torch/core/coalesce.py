@@ -9,8 +9,10 @@ objects: the device-resident planes of ``KVWorker.push_device`` (CUDA
 tensors) ride a loopback bundle untouched, never copied to the host here.
 On the receive side a bundle reaches ``Postoffice.recv_batch`` as one group,
 which hands the server's consecutive pushes to its bundled apply engine
-(``KVServer.handle_request_batch``).  The worker-group reduce stage
-(``GroupReducer``, a collective across workers) is not ported yet.
+(``KVServer.handle_request_batch``).  :class:`GroupReducer` is the
+worker-group reduce stage that runs under the coalescing van: the elected
+leader's rendezvous and deterministic host-side reduction of its members'
+PUSH planes.
 
 The reference parameter server wins throughput by batching communication
 into few large ranged messages; the JAX package's :class:`ReliableVan` makes every frame
@@ -491,3 +493,109 @@ class CoalescingVan(VanWrapper):
         if codec_counters is not None:
             out.update(codec_counters())
         return out
+
+
+# -- hierarchical push: the reduce-then-push stage ----------------------------
+#
+# GroupReducer is the leader-side half of the worker-group pre-reduction that
+# runs UNDER the CoalescingVan: members ship their localized PUSH planes to
+# the elected leader as CONTROL contributions (passthrough, never bundled),
+# the leader rendezvouses them here per (table, step), and the ONE reduced
+# tensor it pushes rides the normal coalesced frame plane.
+
+
+class GroupReducer:
+    """Per-(table, step) rendezvous + deterministic reduction.
+
+    ``deposit`` collects one member's ``(keys, values)`` contribution; when
+    ``expected`` members have deposited, the completed set is reduced and
+    returned (exactly once: the set is consumed).  Contributions are ordered
+    by member id.  Identical key sets sum in that order (path ``"sum"``);
+    differing key sets (or ``mode="merge"``) take the sorted-union merge
+    (``np.unique`` + ``np.add.at``, path ``"merge"``).  The JAX reducer's
+    ``psum`` over a shared device mesh has no counterpart on a one-card
+    host, where the JAX package also sums on the host.
+
+    ``take_stale`` returns (and consumes) sets older than a timeout so the
+    leader can flush a PARTIAL reduction when a member died mid-step: the
+    contributions it did receive are never lost.
+    """
+
+    def __init__(self, expected: int, *, node: str, mode: str = "auto") -> None:
+        self.expected = int(expected)
+        self.node = node
+        self.mode = mode
+        self._lock = threading.Lock()
+        #: (table, step) -> {"members": {id: (keys, vals, fanin)}, "t0": s}
+        self._sets: dict[tuple, dict] = {}
+        self.reduced_sets = 0
+        self.partial_sets = 0
+
+    def pending(self) -> int:
+        with self._lock:
+            return len(self._sets)
+
+    def deposit(self, table: str, step: int, member: str, keys, values, fanin: int = 1):
+        """Add one contribution; returns ``(keys, values, fanin)`` reduced
+        over the full set when this deposit completes it, else None.
+        Duplicate deposits (a retransmitted contribution) are ignored."""
+        with self._lock:
+            st = self._sets.setdefault((table, step), {"members": {}, "t0": time.monotonic()})
+            if member in st["members"]:
+                return None
+            st["members"][member] = (keys, values, int(fanin))
+            if len(st["members"]) < self.expected:
+                return None
+            del self._sets[(table, step)]
+            self.reduced_sets += 1
+        return self._reduce(table, step, st)
+
+    def take(self, table: str, step: int):
+        """Consume a specific pending set as a PARTIAL reduction, or None if
+        it is absent (already completed or never started)."""
+        with self._lock:
+            st = self._sets.pop((table, step), None)
+            if st is None:
+                return None
+            self.partial_sets += 1
+        return self._reduce(table, step, st, partial=True)
+
+    def take_stale(self, older_than_s: float) -> list:
+        """Consume sets older than ``older_than_s``; returns
+        ``[(table, step, (keys, values, fanin)), ...]`` partial reductions."""
+        cutoff = time.monotonic() - older_than_s
+        with self._lock:
+            doomed = [key for key, st in self._sets.items() if st["t0"] <= cutoff]
+            stale = [(key, self._sets.pop(key)) for key in doomed]
+            self.partial_sets += len(stale)
+        return [(t, step, self._reduce(t, step, st, partial=True)) for (t, step), st in stale]
+
+    def _reduce(self, table: str, step: int, st: dict, *, partial=False):
+        entries = [st["members"][m] for m in sorted(st["members"])]
+        fanin = sum(e[2] for e in entries)
+        k0 = np.asarray(entries[0][0])
+        same_keys = self.mode != "merge" and all(
+            np.array_equal(np.asarray(e[0]), k0) for e in entries[1:]
+        )
+        if same_keys:
+            path = "sum"
+            stacked = np.stack([np.asarray(e[1]) for e in entries])
+            out = stacked.sum(axis=0, dtype=stacked.dtype) if len(entries) > 1 else stacked[0]
+            keys = k0
+        else:
+            path = "merge"
+            cat_keys = np.concatenate([np.asarray(e[0]) for e in entries])
+            cat_vals = np.concatenate(
+                [np.asarray(e[1]).reshape(np.asarray(e[0]).size, -1) for e in entries]
+            )
+            keys, inv = np.unique(cat_keys, return_inverse=True)
+            out = np.zeros((keys.size, cat_vals.shape[1]), dtype=cat_vals.dtype)
+            np.add.at(out, inv, cat_vals)
+            tail = np.asarray(entries[0][1]).shape[1:]
+            out = out.reshape((keys.size,) + tuple(tail))
+        flightrec.record(
+            "group.reduce", node=self.node, table=table, step=step,
+            members=len(entries), fanin=fanin, rows=int(np.asarray(keys).size),
+            path=path, partial=partial,
+        )
+        return keys, out, fanin

@@ -8,8 +8,9 @@ node, per-sender FIFO, ``sent`` / ``dropped`` counters).  Handlers run on
 those receive threads, so a server's kernels launch off the main thread, on
 the current CUDA stream of that thread (the device's default stream).  A
 handler exception is logged and journaled to the flight recorder
-(``recv.exception``); the thread keeps serving.  Filter chains, fault
-injection (``disconnect``) and the TCP van are not ported yet.
+(``recv.exception``); the thread keeps serving.  ``disconnect`` /
+``reconnect`` simulate a dead node (every message to or from it is dropped,
+``send`` returns False).  Filter chains and the TCP van are not ported yet.
 """
 
 from __future__ import annotations
@@ -133,6 +134,7 @@ class LoopbackVan(Van):
 
     def __init__(self) -> None:
         self._endpoints: dict[str, _Endpoint] = {}
+        self._disconnected: set[str] = set()
         self._lock = threading.Lock()
         #: counters for the dashboard (reference network_usage.h role).
         self.sent_messages = 0
@@ -147,14 +149,22 @@ class LoopbackVan(Van):
     def send(self, msg: Message) -> bool:
         with self._lock:
             ep = self._endpoints.get(msg.recver)
-            if ep is None:
+            if ep is None or {msg.recver, msg.sender} & self._disconnected:
                 self.dropped_messages += 1
-            else:
-                self.sent_messages += 1
-        if ep is None:
-            return False
+                return False
+            self.sent_messages += 1
         ep.inbox.put(msg)
         return True
+
+    # -- fault injection ----------------------------------------------------
+    def disconnect(self, node_id: str) -> None:
+        """Simulate a dead node: all traffic to/from it is dropped."""
+        with self._lock:
+            self._disconnected.add(node_id)
+
+    def reconnect(self, node_id: str) -> None:
+        with self._lock:
+            self._disconnected.discard(node_id)
 
     def unbind(self, node_id: str) -> None:
         with self._lock:

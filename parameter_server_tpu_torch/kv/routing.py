@@ -1,16 +1,19 @@
 """Routing tables: which server owns which global row range.
 
 Host-side numpy code copied from ``parameter_server_tpu/kv/routing.py``: the
-wire payload keys, :class:`TableRouting` and the epoch-stamped
-:class:`RoutingTable` with its request slicing (the ``Parameter::Slice``
-analogue).  This slice runs the epoch-0 uniform split only; live migration
-(``move``) and worker groups are not ported yet.
+wire payload keys, :class:`WorkerGroup` (group membership and the
+deterministic per-``(table, step)`` leader election), :class:`TableRouting`
+and the epoch-stamped :class:`RoutingTable` with its request slicing (the
+``Parameter::Slice`` analogue) and its wire form, which fence replies carry
+and workers adopt (highest epoch wins).  Live migration (``move``) is not
+ported yet: every table here is the epoch-0 uniform split.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import functools
+import zlib
 from typing import Dict, Iterator, List, Tuple
 
 import numpy as np
@@ -34,6 +37,49 @@ GROUP_KEY = "__grp__"
 CONSIST_STEP_KEY = "__cstep__"
 #: reply payload key: typed consistency defer.
 WAIT_KEY = "__wait__"
+
+
+@dataclasses.dataclass(frozen=True)
+class WorkerGroup:
+    """Membership + deterministic per-step leader election.
+
+    A group is the static set of co-located workers that pre-reduce their
+    PUSH value planes before the wire.  :meth:`leader` is a pure function of
+    ``(table, step, salt)``, so every member computes the same answer with
+    no coordination; under ``"rotate"`` the pushing leg rotates per step,
+    de-phased per table by a crc32 offset.  ``salt`` > 0 re-elects
+    deterministically (a fenced leader hands its retry to the next member).
+    """
+
+    members: Tuple[str, ...]
+    #: "rotate" (per-(table, step) rotation) or "fixed" (always member 0
+    #: until salted)
+    election: str = "rotate"
+
+    def __post_init__(self) -> None:
+        if not self.members:
+            raise ValueError("a worker group needs at least one member")
+        if len(set(self.members)) != len(self.members):
+            raise ValueError(f"duplicate group members: {self.members}")
+        if self.election not in ("rotate", "fixed"):
+            raise ValueError(f"election must be rotate|fixed, got {self.election!r}")
+
+    @property
+    def size(self) -> int:
+        return len(self.members)
+
+    @property
+    def gid(self) -> str:
+        """Stable group id (member-derived; stamped onto group frames)."""
+        return "+".join(self.members)
+
+    def leader(self, table: str, step: int, salt: int = 0) -> str:
+        """The member elected to push ``table``'s reduced tensor at
+        ``step``; ``salt`` > 0 deterministically re-elects (fence retry)."""
+        if self.election == "fixed" and salt == 0:
+            return self.members[0]
+        idx = (zlib.crc32(table.encode()) + int(step) + int(salt)) % len(self.members)
+        return self.members[idx]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -105,6 +151,14 @@ class RoutingTable:
         }
         return cls(epoch, tables)
 
+    def servers(self) -> Tuple[int, ...]:
+        """Sorted distinct owners across all tables (the control-op
+        broadcast set)."""
+        out: set = set()
+        for tr in self.tables.values():
+            out.update(tr.owners)
+        return tuple(sorted(out))
+
     def slice_ids(
         self, table: str, sorted_ids: np.ndarray
     ) -> Iterator[Tuple[int, np.ndarray, np.ndarray]]:
@@ -141,3 +195,15 @@ class RoutingTable:
                 for t, tr in self.tables.items()
             },
         }
+
+    @classmethod
+    def from_payload(cls, payload: dict) -> "RoutingTable":
+        tables = {
+            t: TableRouting(
+                int(blob["rows"]),
+                tuple(int(x) for x in blob["offsets"]),
+                tuple(int(x) for x in blob["owners"]),
+            )
+            for t, blob in payload["tables"].items()
+        }
+        return cls(int(payload["epoch"]), tables)

@@ -25,9 +25,20 @@ launch.  Its reaper thread retires the entries; the ack only reads the
 ledger's ``overloaded()`` flag and stamps ``__busy__`` from it.  Routing
 fences journal ``fence.routing`` to the flight recorder.
 
+The consistency gate: a table whose ``TableConfig.consistency`` is set keeps
+a :class:`~parameter_server_tpu_torch.kv.consistency.FleetClock` of the
+workers' committed steps.  A PUSH/PULL stamped ``__cstep__`` more than the
+bound ahead of the fleet minimum is answered with a fence-shaped ``__wait__``
+reply (``consist.gate`` on a sender's first defer, ``consist.release`` when
+it is next admitted); an applied stamped push commits the sender's step in
+``_ack_push``.  Control ops ``consist_hello`` (register a worker up front)
+and ``consist_set`` (live mode / bound retune).  Group-stamped pushes
+(``__grp__``, one reduced apply for a worker group) are booked in
+``group_pushes`` / ``group_members``.  The gate and the booking are host
+dict and int work: nothing on either path reads the card.
+
 Not ported yet: hot-row cache and read-only serving path, replica
-forwarding, live migration, snapshots, the consistency gate and request
-tracing.
+forwarding, live migration, snapshots and request tracing.
 """
 
 from __future__ import annotations
@@ -40,18 +51,27 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
-from parameter_server_tpu_torch.config import ApplyEngineConfig, LedgerConfig, TableConfig
+from parameter_server_tpu_torch.config import (
+    ApplyEngineConfig,
+    ConsistencyMode,
+    LedgerConfig,
+    TableConfig,
+)
 from parameter_server_tpu_torch.convert import shard_from_numpy
 from parameter_server_tpu_torch.core import flightrec
 from parameter_server_tpu_torch.core.messages import Message, TaskKind
 from parameter_server_tpu_torch.core.postoffice import Customer, Postoffice
+from parameter_server_tpu_torch.kv.consistency import MODE_CODES, FleetClock
 from parameter_server_tpu_torch.kv.ledger import COMPLETED, ApplyLedger
 from parameter_server_tpu_torch.kv.routing import (
     BUSY_KEY,
+    CONSIST_STEP_KEY,
     FENCED_KEY,
+    GROUP_KEY,
     ROUTING_EPOCH_KEY,
     ROUTING_KEY,
     VERSION_KEY,
+    WAIT_KEY,
     RoutingTable,
 )
 from parameter_server_tpu_torch.kv.table import KVTable
@@ -121,7 +141,30 @@ class KVServer(Customer):
         }
         self.pushes = 0
         self.pulls = 0
+        #: group-stamped pushes applied, and the member contributions they
+        #: carried (``__grp__``'s ``n``): a group push is ONE apply here
+        self.group_pushes = 0
+        self.group_members = 0
         self.fenced_rejects = 0
+        # -- consistency gate --------------------------------------------------
+        #: per-gated-table live state: mode/bound start from the table's
+        #: ConsistencyConfig and are retunable (``consist_set``); the clock is
+        #: fed by ``__cstep__`` stamps on the receive thread
+        self._consist: Dict[str, dict] = {
+            t: {"cfg": cfg.consistency, "mode": cfg.consistency.mode,
+                "bound": cfg.consistency.bound, "clock": FleetClock()}
+            for t, cfg in table_cfgs.items()
+            if cfg.consistency is not None
+        }
+        self.consist_defers = 0
+        self.consist_releases = 0
+        #: senders parked on a ``__wait__`` defer, per table: ``consist.gate``
+        #: fires on a sender's first defer, ``consist.release`` when it is
+        #: next admitted
+        self._consist_waiting: Dict[str, set] = {t: set() for t in self._consist}
+        if self._consist and hasattr(post.van, "on_incarnation_advance"):
+            # a same-id restart: the dead incarnation must not wedge the minimum
+            post.van.on_incarnation_advance.append(self._consist_incarnation)
 
     # -- routing / shard maps -------------------------------------------------
     def _make_map(self, routing: RoutingTable, table: str) -> tuple:
@@ -179,6 +222,50 @@ class KVServer(Customer):
             payload[VERSION_KEY] = self.version_max(tname)
         reply.task = dataclasses.replace(msg.task, payload=payload)
         return reply
+
+    def _wait_reply(self, msg: Message, tname: str, step: int, fm: int) -> Message:
+        """Typed consistency defer: the sender ran too far ahead.
+
+        Fence-SHAPED (``__error__`` + ``__fenced__`` + the current routing
+        table), so a worker without the gate retries it as a fence; workers
+        with it key on ``__wait__`` first and retry on the gate budget,
+        honouring ``retry_after``.  The fleet clock snapshot rides along.
+        """
+        st = self._consist[tname]
+        self.consist_defers += 1
+        waiting = self._consist_waiting[tname]
+        if msg.sender not in waiting:
+            waiting.add(msg.sender)
+            flightrec.record(
+                "consist.gate", node=self.post.node_id, sender=msg.sender,
+                table=tname, step=step, fleet_min=fm, bound=int(st["bound"]),
+            )
+        reply = msg.reply()
+        gap = step - fm - int(st["bound"])
+        payload = {
+            "__error__": (
+                f"consistency gate ({st['mode'].value}): step {step} > "
+                f"fleet_min {fm} + bound {st['bound']} on {tname!r}"
+            ),
+            FENCED_KEY: True,
+            ROUTING_KEY: self.routing.to_payload(),
+            WAIT_KEY: True,
+            "clock": st["clock"].snapshot(),
+            "fleet_min": fm,
+            "bound": int(st["bound"]),
+            "retry_after": min(0.25, 0.002 * max(1, gap)),
+            "table": tname,
+            VERSION_KEY: self.version_max(tname),
+        }
+        reply.task = dataclasses.replace(msg.task, payload=payload)
+        return reply
+
+    def _consist_incarnation(self, node_id: str, incarnation: int) -> None:
+        """Van callback: a peer restarted under the same id; prune the dead
+        incarnation's clock entry (the new one re-registers by
+        ``consist_hello`` or its first stamped request)."""
+        for st in self._consist.values():
+            st["clock"].on_incarnation_advance(node_id, incarnation)
 
     # -- staleness version clock ----------------------------------------------
     def version_max(self, table: str) -> int:
@@ -310,6 +397,24 @@ class KVServer(Customer):
                 f"{len(np.asarray(msg.keys))} requested rows of {tname!r} "
                 f"at epoch {self.routing.epoch}",
             )
+        # consistency gate: a stamped request on a gated table must sit
+        # within ``bound`` of the fleet minimum or it is deferred.  After the
+        # routing checks (a mis-routed request fences, not waits); unstamped
+        # requests bypass.  Host dict/int work only.
+        cstep = msg.task.payload.get(CONSIST_STEP_KEY)
+        if cstep is not None and tname in self._consist:
+            st = self._consist[tname]
+            allowed, fm = st["clock"].gate(msg.sender, int(cstep), st["bound"])
+            if not allowed:
+                return self._wait_reply(msg, tname, int(cstep), fm)
+            waiting = self._consist_waiting[tname]
+            if msg.sender in waiting:
+                waiting.discard(msg.sender)
+                self.consist_releases += 1
+                flightrec.record(
+                    "consist.release", node=self.post.node_id, sender=msg.sender,
+                    table=tname, step=int(cstep), fleet_min=fm,
+                )
         ids_np, kn, segs = loc
         return tname, ids_np, kn, segs
 
@@ -353,6 +458,15 @@ class KVServer(Customer):
         an AST test), so the ack latency is never device-apply latency.
         """
         self.pushes += 1
+        cstep = msg.task.payload.get(CONSIST_STEP_KEY)
+        if cstep is not None and tname in self._consist:
+            # the stamped push is applied: its sender committed the step
+            self._consist[tname]["clock"].commit(msg.sender, int(cstep))
+        grp = msg.task.payload.get(GROUP_KEY)
+        if grp is not None:
+            # one apply standing for a whole group's step: count the fan-in
+            self.group_pushes += 1
+            self.group_members += int(grp.get("n") or 1)
         ver = self._seg_versions[tname]
         if segs.size:
             ver[segs] += 1
@@ -384,9 +498,47 @@ class KVServer(Customer):
         return rows, n, sver
 
     def _handle_control(self, msg: Message) -> Message:
-        # the in-process learners keep their barrier in ConsistencyController;
-        # no server control op is ported yet
-        raise ValueError(f"unsupported control op {msg.task.payload.get('op')!r}")
+        op = msg.task.payload.get("op")
+        if op == "consist_hello":
+            return self._handle_consist_hello(msg)
+        if op == "consist_set":
+            return self._handle_consist_set(msg)
+        raise ValueError(f"unsupported control op {op!r}")
+
+    def _handle_consist_hello(self, msg: Message) -> Message:
+        """Register a worker in the fleet clock(s) before it trains, so a
+        fast worker cannot free-run ahead of peers the clock has not seen
+        yet; also the re-registration after a same-id restart."""
+        p = msg.task.payload
+        worker = str(p.get("worker") or msg.sender)
+        inc, step = int(p.get("incarnation", 0)), int(p.get("step", 0))
+        tname = p.get("table")
+        for t in [tname] if tname else list(self._consist):
+            if t in self._consist:
+                self._consist[t]["clock"].hello(worker, inc, step)
+        return msg.reply()
+
+    def _handle_consist_set(self, msg: Message) -> Message:
+        """Live retune of a gated table's mode and/or bound.  A mode flip
+        recomputes the bound from the mode unless the payload pins one."""
+        p = msg.task.payload
+        tname = p.get("table")
+        for t in [tname] if tname else list(self._consist):
+            st = self._consist.get(t)
+            if st is None:
+                continue
+            if p.get("mode") is not None:
+                mode = ConsistencyMode(p["mode"])
+                st["mode"] = mode
+                if mode == ConsistencyMode.BSP:
+                    st["bound"] = 0
+                elif mode == ConsistencyMode.ASP:
+                    st["bound"] = None
+                else:
+                    st["bound"] = int(p.get("bound", st["cfg"].max_delay))
+            if p.get("bound") is not None:
+                st["bound"] = int(p["bound"])
+        return msg.reply()
 
     def handle_request(self, msg: Message) -> Message:
         if msg.task.kind == TaskKind.CONTROL:
@@ -565,13 +717,25 @@ class KVServer(Customer):
 
     # -- telemetry-facing reads -------------------------------------------------
     def counters(self) -> dict:
-        """Fence and version counters plus the ledger's gauges and totals
-        (``inflight_bundles``/``inflight_rows``, ``backlog_age_s``,
+        """Fence, group and version counters, the consistency gate's
+        totals and gauges on gated servers, plus the ledger's gauges and
+        totals (``inflight_bundles``/``inflight_rows``, ``backlog_age_s``,
         ``applies_*``), Dashboard-mergeable."""
         out = {
             "fenced_rejects": self.fenced_rejects,
+            "group_pushes": self.group_pushes,
+            "group_members": self.group_members,
             "seg_version_max": sum(self.version_max(t) for t in self.tables),
         }
+        if self._consist:
+            # defer/release totals and the first gated table's mode/bound
+            first = self._consist[sorted(self._consist)[0]]
+            out["consist_defers"] = self.consist_defers
+            out["consist_releases"] = self.consist_releases
+            out["consist_mode"] = MODE_CODES[first["mode"]]
+            out["consist_bound"] = -1 if first["bound"] is None else int(first["bound"])
+            out["consist_clock_size"] = sum(st["clock"].size() for st in self._consist.values())
+            out["consist_pruned"] = sum(st["clock"].pruned for st in self._consist.values())
         if self.ledger is not None:
             out.update(self.ledger.counters())
         return out

@@ -1,8 +1,8 @@
 """KVWorker: the classic Push/Pull facade with timestamps.
 
-Torch counterpart of the core of ``parameter_server_tpu/kv/worker.py``:
-``push`` / ``pull`` return an integer timestamp, ``wait(ts)`` blocks, pulls
-deliver values aligned with the request's key positions.
+Torch counterpart of ``parameter_server_tpu/kv/worker.py``: ``push`` /
+``pull`` return an integer timestamp, ``wait(ts)`` blocks, pulls deliver
+values aligned with the request's key positions.
 
 Pipeline per call:
 
@@ -10,41 +10,72 @@ Pipeline per call:
    (deterministic ``HashLocalizer``, so every worker agrees).
 2. device: ``segment_combine`` of duplicate positions (push only), read back
    to numpy for the wire — one device op and one synchronisation per push.
+   With a :class:`~parameter_server_tpu_torch.kv.routing.WorkerGroup` this
+   is where the group pre-reduction hangs: members hand their combined
+   planes to the elected leader, which reduces them on the host
+   (:class:`~parameter_server_tpu_torch.core.coalesce.GroupReducer`), so
+   one reduced tensor crosses the wire per group per step.
 3. host: ``RoutingTable.slice_ids`` — one request per owning server, stamped
    with the routing epoch.
 4. Van: responses complete the timestamp; pull replies are numpy and are
    reassembled on the host.
 
-``coalesce_window`` / ``push_many`` bundle a burst of sends per server when
-the van stack has a ``CoalescingVan`` (a no-op otherwise), and every ack is
-tapped for the server's ``__busy__`` backpressure hint (``server_busy``).
+The sync paths (``push_sync``, ``pull_result``) loop over replies:
 
-Not ported yet: worker groups, routing-fence and deadline retries, the
-consistency stamp, ``pull_serve`` and the hot-row cache, snapshots, request
-tracing and the staleness histograms.
+- routing fences (``__fenced__``): adopt the highest-epoch table the reply
+  carries and re-submit ONLY the fenced positions, with linear backoff, up
+  to ``max_fence_retries``;
+- consistency defers (``__wait__``, on tables whose
+  ``TableConfig.consistency`` is set): re-submit the waited positions on the
+  gate's own budget (``gate_deadline_s``, honouring ``retry_after``); past
+  the deadline the remainder is forced through ungated — counted
+  (``consist_forced``), never dropped.  A fully acked ``push_sync`` commits
+  this worker's step for the table: the ``__cstep__`` its later gated
+  requests stamp;
+- deadlines: a stuck task is cancelled (remotely too) and re-issued once
+  against the same server ids (``retry_on_timeout``).
+
+``coalesce_window`` / ``push_many`` bundle a burst of sends per server when
+the van stack has a ``CoalescingVan`` (a no-op otherwise).  Every reply is
+tapped for the server's ``__busy__`` backpressure hint (``server_busy``) and
+its ``__sver__`` version stamp (``staleness_digests``).
+
+Not ported yet: ``pull_serve`` and the hot-row cache (so a pull held past
+the gate deadline is always forced through, never shed to a stale cache),
+snapshots, and request tracing.
 """
 
 from __future__ import annotations
 
 import contextlib
+import functools
 import threading
 import time
-from typing import Dict, Optional, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
 
-from parameter_server_tpu_torch.config import TableConfig
+from parameter_server_tpu_torch.config import GroupConfig, TableConfig
+from parameter_server_tpu_torch.core import flightrec
+from parameter_server_tpu_torch.core.coalesce import GroupReducer
 from parameter_server_tpu_torch.core.messages import Message, Task, TaskKind, server_id
 from parameter_server_tpu_torch.core.postoffice import Customer, Postoffice
 from parameter_server_tpu_torch.kv.routing import (
     BUSY_KEY,
+    CONSIST_STEP_KEY,
+    FENCED_KEY,
+    GROUP_KEY,
     ROUTING_EPOCH_KEY,
+    ROUTING_KEY,
     VERSION_KEY,
+    WAIT_KEY,
     RoutingTable,
+    WorkerGroup,
 )
 from parameter_server_tpu_torch.ops import scatter
 from parameter_server_tpu_torch.utils.keys import HashLocalizer, localize_to_slots
+from parameter_server_tpu_torch.utils.trace import LatencyHistogram
 
 
 class KVWorker(Customer):
@@ -57,78 +88,681 @@ class KVWorker(Customer):
         name: str = "kv",
         localizers: Optional[Dict[str, HashLocalizer]] = None,
         min_bucket: int = 256,
+        retry_on_timeout: bool = True,
         routing: Optional[RoutingTable] = None,
+        max_fence_retries: int = 8,
+        fence_backoff: float = 0.02,
+        group: Optional[WorkerGroup] = None,
+        group_cfg: Optional[GroupConfig] = None,
         device: str | torch.device = "cuda",
     ) -> None:
-        """``device`` is where the push pre-combine runs."""
+        """``device`` is where the push pre-combine runs.
+
+        ``retry_on_timeout``: a pull or sync push whose deadline expires is
+        cancelled (remotely too) and re-issued once against the same server
+        ids.  ``routing``: initial routing table (default: the uniform
+        epoch-0 split); newer tables are adopted off fence replies
+        (:meth:`adopt_routing`).
+
+        ``group``: the :class:`~parameter_server_tpu_torch.kv.routing.
+        WorkerGroup` this worker belongs to.  Pushes then pre-reduce across
+        the group and only the elected leader's reduced tensor crosses the
+        wire.  ``group_cfg`` tunes fallback and reduction (default: a
+        ``GroupConfig`` matched to the group's size and election)."""
         super().__init__(name, post)
         self.device = torch.device(device)
         self.table_cfgs = table_cfgs
         self.num_servers = num_servers
         self.min_bucket = min_bucket
+        self.retry_on_timeout = retry_on_timeout
+        self.max_fence_retries = max_fence_retries
+        self.fence_backoff = fence_backoff
         self.routing = routing or RoutingTable.uniform(table_cfgs, num_servers)
+        self._routing_lock = threading.Lock()
         self.localizers = localizers or {
             t: HashLocalizer(cfg.rows) for t, cfg in table_cfgs.items()
         }
         #: per-timestamp reassembly info for pulls
         self._pull_plans: Dict[int, dict] = {}
+        #: deadline and fence retry counters
+        self.pull_retries = 0
+        self.push_retries = 0
+        self.refresh_retries = 0
+        # -- staleness observability -------------------------------------------
+        #: highest server version this worker's own pushes were acked at, per
+        #: (table, server): the baseline update lag is measured from
+        self._last_push_version: Dict[Tuple[str, str], int] = {}
+        #: update-lag distributions per (table, server), in versions
+        self._staleness: Dict[Tuple[str, str], LatencyHistogram] = {}
+        self._staleness_lock = threading.Lock()
+        self.staleness_samples = 0
         # -- device-plane backpressure -----------------------------------------
-        #: total ``__busy__``-hinted acks seen (Dashboard-mergeable)
+        #: total ``__busy__``-hinted acks seen, and the monotonic stamp of the
+        #: last one per server (:meth:`server_busy`)
         self.busy_hints = 0
-        #: monotonic stamp of the last busy hint per server — the admission
-        #: signal a throttling training loop polls via :meth:`server_busy`
         self._busy_last: Dict[str, float] = {}
-        self._busy_lock = threading.Lock()
+        # -- hierarchical push ---------------------------------------------------
+        #: group membership; None (or size 1) = direct pushes
+        self._group = group if (group is not None and group.size > 1) else None
+        self._group_cfg: Optional[GroupConfig] = None
+        #: how a group frame meets a lossy wire codec's error feedback:
+        #: "leader" (fixed election: one sender owns the residual) or "bypass"
+        #: (rotation would move the residual owner every step)
+        self._group_ef: Optional[str] = None
+        self._group_reducer: Optional[GroupReducer] = None
+        if self._group is not None:
+            if self.post.node_id not in self._group.members:
+                raise ValueError(
+                    f"{self.post.node_id} is not a member of group {self._group.gid}"
+                )
+            if group_cfg is not None and group_cfg.size != self._group.size:
+                raise ValueError(
+                    f"group_cfg.size={group_cfg.size} != group size {self._group.size}"
+                )
+            self._group_cfg = group_cfg or GroupConfig(
+                size=self._group.size, election=self._group.election
+            )
+            self._group_ef = "leader" if self._group.election == "fixed" else "bypass"
+            # every member carries a reducer: any of them can be elected
+            self._group_reducer = GroupReducer(
+                self._group.size, node=self.post.node_id, mode=self._group_cfg.reduce
+            )
+        self._group_lock = threading.Lock()
+        #: per-table local step counter keying leader election (members
+        #: advance in lockstep; skew degrades to the timeout fallback)
+        self._group_steps: Dict[str, int] = {}
+        #: (table, step) -> Event set by the done notify (sync waiters)
+        self._group_events: Dict[Tuple[str, int], threading.Event] = {}
+        self.group_pushes = 0  # reduced wire pushes sent (as leader)
+        self.group_reduced_fanin = 0  # member contributions those carried
+        self.group_contribs = 0  # contributions sent (as member)
+        self.group_fallbacks = 0  # degradations to direct push
+        self.group_done_recv = 0  # done notifies applied
+        self.group_handoffs = 0  # fence re-elections handed to a new leader
+        # -- consistency gate ----------------------------------------------------
+        #: per-table committed step: how many push_sync calls fully
+        #: completed; the ``__cstep__`` stamped on gated PUSH/PULL traffic
+        self._consist_steps: Dict[str, int] = {}
+        self._consist_lock = threading.Lock()
+        #: ``__wait__`` defers received / pulls shed to a stale cache (none
+        #: without the cache) / requests forced through past the deadline
+        self.consist_waits = 0
+        self.consist_sheds = 0
+        self.consist_forced = 0
+        #: seconds parked on gates (first defer -> admitted)
+        self._gate_hist = LatencyHistogram()
+
+    # -- routing --------------------------------------------------------------
+    def adopt_routing(self, routing) -> bool:
+        """Adopt a routing table (or its wire payload, as fence replies carry
+        it) iff it is NEWER than the one held: highest epoch wins."""
+        if routing is None:
+            return False
+        if isinstance(routing, dict):
+            routing = RoutingTable.from_payload(routing)
+        with self._routing_lock:
+            if routing.epoch <= self.routing.epoch:
+                return False
+            self.routing = routing
+            return True
+
+    def counters(self) -> dict:
+        """Retry, staleness, backpressure, group and gate counters,
+        Dashboard-mergeable; the JAX worker's keys for what the port has."""
+        out = {
+            "pull_retries": self.pull_retries,
+            "push_retries": self.push_retries,
+            "refresh_retries": self.refresh_retries,
+            "staleness_samples": self.staleness_samples,
+            "busy_hints": self.busy_hints,
+        }
+        if self._group is not None:
+            out.update(
+                {
+                    "group_pushes": self.group_pushes,
+                    "group_reduced_fanin": self.group_reduced_fanin,
+                    "group_contribs": self.group_contribs,
+                    "group_fallbacks": self.group_fallbacks,
+                    "group_done_recv": self.group_done_recv,
+                    "group_handoffs": self.group_handoffs,
+                }
+            )
+        with self._consist_lock:
+            if self.consist_waits or self._consist_steps:
+                out["consist_waits"] = self.consist_waits
+                out["consist_sheds"] = self.consist_sheds
+                out["consist_forced"] = self.consist_forced
+                out["consist_degraded"] = self.consist_sheds + self.consist_forced
+                out["consist_step"] = sum(self._consist_steps.values())
+        return out
 
     def server_busy(self, server: str, within_s: float = 1.0) -> bool:
         """True if ``server`` stamped ``__busy__`` onto an ack within the
         last ``within_s`` seconds — the soft-backpressure poll a throttling
         training loop consumes (the hint is advisory: pushes were applied)."""
-        with self._busy_lock:
+        with self._staleness_lock:
             t = self._busy_last.get(server)
         return t is not None and (time.monotonic() - t) <= within_s
 
     def _on_response(self, msg) -> None:
-        """Tap every reply for the server's ``__busy__`` hint (the server's
-        apply ledger was over a backlog bound when it stamped the ack), then
-        complete the task.  Runs on the receive thread; fail-safe: the
-        super() call that completes the task always runs."""
+        """Tap every reply, on the receive thread, then complete the task
+        (always: observability never loses a reply).
+
+        ``__busy__`` counts a backpressure hint.  ``__sver__``: a PUSH ack
+        advances this worker's last-pushed version for (table, server); a
+        PULL reply records ``server_version - last_pushed_version`` into
+        that range's staleness histogram; a fence's stamp does neither."""
         try:
-            if msg.task.payload.get(BUSY_KEY):
-                with self._busy_lock:
+            payload = msg.task.payload
+            if payload.get(BUSY_KEY):
+                with self._staleness_lock:
                     self.busy_hints += 1
                     self._busy_last[msg.sender] = time.monotonic()
+            sver = payload.get(VERSION_KEY)
+            table = payload.get("table")
+            if sver is not None and table is not None and not payload.get(FENCED_KEY):
+                key = (table, msg.sender)
+                with self._staleness_lock:
+                    if msg.task.kind == TaskKind.PUSH:
+                        if sver > self._last_push_version.get(key, 0):
+                            self._last_push_version[key] = int(sver)
+                    elif msg.task.kind == TaskKind.PULL:
+                        last = self._last_push_version.get(key)
+                        if last is not None:
+                            hist = self._staleness.get(key)
+                            if hist is None:
+                                hist = self._staleness[key] = LatencyHistogram()
+                            hist.record(float(max(int(sver) - last, 0)))
+                            self.staleness_samples += 1
+        except Exception:  # noqa: BLE001 — observability must never lose
+            pass  # the reply itself
+        super()._on_response(msg)
+
+    def staleness_digests(self) -> Dict[str, dict]:
+        """Cumulative update-lag digests: ``staleness.<table>`` merges every
+        server's distribution; ``staleness.<table>@<server>`` keeps the
+        per-range split."""
+        with self._staleness_lock:
+            per_range = {
+                f"staleness.{t}@{s}": h.to_dict() for (t, s), h in self._staleness.items()
+            }
+            merged: Dict[str, LatencyHistogram] = {}
+            for (t, _s), h in self._staleness.items():
+                agg = merged.get(t)
+                if agg is None:
+                    agg = merged[t] = LatencyHistogram()
+                agg.merge(h)
+        out = {f"staleness.{t}": h.to_dict() for t, h in merged.items()}
+        out.update(per_range)
+        return out
+
+    def latency_digests(self) -> Dict[str, dict]:
+        """``consist.gate_wait``: seconds parked on consistency gates (the
+        JAX worker's ``trace.e2e`` needs request tracing, not ported)."""
+        with self._consist_lock:
+            if self._gate_hist.count:
+                return {"consist.gate_wait": self._gate_hist.to_dict()}
+        return {}
+
+    # -- consistency gate -------------------------------------------------------
+    def consist_step(self, table: str) -> int:
+        """This worker's committed step for ``table`` (completed pushes)."""
+        with self._consist_lock:
+            return self._consist_steps.get(table, 0)
+
+    def _consist_commit(self, table: str) -> int:
+        with self._consist_lock:
+            s = self._consist_steps.get(table, 0) + 1
+            self._consist_steps[table] = s
+            return s
+
+    def _gated(self, table: str) -> bool:
+        return self.table_cfgs[table].consistency is not None
+
+    @staticmethod
+    def _scan_waits(responses, order) -> Tuple[list, list, list, float]:
+        """Split out typed ``__wait__`` defers: fence-shaped but not fences
+        (routing is fine; the sender ran ahead of the fleet minimum).
+        Returns ``(rest, waits, waited position arrays, max retry_after)``."""
+        rest, waits, pos, retry = [], [], [], 0.0
+        for resp in responses:
+            p = resp.task.payload
+            if p.get(WAIT_KEY):
+                waits.append(resp)
+                pos.append(order[resp.sender])
+                retry = max(retry, float(p.get("retry_after") or 0.0))
+            else:
+                rest.append(resp)
+        return rest, waits, pos, retry
+
+    @staticmethod
+    def _scan_fences(responses, order) -> Tuple[list, set, List[np.ndarray]]:
+        """Split a completed task's responses into (data, fenced senders,
+        fenced position arrays)."""
+        data, senders, fenced = [], set(), []
+        for resp in responses:
+            if resp.task.payload.get(FENCED_KEY):
+                senders.add(resp.sender)
+                fenced.append(order[resp.sender])
+            else:
+                data.append(resp)
+        return data, senders, fenced
+
+    @staticmethod
+    def _real_errors(errs, fenced_senders) -> list:
+        """Errors minus the typed fence rejects (recorded as 'S0: <err>')."""
+        return [e for e in errs if not any(e.startswith(f"{s}: ") for s in fenced_senders)]
+
+    def _adopt_from(self, responses) -> None:
+        for resp in responses:
+            if resp.task.payload.get(FENCED_KEY):
+                self.adopt_routing(resp.task.payload.get(ROUTING_KEY))
+
+    def _gate_deadline_s(self, table: str) -> float:
+        cfg = self.table_cfgs[table].consistency
+        return cfg.gate_deadline_s if cfg is not None else 0.0
+
+    def _gate_pause(self, table: str, retry_after: float) -> None:
+        cfg = self.table_cfgs[table].consistency
+        time.sleep(max(retry_after, cfg.gate_retry_s if cfg is not None else 0.005))
+
+    def _gate_admitted(self, gate_t0: Optional[float]) -> None:
+        if gate_t0 is not None:
+            with self._consist_lock:
+                self._gate_hist.record(max(time.monotonic() - gate_t0, 0.0))
+
+    # -- hierarchical push ------------------------------------------------------
+    def _group_push(self, table, slots, combined, *, sync: bool, timeout) -> int:
+        """Route one prepared push through the group: elect, then lead the
+        rendezvous or contribute to the elected leader.  Returns the
+        timestamp of the leg this member sent, or -1 when the leader's set
+        was completed (and its wire push sent) by another thread."""
+        step = self._group_step_next(table)
+        leader = self._group.leader(table, step)
+        flightrec.record(
+            "group.elect", node=self.post.node_id, table=table, step=step,
+            leader=leader, size=self._group.size,
+        )
+        # flush rendezvous sets a dead or skewed member stranded
+        self._group_gc_stale()
+        if leader == self.post.node_id:
+            return self._group_lead(table, step, slots, combined, sync=sync, timeout=timeout)
+        return self._group_contribute(
+            table, step, leader, slots, combined, sync=sync, timeout=timeout
+        )
+
+    def _group_step_next(self, table: str) -> int:
+        with self._group_lock:
+            step = self._group_steps.get(table, 0)
+            self._group_steps[table] = step + 1
+        return step
+
+    def _group_event(self, table: str, step: int) -> threading.Event:
+        with self._group_lock:
+            ev = self._group_events.get((table, step))
+            if ev is None:
+                ev = self._group_events[(table, step)] = threading.Event()
+        return ev
+
+    def _group_pop_event(self, table: str, step: int) -> None:
+        with self._group_lock:
+            self._group_events.pop((table, step), None)
+
+    def _group_lead(self, table, step, slots, combined, *, sync, timeout) -> int:
+        """Leader leg: deposit own contribution; push when the set
+        completes; on member timeout flush a PARTIAL reduction (no loss)."""
+        cfg = self._group_cfg
+        ev = self._group_event(table, step) if sync else None
+        done = self._group_reducer.deposit(table, step, self.post.node_id, slots, combined)
+        ts = -1
+        if done is not None:
+            ts = self._group_wire_push(table, step, *done)
+        if not sync:
+            return ts
+        try:
+            # degradation runs on the group's own clock (fallback_timeout),
+            # not the caller's push deadline
+            if not ev.wait(cfg.fallback_timeout):
+                part = self._group_reducer.take(table, step)
+                if part is not None:
+                    if cfg.fallback == "none":
+                        raise TimeoutError(
+                            f"group push of {table!r} step {step}: members "
+                            f"missing and fallback='none'"
+                        )
+                    with self._group_lock:
+                        self.group_fallbacks += 1
+                    flightrec.record(
+                        "group.fallback", node=self.post.node_id, table=table,
+                        step=step, reason="member_timeout", fanin=part[2],
+                    )
+                    ts = self._group_wire_push(table, step, *part)
+                # the wire push is in flight either way: wait for its acks
+                if not ev.wait(timeout if timeout is not None else cfg.fallback_timeout):
+                    raise TimeoutError(f"group push of {table!r} step {step} timed out")
+            return ts
         finally:
-            super()._on_response(msg)
+            self._group_pop_event(table, step)
+
+    def _group_contribute(self, table, step, leader, slots, combined, *, sync, timeout) -> int:
+        """Member leg: ship the combined plane to the leader as a CONTROL
+        contribution (never bundled); degrade to a direct push if the leader
+        is dead or partitioned."""
+        cfg = self._group_cfg
+        ev = self._group_event(table, step) if sync else None
+        msg = Message(
+            task=Task(
+                TaskKind.CONTROL,
+                self.name,
+                payload={
+                    GROUP_KEY: {
+                        "op": "contrib", "table": table, "step": int(step),
+                        "member": self.post.node_id, "fanin": 1,
+                    }
+                },
+            ),
+            recver=leader,
+            keys=np.asarray(slots).astype(np.int64, copy=False),
+            values=[combined],
+        )
+        with self._group_lock:
+            self.group_contribs += 1
+        if not sync:
+            cb = functools.partial(self._group_contrib_done, table, step, slots, combined)
+            return self.submit([msg], callback=cb)
+        ts = self.submit([msg], keep_responses=True)
+        try:
+            if not self.wait(ts, cfg.fallback_timeout):
+                # partitioned leader: fence the contribution so a late
+                # delivery cannot double-apply, then push direct
+                self.cancel(ts, "group leader deadline", remote=True)
+                self.take_responses(ts)
+                return self._group_fallback(
+                    table, step, slots, combined,
+                    reason="leader_timeout", sync=True, timeout=timeout,
+                )
+            errs = self.errors(ts)
+            self.take_responses(ts)
+            if errs:
+                # dead leader: the contribution was NOT absorbed
+                return self._group_fallback(
+                    table, step, slots, combined,
+                    reason="dead_leader", sync=True, timeout=timeout,
+                )
+            # acked: the leader owns this gradient now.  Wait for the done
+            # notify (it advances _last_push_version); no fallback after this
+            # point, since re-pushing an absorbed gradient would double-apply
+            ev.wait(timeout if timeout is not None else cfg.fallback_timeout)
+            return ts
+        finally:
+            self._group_pop_event(table, step)
+
+    def _group_contrib_done(self, table, step, slots, combined, responses):
+        """Async-contribution callback: degrade on a dead leader."""
+        if not any(r.task.payload.get("__error__") is None for r in responses):
+            self._group_fallback(
+                table, step, slots, combined, reason="dead_leader", sync=False, timeout=None
+            )
+
+    def _group_fallback(self, table, step, slots, combined, *, reason, sync, timeout) -> int:
+        """Direct push of this member's own gradient: the same-step, no-loss
+        degradation the group contract promises."""
+        if self._group_cfg.fallback == "none":
+            raise RuntimeError(
+                f"group push of {table!r} step {step}: leader unreachable "
+                f"({reason}) and fallback='none'"
+            )
+        with self._group_lock:
+            self.group_fallbacks += 1
+        flightrec.record(
+            "group.fallback", node=self.post.node_id, table=table, step=step, reason=reason
+        )
+        if sync:
+            return self._push_sync_prepared(table, slots, combined, timeout)
+        ts, _ = self._submit_push(table, slots, combined)
+        return ts
+
+    def _group_gc_stale(self) -> None:
+        """Flush rendezvous sets whose stragglers exceeded the timeout."""
+        red = self._group_reducer
+        if red is None or not red.pending():
+            return
+        for table, step, (keys, vals, fanin) in red.take_stale(self._group_cfg.fallback_timeout):
+            with self._group_lock:
+                self.group_fallbacks += 1
+            flightrec.record(
+                "group.fallback", node=self.post.node_id, table=table, step=step,
+                reason="stale_set", fanin=fanin,
+            )
+            self._group_wire_push(table, step, keys, vals, fanin)
+
+    def _group_wire_push(self, table, step, keys, vals, fanin, attempt: int = 0,
+                         positions: Optional[np.ndarray] = None) -> int:
+        """Push the reduced tensor, stamped as ONE logical group apply.
+
+        Non-blocking: this runs on training threads, the receive thread (a
+        completing deposit) and the callback pool (fence retries); blocking
+        on a same-endpoint reply would deadlock the receive thread, so acks
+        are handled by :meth:`_group_wire_done` via the submit callback.
+        """
+        stamp = {"id": self._group.gid, "n": int(fanin), "step": int(step), "ef": self._group_ef}
+        routing = self.routing
+        keys = np.asarray(keys)
+        if positions is None:
+            positions = np.arange(keys.shape[0], dtype=np.int64)
+        msgs, order = [], {}
+        for s, rel, ids in routing.slice_ids(table, keys[positions]):
+            abs_pos = positions[rel]
+            order[server_id(s)] = abs_pos
+            payload = {"table": table, ROUTING_EPOCH_KEY: routing.epoch, GROUP_KEY: dict(stamp)}
+            msgs.append(
+                Message(
+                    task=Task(TaskKind.PUSH, self.name, payload=payload),
+                    recver=server_id(s),
+                    keys=ids.astype(np.int32),
+                    values=[vals[abs_pos]],
+                )
+            )
+        cb = functools.partial(
+            self._group_wire_done, table, step, keys, vals, fanin, attempt, order
+        )
+        with self.coalesce_window():
+            ts = self.submit(msgs, callback=cb)
+        with self._group_lock:
+            self.group_pushes += 1
+            self.group_reduced_fanin += int(fanin)
+        return ts
+
+    def _group_wire_done(self, table, step, keys, vals, fanin, attempt, order, responses):
+        """Ack callback of a group wire push: adopt and re-elect on fences,
+        then notify every member with the acked versions.  A fenced reduced
+        push re-elects with ``salt=attempt+1``; if the new leader is another
+        member the fenced subset is HANDED OFF to it."""
+        try:
+            self._adopt_from(responses)
+            data, _senders, fenced = self._scan_fences(responses, order)
+            vers = {}
+            for r in data:
+                p = r.task.payload
+                if p.get("__error__") is None and p.get(VERSION_KEY) is not None:
+                    vers[r.sender] = int(p[VERSION_KEY])
+            if fenced and attempt < self.max_fence_retries:
+                pos = np.sort(np.concatenate(fenced))
+                with self._group_lock:
+                    self.refresh_retries += 1
+                new_leader = self._group.leader(table, step, salt=attempt + 1)
+                flightrec.record(
+                    "group.elect", node=self.post.node_id, table=table, step=step,
+                    leader=new_leader, size=self._group.size, salt=attempt + 1,
+                    cause="fence",
+                )
+                if new_leader != self.post.node_id:
+                    self._group_handoff(
+                        new_leader, table, step, keys[pos], vals[pos], fanin, attempt + 1
+                    )
+                else:
+                    self._group_wire_push(
+                        table, step, keys, vals, fanin, attempt + 1, positions=pos
+                    )
+            if fenced:
+                if vers:  # acked legs advance versions; the retry notifies later
+                    self._group_notify_done(table, step, vers, final=False)
+            else:
+                self._group_notify_done(table, step, vers, final=True)
+        except Exception:  # noqa: BLE001 — a callback-thread error must not
+            # pass silently: the group's sync waiters then time out on it
+            flightrec.record(
+                "group.fallback", node=self.post.node_id, table=table, step=step,
+                reason="wire_done_error",
+            )
+
+    def _group_handoff(self, new_leader, table, step, keys, vals, fanin, attempt) -> None:
+        with self._group_lock:
+            self.group_handoffs += 1
+        msg = Message(
+            task=Task(
+                TaskKind.CONTROL,
+                self.name,
+                payload={
+                    GROUP_KEY: {
+                        "op": "handoff", "table": table, "step": int(step),
+                        "fanin": int(fanin), "attempt": int(attempt),
+                    }
+                },
+            ),
+            recver=new_leader,
+            keys=np.asarray(keys).astype(np.int64, copy=False),
+            values=[vals],
+        )
+        cb = functools.partial(
+            self._group_handoff_done, table, step, keys, vals, fanin, attempt
+        )
+        self.submit([msg], callback=cb)
+
+    def _group_handoff_done(self, table, step, keys, vals, fanin, attempt, responses) -> None:
+        if not any(r.task.payload.get("__error__") is None for r in responses):
+            # the new leader is unreachable too: retry the push locally
+            self._group_wire_push(table, step, keys, vals, fanin, attempt)
+
+    def _group_notify_done(self, table, step, vers, *, final) -> None:
+        """Tell every member the group push landed (fire-and-forget), with
+        the per-server acked versions: each member advances its OWN
+        ``_last_push_version``, so staleness is measured from the group
+        push for every member."""
+        self._group_apply_done(table, step, vers, final)
+        for m in self._group.members:
+            if m == self.post.node_id:
+                continue
+            self.post.send(
+                Message(
+                    task=Task(
+                        TaskKind.CONTROL,
+                        self.name,
+                        # fresh payload per leg (Loopback may alias them)
+                        payload={
+                            GROUP_KEY: {
+                                "op": "done", "table": table, "step": int(step),
+                                "vers": dict(vers), "final": bool(final),
+                            }
+                        },
+                    ),
+                    recver=m,
+                )
+            )
+
+    def _group_apply_done(self, table, step, vers, final) -> None:
+        with self._staleness_lock:
+            for server, sver in vers.items():
+                key = (table, server)
+                if int(sver) > self._last_push_version.get(key, 0):
+                    self._last_push_version[key] = int(sver)
+        with self._group_lock:
+            self.group_done_recv += 1
+            ev = self._group_events.get((table, int(step))) if final else None
+        if ev is not None:
+            ev.set()
+
+    def handle_request(self, msg: Message) -> Optional[Message]:
+        """Worker-to-worker group ops: contribution deposit, fence-retry
+        handoff, done notify.  Anything else keeps the base behaviour (a
+        typed ``__error__`` reply)."""
+        payload = msg.task.payload
+        grp = payload.get(GROUP_KEY) if isinstance(payload, dict) else None
+        if grp is None or self._group is None:
+            return super().handle_request(msg)
+        op = grp.get("op")
+        if op == "contrib":
+            table, step = grp["table"], int(grp["step"])
+            done = self._group_reducer.deposit(
+                table, step, grp.get("member", msg.sender), msg.keys, msg.values[0],
+                fanin=int(grp.get("fanin", 1)),
+            )
+            if done is not None:
+                self._group_wire_push(table, step, *done)
+            self._group_gc_stale()
+            return msg.reply()
+        if op == "handoff":
+            self._group_wire_push(
+                grp["table"], int(grp["step"]), msg.keys, msg.values[0],
+                int(grp.get("fanin", 1)), attempt=int(grp.get("attempt", 0)),
+            )
+            return msg.reply()
+        if op == "done":
+            self._group_apply_done(
+                grp["table"], int(grp["step"]),
+                {k: int(v) for k, v in (grp.get("vers") or {}).items()},
+                bool(grp.get("final", True)),
+            )
+            return None  # fire-and-forget: the sender tracks no task
+        return super().handle_request(msg)
 
     # -- push ---------------------------------------------------------------
     def _submit_push(
-        self, table: str, slots: np.ndarray, combined
+        self,
+        table: str,
+        slots: np.ndarray,
+        combined,
+        positions: Optional[np.ndarray] = None,
+        *,
+        keep: bool = False,
+        ungated: bool = False,
     ) -> Tuple[int, Dict[str, np.ndarray]]:
-        """Wire one push of ``combined`` rows at global ids ``slots``;
-        returns ``(ts, {server: positions})``.  ``combined`` is numpy, or a
-        device tensor sliced per server as device views (push_device)."""
+        """Wire one push of ``combined[positions]`` rows at global ids
+        ``slots[positions]``; returns ``(ts, {server: positions})``.
+
+        ``positions`` (ascending indices into ``slots``) defaults to all of
+        them; retries pass only the rejected subset.  ``combined`` is numpy,
+        or a device tensor sliced per server as device views (push_device).
+        Gated tables stamp the committed step unless ``ungated`` (the
+        gate-deadline force-through)."""
         routing = self.routing  # one consistent table per submit
+        if positions is None:
+            positions = np.arange(slots.shape[0], dtype=np.int64)
+        cstep = self.consist_step(table) if not ungated and self._gated(table) else None
         msgs, order = [], {}
-        for s, pos, ids in routing.slice_ids(table, slots):
-            order[server_id(s)] = pos
+        for s, rel, ids in routing.slice_ids(table, slots[positions]):
+            abs_pos = positions[rel]
+            order[server_id(s)] = abs_pos
             if isinstance(combined, torch.Tensor):
-                plane = combined[torch.from_numpy(pos).to(combined.device)]
+                plane = combined[torch.from_numpy(abs_pos).to(combined.device)]
             else:
-                plane = combined[pos]
+                plane = combined[abs_pos]
+            payload = {"table": table, ROUTING_EPOCH_KEY: routing.epoch}
+            if cstep is not None:
+                payload[CONSIST_STEP_KEY] = cstep
             msgs.append(
                 Message(
-                    task=Task(
-                        TaskKind.PUSH,
-                        self.name,
-                        payload={"table": table, ROUTING_EPOCH_KEY: routing.epoch},
-                    ),
+                    task=Task(TaskKind.PUSH, self.name, payload=payload),
                     recver=server_id(s),
                     keys=ids.astype(np.int32),
                     values=[plane],
                 )
             )
-        return self.submit(msgs), order
+        # under a CoalescingVan the burst flushes at window exit; nested in
+        # push_many's window it coalesces across tables instead
+        with self.coalesce_window():
+            ts = self.submit(msgs, keep_responses=keep)
+        return ts, order
 
     def _prepare_push(self, table: str, keys, values):
         """Host half of a push: localize, then the duplicate pre-combine on
@@ -149,9 +783,14 @@ class KVWorker(Customer):
         """Push per-position gradient rows for ``keys``; returns a timestamp.
 
         ``values`` has shape ``[len(keys), dim]`` (or ``[len(keys)]`` for
-        dim=1 tables).  Fire-and-forget: ``wait(ts)`` blocks for the acks.
+        dim=1 tables).  Fire-and-forget: ``wait(ts)`` blocks for the acks,
+        which cannot observe fences or gates — use :meth:`push_sync` there.
+        In a group the push routes through the pre-reduction (a dead leader
+        degrades to a direct push via the submit callback).
         """
         slots, combined = self._prepare_push(table, keys, values)
+        if self._group is not None:
+            return self._group_push(table, slots, combined, sync=False, timeout=None)
         ts, _ = self._submit_push(table, slots, combined)
         return ts
 
@@ -171,16 +810,10 @@ class KVWorker(Customer):
         return ts
 
     def coalesce_window(self):
-        """Context manager batching this worker's sends per destination.
-
-        When the Postoffice's Van stack includes a
-        :class:`~parameter_server_tpu_torch.core.coalesce.CoalescingVan`,
-        every message sent inside the window is bundled per server — a
-        multi-table or multi-push burst pays the per-frame overhead once and
-        reaches each server's apply engine as one group.  A no-op (null
-        context) on plain stacks, so callers never need to know what the Van
-        is.
-        """
+        """Context manager batching this worker's sends per destination when
+        the van stack has a
+        :class:`~parameter_server_tpu_torch.core.coalesce.CoalescingVan`;
+        a null context on plain stacks."""
         win = getattr(self.post.van, "window", None)
         return win() if callable(win) else contextlib.nullcontext()
 
@@ -195,10 +828,105 @@ class KVWorker(Customer):
         server.  ``wait()`` each ts as usual.
         """
         with self.coalesce_window():
-            return {
-                t: self.push(t, keys, values)
-                for t, (keys, values) in updates.items()
-            }
+            return {t: self.push(t, keys, values) for t, (keys, values) in updates.items()}
+
+    def push_sync(
+        self,
+        table: str,
+        keys: np.ndarray,
+        values: np.ndarray,
+        timeout: Optional[float] = None,
+    ) -> int:
+        """Push and block for all server acks; returns the completing ts.
+
+        Deadline: the stuck task is cancelled (remotely too, so servers that
+        have not applied it drop it) and re-issued once.  Fences: only the
+        fenced positions are re-pushed under the adopted table (the fence
+        fired before any apply, so nothing double-counts).  Gates: see
+        :meth:`_push_sync_prepared`.
+
+        In a group the push routes through the pre-reduction and blocks
+        until the group's done notify (all members of a step must be in
+        ``push_sync`` together); leader death degrades to this member's own
+        direct push within the same step.
+        """
+        slots, combined = self._prepare_push(table, keys, values)
+        if self._group is not None:
+            return self._group_push(table, slots, combined, sync=True, timeout=timeout)
+        return self._push_sync_prepared(table, slots, combined, timeout)
+
+    def _push_sync_prepared(self, table, slots, combined, timeout=None) -> int:
+        """The direct sync push loop over prepared planes, also the group
+        mode's no-loss degradation target.  ``__wait__`` defers park the
+        waited positions on the gate budget (no fence retries consumed);
+        past ``gate_deadline_s`` the remainder is forced through ungated.
+        A fully acked push commits this worker's step for the table."""
+        positions: Optional[np.ndarray] = None
+        ts = -1
+        attempt = 0  # fence budget only; gate waits ride their own clock
+        gate_t0 = None
+        ungated = False
+        while attempt <= self.max_fence_retries:
+            ts, order = self._submit_push(
+                table, slots, combined, positions, keep=True, ungated=ungated
+            )
+            if not self.wait(ts, timeout):
+                if not self.retry_on_timeout:
+                    raise TimeoutError(f"push ts={ts} timed out")
+                self.cancel(ts, "push deadline", remote=True)
+                self.take_responses(ts)
+                self.push_retries += 1
+                ts, order = self._submit_push(
+                    table, slots, combined, positions, keep=True, ungated=ungated
+                )
+                if not self.wait(ts, timeout):
+                    self.cancel(ts, "push deadline (retry)", remote=True)
+                    self.take_responses(ts)
+                    raise TimeoutError(f"push ts={ts} timed out after retry")
+            errs = self.errors(ts)
+            responses = self.take_responses(ts)
+            self._adopt_from(responses)
+            responses, waits, wait_pos, retry_after = self._scan_waits(responses, order)
+            _, fenced_senders, fenced = self._scan_fences(responses, order)
+            real = self._real_errors(errs, fenced_senders | {r.sender for r in waits})
+            if real:
+                raise RuntimeError(f"push ts={ts} failed on: " + "; ".join(real))
+            if not fenced and not waits:
+                if self._gated(table):
+                    self._consist_commit(table)
+                    self._gate_admitted(gate_t0)
+                return ts
+            pending = list(fenced)
+            if waits:
+                with self._consist_lock:
+                    self.consist_waits += len(waits)
+                if gate_t0 is None:
+                    gate_t0 = time.monotonic()
+                pending.append(np.sort(np.concatenate(wait_pos)))
+                deadline = self._gate_deadline_s(table)
+                if deadline > 0 and time.monotonic() - gate_t0 > deadline and not ungated:
+                    # never dropped: force the remainder through ungated
+                    ungated = True
+                    with self._consist_lock:
+                        self.consist_forced += 1
+                    self._gate_admitted(gate_t0)
+                    flightrec.record(
+                        "consist.shed", node=self.post.node_id, table=table,
+                        op="push", how="forced",
+                        n=int(sum(p.shape[0] for p in wait_pos)),
+                    )
+                else:
+                    self._gate_pause(table, retry_after)
+            if fenced:
+                self.refresh_retries += 1
+                attempt += 1
+                if attempt > 1:  # mid-broadcast epoch bounce: outlast it
+                    time.sleep(self.fence_backoff * (attempt - 1))
+            positions = np.sort(np.concatenate(pending))
+        raise RuntimeError(
+            f"push of {table!r}: routing fence retries exhausted after "
+            f"{self.max_fence_retries} refreshes"
+        )
 
     # -- pull ---------------------------------------------------------------
     def pull(self, table: str, keys: np.ndarray) -> int:
@@ -208,61 +936,137 @@ class KVWorker(Customer):
         )
         return self._submit_pull(table, slots, inverse, keys.shape)
 
-    def _submit_pull(self, table, slots, inverse, shape) -> int:
+    def _submit_pull(self, table, slots, inverse, shape,
+                     positions: Optional[np.ndarray] = None, *, ungated: bool = False) -> int:
         routing = self.routing
+        if positions is None:
+            positions = np.arange(slots.shape[0], dtype=np.int64)
+        payload = {"table": table, ROUTING_EPOCH_KEY: routing.epoch}
+        # gated tables stamp the committed step; ``ungated`` is the deadline
+        # force-through (fresh data never violates a staleness bound)
+        if not ungated and self._gated(table):
+            payload[CONSIST_STEP_KEY] = self.consist_step(table)
         msgs, order = [], {}
-        for s, pos, ids in routing.slice_ids(table, slots):
-            order[server_id(s)] = pos
+        for s, rel, ids in routing.slice_ids(table, slots[positions]):
+            order[server_id(s)] = positions[rel]
             msgs.append(
                 Message(
                     # fresh dict per leg: a Loopback reply path may alias it
-                    task=Task(
-                        TaskKind.PULL,
-                        self.name,
-                        payload={"table": table, ROUTING_EPOCH_KEY: routing.epoch},
-                    ),
+                    task=Task(TaskKind.PULL, self.name, payload=dict(payload)),
                     recver=server_id(s),
                     keys=ids.astype(np.int32),
                 )
             )
-        ts = self.submit(msgs, keep_responses=True)
+        with self.coalesce_window():
+            ts = self.submit(msgs, keep_responses=True)
         self._pull_plans[ts] = {
             "order": order,
             "inverse": inverse,
             "n_slots": slots.shape[0],
             "shape": shape,
             "table": table,
+            # retained so deadline/fence/gate retries can re-issue subsets
+            "slots": slots,
+            "ungated": ungated,
         }
         return ts
 
-    def _pull_pairs(self, ts: int, timeout: Optional[float]) -> tuple:
-        """Wait for pull ``ts``; ``(plan, [(positions, rows, sver, sender)])``.
-        Any error leg (a fence included) or a missing leg raises: a dropped
-        leg must not read as zero weights."""
+    def _await_pull(self, ts: int, timeout: Optional[float]) -> tuple:
+        """Wait for pull ``ts``; on deadline, cancel the stuck task and
+        retry ONCE against the same server ids.  Returns ``(plan,
+        responses, errs)`` with all kept state drained."""
         completed = self.wait(ts, timeout)
-        plan = self._pull_plans.pop(ts)
+        if not completed and self.retry_on_timeout:
+            plan = self._pull_plans.pop(ts)
+            self.cancel(ts, "pull deadline", remote=True)
+            self.take_responses(ts)
+            self.pull_retries += 1
+            pos = np.sort(np.concatenate(list(plan["order"].values())))
+            ts = self._submit_pull(
+                plan["table"], plan["slots"], plan["inverse"], plan["shape"],
+                positions=pos, ungated=plan["ungated"],
+            )
+            completed = self.wait(ts, timeout)
+        plan = self._pull_plans.pop(ts)  # always reclaim, even on error paths
         errs = self.errors(ts)
         responses = self.take_responses(ts)
         if not completed:
             self.cancel(ts, "pull deadline")
             raise TimeoutError(f"pull ts={ts} timed out")
-        if errs:
-            raise RuntimeError(f"pull ts={ts} failed on: " + "; ".join(errs))
-        if len(responses) < len(plan["order"]):
-            raise RuntimeError(
-                f"pull ts={ts} incomplete: {len(responses)}/"
-                f"{len(plan['order'])} servers answered"
+        return plan, responses, errs
+
+    def _pull_pairs(self, ts: int, timeout: Optional[float]) -> tuple:
+        """Resolve pull ``ts`` into ``(plan, [(positions, rows, sver,
+        sender)])``, looping over fences (adopt, re-pull only the fenced
+        positions) and ``__wait__`` defers (re-pull the waited positions on
+        the gate budget; past the deadline force them through ungated).
+        Any other error leg, or a missing leg, raises: a dropped leg must
+        not read as zero weights."""
+        pairs: list = []
+        first_plan = None
+        attempt = 0  # fence budget only; gate waits ride their own clock
+        gate_t0 = None
+        ungated = False
+        while attempt <= self.max_fence_retries:
+            plan, responses, errs = self._await_pull(ts, timeout)
+            if first_plan is None:
+                first_plan = plan
+                ungated = plan["ungated"]
+            self._adopt_from(responses)
+            responses, waits, wait_pos, retry_after = self._scan_waits(responses, plan["order"])
+            data, fenced_senders, fenced = self._scan_fences(responses, plan["order"])
+            real = self._real_errors(errs, fenced_senders | {r.sender for r in waits})
+            if real:
+                raise RuntimeError(f"pull ts={ts} failed on: " + "; ".join(real))
+            if len(responses) + len(waits) < len(plan["order"]):
+                raise RuntimeError(
+                    f"pull ts={ts} incomplete: {len(responses)}/"
+                    f"{len(plan['order'])} servers answered"
+                )
+            pairs.extend(
+                (plan["order"][r.sender], r.values[0], r.task.payload.get(VERSION_KEY),
+                 r.sender)
+                for r in data
             )
-        pairs = [
-            (
-                plan["order"][r.sender],
-                r.values[0],
-                r.task.payload.get(VERSION_KEY),
-                r.sender,
+            if not fenced and not waits:
+                self._gate_admitted(gate_t0)
+                return first_plan, pairs
+            pending = list(fenced)
+            if waits:
+                with self._consist_lock:
+                    self.consist_waits += len(waits)
+                if gate_t0 is None:
+                    gate_t0 = time.monotonic()
+                table = first_plan["table"]
+                deadline = self._gate_deadline_s(table)
+                waited = np.sort(np.concatenate(wait_pos))
+                pending.append(waited)
+                if deadline > 0 and time.monotonic() - gate_t0 > deadline and not ungated:
+                    # no stale cache to shed to: force the read through
+                    ungated = True
+                    with self._consist_lock:
+                        self.consist_forced += 1
+                    self._gate_admitted(gate_t0)
+                    flightrec.record(
+                        "consist.shed", node=self.post.node_id, table=table,
+                        op="pull", how="forced", n=int(waited.shape[0]),
+                    )
+                else:
+                    self._gate_pause(table, retry_after)
+            if fenced:
+                self.refresh_retries += 1
+                attempt += 1
+                if attempt > 1:  # mid-broadcast epoch bounce: outlast it
+                    time.sleep(self.fence_backoff * (attempt - 1))
+            ts = self._submit_pull(
+                first_plan["table"], first_plan["slots"], first_plan["inverse"],
+                first_plan["shape"], positions=np.sort(np.concatenate(pending)),
+                ungated=ungated,
             )
-            for r in responses
-        ]
-        return plan, pairs
+        raise RuntimeError(
+            f"pull of {first_plan['table']!r}: routing fence retries "
+            f"exhausted after {self.max_fence_retries} refreshes"
+        )
 
     @staticmethod
     def _sole_full_pair(pairs: list, n_slots: int):
@@ -295,3 +1099,80 @@ class KVWorker(Customer):
         self, table: str, keys: np.ndarray, timeout: Optional[float] = None
     ) -> np.ndarray:
         return self.pull_result(self.pull(table, keys), timeout)
+
+    # -- consistency gate control -------------------------------------------
+    def consist_hello(
+        self,
+        *,
+        table: Optional[str] = None,
+        step: Optional[int] = None,
+        incarnation: Optional[int] = None,
+        timeout: Optional[float] = 30.0,
+    ) -> None:
+        """Register this worker in every server's fleet clock before
+        training on a gated table, so a fast worker cannot free-run ahead of
+        peers the clock has not seen yet.  After a same-id restart, re-hello
+        at the restored ``step`` with the new incarnation."""
+        if incarnation is None:
+            reg = getattr(self.post.van, "incarnations", None)
+            incarnation = reg.get(self.post.node_id) if reg is not None else 0
+        if step is None:
+            with self._consist_lock:
+                step = (
+                    self._consist_steps.get(table, 0)
+                    if table is not None
+                    else max(self._consist_steps.values(), default=0)
+                )
+        payload = {
+            "worker": self.post.node_id,
+            "incarnation": int(incarnation or 0),
+            "step": int(step),
+        }
+        if table is not None:
+            payload["table"] = table
+        self._control_round(self._control_msgs("consist_hello", payload),
+                            "consist_hello", timeout)
+
+    def set_consistency(
+        self,
+        *,
+        table: Optional[str] = None,
+        bound: Optional[int] = None,
+        mode: Optional[str] = None,
+        why: str = "manual",
+        timeout: Optional[float] = 30.0,
+    ) -> None:
+        """Live-retune the fleet's gate: new ``bound`` and/or ``mode``,
+        broadcast to every server, then journaled as ``consist.retune``."""
+        payload: dict = {}
+        if table is not None:
+            payload["table"] = table
+        if bound is not None:
+            payload["bound"] = int(bound)
+        if mode is not None:
+            payload["mode"] = str(mode)
+        self._control_round(self._control_msgs("consist_set", payload), "consist_set", timeout)
+        flightrec.record(
+            "consist.retune", node=self.post.node_id, table=table or "*",
+            bound=-1 if bound is None else int(bound), mode=mode or "-", why=why[:120],
+        )
+
+    def _control_msgs(self, op: str, payload: dict) -> List[Message]:
+        """One CONTROL message per server of the CURRENT owner set."""
+        return [
+            Message(
+                task=Task(TaskKind.CONTROL, self.name, payload={"op": op, **payload}),
+                recver=server_id(s),
+            )
+            for s in self.routing.servers()
+        ]
+
+    def _control_round(
+        self, msgs: List[Message], what: str, timeout: Optional[float]
+    ) -> List[Message]:
+        """Submit control messages, wait, raise on any error, return replies."""
+        ts = self.submit(msgs, keep_responses=True)
+        if not self.wait(ts, timeout):
+            raise TimeoutError(f"{what} timed out")
+        self.check(ts)
+        return self.take_responses(ts)

@@ -85,7 +85,25 @@ def _ledgers(**cfg):
 
 
 def _drained(ledger, timeout=5.0):
+    """``drain()``, then wait until the reaper has finished the retires it
+    counted: both ledgers drop the in-flight count before ``_retire``
+    records the entry's digests and its ``apply.done`` event."""
     assert ledger.drain(timeout), ledger.counters()
+    rec = ledger._recorder
+
+    def settled():
+        retired = ledger.counters()["applies_retired"]
+        digs = ledger.latency_digests()
+        if sum(d["count"] for k, d in digs.items() if k.startswith("apply.")) < retired:
+            return False
+        if rec is None or len(rec._ring) == rec._ring.maxlen:
+            return True  # the global ring, or a wrapped one: no event count
+        return sum(e["kind"] == "apply.done" for e in rec.events()) >= retired
+
+    deadline = time.monotonic() + timeout
+    while not settled():
+        assert time.monotonic() < deadline, ledger.counters()
+        time.sleep(0.001)
 
 
 def _stripped(rec):

@@ -8,6 +8,10 @@
   back: no ``.item()``, ``.cpu()``, ``.tolist()``, ``.numpy()``, ``.to()``,
   ``synchronize()`` or numpy conversion.  The upload helpers they call fill
   pinned host buffers and copy them up without waiting on the device.
+- The consistency gate — the ``__cstep__`` branch of
+  ``_validate_data_request`` and ``_wait_reply``, with every server method
+  they call — and the group booking and step commit in ``_ack_push`` read
+  nothing back from the card either: they are host dict and int work.
 - The apply ledger's submit side (``ApplyLedger.begin`` / ``submit`` /
   ``overloaded``, ``_Inflight.mark_host`` / ``mark_h2d``) never waits on or
   polls a completion handle: no ``synchronize()``, ``query()`` or the calls
@@ -83,6 +87,16 @@ def _method_bodies():
     return {f.name: f for f in cls.body if isinstance(f, ast.FunctionDef)}
 
 
+def _gate_branch(methods):
+    """The consistency gate of ``_validate_data_request``: its statements
+    that read the ``__cstep__`` stamp or the ``_consist`` state, as one
+    module node ``_reached_calls`` can walk."""
+    fn = methods["_validate_data_request"]
+    stmts = [n for n in fn.body
+             if "CONSIST_STEP_KEY" in ast.unparse(n) or "self._consist" in ast.unparse(n)]
+    return ast.Module(body=stmts, type_ignores=[])
+
+
 #: the push-ack path's roots: the JAX package's ``SYNC_FREE_FUNCS``
 #: (``tools/check_wrappers.py``)
 SYNC_FREE_ROOTS = ("_ack_push", "_apply_push_group", "_push_group_rounds",
@@ -119,6 +133,49 @@ def test_ack_push_is_sync_free():
     assert {"_ack_push", "_stamp_version"} <= seen
     bad = [(fn, attr) for fn, attr in calls if attr in SYNCING]
     assert not bad, f"device reads in the push ack path: {bad}"
+
+
+def _gate_violations(methods):
+    gate = _gate_branch(methods)
+    seen, calls = _reached_calls({**methods, "<gate>": gate}, ["<gate>", "_wait_reply"])
+    return gate, seen, [(fn, attr) for fn, attr in calls if attr in SYNCING]
+
+
+def test_consistency_gate_is_sync_free():
+    """The gate's admit / defer decision and its ``__wait__`` reply."""
+    gate, seen, bad = _gate_violations(_method_bodies())
+    assert any(isinstance(n, ast.If) for n in gate.body), "no gate branch found"
+    assert {"<gate>", "_wait_reply", "version_max"} <= seen
+    assert not bad, f"device reads in the consistency gate: {bad}"
+
+
+def test_ack_push_books_groups_and_commits_gated_steps():
+    """The group booking and the gate's step commit live in ``_ack_push``,
+    so ``test_ack_push_is_sync_free`` scans them."""
+    src = ast.unparse(_method_bodies()["_ack_push"])
+    assert "GROUP_KEY" in src and "self.group_members +=" in src
+    assert "CONSIST_STEP_KEY" in src and ".commit(msg.sender" in src
+
+
+@pytest.mark.parametrize("planted", ["gate", "ack_group"])
+def test_the_gate_and_group_scans_catch_a_planted_readback(planted):
+    methods = dict(_method_bodies())
+    if planted == "gate":
+        src = ("def _validate_data_request(self, msg):\n"
+               "    cstep = msg.task.payload.get(CONSIST_STEP_KEY)\n"
+               "    if cstep is not None and tname in self._consist:\n"
+               "        self.tables[tname].value.sum().item()\n")
+        methods["_validate_data_request"] = ast.parse(src).body[0]
+        bad = _gate_violations(methods)[2]
+        assert bad == [("<gate>", "item")]
+    else:
+        src = ("def _ack_push(self, msg, tname, kn, segs):\n"
+               "    grp = msg.task.payload.get(GROUP_KEY)\n"
+               "    if grp is not None:\n"
+               "        self.group_members += int(self.tables[tname].value.cpu()[0])\n")
+        methods["_ack_push"] = ast.parse(src).body[0]
+        _, calls = _reached_calls(methods, ["_ack_push"])
+        assert [c for c in calls if c[1] in SYNCING] == [("_ack_push", "cpu")]
 
 
 def test_grouped_apply_is_sync_free():
