@@ -100,6 +100,33 @@ Phases, each printing one JSON line (``"phase": ...``):
              one gather and one scatter-set), card and CPU agree.
    local_profile  ``torch.profiler`` over 2 blocks of the local path: wall,
              device busy, idle share, top device ops, the segment sum's share.
+   dlrm      BASELINE config #3 at bench.py's stepped shape through
+             ``parallel/dlrm_scale.scale_run``: ``SpmdDLRMTrainer`` over a
+             2^28 x 16 AdaGrad table (value + sum_sq, 32 GiB on the card, read
+             from the tensors), batch 8192 of SyntheticDLRM(seed 3), 1 warm +
+             4 timed steps; one two-plane ``ps_gather`` and one two-plane
+             ``ps_scatter_set`` launch a step; the host localize and the rest
+             of a step; one step's peak memory less the table below table / 8;
+             the trash row at its fill; 5 steps on one batch lower the loss;
+             both kernels at the top 1024 rows of the table (element offsets
+             past 2^32) against the plain versions; both kernels' times at the
+             step's shape (8 consecutive batches' slots, CUDA-graph replay)
+             beside the byte bound; then the 2^22 control and the step-time
+             flatness ratio.
+   dlrm_profile  ``torch.profiler`` over 3 steps: device busy, idle share,
+             top device ops, the segment sum's share.
+   dlrm_reference  the test's shape (2^14 x 16, batch 256) from one state on
+             the card twice and on the CPU, both TF32 flags off: 1 step within
+             1e-5, 5 steps within 1e-4, the two card runs bitwise equal.
+   dense_spmd  BASELINE config #2: ``SpmdDenseTrainer`` with ResNet-50 (224 x
+             224, 1000 classes, one fixed batch of 64, SGD momentum 0.9):
+             images/s, peak memory, the loss falling, 2 steps profiled; a
+             tiny ResNet on the card and the CPU, TF32 off, within 1e-4.
+   dense_async  ``AsyncDenseLearner``, 2 workers x 2 servers (``DenseKVServer``
+             on the card) on ``MeteredVan(LoopbackVan())`` under BSP,
+             ResNet-50, a fixed batch of 64 each: images/s, PUSH and PULL
+             bytes a step, the loss falling, BatchNorm statistics local; 2
+             more steps profiled.
 9. times     every kernel at the main path's shapes: device time per call
              (CUDA-graph replay), the byte bound at 3.35 TB/s, the plain
              version's time and one PyTorch library call's time; an empty
@@ -157,6 +184,20 @@ CONSIST_BUDGET_S = 120.0
 #: so its peers must be deferred at the gate and released
 CONSIST_PARK_S = 0.5
 CONSIST_ARMS = (("bsp", "bsp", 0), ("ssp1", "ssp", 1), ("ssp4", "ssp", 4), ("asp", "asp", 0))
+#: BASELINE config #3 (DLRM): bench.py's stepped shape (2^28 x 16 AdaGrad
+#: table, batch 8192 of SyntheticDLRM, 1 warm + 4 timed steps), the 2^22
+#: control, the repeated-batch steps, the profiled steps, the id sets cycled
+#: by the kernel timings, and the card-vs-CPU shape of tests/test_torch_dlrm.py
+DLRM_ROWS_LOG2, DLRM_CONTROL_LOG2, DLRM_DIM, DLRM_BATCH, DLRM_STEPS = 28, 22, 16, 8192, 4
+DLRM_MIN_BUCKET, DLRM_REPEAT_STEPS, DLRM_PROFILE_STEPS, DLRM_TIME_SETS = 1 << 14, 5, 3, 8
+DLRM_REF_ROWS, DLRM_REF_BATCH, DLRM_REF_STEPS = 1 << 14, 256, 5
+#: BASELINE config #2 (ResNet-50, 224 x 224, 1000 classes, 64 images a
+#: batch): the single-card trainer's warm-up and timed steps and its SGD
+#: (momentum 0.9) rate; the async learner's workers, servers, steps a worker
+#: and the servers' SGD rate
+RESNET_HW, RESNET_CLASSES, RESNET_BATCH = 224, 1000, 64
+DENSE_WARM, DENSE_TIMED, DENSE_LR = 2, 6, 0.1
+ASYNC_WORKERS, ASYNC_SERVERS, ASYNC_STEPS, ASYNC_LR = 2, 2, 4, 0.1
 DEVICE = "cuda"
 SOURCE = "parameter_server_tpu_torch/csrc/scatter_kernels.cu"
 REPLACES = {
@@ -274,7 +315,28 @@ def main() -> int:
     rows = local_rows(torch, scatter, dev, pool)
     emit("local_rows", **rows)
     emit("local_profile", **local_profile(torch, dev, trainer, pool))
-    del trainer, state
+    del trainer, state, pool
+    torch.cuda.empty_cache()
+
+    # -- 8b. BASELINE config #3: DLRM over a 2^28-row embedding table -----------
+    dlrm, dlrm_launches, dtrainer = dlrm_phase(torch, scatter, dev)
+    profiled = dlrm_profile(torch, dtrainer)
+    dlrm["top_rows"] = dlrm_top_rows(torch, scatter, dtrainer, errs)
+    dlrm["kernel_times"] = dlrm_kernel_times(torch, scatter, dtrainer, errs)
+    del dtrainer
+    torch.cuda.empty_cache()
+    dlrm.update(dlrm_control(torch, dev, dlrm, profiled))
+    emit("dlrm", **dlrm)
+    emit("dlrm_profile", **profiled)
+    emit("dlrm_reference", **dlrm_reference(torch, dev))
+    torch.cuda.empty_cache()
+
+    # -- 8c. BASELINE config #2: ResNet-50 on the dense plane ---------------------
+    batches = resnet_batches()
+    emit("dense_spmd", **dense_spmd(torch, dev, batches[0]))
+    emit("dense_async", **dense_async(torch, dev, batches))
+    del batches
+    torch.cuda.empty_cache()
 
     # -- 9. times ----------------------------------------------------------------
     kernels = times_phase(torch, scatter, dev, errs, launches)
@@ -283,6 +345,9 @@ def main() -> int:
             k["local_rows_launches"] = rows["launches"][k["name"]]
             k["hier_launches"] = hier["launches"][k["name"]]
             k["consist_launches"] = consist["launches"][k["name"]]
+        if k["name"] in ("gather", "scatter_set"):
+            k["dlrm_launches"] = dlrm_launches[k["name"]]
+            k["dlrm"] = dlrm["kernel_times"][k["name"]]
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60,
@@ -567,12 +632,36 @@ def run_loop(torch, dev, *, fused, steps, devobs=None, coalesce=False):
         close_cluster(van, servers)
 
 
-def profile_loop(torch, dev, steps=2):
-    """Device busy time and idle share over ``steps`` BSP steps of the main
-    path under ``torch.profiler`` (a fresh cluster, after one warm step)."""
+def _device_profile(torch, fn, top_n):
+    """``torch.profiler`` over ``fn()``: wall, device busy, idle share, the
+    segment sum's share of busy and the top ``top_n`` device ops."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    on_device = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    busy_ms = sum(e.self_device_time_total for e in on_device) / 1e3
+    seg_ms = sum(e.self_device_time_total for e in on_device
+                 if "segment_reduce" in e.key) / 1e3
+    top = sorted(on_device, key=lambda e: -e.self_device_time_total)[:top_n]
+    measured = bool(on_device) and busy_ms > 0
+    return {
+        "wall_ms": wall_ms,
+        "device_busy_ms": busy_ms if measured else "not measured",
+        "device_idle_share": 1 - busy_ms / wall_ms if measured else "not measured",
+        "segment_sum_share": seg_ms / busy_ms if measured else "not measured",
+        "top_device_ms": [[e.key[:70], e.self_device_time_total / 1e3, e.count] for e in top],
+    }
+
+
+def profile_loop(torch, dev, steps=2):
+    """Device busy time and idle share over ``steps`` BSP steps of the main
+    path under ``torch.profiler`` (a fresh cluster, after one warm step)."""
     from parameter_server_tpu_torch.config import ConsistencyConfig
     from parameter_server_tpu_torch.data.synthetic import SyntheticCTR
     from parameter_server_tpu_torch.learner.sgd import AsyncLRLearner
@@ -584,23 +673,11 @@ def profile_loop(torch, dev, steps=2):
         AsyncLRLearner(workers, ConsistencyConfig(), device=dev).run(
             [d.next_batch for d in data], 1, timeout=300)
         learner = AsyncLRLearner(workers, ConsistencyConfig(), device=dev)
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            learner.run([d.next_batch for d in data], steps, timeout=300)
-            torch.cuda.synchronize()
-            wall_ms = (time.perf_counter() - t0) * 1e3
+        out = _device_profile(torch, lambda: learner.run([d.next_batch for d in data], steps,
+                                                         timeout=300), top_n=6)
     finally:
         close_cluster(van, servers)
-    on_device = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
-    busy_ms = sum(e.self_device_time_total for e in on_device) / 1e3
-    top = sorted(on_device, key=lambda e: -e.self_device_time_total)[:6]
-    return {
-        "steps": steps, "wall_ms": wall_ms,
-        "device_busy_ms": busy_ms if on_device else "not measured",
-        "device_idle_share": 1 - busy_ms / wall_ms if on_device else "not measured",
-        "top_device_ms": [[e.key[:70], e.self_device_time_total / 1e3, e.count]
-                          for e in top],
-    }
+    return {"steps": steps, **out}
 
 
 def small_reference(torch, dev):
@@ -1839,27 +1916,14 @@ def local_profile(torch, dev, trainer, pool, blocks=2):
     """Device busy time, idle share and the top device ops over ``blocks``
     prefetch-fed blocks (after one warm block); then the dense segment sum
     of one batch timed alone in its shipped [N, 1] form and as 1-D data."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
     from parameter_server_tpu_torch.data.prefetch import PrefetchPipeline
     from parameter_server_tpu_torch.models import linear
     from parameter_server_tpu_torch.ops.scatter import segment_combine
 
     with PrefetchPipeline(lambda i: pool[(i + 2) % LOCAL_POOL], depth=2, device=dev) as pf:
         trainer.step_block_device(*pf.get())
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            for _ in range(blocks):
-                trainer.step_block_device(*pf.get())
-            torch.cuda.synchronize()
-            wall_ms = (time.perf_counter() - t0) * 1e3
-    on_device = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
-    busy_ms = sum(e.self_device_time_total for e in on_device) / 1e3
-    top = sorted(on_device, key=lambda e: -e.self_device_time_total)[:10]
-    seg_ms = sum(e.self_device_time_total for e in on_device
-                 if "segment_reduce" in e.key) / 1e3
+        out = _device_profile(torch, lambda: [trainer.step_block_device(*pf.get())
+                                              for _ in range(blocks)], top_n=10)
     # the segment sum of one batch alone: [N, 1] (as shipped) and 1-D data
     slots = linear.device_slots(torch.from_numpy(pool[0][0][0].view(np.int32)).to(dev),
                                 ROWS).reshape(-1)
@@ -1874,16 +1938,491 @@ def local_profile(torch, dev, trainer, pool, blocks=2):
     a = segment_combine(vals, slots, ROWS + 1).reshape(-1)
     b = segment_combine(vals.reshape(-1), slots, ROWS + 1)
     seg["flat_vs_2d_max_abs_err"] = float((a - b).abs().max())
-    return {
-        "blocks": blocks, "steps": blocks * BLOCK, "wall_ms": wall_ms,
-        "examples_per_s": blocks * BLOCK * BATCH / (wall_ms / 1e3),
-        "device_busy_ms": busy_ms if on_device else "not measured",
-        "device_idle_share": 1 - busy_ms / wall_ms if on_device else "not measured",
-        "segment_sum_share": seg_ms / busy_ms if on_device else "not measured",
-        "top_device_ms": [[e.key[:70], e.self_device_time_total / 1e3, e.count]
-                          for e in top],
-        "segment_sum_one_batch": seg,
+    return {"blocks": blocks, "steps": blocks * BLOCK, **out,
+            "examples_per_s": blocks * BLOCK * BATCH / (out["wall_ms"] / 1e3),
+            "segment_sum_one_batch": seg}
+
+
+# ---------------------------------------------------------------------------
+# phase 8b: BASELINE config #3, DLRM over a 2^28-row embedding table
+# ---------------------------------------------------------------------------
+
+
+def _tf32_off(torch):
+    """Both TF32 flags off (card-vs-CPU checks); returns a restore function."""
+    old = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
+
+    def restore():
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = old
+
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    return restore
+
+
+def _dlrm_stream(rows):
+    """dlrm_scale's batch stream (SyntheticDLRM, seed 3) at ``rows`` keys."""
+    from parameter_server_tpu_torch.data.synthetic import SyntheticDLRM
+
+    return SyntheticDLRM(key_space=rows, batch_size=DLRM_BATCH, seed=3)
+
+
+def dlrm_phase(torch, scatter, dev):
+    """``dlrm_scale.scale_run`` at bench.py's stepped shape (2^28 x 16, batch
+    8192, 1 warm + 4 timed steps) with the launch count of that run; then,
+    on the same trainer: the host / device split of a step, one step's peak
+    memory, the trash row, 5 steps on one repeated batch.  Returns (fields,
+    launches, trainer)."""
+    from parameter_server_tpu_torch.parallel.dlrm_scale import scale_run
+    from parameter_server_tpu_torch.utils.keys import localize_to_slots
+
+    torch.cuda.synchronize()
+    scatter.reset_launch_counts()
+    out, trainer = scale_run(DLRM_ROWS_LOG2, DLRM_DIM, DLRM_BATCH, DLRM_STEPS,
+                             DLRM_MIN_BUCKET, "zeros", dev)
+    counts = scatter.launch_counts()
+    runs = DLRM_STEPS + 1
+    check(counts == {"apply": 0, "gather": runs, "scatter_set": runs, "scatter_add": 0},
+          f"dlrm launches {counts} for {runs} steps")
+    rows = 1 << DLRM_ROWS_LOG2
+    planes = {"value": trainer.emb_value, **trainer.emb_state}
+    table_bytes = sum(p.nbytes for p in planes.values())
+    check(all(p.device.type == dev.type and not p.requires_grad for p in planes.values()),
+          "dlrm table planes must be on the card and need no gradient")
+    # 32 GiB at 2^28 x 16: value and sum_sq, read from the tensors
+    check(table_bytes == 2 * (rows + 1) * DLRM_DIM * 4
+          and out["table_gib"] == round(table_bytes / 2**30, 2),
+          f"dlrm table {out['table_gib']} GiB, {table_bytes} bytes")
+    check(bool(np.isfinite(out["losses"]).all()), f"dlrm losses {out['losses']}")
+
+    # host part (localize_to_slots) and the rest of a step, on the next batches
+    stream = _dlrm_stream(rows)
+    for _ in range(runs):
+        stream.next_batch()
+    host_ms, dev_ms, event_ms = [], [], []
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    for _ in range(DLRM_STEPS):
+        keys, dense, labels = stream.next_batch()
+        t0 = time.perf_counter()
+        slots, inverse, _n = localize_to_slots(keys, trainer.localizer,
+                                               min_bucket=trainer.min_bucket)
+        host_ms.append((time.perf_counter() - t0) * 1e3)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        start.record()
+        loss = trainer.step_localized(slots, inverse, dense, labels)
+        end.record()
+        torch.cuda.synchronize()
+        dev_ms.append((time.perf_counter() - t0) * 1e3)
+        event_ms.append(start.elapsed_time(end))
+        check(bool(torch.isfinite(loss)), "dlrm loss is not finite")
+
+    # one step's peak memory above what is allocated before it
+    keys, dense, labels = stream.next_batch()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    trainer.step(keys, dense, labels)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated(dev)
+    check(peak - table_bytes < table_bytes / 8,
+          f"dlrm step peak {peak} bytes, table {table_bytes}")
+    for name, p in planes.items():
+        check(float(p[rows].abs().max()) == 0.0, f"dlrm trash row of {name} is not at its fill")
+
+    # 5 steps on one repeated batch: the loss must fall
+    rep = [trainer.step(keys, dense, labels) for _ in range(DLRM_REPEAT_STEPS)]
+    check(bool(np.isfinite(rep).all()) and rep[-1] < rep[0], f"dlrm repeated batch {rep}")
+    slots, inverse, n_unique = localize_to_slots(keys, trainer.localizer,
+                                                 min_bucket=trainer.min_bucket)
+    hot = int(np.bincount(inverse).max())
+    fields = {
+        **out, "launches": counts, "table_bytes": table_bytes,
+        "host_localize_ms": host_ms, "host_localize_ms_median": float(np.median(host_ms)),
+        "step_localized_ms": dev_ms, "step_localized_ms_median": float(np.median(dev_ms)),
+        "step_localized_event_ms": event_ms,
+        "memory_before_step_bytes": base, "step_peak_bytes": peak,
+        "step_peak_less_table_bytes": peak - table_bytes,
+        "step_peak_less_before_bytes": peak - base, "trash_rows_at_fill": True,
+        "repeated_batch_losses": rep, "positions": int(keys.size),
+        "unique_slots": n_unique, "bucket": int(slots.size), "hottest_slot_positions": hot,
     }
+    return fields, counts, trainer
+
+
+def dlrm_top_rows(torch, scatter, trainer, errs):
+    """Both kernels at the top of the 2^28-row planes, where element offsets
+    pass 2^32: a scatter-set of random rows into the 1024 rows below and at
+    the trash row, read back by the plain gather and by the kernel."""
+    dev = trainer.emb_value.device
+    rows = trainer.cfg.rows
+    planes = [trainer.emb_value, trainer.emb_state["sum_sq"]]
+    ids = torch.arange(rows - 1023, rows + 1, dtype=torch.int32, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(17)
+    new = [torch.randn((ids.numel(), DLRM_DIM), generator=gen, device=dev) for _ in planes]
+    scatter.scatter_update_rows_planes(planes, ids, new)
+    plain = [torch.index_select(p, 0, ids.long()) for p in planes]
+    err_set = max(float((a - b).abs().max()) for a, b in zip(plain, new))
+    got = scatter.gather_rows_planes(planes, ids)
+    err_get = max(float((a - b).abs().max()) for a, b in zip(got, plain))
+    check(err_set == 0.0 and err_get == 0.0,
+          f"top rows: scatter-set {err_set}, gather {err_get}")
+    errs["scatter_set"] = max(errs["scatter_set"], err_set)
+    errs["gather"] = max(errs["gather"], err_get)
+    planes[0][rows:] = 0.0  # trash row back at its fill
+    planes[1][rows:] = 0.0
+    return {"ids": [rows - 1023, rows], "max_element_offset": (rows + 1) * DLRM_DIM - 1,
+            "scatter_set_err": err_set, "gather_err": err_get}
+
+
+def dlrm_kernel_times(torch, scatter, trainer, errs):
+    """The step's two kernels at its shape: a two-plane gather and a
+    two-plane scatter-set of one batch's 65,536 bucketed slots on the 2^28 x
+    16 planes (the pads, about 29k, all at the trash row), for the slot sets
+    of 8 consecutive batches.  Each set is first held against the plain
+    versions: the gather against index_select, and a scatter-set of seeded
+    rows (one row for each id, so the pads carry one) read back by
+    index_select; then the gathered rows go back.  Then the times, cycling
+    the sets (hot rows repeat across batches, as in training) in CUDA-graph
+    replay: kernel, plain versions (two index_select / two index_put_) and
+    library calls (index_select, index_copy_; two each, no single call
+    covers two planes).  The timed scatter-set writes back the rows it
+    gathered, so the table is unchanged."""
+    from parameter_server_tpu_torch.utils.keys import localize_to_slots
+
+    dev = trainer.emb_value.device
+    planes = [trainer.emb_value, trainer.emb_state["sum_sq"]]
+    stream = _dlrm_stream(1 << DLRM_ROWS_LOG2)
+    id_sets = [localize_to_slots(stream.next_batch()[0], trainer.localizer,
+                                 min_bucket=trainer.min_bucket)[0]
+               for _ in range(DLRM_TIME_SETS)]
+    n = id_sets[0].size
+    check(all(s.size == n for s in id_sets), "dlrm slot sets differ in bucket size")
+    ids = [torch.tensor(s, device=dev) for s in id_sets]
+    longs = [i.long() for i in ids]
+    rows = [scatter.cuda_gather_planes(planes, i) for i in ids]
+    gen = torch.Generator(device=dev).manual_seed(29)
+    err_get = err_set = 0.0
+    uniq = []  # touched rows of each set: the pads collapse to one
+    for s, i32, i, got in zip(id_sets, ids, longs, rows):
+        err_get = max(err_get, *(float((g - torch.index_select(t, 0, i)).abs().max())
+                                 for g, t in zip(got, planes)))
+        u, first, inv = np.unique(s, return_index=True, return_inverse=True)
+        uniq.append(int(u.size))
+        same = torch.from_numpy(first[inv]).to(dev)  # each position -> its id's first
+        new = [torch.randn((n, DLRM_DIM), generator=gen, device=dev)[same] for _ in planes]
+        scatter.cuda_scatter_set_planes(planes, i32, new)
+        err_set = max(err_set, *(float((torch.index_select(t, 0, i) - r).abs().max())
+                                 for t, r in zip(planes, new)))
+        for t, g in zip(planes, got):
+            scatter.scatter_update_rows_torch(t, i, g)
+    top = trainer.cfg.rows
+    check(err_get == 0.0 and err_set == 0.0,
+          f"dlrm-shape kernels vs plain: gather {err_get}, scatter-set {err_set}")
+    check(all(float(t[top].abs().max()) == 0.0 for t in planes),
+          "dlrm trash row not back at its fill after the kernel checks")
+    errs["gather"] = max(errs["gather"], err_get)
+    errs["scatter_set"] = max(errs["scatter_set"], err_set)
+    f, row_bytes, p = 4, 4 * DLRM_DIM, len(planes)
+    # each input read once, each output written once: ids, the touched table
+    # rows and the n list rows of every plane
+    nbytes = float(np.mean([f * n + p * (u + n) * row_bytes for u in uniq]))
+
+    def cycle(fn):
+        it = itertools.cycle(range(DLRM_TIME_SETS))
+        return lambda: fn(next(it))
+
+    specs = {
+        "gather": dict(
+            kernel=cycle(lambda i: scatter.cuda_gather_planes(planes, ids[i])),
+            plain=cycle(lambda i: [scatter.gather_rows_torch(t, ids[i]) for t in planes]),
+            library=cycle(lambda i: [torch.index_select(t, 0, longs[i]) for t in planes])),
+        "scatter_set": dict(
+            kernel=cycle(lambda i: scatter.cuda_scatter_set_planes(planes, ids[i], rows[i])),
+            plain=cycle(lambda i: [scatter.scatter_update_rows_torch(t, ids[i], r)
+                                   for t, r in zip(planes, rows[i])]),
+            library=cycle(lambda i: [t.index_copy_(0, longs[i], r)
+                                     for t, r in zip(planes, rows[i])])),
+    }
+    out = {}
+    for name, spec in specs.items():
+        row = {k: _graph_ms(torch, spec[k], per_graph=2 * DLRM_TIME_SETS, replays=10)
+               for k in ("kernel", "plain", "library")}
+        out[name] = {"ms": row["kernel"], "plain_ms": row["plain"], "library_ms": row["library"],
+                     "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3, "bytes": nbytes,
+                     "n": int(n), "dim": DLRM_DIM, "planes": p, "table_rows": int(planes[0].shape[0]),
+                     "unique_rows_mean": float(np.mean(uniq)), "id_sets": DLRM_TIME_SETS,
+                     "max_abs_err_vs_plain": err_get if name == "gather" else err_set}
+        emit("times", kernel=name, case="dlrm", **out[name])
+    return out
+
+
+def dlrm_profile(torch, trainer, steps=DLRM_PROFILE_STEPS):
+    """``steps`` DLRM steps (host localize included) under the profiler, and
+    the segment sum's share of the device time."""
+    stream = _dlrm_stream(trainer.cfg.rows)
+    batches = [stream.next_batch() for _ in range(steps)]
+    out = _device_profile(torch, lambda: [trainer.step(*b) for b in batches], top_n=12)
+    return {"steps": steps, "ms_per_step": out["wall_ms"] / steps, **out}
+
+
+def dlrm_control(torch, dev, stepped, profiled):
+    """The 2^22-row control at the same batch: step-time flatness, as
+    bench.py reads it (whole steps, host localize included), and on device
+    busy time (``dlrm_profile``'s steps), where a step that walked the
+    table would show."""
+    from parameter_server_tpu_torch.parallel.dlrm_scale import scale_run
+
+    small, trainer = scale_run(DLRM_CONTROL_LOG2, DLRM_DIM, DLRM_BATCH, DLRM_STEPS,
+                               DLRM_MIN_BUCKET, "zeros", dev)
+    ctl = dlrm_profile(torch, trainer)
+    del trainer
+    busy, ctl_busy = profiled["device_busy_ms"], ctl["device_busy_ms"]
+    measured = isinstance(busy, float) and isinstance(ctl_busy, float)
+    return {"step_ms_median_2e22": small["step_ms_median"], "step_ms_2e22": small["step_ms"],
+            "table_gib_2e22": small["table_gib"],
+            "flatness_vs_2e22": stepped["step_ms_median"] / max(small["step_ms_median"], 1e-9),
+            "device_busy_ms_per_step_2e22":
+                ctl_busy / ctl["steps"] if measured else "not measured",
+            "device_flatness_vs_2e22": busy / ctl_busy if measured else "not measured",
+            "segment_sum_share_2e22": ctl["segment_sum_share"],
+            "top_device_ms_2e22": ctl["top_device_ms"][:6]}
+
+
+def _dlrm_ref_trainer(device):
+    from parameter_server_tpu_torch.config import OptimizerConfig, TableConfig
+    from parameter_server_tpu_torch.models.dlrm import SpmdDLRMTrainer
+
+    cfg = TableConfig(name="emb", rows=DLRM_REF_ROWS, dim=DLRM_DIM, init_scale=0.01,
+                      optimizer=OptimizerConfig(kind="adagrad", learning_rate=0.05))
+    return SpmdDLRMTrainer(cfg, device=device, learning_rate=0.01, min_bucket=1024)
+
+
+def _dlrm_tensors(trainer):
+    return {"value": trainer.emb_value, "sum_sq": trainer.emb_state["sum_sq"],
+            **{k: p.detach() for k, p in trainer.model.named_parameters()}}
+
+
+def dlrm_reference(torch, dev):
+    """The test's small shape (2^14 x 16, batch 256, AdaGrad 0.05) from one
+    numpy state (gaussian table, positive sum_sq, trash row at its fill, one
+    MLP) on the card twice and on the CPU, both TF32 flags off: 1 step within
+    1e-5, 5 steps within 1e-4; the two card runs bitwise equal after every
+    step (else the first step and tensors that differ are named)."""
+    from parameter_server_tpu_torch.convert import dlrm_from_numpy
+    from parameter_server_tpu_torch.models.layers import params_tree
+
+    restore = _tf32_off(torch)
+    try:
+        seed_tr = _dlrm_ref_trainer("cpu")
+        value = seed_tr.emb_value.numpy()
+        sum_sq = np.random.default_rng(23).uniform(0.01, 1.0, size=value.shape).astype(np.float32)
+        sum_sq[DLRM_REF_ROWS:] = 0.0
+        mlp = params_tree(seed_tr.model)
+        stream = _dlrm_stream(DLRM_REF_ROWS)
+        stream.batch_size = DLRM_REF_BATCH
+        batches = [stream.next_batch() for _ in range(DLRM_REF_STEPS)]
+        runs = []
+        for device in (dev, dev, torch.device("cpu")):
+            tr = _dlrm_ref_trainer(device)
+            dlrm_from_numpy(tr, value, {"sum_sq": sum_sq}, mlp)
+            losses, states = [], []
+            for b in batches:
+                losses.append(tr.step(*b))
+                states.append({k: t.cpu().clone() for k, t in _dlrm_tensors(tr).items()})
+            runs.append((np.asarray(losses), states))
+            del tr
+    finally:
+        restore()
+    (l1, s1), (l2, s2), (lc, sc) = runs
+    for step, (a, b) in enumerate(zip(s1, s2)):
+        differ = [k for k in a if not torch.equal(a[k], b[k])]
+        check(not differ and l1[step] == l2[step],
+              f"dlrm: two seeded card runs differ at step {step + 1} in {differ} "
+              f"(loss {l1[step]} vs {l2[step]})")
+    out = {"rows": DLRM_REF_ROWS, "batch": DLRM_REF_BATCH, "steps": DLRM_REF_STEPS,
+           "tf32": False, "bitwise_equal_runs": True}
+    for label, step, tol in (("step1", 0, 1e-5), ("steps5", DLRM_REF_STEPS - 1, 1e-4)):
+        loss_err = float(np.abs(l1[: step + 1] - lc[: step + 1]).max())
+        check(np.allclose(l1[: step + 1], lc[: step + 1], rtol=tol, atol=tol),
+              f"dlrm {label} losses {l1} vs cpu {lc}")
+        err = 0.0
+        for k, a in s1[step].items():
+            e = float((a - sc[step][k]).abs().max())
+            err = max(err, e)
+            check(bool(torch.allclose(a, sc[step][k], rtol=tol, atol=tol)),
+                  f"dlrm {label}: {k} vs cpu {e}")
+        out[label] = {"loss_max_abs_err": loss_err, "state_max_abs_err": err, "tol": tol}
+    check(float(s1[-1]["value"][DLRM_REF_ROWS].abs().max()) == 0.0, "dlrm ref trash row")
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase 8c: BASELINE config #2, ResNet-50 on the dense plane
+# ---------------------------------------------------------------------------
+
+
+def resnet_batches():
+    """One fixed batch for the single-card trainer and one for each async
+    worker: SyntheticImages at 224 x 224, 1000 classes, 64 images."""
+    from parameter_server_tpu_torch.data.synthetic import SyntheticImages
+
+    data = SyntheticImages(num_classes=RESNET_CLASSES, hw=RESNET_HW,
+                           batch_size=RESNET_BATCH, seed=0)
+    return [data.next_batch() for _ in range(1 + ASYNC_WORKERS)]
+
+
+def _resnet50(torch):
+    from parameter_server_tpu_torch.models.resnet import resnet50
+
+    return resnet50(num_classes=RESNET_CLASSES, generator=torch.Generator().manual_seed(0))
+
+
+def _tf32_flags(torch):
+    return {"matmul": torch.backends.cuda.matmul.allow_tf32,
+            "cudnn": torch.backends.cudnn.allow_tf32}
+
+
+def dense_spmd(torch, dev, batch):
+    """``SpmdDenseTrainer`` with ResNet-50 on one fixed batch (SGD 0.1,
+    momentum 0.9), torch's default precision flags: images/s over the timed
+    steps, peak memory, the loss falling; then a tiny ResNet on the card and
+    on the CPU from one init with both TF32 flags off."""
+    from parameter_server_tpu_torch.learner.dense import SpmdDenseTrainer
+
+    tr = SpmdDenseTrainer(_resnet50(torch), functools.partial(
+        torch.optim.SGD, lr=DENSE_LR, momentum=0.9), device=dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    losses = [tr.step(*batch) for _ in range(DENSE_WARM)]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    losses += [tr.step(*batch) for _ in range(DENSE_TIMED)]
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    check(bool(np.isfinite(losses).all()) and losses[-1] < losses[0] - 0.1,
+          f"resnet-50 loss did not fall: {losses}")
+    check(all(p.device.type == dev.type for p in tr.model.parameters()),
+          "resnet-50 params off the card")
+    peak = torch.cuda.max_memory_allocated(dev)
+    profiled = _device_profile(torch, lambda: [tr.step(*batch) for _ in range(2)], top_n=12)
+    del tr
+    return {"model": "resnet50", "hw": RESNET_HW, "classes": RESNET_CLASSES,
+            "batch": RESNET_BATCH, "warm_steps": DENSE_WARM, "timed_steps": DENSE_TIMED,
+            "lr": DENSE_LR, "tf32": _tf32_flags(torch), "wall_s": wall,
+            "images_per_s": DENSE_TIMED * RESNET_BATCH / wall,
+            "ms_per_step": wall * 1e3 / DENSE_TIMED, "losses": losses,
+            "peak_memory_bytes": peak, "profile_2_steps": profiled,
+            "tiny_vs_cpu": _tiny_resnet_vs_cpu(torch, dev)}
+
+
+def _tiny_resnet_vs_cpu(torch, dev, steps=3):
+    """A bottleneck ResNet (7x7/2 stem, max-pool, width 8) at 32 x 32, 3 SGD
+    momentum steps from one init on the card and on the CPU, TF32 off:
+    losses and every parameter and statistic within 1e-4, logits of the
+    eval-mode forward within 1e-4."""
+    import copy
+
+    from parameter_server_tpu_torch.learner.dense import SpmdDenseTrainer
+    from parameter_server_tpu_torch.models.resnet import ResNet
+
+    rng = np.random.default_rng(31)
+    images = rng.normal(size=(16, 32, 32, 3)).astype(np.float32)
+    labels = rng.integers(0, 10, size=16).astype(np.int32)
+    base = ResNet([1, 1], num_classes=10, width=8, generator=torch.Generator().manual_seed(5))
+    restore = _tf32_off(torch)
+    try:
+        out = []
+        for device in (dev, torch.device("cpu")):
+            tr = SpmdDenseTrainer(copy.deepcopy(base), functools.partial(
+                torch.optim.SGD, lr=0.3, momentum=0.9), device=device)
+            losses = [tr.step(images, labels) for _ in range(steps)]
+            state = {k: v.detach().cpu() for k, v in tr.model.state_dict().items()}
+            out.append((np.asarray(losses), state, tr.eval_logits(images)))
+    finally:
+        restore()
+    (lg, sg, eg), (lc, scpu, ec) = out
+    err = max(float((sg[k] - scpu[k]).abs().max()) for k in sg)
+    check(np.allclose(lg, lc, rtol=1e-4, atol=1e-4), f"tiny resnet losses {lg} vs cpu {lc}")
+    check(all(torch.allclose(sg[k], scpu[k], rtol=1e-4, atol=1e-4) for k in sg),
+          f"tiny resnet state vs cpu {err}")
+    check(np.allclose(eg, ec, rtol=1e-4, atol=1e-4), "tiny resnet eval logits vs cpu")
+    return {"steps": steps, "loss_max_abs_err": float(np.abs(lg - lc).max()),
+            "state_max_abs_err": err, "logits_max_abs_err": float(np.abs(eg - ec).max()),
+            "tol": 1e-4, "tf32": False}
+
+
+def dense_async(torch, dev, batches):
+    """``AsyncDenseLearner``: 2 workers x 2 servers on ``MeteredVan(
+    LoopbackVan())`` under BSP, ResNet-50 (25.6 M floats, about 102 MB a push
+    and a pull), each worker memorising its fixed batch of 64, the servers'
+    plain SGD (lr 0.1) on the card.  images/s over the run, PUSH and PULL
+    payload bytes a step from the van, the loss falling."""
+    from parameter_server_tpu_torch.config import (
+        ConsistencyConfig, ConsistencyMode, OptimizerConfig)
+    from parameter_server_tpu_torch.core.netmon import MeteredVan
+    from parameter_server_tpu_torch.core.postoffice import Postoffice
+    from parameter_server_tpu_torch.core.van import LoopbackVan
+    from parameter_server_tpu_torch.kv.dense import DenseKVServer, DenseKVWorker
+    from parameter_server_tpu_torch.learner.dense import AsyncDenseLearner
+
+    van = MeteredVan(LoopbackVan())
+    try:
+        model = _resnet50(torch)
+        total = sum(p.numel() for p in model.parameters())
+        workers = [DenseKVWorker(Postoffice(f"W{i}", van), {"model": total}, ASYNC_SERVERS,
+                                 device=dev) for i in range(ASYNC_WORKERS)]
+        learner = AsyncDenseLearner(model, workers, ConsistencyConfig(mode=ConsistencyMode.BSP),
+                                    device=dev)
+        init = learner.initial_vector()
+        servers = [DenseKVServer(Postoffice(f"S{i}", van),
+                                 {"model": (total, OptimizerConfig(kind="sgd",
+                                                                   learning_rate=ASYNC_LR))},
+                                 i, ASYNC_SERVERS, init_vectors={"model": init}, device=dev)
+                   for i in range(ASYNC_SERVERS)]
+        del init
+        batch_fns = [lambda b=b: b for b in batches[1:]]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        losses = learner.run(batch_fns, ASYNC_STEPS, timeout=300)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        links = van.links()
+        # 2 more BSP steps under the profiler, through a fresh learner (its
+        # own clock) on the same workers and servers
+        again = AsyncDenseLearner(learner.model, workers,
+                                  ConsistencyConfig(mode=ConsistencyMode.BSP), device=dev)
+        profiled = _device_profile(torch, lambda: again.run(batch_fns, 2, timeout=300),
+                                   top_n=12)
+        del again
+        check(all(s.segments["model"]["value"].device.type == dev.type for s in servers),
+              "dense servers off the card")
+        a, b = (dict(r.named_buffers()) for r in learner.replicas)
+        check(not torch.equal(a["stem_bn.mean"], b["stem_bn.mean"]),
+              "batch statistics must stay local to each worker")
+        codec_total = learner.codec.total
+        del learner, servers, workers, a, b
+    finally:
+        van.close()
+    verb_bytes = {"PUSH": 0, "PULL": 0}
+    for link, d in links.items():
+        src, _, dst = link.partition("->")
+        for verb, to_server in (("PUSH", True), ("PULL", False)):
+            if (dst if to_server else src).startswith("S") and verb in d["verbs"]:
+                verb_bytes[verb] += d["verbs"][verb]["bytes"]
+    n = len(losses)
+    first, last = float(np.mean(losses[:ASYNC_WORKERS])), float(np.mean(losses[-ASYNC_WORKERS:]))
+    check(n == ASYNC_WORKERS * ASYNC_STEPS and bool(np.isfinite(losses).all()),
+          f"dense async losses {losses}")
+    check(last < first - 0.1, f"dense async loss did not fall: {first} -> {last}")
+    return {"model": "resnet50", "workers": ASYNC_WORKERS, "servers": ASYNC_SERVERS,
+            "mode": "bsp", "steps_per_worker": ASYNC_STEPS, "batch_per_worker": RESNET_BATCH,
+            "server_lr": ASYNC_LR, "params": codec_total, "tf32": _tf32_flags(torch),
+            "wall_s": wall, "images_per_s": ASYNC_WORKERS * ASYNC_STEPS * RESNET_BATCH / wall,
+            # PUSH payloads into the servers and PULL replies out of them, over
+            # the whole fleet (every worker) per step
+            "push_bytes_per_step": verb_bytes["PUSH"] / ASYNC_STEPS,
+            "pull_bytes_per_step": verb_bytes["PULL"] / ASYNC_STEPS,
+            "vector_bytes": codec_total * 4, "losses": losses, "profile_2_steps": profiled,
+            "loss_first_step_mean": first, "loss_last_step_mean": last}
 
 
 # ---------------------------------------------------------------------------

@@ -44,7 +44,11 @@ from parameter_server_tpu_torch.data.prefetch import PrefetchPipeline
 from parameter_server_tpu_torch.kv.server import KVServer
 from parameter_server_tpu_torch.kv.table import KVTable
 from parameter_server_tpu_torch.kv.worker import KVWorker
+from parameter_server_tpu_torch.kv.dense import DenseKVServer, DenseKVWorker
+from parameter_server_tpu_torch.learner.dense import AsyncDenseLearner, SpmdDenseTrainer
 from parameter_server_tpu_torch.learner.sgd import AsyncLRLearner, LocalLRTrainer
+from parameter_server_tpu_torch.models.dlrm import SpmdDLRMTrainer
+from parameter_server_tpu_torch.parallel import dlrm_scale
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 PORT = ROOT / "parameter_server_tpu_torch"
@@ -358,12 +362,26 @@ def test_the_dense_sync_scan_catches_a_readback(src, want):
 
 
 @pytest.mark.parametrize("entry", [KVTable, KVServer, KVWorker, AsyncLRLearner,
-                                   LocalLRTrainer, PrefetchPipeline],
+                                   LocalLRTrainer, PrefetchPipeline, SpmdDLRMTrainer,
+                                   DenseKVServer, DenseKVWorker, SpmdDenseTrainer,
+                                   AsyncDenseLearner],
                          ids=lambda c: c.__name__)
 def test_entry_points_default_to_the_card(entry):
     param = inspect.signature(entry.__init__).parameters["device"]
     assert param.default == "cuda"
     assert param.kind is inspect.Parameter.KEYWORD_ONLY
+
+
+def test_dlrm_scale_defaults_to_the_card():
+    """``python -m parameter_server_tpu_torch.parallel.dlrm_scale`` runs on
+    the card unless ``--device`` says otherwise."""
+    assert inspect.signature(dlrm_scale.scale_run).parameters["device"].default == "cuda"
+    tree = ast.parse(inspect.getsource(dlrm_scale.main))
+    flags = {c.args[0].value: {k.arg: getattr(k.value, "value", None) for k in c.keywords}
+             for c in ast.walk(tree) if isinstance(c, ast.Call)
+             and getattr(c.func, "attr", None) == "add_argument"}
+    assert flags["--device"]["default"] == "cuda"
+    assert flags["--mesh"]["default"] == "1,1"
 
 
 def test_server_builds_a_ledger_by_default():
