@@ -127,6 +127,38 @@ Phases, each printing one JSON line (``"phase": ...``):
              ResNet-50, a fixed batch of 64 each: images/s, PUSH and PULL
              bytes a step, the loss falling, BatchNorm statistics local; 2
              more steps profiled.
+   serve     the serving plane over config #3's table: 2 KVServers holding
+             2^28 x 16 AdaGrad (2^27 + 1 rows a shard, value + sum_sq, 32
+             GiB read from the tensors) and one KVWorker with
+             ``HotRowCache(65536)`` and ``ServeConfig()``: one ``push_sync``
+             of seeded gradients at the load generator's 65,536 hottest keys,
+             each shard's ``ps_apply`` held to its plain version on the same
+             ids (trash pads included) and gradients; ``pull(read_only=True)``
+             == ``pull_sync`` == the planes' rows by ``index_select``;
+             ``pull_serve`` cold == ``pull_sync``, warm all hits with no
+             gather launch, after a write to 1,024 keys the new rows; the p50
+             of a cached ``pull_serve`` and of an uncached ``pull_sync`` (128
+             keys, 200 iterations; bench.py's JAX floor of 10x printed beside
+             the ratio); open-loop Zipf(1.1) load over 2^28 keys, 8 a pull,
+             through ``AdmissionController`` at 200 and 2,000 offered q/s for
+             2 s (the rate achieved, p50, p99, hit rate, served/pulls,
+             ``ro_pulls`` and their digest, one ``ps_gather`` a read-only
+             request, nothing shed); the overload drill (``reject``, 0.5 s:
+             everything shed, no read-only pull, no launch); one read-only
+             request's ``handle_request`` time alone; ``ps_gather`` exact
+             against its plain version at a 256-id bucket with trash pads on
+             a shard, and timed; then the gate's stale-cache shed at config
+             #1 width (SSP bound 0, deadline 0.4 s): one shed, the warm rows.
+   replica   the replica chain at 2^27 x 16 AdaGrad: 8 ``push_sync`` steps of
+             65,536 seeded keys on 2 servers (the control, 16 GiB), then on
+             ``make_replicated_servers`` (2 primaries, 2 standbys, 32 GiB)
+             sync, and async (max lag 4, ``device_replies``, flushed before
+             the kill): S0 dies after step 4, its standby is promoted, the
+             touched rows at the end bitwise equal to the control's; in each
+             run the first ``ps_apply`` on every primary and standby held to
+             its plain version on the same ids and gradients; push
+             p50s; ``pull_result_device`` on the card equal to
+             ``pull_result``, every reply value a CUDA tensor.
 9. times     every kernel at the main path's shapes: device time per call
              (CUDA-graph replay), the byte bound at 3.35 TB/s, the plain
              version's time and one PyTorch library call's time; an empty
@@ -198,6 +230,22 @@ DLRM_REF_ROWS, DLRM_REF_BATCH, DLRM_REF_STEPS = 1 << 14, 256, 5
 RESNET_HW, RESNET_CLASSES, RESNET_BATCH = 224, 1000, 64
 DENSE_WARM, DENSE_TIMED, DENSE_LR = 2, 6, 0.1
 ASYNC_WORKERS, ASYNC_SERVERS, ASYNC_STEPS, ASYNC_LR = 2, 2, 4, 0.1
+#: the serving plane over config #3's table (2^28 x 16 AdaGrad on 2 servers):
+#: warm keys (the load generator's hottest ranks), the cache contract's keys
+#: and written keys, the latency leg's hot keys and iterations, bench.py's
+#: open-loop load (10^6 clients, Zipf 1.1, 8 keys a pull, seed 3) at two
+#: per-client rates (200 and 2,000 q/s) for 2 s each, the overload drill, the
+#: gather check's bucket, and the gate's stale-shed leg at config #1 width
+SERVE_ROWS_LOG2, SERVE_DIM, SERVE_CACHE_ROWS = 28, 16, 1 << 16
+SERVE_WARM_KEYS, SERVE_CONTRACT_KEYS, SERVE_WRITE_KEYS = 1 << 16, 1 << 14, 1024
+SERVE_HOT_KEYS, SERVE_LAT_ITERS = 128, 200
+SERVE_CLIENTS, SERVE_RATES, SERVE_ZIPF_S, SERVE_KEYS_PER_PULL = 1_000_000, (2e-4, 2e-3), 1.1, 8
+SERVE_SEED, SERVE_RUN_S, SERVE_DRILL_S, SERVE_BUCKET = 3, 2.0, 0.5, 256
+SERVE_STALE_KEYS, SERVE_STALE_DEADLINE_S = 4096, 0.4
+#: the replica chain at half of serve's depth (2^27 x 16): steps of 65,536
+#: seeded keys, the step after which S0 dies, the async chain's lag bound
+REPLICA_ROWS_LOG2, REPLICA_STEPS, REPLICA_KEYS, REPLICA_KILL_AFTER = 27, 8, 1 << 16, 4
+REPLICA_MAX_LAG, REPLICA_SEED = 4, 21
 DEVICE = "cuda"
 SOURCE = "parameter_server_tpu_torch/csrc/scatter_kernels.cu"
 REPLACES = {
@@ -338,9 +386,23 @@ def main() -> int:
     del batches
     torch.cuda.empty_cache()
 
+    # -- 8d. the serving plane and the replica chain over config #3's table ------
+    serve, serve_launches = serve_phase(torch, scatter, dev, errs)
+    emit("serve", **serve)
+    replica, replica_launches = replica_phase(torch, scatter, dev, errs)
+    emit("replica", **replica)
+
     # -- 9. times ----------------------------------------------------------------
     kernels = times_phase(torch, scatter, dev, errs, launches)
     for k in kernels:
+        k["serve_launches"] = serve_launches[k["name"]]
+        k["replica_launches"] = replica_launches[k["name"]]
+        if k["name"] == "gather":
+            k["serve"] = serve["gather_at_serving_shape"]
+        if k["name"] == "apply":
+            k["serve"] = serve["apply_check"]
+            k["replica"] = {run: replica[run]["apply_check"]
+                            for run in ("control", "sync_chain", "async_chain")}
         if k["name"] in ("apply", "gather"):
             k["local_rows_launches"] = rows["launches"][k["name"]]
             k["hier_launches"] = hier["launches"][k["name"]]
@@ -2423,6 +2485,550 @@ def dense_async(torch, dev, batches):
             "pull_bytes_per_step": verb_bytes["PULL"] / ASYNC_STEPS,
             "vector_bytes": codec_total * 4, "losses": losses, "profile_2_steps": profiled,
             "loss_first_step_mean": first, "loss_last_step_mean": last}
+
+
+# ---------------------------------------------------------------------------
+# phase 8d: the serving plane and the replica chain
+# ---------------------------------------------------------------------------
+
+
+def _serve_tables(rows, consistency=None, dim=SERVE_DIM):
+    from parameter_server_tpu_torch.config import OptimizerConfig, TableConfig
+
+    return {"w": TableConfig(name="w", rows=rows, dim=dim,
+                             optimizer=OptimizerConfig(kind="adagrad", learning_rate=0.05),
+                             consistency=consistency)}
+
+
+def _free_cluster(torch, van, servers):
+    """Close a cluster and hand its tables back to the card."""
+    import gc
+
+    close_cluster(van, servers)
+    for srv in servers:
+        srv.tables.clear()
+    servers.clear()
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def _table_bytes(servers):
+    """Bytes of every plane of every server's tables, read from the tensors."""
+    return sum(t.value.nbytes + sum(p.nbytes for p in t.state.values())
+               for srv in servers for t in srv.tables.values())
+
+
+def _unique_lines(keys, slots, lines, n):
+    """The first ``n`` of ``keys`` whose slots fall on distinct lines of a
+    ``lines``-line direct-mapped cache (distinct slots too)."""
+    _, first = np.unique(slots & (lines - 1), return_index=True)
+    pick = np.sort(first)[:n]
+    check(pick.size == n, f"only {pick.size} keys on distinct cache lines, need {n}")
+    return keys[pick]
+
+
+def _rows_by_plane(torch, servers, slots):
+    """The servable rows of global ``slots``, read by ``index_select`` from
+    the owning shard's planes (the plain reference of a pull)."""
+    routing = servers[0].routing.tables["w"]
+    out = None
+    for s, srv in enumerate(servers):
+        table = srv.tables["w"]
+        for lo, hi in routing.owned_segments(s):
+            mask = (slots >= lo) & (slots < hi)
+            idx = torch.from_numpy((slots[mask] - lo).astype(np.int64)).to(table.value.device)
+            rows = table.optimizer.pull_weights(
+                table.value.index_select(0, idx),
+                {k: p.index_select(0, idx) for k, p in table.state.items()}).cpu().numpy()
+            if out is None:
+                out = np.zeros((slots.size, rows.shape[1]), np.float32)
+            out[mask] = rows
+    return out
+
+
+class ApplyTap:
+    """Holds ``ps_apply`` to its plain version on the path's own inputs.
+
+    While installed, ``scatter.cuda_apply`` is wrapped: the first apply on
+    each table (told apart by its value plane) gathers the rows its ids
+    touch, and the trash row, from every plane before the launch; the
+    wrapper then launches the kernel once, as the path asked, and runs
+    ``apply_rows_torch`` on those copies (a compact table: the gathered rows,
+    the trash row last, the pads pointed at it) with the same ids and
+    gradients.  Everything stays on the launching stream, with no host
+    synchronisation; :meth:`result` reads the errors once the run is over:
+    the rows the kernel left against the plain ones (rtol 1e-5, atol 1e-6,
+    as in ``kernels_vs_plain``) and the trash row unchanged."""
+
+    def __init__(self, torch, scatter):
+        self.torch, self.scatter, self.orig = torch, scatter, None
+        self.seen, self.records = set(), []
+
+    def __enter__(self):
+        self.orig = self.scatter.cuda_apply
+        self.scatter.cuda_apply = self._apply
+        return self
+
+    def __exit__(self, *exc):
+        self.scatter.cuda_apply = self.orig
+
+    def _apply(self, value, state, ids, grads, optimizer):
+        torch, key = self.torch, value.data_ptr()
+        if key in self.seen:
+            return self.orig(value, state, ids, grads, optimizer)
+        self.seen.add(key)
+        trash = value.shape[0] - 1
+        planes = [value, *(state[k] for k in sorted(state))]
+        idx = ids.long()
+        pre = [torch.cat([p.index_select(0, idx), p[trash:]]) for p in planes]
+        self.orig(value, state, ids, grads, optimizer)
+        n = idx.shape[0]
+        pad = idx == trash
+        cids = torch.where(pad, n, torch.arange(n, device=idx.device))
+        ref_v, ref_s = self.scatter.apply_rows_torch(
+            pre[0].clone(), {k: p.clone() for k, p in zip(sorted(state), pre[1:])},
+            cids, grads, optimizer)
+        want = [ref_v] + [ref_s[k] for k in sorted(state)]
+        got = [torch.cat([p.index_select(0, idx), p[trash:]]) for p in planes]
+        diff = torch.stack([(g - w).abs().max() for g, w in zip(got, want)]).max()
+        over = torch.stack([((g - w).abs() - 1e-6 - 1e-5 * w.abs()).max()
+                            for g, w in zip(got, want)]).max()
+        moved = torch.stack([(g[n] != b[n]).any() for g, b in zip(got, pre)]).any()
+        self.records.append((n, pad.sum(), diff, over, moved))
+        return value, state
+
+    def result(self, errs, expect):
+        """Check ``expect`` applies were held and all agreed; fold the
+        largest error into ``errs["apply"]``."""
+        self.torch.cuda.synchronize()
+        check(len(self.records) == expect,
+              f"the apply check saw {len(self.records)} tables, expected {expect}")
+        err = max(float(r[2]) for r in self.records)
+        check(all(float(r[3]) <= 0 for r in self.records),
+              f"ps_apply on the path vs its plain version: max err {err}")
+        check(not any(bool(r[4]) for r in self.records), "ps_apply on the path wrote the trash row")
+        errs["apply"] = max(errs["apply"], err)
+        return {"applies": len(self.records), "ids": [r[0] for r in self.records],
+                "pads": [int(r[1]) for r in self.records], "max_abs_err": err,
+                "rtol": 1e-5, "atol": 1e-6, "trash_row_unchanged": True}
+
+
+def serve_gather_check(torch, scatter, dev, table, errs):
+    """``ps_gather`` against its plain version at the serving shape: a
+    bucket of 256 ids (seeded rows of the shard, the rest trash-row pads),
+    the value and ``sum_sq`` planes of one 2^27 + 1 row shard, dim 16; then
+    its device time beside the byte bound, the plain version and two
+    ``index_select``s."""
+    rows = table.rows
+    rng = np.random.default_rng(17)
+    n_real = 150
+    ids_np = np.full(SERVE_BUCKET, rows, dtype=np.int32)
+    ids_np[:n_real] = np.sort(rng.choice(rows, size=n_real, replace=False))
+    ids = torch.tensor(ids_np, device=dev)
+    planes = [table.value, *table.state.values()]
+    got = scatter.cuda_gather_planes(planes, ids)
+    want = [scatter.gather_rows_torch(p, ids) for p in planes]
+    err = max(float((g - w).abs().max()) for g, w in zip(got, want))
+    check(err == 0.0, f"ps_gather at the serving shape: kernel vs plain {err}")
+    check(all(float(g[n_real:].abs().max()) == 0.0 for g in got[:1]),
+          "serving gather: pads must read the trash row's zeros")
+    errs["gather"] = max(errs["gather"], err)
+    idx64 = ids.long()
+    u = n_real + 1  # rows touched: the real ids and the trash row once
+    nbytes = 4 * SERVE_BUCKET + len(planes) * (u + SERVE_BUCKET) * SERVE_DIM * 4
+    return {
+        "n": SERVE_BUCKET, "real_ids": n_real, "planes": len(planes), "dim": SERVE_DIM,
+        "table_rows": rows + 1, "max_abs_err": err,
+        "ms": _graph_ms(torch, lambda: scatter.cuda_gather_planes(planes, ids)),
+        "plain_ms": _graph_ms(torch, lambda: [scatter.gather_rows_torch(p, ids)
+                                              for p in planes]),
+        "library_ms": _graph_ms(torch, lambda: [torch.index_select(p, 0, idx64)
+                                                for p in planes]),
+        "library": "index_select x2", "bytes": nbytes,
+        "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
+    }
+
+
+def _p50_us(samples):
+    return float(np.median(samples)) * 1e6
+
+
+def ro_request_us(torch, srv, keys, reps=SERVE_LAT_ITERS):
+    """One read-only request's server time: ``handle_request`` of a
+    ``__ro__`` PULL of ``keys`` (global ids of this shard) called on this
+    thread with no van, each call followed by a stream synchronisation;
+    the host-clock p50 in us."""
+    from parameter_server_tpu_torch.core.messages import Message, Task, TaskKind
+
+    msg = Message(task=Task(TaskKind.PULL, "kv", payload={"table": "w", "__ro__": True}),
+                  sender="W0", recver=srv.post.node_id, keys=keys.astype(np.int32))
+    stream = torch.cuda.current_stream(srv.device)
+    samples = []
+    for i in range(reps + 20):
+        t0 = time.perf_counter()
+        srv.handle_request(msg)
+        stream.synchronize()
+        if i >= 20:
+            samples.append(time.perf_counter() - t0)
+    return {"ids": int(keys.size), "handle_request_p50_us": _p50_us(samples)}
+
+
+def _load_leg(gen, adm, servers, scatter, seconds):
+    """One open-loop run through ``adm``: the report, the servers' read-only
+    pulls and ``ro_pull.w`` digest of this run, and its gather launches."""
+    from parameter_server_tpu_torch.utils.trace import LatencyHistogram
+
+    gen.pull_fn = adm.pull
+    for srv in servers:  # this run's server-side digest only
+        srv.ro_hist["w"] = LatencyHistogram()
+    ro0 = sum(s.ro_pulls for s in servers)
+    g0 = scatter.launch_counts()["gather"]
+    rep = gen.run(seconds)
+    ro = sum(s.ro_pulls for s in servers) - ro0
+    launches = scatter.launch_counts()["gather"] - g0
+    merged = LatencyHistogram()
+    for srv in servers:
+        merged.merge(srv.ro_hist["w"])
+    return rep, ro, launches, {"count": merged.count, "p50_ms": 1e3 * merged.percentile(0.5),
+                               "p99_ms": 1e3 * merged.percentile(0.99),
+                               "max_ms": 1e3 * merged.max_s}
+
+
+def serve_phase(torch, scatter, dev, errs):
+    """The serving plane over config #3's table: 2 KVServers holding 2^28 x 16
+    AdaGrad (2^27 + 1 rows a shard, value + ``sum_sq``, 32 GiB on the card)
+    and one serving KVWorker with ``HotRowCache(65536)`` and
+    ``ServeConfig()``.  Warm (each shard's apply held to its plain
+    version), bitwise, the cache's contract, latency, open-loop load at 200
+    and 2,000 q/s through ``AdmissionController``, the overload drill; the
+    gather kernel at the serving shape.  Returns (fields, launches of the
+    path)."""
+    from parameter_server_tpu_torch.config import ServeConfig
+    from parameter_server_tpu_torch.core.postoffice import Postoffice
+    from parameter_server_tpu_torch.core.van import LoopbackVan
+    from parameter_server_tpu_torch.kv.cache import HotRowCache
+    from parameter_server_tpu_torch.kv.server import KVServer
+    from parameter_server_tpu_torch.kv.worker import KVWorker
+    from parameter_server_tpu_torch.serve.admission import AdmissionController
+    from parameter_server_tpu_torch.serve.loadgen import LoadGenerator
+
+    num_keys = 1 << SERVE_ROWS_LOG2
+    cfgs = _serve_tables(num_keys)
+    serve_cfg = ServeConfig()
+    van = LoopbackVan()
+    servers = [KVServer(Postoffice(f"S{s}", van), cfgs, s, 2, device=dev) for s in range(2)]
+    cache = HotRowCache(serve_cfg.cache_rows, node="W0")
+    worker = KVWorker(Postoffice("W0", van), cfgs, 2, cache=cache, device=dev)
+    out = {"rows": num_keys, "dim": SERVE_DIM, "servers": 2,
+           "shard_rows": [s.tables["w"].rows + 1 for s in servers],
+           "cache_rows": cache.capacity_rows, "serve_config": dict(vars(serve_cfg))}
+    try:
+        nbytes = _table_bytes(servers)
+        check(all(p.device.type == dev.type for s in servers for t in s.tables.values()
+                  for p in (t.value, *t.state.values())), "serve tables off the card")
+        check(nbytes == 2 * 2 * ((1 << (SERVE_ROWS_LOG2 - 1)) + 1) * SERVE_DIM * 4,
+              f"serve tables hold {nbytes} bytes")
+        out.update(table_bytes=nbytes, table_gib=nbytes / 2**30)
+        gens, build_s = {}, {}
+        t0 = time.perf_counter()
+        gens[SERVE_RATES[0]] = LoadGenerator(
+            None, table="w", num_keys=num_keys, keys_per_pull=SERVE_KEYS_PER_PULL,
+            clients=SERVE_CLIENTS, per_client_qps=SERVE_RATES[0], zipf_s=SERVE_ZIPF_S,
+            seed=SERVE_SEED, cache=cache)
+        build_s[SERVE_RATES[0]] = time.perf_counter() - t0
+        emit("serve_build", rate_qps=gens[SERVE_RATES[0]].qps,
+             seconds=build_s[SERVE_RATES[0]], num_keys=num_keys)
+
+        torch.cuda.synchronize()
+        scatter.reset_launch_counts()
+        # 1. warm: the generator's hottest ranks, seeded dim-16 gradients;
+        # each shard's apply held to its plain version on the same inputs
+        warm_keys = gens[SERVE_RATES[0]]._rank_to_key[:SERVE_WARM_KEYS].copy()
+        rng = np.random.default_rng(SERVE_SEED)
+        grads = rng.normal(size=(warm_keys.size, SERVE_DIM)).astype(np.float32)
+        with ApplyTap(torch, scatter) as tap:
+            worker.push_sync("w", warm_keys, grads, timeout=120)
+        out["apply_check"] = tap.result(errs, len(servers))
+        # 2. bitwise: read-only pull == training pull == the planes' rows
+        ro = worker.pull_result(worker.pull("w", warm_keys, read_only=True), timeout=120)
+        normal = worker.pull_sync("w", warm_keys, timeout=120)
+        slots = worker.localizers["w"].assign(warm_keys.astype(np.uint64)).astype(np.int64)
+        ref = _rows_by_plane(torch, servers, slots)
+        check(np.array_equal(ro, normal), "read-only pull differs from pull_sync")
+        check(np.array_equal(normal, ref), "pull_sync differs from the planes' rows")
+        check(bool((np.abs(ref).sum(axis=1) > 0).all()), "a warm row is still zero")
+        out["bitwise"] = {"keys": int(warm_keys.size), "ro_equals_pull": True,
+                          "pull_equals_planes": True}
+        # 3. the cache's contract on keys with distinct cache lines
+        ck = _unique_lines(warm_keys, slots, cache.capacity_rows, SERVE_CONTRACT_KEYS)
+        c0, g0 = cache.counters(), scatter.launch_counts()["gather"]
+        cold = worker.pull_serve("w", ck, timeout=120)
+        c1, g1 = cache.counters(), scatter.launch_counts()["gather"]
+        check(np.array_equal(cold, worker.pull_sync("w", ck, timeout=120)),
+              "cold pull_serve differs from pull_sync")
+        g2 = scatter.launch_counts()["gather"]
+        warm = worker.pull_serve("w", ck, timeout=120)
+        c2, g3 = cache.counters(), scatter.launch_counts()["gather"]
+        check(np.array_equal(warm, cold), "warm pull_serve differs from the cold one")
+        check(c1["cache_misses"] - c0["cache_misses"] == ck.size
+              and c1["cache_hits"] == c0["cache_hits"], f"cold serve counters {c0} -> {c1}")
+        check(c2["cache_hits"] - c1["cache_hits"] == ck.size
+              and c2["cache_misses"] == c1["cache_misses"], f"warm serve counters {c1} -> {c2}")
+        check(g3 == g2, f"a fully cached pull_serve launched {g3 - g2} gathers")
+        wk = ck[:SERVE_WRITE_KEYS]
+        worker.push_sync("w", wk, np.ones((wk.size, SERVE_DIM), np.float32), timeout=120)
+        after = worker.pull_serve("w", ck, timeout=120)
+        c3 = cache.counters()
+        check(np.array_equal(after, worker.pull_sync("w", ck, timeout=120)),
+              "pull_serve after the write differs from pull_sync")
+        check(bool((after[:wk.size] != cold[:wk.size]).any(axis=1).all()),
+              "pull_serve after the write returned an old row of a written key")
+        check(np.array_equal(after[wk.size:], cold[wk.size:]), "an unwritten row changed")
+        check(c3["cache_invalidations"] > c2["cache_invalidations"],
+              "the write's watermark invalidated nothing")
+        out["contract"] = {"keys": int(ck.size), "written": int(wk.size),
+                           "cold": c1, "warm": c2, "after_write": c3,
+                           "cold_gathers": g1 - g0, "warm_gathers": g3 - g2}
+        # 4. latency: a fully cached pull_serve against an uncached pull_sync
+        hot = ck[:SERVE_HOT_KEYS].copy()
+        for _ in range(20):
+            worker.pull_serve("w", hot)
+            worker.pull_sync("w", hot, timeout=60)
+        hit_s, rpc_s = [], []
+        h0 = cache.hits
+        for _ in range(SERVE_LAT_ITERS):
+            t0 = time.perf_counter()
+            worker.pull_serve("w", hot)
+            hit_s.append(time.perf_counter() - t0)
+        check(cache.hits - h0 == SERVE_LAT_ITERS * hot.size, "the cached leg missed")
+        for _ in range(SERVE_LAT_ITERS):
+            t0 = time.perf_counter()
+            worker.pull_sync("w", hot, timeout=60)
+            rpc_s.append(time.perf_counter() - t0)
+        hit_us, rpc_us = _p50_us(hit_s), _p50_us(rpc_s)
+        out["latency"] = {"hot_keys": int(hot.size), "iters": SERVE_LAT_ITERS,
+                          "cached_p50_us": hit_us, "rpc_p50_us": rpc_us,
+                          "ratio": rpc_us / hit_us, "jax_bench_floor": 10.0}
+        emit("serve_latency", **out["latency"])
+        # 5. open-loop Zipfian load through admission control (healthy)
+        adm = AdmissionController(worker, healthy=lambda: True, cfg=serve_cfg, node="W0")
+        legs = []
+        for rate in SERVE_RATES:
+            if rate not in gens:
+                gens.clear()  # one generator's 4 GiB of tables at a time
+                t0 = time.perf_counter()
+                gens[rate] = LoadGenerator(
+                    None, table="w", num_keys=num_keys, keys_per_pull=SERVE_KEYS_PER_PULL,
+                    clients=SERVE_CLIENTS, per_client_qps=rate, zipf_s=SERVE_ZIPF_S,
+                    seed=SERVE_SEED, cache=cache)
+                build_s[rate] = time.perf_counter() - t0
+                emit("serve_build", rate_qps=gens[rate].qps, seconds=build_s[rate],
+                     num_keys=num_keys)
+            rep, ro_n, launches, ro_digest = _load_leg(gens[rate], adm, servers, scatter,
+                                                       SERVE_RUN_S)
+            check(rep.shed == 0 and rep.served == rep.pulls > 0,
+                  f"healthy load at {rep.offered_qps} q/s: {rep}")
+            check(launches == ro_n > 0, f"{launches} gathers for {ro_n} read-only pulls")
+            check(ro_digest["count"] == ro_n, f"ro_pull.w holds {ro_digest['count']}")
+            leg = {**rep.to_dict(), "achieved_qps": rep.pulls / rep.duration_s,
+                   "served_over_pulls": rep.served / rep.pulls,
+                   "ro_pulls": ro_n, "gather_launches": launches, "ro_pull_digest": ro_digest,
+                   "generator_build_s": build_s[rate]}
+            legs.append(leg)
+            emit("serve_load", **leg)
+        out["load"] = legs
+        # 6. overload drill: every read sheds, none reaches a server
+        down = AdmissionController(worker, healthy=lambda: False, cfg=serve_cfg, node="W0")
+        rep, ro_n, launches, _ = _load_leg(gens[SERVE_RATES[-1]], down, servers, scatter,
+                                           SERVE_DRILL_S)
+        check(rep.shed == rep.pulls > 0 and rep.served == 0, f"overload drill {rep}")
+        check(ro_n == 0 and launches == 0, f"the drill reached the servers: {ro_n}, {launches}")
+        out["drill"] = {**rep.to_dict(), "ro_pulls": ro_n, "gather_launches": launches,
+                        "policy": down.cfg.policy, "serve_shed": down.serve_shed}
+        gens.clear()
+        counts = scatter.launch_counts()
+        pulls = sum(s.pulls + s.ro_pulls for s in servers)
+        pushes = sum(s.pushes for s in servers)
+        check(counts["gather"] == pulls and counts["apply"] == pushes
+              and counts["scatter_set"] == counts["scatter_add"] == 0,
+              f"serve launches {counts} for {pulls} pulls and {pushes} pushes")
+        out.update(launches=counts, pulls_handled=pulls, pushes_applied=pushes,
+                   worker=worker.counters())
+        # one read-only request's server time, without the van: 8 keys of S0
+        s0_slots = slots[slots < servers[0].tables["w"].rows]
+        out["ro_request"] = ro_request_us(
+            torch, servers[0], np.sort(s0_slots[:SERVE_KEYS_PER_PULL]))
+        emit("serve_ro_request", **out["ro_request"])
+        out["gather_at_serving_shape"] = serve_gather_check(
+            torch, scatter, dev, servers[0].tables["w"], errs)
+    finally:
+        _free_cluster(torch, van, servers)
+    out["stale_shed"] = stale_shed_leg(torch, dev)
+    return out, counts
+
+
+def stale_shed_leg(torch, dev):
+    """The gate's stale-cache shed at config #1 width (2^22 x 1, SSP bound 0,
+    ``gate_deadline_s`` 0.4), as the JAX package's test runs it: worker A
+    steps once, warms its cache through ``pull_serve``, and its next pull is
+    parked at the gate (worker B never steps) until the deadline sheds it to
+    the cache."""
+    from parameter_server_tpu_torch.config import ConsistencyConfig, ConsistencyMode
+    from parameter_server_tpu_torch.core.postoffice import Postoffice
+    from parameter_server_tpu_torch.core.van import LoopbackVan
+    from parameter_server_tpu_torch.kv.cache import HotRowCache
+    from parameter_server_tpu_torch.kv.server import KVServer
+    from parameter_server_tpu_torch.kv.worker import KVWorker
+    from parameter_server_tpu_torch.utils.keys import HashLocalizer
+
+    cfgs = _serve_tables(ROWS, dim=DIM, consistency=ConsistencyConfig(
+        mode=ConsistencyMode.SSP, max_delay=0, gate_deadline_s=SERVE_STALE_DEADLINE_S))
+    rng = np.random.default_rng(SERVE_SEED)
+    pool = rng.choice(KEY_SPACE, size=2 * SERVE_STALE_KEYS, replace=False).astype(np.int64)
+    slots = HashLocalizer(ROWS).assign(pool.astype(np.uint64)).astype(np.int64)
+    keys = _unique_lines(pool, slots, SERVE_CACHE_ROWS, SERVE_STALE_KEYS)
+    van = LoopbackVan()
+    servers = [KVServer(Postoffice(f"S{s}", van), cfgs, s, 2, device=dev) for s in range(2)]
+    wa = KVWorker(Postoffice("W0", van), cfgs, 2, cache=HotRowCache(SERVE_CACHE_ROWS),
+                  device=dev)
+    wb = KVWorker(Postoffice("W1", van), cfgs, 2, device=dev)
+    try:
+        wa.consist_hello(table="w")
+        wb.consist_hello(table="w")
+        wa.pull_sync("w", keys, timeout=60)  # step 0 for worker A
+        wa.push_sync("w", keys, np.ones(keys.size, np.float32), timeout=60)
+        warm = wa.pull_serve("w", keys, timeout=60)
+        t0 = time.perf_counter()
+        got = wa.pull_sync("w", keys, timeout=60)  # step 1: parked, then shed
+        waited = time.perf_counter() - t0
+        c = wa.counters()
+        check(c["consist_sheds"] == 1 and c["consist_forced"] == 0,
+              f"stale shed counters {c}")
+        check(np.array_equal(got, warm), "the shed pull differs from the warm pull_serve")
+        check(SERVE_STALE_DEADLINE_S < waited < 30, f"the shed pull took {waited} s")
+        check(bool(np.abs(warm).max() > 0), "the warm rows are zero")
+        return {"keys": int(keys.size), "rows": ROWS, "deadline_s": SERVE_STALE_DEADLINE_S,
+                "waited_s": waited, "consist_sheds": c["consist_sheds"],
+                "consist_forced": c["consist_forced"], "consist_waits": c["consist_waits"],
+                "rows_equal_warm_pull_serve": True}
+    finally:
+        _free_cluster(torch, van, servers)
+
+
+def _replica_batches():
+    """8 batches of 65,536 seeded keys over the replica table, with seeded
+    dim-16 gradients."""
+    rng = np.random.default_rng(REPLICA_SEED)
+    rows = 1 << REPLICA_ROWS_LOG2
+    return [(rng.integers(0, rows, size=REPLICA_KEYS).astype(np.int64),
+             rng.normal(size=(REPLICA_KEYS, SERVE_DIM)).astype(np.float32))
+            for _ in range(REPLICA_STEPS)]
+
+
+def replica_run(torch, scatter, dev, batches, errs, *, chain=None, device_replies=False):
+    """The replica phase's push sequence on 2 servers (``chain`` None) or a
+    chain from ``make_replicated_servers`` (``"sync"`` or ``"async"``, whose
+    S0 dies after step 4 and whose standby is promoted).  The first apply on
+    every server's table is held to its plain version (:class:`ApplyTap`).
+    Returns the touched rows read back, each push's seconds, and the fields
+    of the run."""
+    from parameter_server_tpu_torch.core.postoffice import Postoffice
+    from parameter_server_tpu_torch.core.van import LoopbackVan
+    from parameter_server_tpu_torch.kv import replica as replica_lib
+    from parameter_server_tpu_torch.kv.server import KVServer
+    from parameter_server_tpu_torch.kv.worker import KVWorker
+
+    cfgs = _serve_tables(1 << REPLICA_ROWS_LOG2)
+    van = LoopbackVan()
+    if chain is None:
+        servers = [KVServer(Postoffice(f"S{s}", van), cfgs, s, 2, device=dev)
+                   for s in range(2)]
+        primaries, standbys = servers, []
+    else:
+        primaries, standbys = replica_lib.make_replicated_servers(
+            van, cfgs, 2, sync=chain == "sync", max_lag=REPLICA_MAX_LAG,
+            device_replies=device_replies, device=dev)
+        servers = primaries + standbys
+    worker = KVWorker(Postoffice("W0", van), cfgs, 2, device=dev)
+    fields = {"chain": chain or "none", "table_bytes": _table_bytes(servers)}
+    try:
+        push_s = []
+        with ApplyTap(torch, scatter) as tap:
+            for i, (keys, grads) in enumerate(batches):
+                t0 = time.perf_counter()
+                worker.push_sync("w", keys, grads, timeout=120)
+                push_s.append(time.perf_counter() - t0)
+                if chain is not None and i == REPLICA_KILL_AFTER - 1:
+                    if chain == "async":
+                        primaries[0].flush_replica()  # the lag window clear at the kill
+                    van.unbind("S0")  # the primary dies
+                    replica_lib.promote(van, standbys[0], "S0")
+            touched = np.unique(np.concatenate([k for k, _ in batches]))
+            rows = worker.pull_sync("w", touched, timeout=120)
+        fields["apply_check"] = tap.result(errs, len(servers))
+        if device_replies:
+            seen = []
+            tap = worker._on_response
+
+            def spy(msg):  # on the card: every reply value's .is_cuda
+                seen.extend(isinstance(v, torch.Tensor) and v.device.type == dev.type
+                            for v in msg.values)
+                tap(msg)
+
+            worker._on_response = spy
+            on_card = worker.pull_result_device(worker.pull("w", touched), timeout=120)
+            worker._on_response = tap
+            check(on_card.device.type == dev.type and len(seen) == 2 and all(seen),
+                  f"device replies: {seen}, result on {on_card.device}")
+            check(np.array_equal(on_card.cpu().numpy(), rows),
+                  "pull_result_device differs from pull_result")
+            fields["device_replies"] = {"reply_values_on_card": len(seen),
+                                        "result_device": str(on_card.device),
+                                        "equals_pull_result": True}
+        fields.update(
+            pushes=[s.pushes for s in servers], pulls=[s.pulls for s in servers],
+            push_s=push_s, push_p50_ms=1e3 * float(np.median(push_s)),
+            touched_rows=int(touched.size))
+        return rows, fields
+    finally:
+        _free_cluster(torch, van, servers)
+
+
+def replica_phase(torch, scatter, dev, errs):
+    """The replica chain at half of ``serve``'s depth (2^27 x 16 AdaGrad):
+    the control run on 2 servers (16 GiB), a sync chain and an async chain
+    (max lag 4, ``device_replies``) of 2 primaries and 2 standbys (32 GiB
+    each), S0 killed after step 4 and its standby promoted; the rows at the
+    end bitwise equal to the control's; each run's first apply on every
+    server held to its plain version.  Returns (fields, launches)."""
+    batches = _replica_batches()
+    torch.cuda.synchronize()
+    scatter.reset_launch_counts()
+    control, cf = replica_run(torch, scatter, dev, batches, errs)
+    sync_rows, sf = replica_run(torch, scatter, dev, batches, errs, chain="sync")
+    async_rows, af = replica_run(torch, scatter, dev, batches, errs, chain="async",
+                                 device_replies=True)
+    counts = scatter.launch_counts()
+    check(bool(np.abs(control).max() > 0), "the control rows are zero")
+    check(np.array_equal(sync_rows, control), "the sync chain's rows differ from the control")
+    check(np.array_equal(async_rows, control), "the async chain's rows differ from the control")
+    pushes = sum(sum(f["pushes"]) for f in (cf, sf, af))
+    pulls = sum(sum(f["pulls"]) for f in (cf, sf, af))
+    # control: 8 pushes a server; a chain: 4 on each primary and its standby
+    # before the kill, then S0's 4 on the promoted standby and S1's 4 applied
+    # on S1 and forwarded to R1
+    check(cf["pushes"] == [8, 8] and sf["pushes"] == af["pushes"] == [4, 8, 8, 8],
+          f"replica pushes {cf['pushes']} {sf['pushes']} {af['pushes']}")
+    check(counts["apply"] == pushes and counts["gather"] == pulls
+          and counts["scatter_set"] == counts["scatter_add"] == 0,
+          f"replica launches {counts} for {pushes} pushes and {pulls} pulls")
+    return {"rows": 1 << REPLICA_ROWS_LOG2, "dim": SERVE_DIM, "steps": REPLICA_STEPS,
+            "keys_per_step": REPLICA_KEYS, "kill_after": REPLICA_KILL_AFTER,
+            "control": cf, "sync_chain": sf, "async_chain": af,
+            "sync_equals_control": True, "async_equals_control": True,
+            "push_p50_ms": {"no_replica": cf["push_p50_ms"], "sync_chain": sf["push_p50_ms"],
+                            "async_chain": af["push_p50_ms"]},
+            "launches": counts}, counts
 
 
 # ---------------------------------------------------------------------------

@@ -1,7 +1,7 @@
 """Configuration dataclasses: the fields of the JAX package's ``config.py``
 that the sparse-LR push/pull loop, the server's apply ledger, the
-consistency gate and worker groups read, with the same names, defaults and
-validation."""
+consistency gate, worker groups and the serving plane read, with the same
+names, defaults and validation."""
 
 from __future__ import annotations
 
@@ -147,6 +147,44 @@ class GroupConfig:
         if self.fallback_timeout <= 0:
             raise ValueError(
                 f"fallback_timeout must be > 0, got {self.fallback_timeout!r}"
+            )
+
+
+@dataclasses.dataclass(frozen=True)
+class ServeConfig:
+    """Read-heavy serving plane knobs.
+
+    The serving plane layers three mechanisms over the training substrate:
+    a worker-side hot-row cache invalidated by the piggybacked ``__sver__``
+    segment version clock (``kv/cache.py``), a server-side read-only PULL
+    fast path (``__ro__`` request flag), and admission control
+    (``serve/admission.py``) consuming a health callable and the ledger's
+    ``__busy__`` hints.
+    """
+
+    #: hot-row cache capacity, in rows per table (direct-mapped, rounded up
+    #: to a power of two; collision-evicted); <= 0 disables caching.
+    cache_rows: int = 65536
+    #: what to do with read traffic while the plane is unhealthy (health
+    #: callable False or a live ``__busy__`` hint): "reject" answers
+    #: immediately with a retry-after shed; "stale" serves watermark-invalid
+    #: cache entries (bounded only by what the cache holds) and sheds
+    #: uncached keys; "queue" waits up to ``queue_deadline_s`` for health,
+    #: then sheds.
+    policy: str = "reject"
+    #: advisory client back-off carried by a reject shed, seconds.
+    retry_after_s: float = 0.05
+    #: max time a "queue" policy read waits for the plane to recover.
+    queue_deadline_s: float = 0.5
+    #: poll period while a "queue" policy read is parked.
+    queue_poll_s: float = 0.005
+    #: how recent a ``__busy__`` hint must be to count as live overload.
+    busy_within_s: float = 1.0
+
+    def __post_init__(self) -> None:
+        if self.policy not in ("reject", "stale", "queue"):
+            raise ValueError(
+                f"serve policy must be reject|stale|queue, got {self.policy!r}"
             )
 
 

@@ -133,6 +133,9 @@ class TableRouting:
     def server_rows(self, server: int) -> int:
         return sum(hi - lo for lo, hi in self.owned_segments(server))
 
+    def distinct_owners(self) -> Tuple[int, ...]:
+        return tuple(sorted(set(self.owners)))
+
 
 @dataclasses.dataclass(frozen=True)
 class RoutingTable:

@@ -15,7 +15,24 @@ Host <-> device traffic: wire value planes (numpy) are copied into one pinned
 host buffer per request and uploaded with a single non-blocking copy (the
 pinned buffer is fresh per request; PyTorch's caching host allocator does not
 hand it out again before that copy has completed).  Pull replies are numpy,
-read back once per bundle.  The push ack never waits for the device.
+read back once per bundle — or, with ``device_replies=True`` (in-process
+planes whose worker shares the card), the gathered tensors sliced ``[:n]``,
+never copied to the host.  The push ack never waits for the device.
+
+The serving plane's read-only path: a PULL stamped ``__ro__`` is answered by
+the same gather on its own books (``ro_pulls``, the per-table
+``ro_pull.<t>`` latency digest) and skips what a write needs; in a bundle it
+does not flush the open push group (the relaxed read sees the table as of
+dispatch) and its readback is the bundle's second one.
+
+Chain replication: ``replica=`` names a hot standby holding the same shard.
+Every applied push is forwarded to it in apply order from ``_ack_push``,
+through a forwarding ``Customer`` on its own endpoint (``<node>.fw``): the
+receive thread that applies pushes must not wait on an ack that only it
+could process.  ``replica_sync=True`` acks the worker after the standby
+applied (no update lost on primary death); otherwise at most
+``max_replica_lag`` forwards are in flight (``flush_replica`` drains them).
+``kv/replica.py`` builds the chain and promotes a standby.
 
 The apply ledger (``kv/ledger.py``, on by default as in the JAX server)
 registers every device apply — one entry per single push, one per grouped
@@ -37,14 +54,16 @@ and ``consist_set`` (live mode / bound retune).  Group-stamped pushes
 ``group_pushes`` / ``group_members``.  The gate and the booking are host
 dict and int work: nothing on either path reads the card.
 
-Not ported yet: hot-row cache and read-only serving path, replica
-forwarding, live migration, snapshots and request tracing.
+Not ported yet: live migration (the ``migrate_*`` ops and the replica
+chain's ``_forward_control``), snapshots, and request tracing.
 """
 
 from __future__ import annotations
 
+import collections
 import dataclasses
 import logging
+import time
 import zlib
 from typing import Dict, List, Optional, Tuple
 
@@ -59,7 +78,7 @@ from parameter_server_tpu_torch.config import (
 )
 from parameter_server_tpu_torch.convert import shard_from_numpy
 from parameter_server_tpu_torch.core import flightrec
-from parameter_server_tpu_torch.core.messages import Message, TaskKind
+from parameter_server_tpu_torch.core.messages import Message, Task, TaskKind
 from parameter_server_tpu_torch.core.postoffice import Customer, Postoffice
 from parameter_server_tpu_torch.kv.consistency import MODE_CODES, FleetClock
 from parameter_server_tpu_torch.kv.ledger import COMPLETED, ApplyLedger
@@ -68,6 +87,7 @@ from parameter_server_tpu_torch.kv.routing import (
     CONSIST_STEP_KEY,
     FENCED_KEY,
     GROUP_KEY,
+    READ_ONLY_KEY,
     ROUTING_EPOCH_KEY,
     ROUTING_KEY,
     VERSION_KEY,
@@ -76,6 +96,7 @@ from parameter_server_tpu_torch.kv.routing import (
 )
 from parameter_server_tpu_torch.kv.table import KVTable
 from parameter_server_tpu_torch.utils.keys import bucket_size
+from parameter_server_tpu_torch.utils.trace import LatencyHistogram
 
 
 def _bucket(n: int) -> int:
@@ -94,15 +115,31 @@ class KVServer(Customer):
         num_servers: int,
         *,
         name: str = "kv",
+        device_replies: bool = False,
+        replica: Optional[str] = None,
+        replica_sync: bool = False,
+        max_replica_lag: int = 8,
+        replica_ack_timeout: float = 60.0,
         routing: Optional[RoutingTable] = None,
         apply: Optional[ApplyEngineConfig] = None,
         devobs: Optional[LedgerConfig] = None,
         device: str | torch.device = "cuda",
     ) -> None:
         """``devobs``: the apply ledger's knobs; the default builds an
-        enabled ledger, ``LedgerConfig(enabled=False)`` none."""
+        enabled ledger, ``LedgerConfig(enabled=False)`` none.
+
+        ``device_replies``: answer pulls with the gathered tensors on
+        ``device`` instead of host numpy (in-process planes only).
+
+        ``replica``: node id of a hot-standby KVServer holding the same
+        shard; every applied push is forwarded to it in apply order.
+        ``replica_sync=True`` is chain semantics (the worker's ack fires
+        after the standby applied); ``False`` forwards asynchronously with at
+        most ``max_replica_lag`` forwards in flight.  A forward not acked
+        within ``replica_ack_timeout`` seconds fails the push."""
         super().__init__(name, post)
         self.device = torch.device(device)
+        self.device_replies = device_replies
         self.apply_cfg = apply or ApplyEngineConfig()
         if self.apply_cfg.dup_policy not in ("rounds", "combine"):
             raise ValueError(
@@ -145,6 +182,12 @@ class KVServer(Customer):
         #: carried (``__grp__``'s ``n``): a group push is ONE apply here
         self.group_pushes = 0
         self.group_members = 0
+        #: serving plane: read-only pulls answered, and their per-table
+        #: server-side latency (dispatch -> reply built, readback included)
+        self.ro_pulls = 0
+        self.ro_hist: Dict[str, LatencyHistogram] = {
+            t: LatencyHistogram() for t in table_cfgs
+        }
         self.fenced_rejects = 0
         # -- consistency gate --------------------------------------------------
         #: per-gated-table live state: mode/bound start from the table's
@@ -165,6 +208,20 @@ class KVServer(Customer):
         if self._consist and hasattr(post.van, "on_incarnation_advance"):
             # a same-id restart: the dead incarnation must not wedge the minimum
             post.van.on_incarnation_advance.append(self._consist_incarnation)
+        # -- hot-replica forwarding ------------------------------------------
+        self.replica = replica
+        self.replica_sync = replica_sync
+        self.max_replica_lag = max_replica_lag
+        self.replica_ack_timeout = replica_ack_timeout
+        self._fwd_inflight: collections.deque = collections.deque()
+        if replica is not None:
+            # the primary's client role gets its OWN endpoint: waiting for
+            # the standby's ack on this server's receive thread would
+            # deadlock a sync chain (that thread would have to process the
+            # ack).  The customer shares this server's name, so the standby
+            # routes forwarded pushes into its kv handler.
+            self._fwd_post = Postoffice(f"{post.node_id}.fw", post.van)
+            self._fwd = Customer(name, self._fwd_post)
 
     # -- routing / shard maps -------------------------------------------------
     def _make_map(self, routing: RoutingTable, table: str) -> tuple:
@@ -473,6 +530,12 @@ class KVServer(Customer):
             sver = int(ver[segs].max())
         else:
             sver = self.version_max(tname)
+        if self.replica is not None:
+            # forward AFTER the local apply, in apply order (this receive
+            # thread is the only writer), so the standby replays the
+            # identical update sequence; a sync chain blocks here on the
+            # standby's ack, never on device work
+            self._forward_push(tname, msg)
         reply = self._stamp_version(msg, msg.reply(), sver)
         if self.ledger is not None and self.ledger.overloaded():
             # soft backpressure: the update WAS applied; the hint tells the
@@ -483,19 +546,67 @@ class KVServer(Customer):
             reply.task.payload[BUSY_KEY] = True
         return reply
 
+    def _forward_push(self, tname: str, msg: Message) -> None:
+        """Forward one applied push to the standby: the worker's global ids
+        and value plane as received (numpy on the wire, a tensor from
+        ``push_device``), unstamped, so the standby localizes and applies
+        them exactly as this server did."""
+        fwd = Message(
+            task=Task(TaskKind.PUSH, self._fwd.name, payload={"table": tname}),
+            recver=self.replica,
+            keys=msg.keys,
+            values=[msg.values[0]],
+        )
+        ts = self._fwd.submit([fwd])
+        if self.replica_sync:
+            if not self._fwd.wait(ts, timeout=self.replica_ack_timeout):
+                # free the stuck task before failing the push
+                self._fwd.cancel(ts, "replica ack deadline")
+                raise RuntimeError(f"replica {self.replica} did not ack push (sync chain)")
+            self._fwd.check(ts)
+        else:
+            self._fwd_inflight.append(ts)
+            while len(self._fwd_inflight) > self.max_replica_lag:
+                old = self._fwd_inflight.popleft()
+                if not self._fwd.wait(old, timeout=self.replica_ack_timeout):
+                    self._fwd.cancel(old, "replica ack deadline")
+                    raise RuntimeError(
+                        f"replica {self.replica} lag exceeded "
+                        f"{self.max_replica_lag} and oldest ack timed out"
+                    )
+
+    def flush_replica(self, timeout: float = 60.0) -> None:
+        """Block until every async-forwarded push is acked by the replica."""
+        while self._fwd_inflight:
+            old = self._fwd_inflight.popleft()
+            if not self._fwd.wait(old, timeout):
+                self._fwd.cancel(old, "replica flush deadline")
+                raise RuntimeError(f"replica flush: ts={old} not acked")
+
     def _pull_device(
-        self, msg: Message, tname: str, ids_np: np.ndarray, segs: np.ndarray
+        self, msg: Message, tname: str, ids_np: np.ndarray, segs: np.ndarray,
+        *, read_only: bool = False,
     ) -> Tuple[torch.Tensor, int, int]:
         """Launch the device gather; the readback is the caller's (the bundle
-        path defers it to one per bundle)."""
+        path defers it to one per bundle).  ``read_only``: the serving
+        plane's fast path (the JAX server's ``_pull_ro_device``), booked in
+        ``ro_pulls``; a gather skips everything a write needs anyway."""
         table = self.tables[tname]
         n = int(ids_np.shape[0])
         ids = self._upload_ids(self._pad_ids(table, ids_np, _bucket(n)))
         rows = table.pull(ids)
-        self.pulls += 1
+        if read_only:
+            self.ro_pulls += 1
+        else:
+            self.pulls += 1
         ver = self._seg_versions[tname]
         sver = int(ver[segs].max()) if segs.size else self.version_max(tname)
         return rows, n, sver
+
+    def _reply_values(self, slices: List[torch.Tensor]) -> list:
+        """Pull replies' value planes: the device rows as they are under
+        ``device_replies``, else their host copies (one synchronisation)."""
+        return list(slices) if self.device_replies else self._readback(slices)
 
     def _handle_control(self, msg: Message) -> Message:
         op = msg.task.payload.get("op")
@@ -550,9 +661,13 @@ class KVServer(Customer):
         if msg.task.kind == TaskKind.PUSH:
             return self._handle_push_single(msg, tname, ids_np, kn, segs)
         if msg.task.kind == TaskKind.PULL:
-            rows, n, sver = self._pull_device(msg, tname, ids_np, segs)
-            host = self._readback([rows[:n]])[0]
-            return self._stamp_version(msg, msg.reply(values=[host]), sver)
+            read_only = bool(msg.task.payload.get(READ_ONLY_KEY))
+            t0 = time.perf_counter()
+            rows, n, sver = self._pull_device(msg, tname, ids_np, segs, read_only=read_only)
+            vals = self._reply_values([rows[:n]])
+            if read_only:
+                self.ro_hist[tname].record(time.perf_counter() - t0)
+            return self._stamp_version(msg, msg.reply(values=vals), sver)
         raise ValueError(f"unsupported task kind {msg.task.kind}")
 
     # -- bundle-batched apply engine ------------------------------------------
@@ -568,10 +683,15 @@ class KVServer(Customer):
         ``apply.apply_batch``) become ONE device apply; every PULL's readback
         is deferred to one per bundle.  A PULL, CONTROL, fence or table
         switch flushes the open PUSH run first, so each member observes
-        exactly the writes before it in bundle order.  Failures are isolated
-        per member, except that a grouped apply fails its whole group."""
+        exactly the writes before it in bundle order.  Read-only pulls
+        (``__ro__``) are the exception: they do NOT flush the open push group
+        (the relaxed read sees the shard as of dispatch, possibly without the
+        writes riding the same bundle) and defer to their own readback.
+        Failures are isolated per member, except that a grouped apply fails
+        its whole group."""
         replies: List[Optional[Message]] = [None] * len(msgs)
         pulls: List[tuple] = []  # (i, msg, rows, n, sver)
+        ro: List[tuple] = []  # (i, msg, tname, rows, n, sver, t0)
         group: List[tuple] = []  # (i, msg, tname, ids_np, kn, segs)
 
         def flush_group() -> None:
@@ -610,6 +730,13 @@ class KVServer(Customer):
                         flush_group()
                     group.append((i, msg, tname, ids_np, kn, segs))
                 elif msg.task.kind == TaskKind.PULL:
+                    if msg.task.payload.get(READ_ONLY_KEY):
+                        # NO flush_group(): the relaxed read, see above
+                        t0 = time.perf_counter()
+                        rows, n, sver = self._pull_device(msg, tname, ids_np, segs,
+                                                          read_only=True)
+                        ro.append((i, msg, tname, rows, n, sver, t0))
+                        continue
                     flush_group()  # the pull must see prior member pushes
                     rows, n, sver = self._pull_device(msg, tname, ids_np, segs)
                     pulls.append((i, msg, rows, n, sver))
@@ -623,15 +750,29 @@ class KVServer(Customer):
                 replies[i] = self._error_reply(msg, e)
         flush_group()
         self._finish_pulls(pulls, replies)
+        self._finish_ro_pulls(ro, replies)
         return replies
 
     def _finish_pulls(self, pulls: List[tuple], replies: List) -> None:
-        """Materialize deferred pull replies: ONE host readback per bundle."""
+        """Materialize deferred pull replies: ONE host readback per bundle
+        (none under ``device_replies``: the rows stay on the card)."""
         if not pulls:
             return
-        host = self._readback([rows[:n] for _, _, rows, n, _ in pulls])
-        for (i, m, _, _, sver), h in zip(pulls, host):
-            replies[i] = self._stamp_version(m, m.reply(values=[h]), sver)
+        vals = self._reply_values([rows[:n] for _, _, rows, n, _ in pulls])
+        for (i, m, _, _, sver), v in zip(pulls, vals):
+            replies[i] = self._stamp_version(m, m.reply(values=[v]), sver)
+
+    def _finish_ro_pulls(self, ro: List[tuple], replies: List) -> None:
+        """Materialize deferred READ-ONLY pull replies: the bundle's other
+        single readback, each member's serving latency recorded from its
+        dispatch time."""
+        if not ro:
+            return
+        vals = self._reply_values([rows[:n] for _, _, _, rows, n, _, _ in ro])
+        done = time.perf_counter()
+        for (i, m, tname, _, _, sver, t0), v in zip(ro, vals):
+            replies[i] = self._stamp_version(m, m.reply(values=[v]), sver)
+            self.ro_hist[tname].record(done - t0)
 
     def _apply_push_group(self, group: List[tuple], replies: List) -> None:
         """One device apply for a run of same-table PUSHes stacked as
@@ -717,12 +858,13 @@ class KVServer(Customer):
 
     # -- telemetry-facing reads -------------------------------------------------
     def counters(self) -> dict:
-        """Fence, group and version counters, the consistency gate's
+        """Fence, read-only, group and version counters, the consistency gate's
         totals and gauges on gated servers, plus the ledger's gauges and
         totals (``inflight_bundles``/``inflight_rows``, ``backlog_age_s``,
         ``applies_*``), Dashboard-mergeable."""
         out = {
             "fenced_rejects": self.fenced_rejects,
+            "ro_pulls": self.ro_pulls,
             "group_pushes": self.group_pushes,
             "group_members": self.group_members,
             "seg_version_max": sum(self.version_max(t) for t in self.tables),
@@ -742,8 +884,14 @@ class KVServer(Customer):
 
     def latency_digests(self) -> Dict[str, dict]:
         """The ledger's cumulative per-table apply digests: ``apply.<t>``
-        total and the ``apply_host`` / ``apply_h2d`` / ``apply_dev`` split."""
-        return self.ledger.latency_digests() if self.ledger is not None else {}
+        total and the ``apply_host`` / ``apply_h2d`` / ``apply_dev`` split;
+        plus the read-only pull latency ``ro_pull.<t>`` of tables that
+        served one."""
+        out = self.ledger.latency_digests() if self.ledger is not None else {}
+        for t, hist in self.ro_hist.items():
+            if hist.count:
+                out[f"ro_pull.{t}"] = hist.to_dict()
+        return out
 
     # -- shard transfer ---------------------------------------------------------
     def export_shard(self) -> Dict[str, dict]:

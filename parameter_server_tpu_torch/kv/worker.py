@@ -17,8 +17,9 @@ Pipeline per call:
    one reduced tensor crosses the wire per group per step.
 3. host: ``RoutingTable.slice_ids`` — one request per owning server, stamped
    with the routing epoch.
-4. Van: responses complete the timestamp; pull replies are numpy and are
-   reassembled on the host.
+4. Van: responses complete the timestamp; pull replies are numpy (tensors
+   from a ``device_replies`` server) and are reassembled on the host, or on
+   ``device`` by :meth:`pull_result_device`.
 
 The sync paths (``push_sync``, ``pull_result``) loop over replies:
 
@@ -38,11 +39,18 @@ The sync paths (``push_sync``, ``pull_result``) loop over replies:
 ``coalesce_window`` / ``push_many`` bundle a burst of sends per server when
 the van stack has a ``CoalescingVan`` (a no-op otherwise).  Every reply is
 tapped for the server's ``__busy__`` backpressure hint (``server_busy``) and
-its ``__sver__`` version stamp (``staleness_digests``).
+its ``__sver__`` version stamp (``staleness_digests``; with a hot-row cache
+it also raises the cache's invalidation watermark, fence rejects included).
 
-Not ported yet: ``pull_serve`` and the hot-row cache (so a pull held past
-the gate deadline is always forced through, never shed to a stale cache),
-snapshots, and request tracing.
+The serving plane: with a :class:`~parameter_server_tpu_torch.kv.cache.
+HotRowCache` the worker serves reads (:meth:`pull_serve`: cache first, the
+misses as read-only ``__ro__`` pulls, which are never gated;
+:meth:`pull_stale`: the cache regardless of freshness).  A gated pull held
+past the gate deadline sheds to the stale cache when it covers the waited
+rows (``consist_sheds``), else it is forced through.
+
+Not ported yet: snapshots and model save/load (``save_*`` / ``load_*``),
+and request tracing.
 """
 
 from __future__ import annotations
@@ -61,11 +69,13 @@ from parameter_server_tpu_torch.core import flightrec
 from parameter_server_tpu_torch.core.coalesce import GroupReducer
 from parameter_server_tpu_torch.core.messages import Message, Task, TaskKind, server_id
 from parameter_server_tpu_torch.core.postoffice import Customer, Postoffice
+from parameter_server_tpu_torch.kv.cache import HotRowCache
 from parameter_server_tpu_torch.kv.routing import (
     BUSY_KEY,
     CONSIST_STEP_KEY,
     FENCED_KEY,
     GROUP_KEY,
+    READ_ONLY_KEY,
     ROUTING_EPOCH_KEY,
     ROUTING_KEY,
     VERSION_KEY,
@@ -92,17 +102,24 @@ class KVWorker(Customer):
         routing: Optional[RoutingTable] = None,
         max_fence_retries: int = 8,
         fence_backoff: float = 0.02,
+        cache: Optional[HotRowCache] = None,
         group: Optional[WorkerGroup] = None,
         group_cfg: Optional[GroupConfig] = None,
         device: str | torch.device = "cuda",
     ) -> None:
-        """``device`` is where the push pre-combine runs.
+        """``device`` is where the push pre-combine runs and where
+        :meth:`pull_result_device` assembles rows.
 
         ``retry_on_timeout``: a pull or sync push whose deadline expires is
         cancelled (remotely too) and re-issued once against the same server
         ids.  ``routing``: initial routing table (default: the uniform
         epoch-0 split); newer tables are adopted off fence replies
         (:meth:`adopt_routing`).
+
+        ``cache``: a :class:`~parameter_server_tpu_torch.kv.cache.HotRowCache`
+        turns this worker into a serving node: :meth:`pull_serve` answers hot
+        keys locally, every stamped reply refreshes the cache's invalidation
+        watermark, and routing adoption drops all entries.
 
         ``group``: the :class:`~parameter_server_tpu_torch.kv.routing.
         WorkerGroup` this worker belongs to.  Pushes then pre-reduce across
@@ -141,6 +158,12 @@ class KVWorker(Customer):
         #: last one per server (:meth:`server_busy`)
         self.busy_hints = 0
         self._busy_last: Dict[str, float] = {}
+        # -- read-heavy serving plane --------------------------------------------
+        #: hot-row cache; None = this worker does not serve reads
+        self.cache = cache
+        #: table -> (TableRouting identity, per-segment owner-code vector):
+        #: the serve path's owner interning, memoized per adopted routing
+        self._serve_codes: Dict[str, tuple] = {}
         # -- hierarchical push ---------------------------------------------------
         #: group membership; None (or size 1) = direct pushes
         self._group = group if (group is not None and group.size > 1) else None
@@ -184,18 +207,35 @@ class KVWorker(Customer):
         #: completed; the ``__cstep__`` stamped on gated PUSH/PULL traffic
         self._consist_steps: Dict[str, int] = {}
         self._consist_lock = threading.Lock()
-        #: ``__wait__`` defers received / pulls shed to a stale cache (none
-        #: without the cache) / requests forced through past the deadline
+        #: ``__wait__`` defers received / pulls shed to the stale cache /
+        #: requests forced through ungated past the gate deadline
         self.consist_waits = 0
         self.consist_sheds = 0
         self.consist_forced = 0
         #: seconds parked on gates (first defer -> admitted)
         self._gate_hist = LatencyHistogram()
 
+    def _serve_owner_codes(self, table: str, tr, cache: HotRowCache) -> np.ndarray:
+        """Owner :meth:`HotRowCache.server_code` per segment of ``tr``.
+
+        Identity-keyed memo: :meth:`adopt_routing` replaces routing objects
+        wholesale, so ``ent[0] is tr`` is exact — no epoch bookkeeping.
+        """
+        ent = self._serve_codes.get(table)
+        if ent is not None and ent[0] is tr:
+            return ent[1]
+        codes = np.asarray(
+            [cache.server_code(server_id(int(o))) for o in tr.owners], dtype=np.int32
+        )
+        self._serve_codes[table] = (tr, codes)
+        return codes
+
     # -- routing --------------------------------------------------------------
     def adopt_routing(self, routing) -> bool:
         """Adopt a routing table (or its wire payload, as fence replies carry
-        it) iff it is NEWER than the one held: highest epoch wins."""
+        it) iff it is NEWER than the one held: highest epoch wins.  Adoption
+        drops every hot-row cache entry (a range that moved and moved back
+        across epochs could alias); the watermarks stay."""
         if routing is None:
             return False
         if isinstance(routing, dict):
@@ -204,7 +244,9 @@ class KVWorker(Customer):
             if routing.epoch <= self.routing.epoch:
                 return False
             self.routing = routing
-            return True
+        if self.cache is not None:
+            self.cache.invalidate_all(reason="routing-epoch")
+        return True
 
     def counters(self) -> dict:
         """Retry, staleness, backpressure, group and gate counters,
@@ -227,6 +269,8 @@ class KVWorker(Customer):
                     "group_handoffs": self.group_handoffs,
                 }
             )
+        if self.cache is not None:
+            out.update(self.cache.counters())
         with self._consist_lock:
             if self.consist_waits or self._consist_steps:
                 out["consist_waits"] = self.consist_waits
@@ -248,10 +292,12 @@ class KVWorker(Customer):
         """Tap every reply, on the receive thread, then complete the task
         (always: observability never loses a reply).
 
-        ``__busy__`` counts a backpressure hint.  ``__sver__``: a PUSH ack
-        advances this worker's last-pushed version for (table, server); a
-        PULL reply records ``server_version - last_pushed_version`` into
-        that range's staleness histogram; a fence's stamp does neither."""
+        ``__busy__`` counts a backpressure hint.  ``__sver__`` raises the
+        hot-row cache's watermark for (table, server) on every stamped reply,
+        fence rejects included.  Besides, a PUSH ack advances this worker's
+        last-pushed version for (table, server); a PULL reply records
+        ``server_version - last_pushed_version`` into that range's staleness
+        histogram; a fence's stamp does neither."""
         try:
             payload = msg.task.payload
             if payload.get(BUSY_KEY):
@@ -260,6 +306,8 @@ class KVWorker(Customer):
                     self._busy_last[msg.sender] = time.monotonic()
             sver = payload.get(VERSION_KEY)
             table = payload.get("table")
+            if sver is not None and table is not None and self.cache is not None:
+                self.cache.observe(table, msg.sender, int(sver))
             if sver is not None and table is not None and not payload.get(FENCED_KEY):
                 key = (table, msg.sender)
                 with self._staleness_lock:
@@ -929,23 +977,32 @@ class KVWorker(Customer):
         )
 
     # -- pull ---------------------------------------------------------------
-    def pull(self, table: str, keys: np.ndarray) -> int:
-        """Request weights for ``keys``; fetch with :meth:`pull_result`."""
+    def pull(self, table: str, keys: np.ndarray, *, read_only: bool = False) -> int:
+        """Request weights for ``keys``; fetch with :meth:`pull_result`.
+
+        ``read_only=True`` stamps the serving plane's ``__ro__`` flag: the
+        server answers on its read-only fast path — relaxed reads that may
+        not observe writes coalesced into the same wire bundle, and never
+        gated.  Training pulls keep the default."""
         slots, inverse, _n = localize_to_slots(
             keys, self.localizers[table], min_bucket=self.min_bucket
         )
-        return self._submit_pull(table, slots, inverse, keys.shape)
+        return self._submit_pull(table, slots, inverse, keys.shape, read_only=read_only)
 
     def _submit_pull(self, table, slots, inverse, shape,
-                     positions: Optional[np.ndarray] = None, *, ungated: bool = False) -> int:
+                     positions: Optional[np.ndarray] = None, *, read_only: bool = False,
+                     ungated: bool = False) -> int:
         routing = self.routing
         if positions is None:
             positions = np.arange(slots.shape[0], dtype=np.int64)
         payload = {"table": table, ROUTING_EPOCH_KEY: routing.epoch}
-        # gated tables stamp the committed step; ``ungated`` is the deadline
-        # force-through (fresh data never violates a staleness bound)
-        if not ungated and self._gated(table):
+        # gated tables stamp the committed step; read-only serving pulls are
+        # never gated (they are the shed target), and ``ungated`` is the
+        # deadline force-through (fresh data never violates a staleness bound)
+        if not read_only and not ungated and self._gated(table):
             payload[CONSIST_STEP_KEY] = self.consist_step(table)
+        if read_only:
+            payload[READ_ONLY_KEY] = True
         msgs, order = [], {}
         for s, rel, ids in routing.slice_ids(table, slots[positions]):
             order[server_id(s)] = positions[rel]
@@ -967,6 +1024,7 @@ class KVWorker(Customer):
             "table": table,
             # retained so deadline/fence/gate retries can re-issue subsets
             "slots": slots,
+            "ro": read_only,
             "ungated": ungated,
         }
         return ts
@@ -984,7 +1042,7 @@ class KVWorker(Customer):
             pos = np.sort(np.concatenate(list(plan["order"].values())))
             ts = self._submit_pull(
                 plan["table"], plan["slots"], plan["inverse"], plan["shape"],
-                positions=pos, ungated=plan["ungated"],
+                positions=pos, read_only=plan["ro"], ungated=plan["ungated"],
             )
             completed = self.wait(ts, timeout)
         plan = self._pull_plans.pop(ts)  # always reclaim, even on error paths
@@ -995,17 +1053,52 @@ class KVWorker(Customer):
             raise TimeoutError(f"pull ts={ts} timed out")
         return plan, responses, errs
 
+    def _stale_rows(self, table: str, slots: np.ndarray):
+        """Every row of ``slots`` from the cache regardless of freshness, as
+        ``(rows, oldest sver)``; None without a cache or when a real slot is
+        uncached.  Bucket pads stay zero, matching a wire reply."""
+        cache = self.cache
+        if cache is None:
+            return None
+        cfg = self.table_cfgs[table]
+        grows = self.routing.tables[table].rows
+        rows = np.zeros((int(slots.shape[0]), cfg.dim), dtype=cfg.dtype)
+        sver = None
+        for j, sl in enumerate(np.asarray(slots).tolist()):
+            if int(sl) >= grows:
+                continue
+            hit = cache.lookup_stale(table, int(sl))
+            if hit is None:
+                return None
+            rows[j] = hit[0]
+            sver = hit[1] if sver is None else min(sver, hit[1])
+        return rows, sver
+
+    def _shed_pull_stale(self, plan: dict, pos: np.ndarray):
+        """Answer the WAITED positions from the stale cache: the gate
+        deadline's shed target, bounded by whatever ``__sver__`` each cached
+        row's reply carried.  Returns a synthetic ``(positions, rows, sver,
+        "cache")`` pair, or None when any waited slot is uncached (the caller
+        then forces an ungated pull — fresh data, never a dropped read)."""
+        got = self._stale_rows(plan["table"], plan["slots"][pos])
+        return None if got is None else (pos, got[0], got[1], "cache")
+
     def _pull_pairs(self, ts: int, timeout: Optional[float]) -> tuple:
         """Resolve pull ``ts`` into ``(plan, [(positions, rows, sver,
         sender)])``, looping over fences (adopt, re-pull only the fenced
         positions) and ``__wait__`` defers (re-pull the waited positions on
-        the gate budget; past the deadline force them through ungated).
-        Any other error leg, or a missing leg, raises: a dropped leg must
-        not read as zero weights."""
+        the gate budget).  Past the gate deadline the read degrades: shed to
+        the stale cache when it covers the waited rows (``consist.shed``
+        ``how=stale-cache``), else forced through ungated — counted, never
+        dropped.  ``sver`` / ``sender`` let :meth:`pull_serve` stamp cache
+        inserts with the version each reply carried.  Any other error leg,
+        or a missing leg, raises: a dropped leg must not read as zero
+        weights."""
         pairs: list = []
         first_plan = None
         attempt = 0  # fence budget only; gate waits ride their own clock
         gate_t0 = None
+        forced = False
         ungated = False
         while attempt <= self.max_fence_retries:
             plan, responses, errs = self._await_pull(ts, timeout)
@@ -1040,18 +1133,32 @@ class KVWorker(Customer):
                 table = first_plan["table"]
                 deadline = self._gate_deadline_s(table)
                 waited = np.sort(np.concatenate(wait_pos))
-                pending.append(waited)
-                if deadline > 0 and time.monotonic() - gate_t0 > deadline and not ungated:
-                    # no stale cache to shed to: force the read through
-                    ungated = True
-                    with self._consist_lock:
-                        self.consist_forced += 1
+                if deadline > 0 and time.monotonic() - gate_t0 > deadline and not forced:
+                    # graceful degradation: shed to the stale cache, else
+                    # force the read through
+                    shed = self._shed_pull_stale(first_plan, waited)
                     self._gate_admitted(gate_t0)
-                    flightrec.record(
-                        "consist.shed", node=self.post.node_id, table=table,
-                        op="pull", how="forced", n=int(waited.shape[0]),
-                    )
+                    if shed is not None:
+                        pairs.append(shed)
+                        with self._consist_lock:
+                            self.consist_sheds += 1
+                        flightrec.record(
+                            "consist.shed", node=self.post.node_id, table=table,
+                            op="pull", how="stale-cache", n=int(waited.shape[0]),
+                        )
+                        if not fenced:
+                            return first_plan, pairs
+                    else:
+                        forced = ungated = True
+                        pending.append(waited)
+                        with self._consist_lock:
+                            self.consist_forced += 1
+                        flightrec.record(
+                            "consist.shed", node=self.post.node_id, table=table,
+                            op="pull", how="forced", n=int(waited.shape[0]),
+                        )
                 else:
+                    pending.append(waited)
                     self._gate_pause(table, retry_after)
             if fenced:
                 self.refresh_retries += 1
@@ -1061,7 +1168,7 @@ class KVWorker(Customer):
             ts = self._submit_pull(
                 first_plan["table"], first_plan["slots"], first_plan["inverse"],
                 first_plan["shape"], positions=np.sort(np.concatenate(pending)),
-                ungated=ungated,
+                read_only=first_plan["ro"], ungated=ungated,
             )
         raise RuntimeError(
             f"pull of {first_plan['table']!r}: routing fence retries "
@@ -1078,6 +1185,20 @@ class KVWorker(Customer):
             return rows
         return None
 
+    @staticmethod
+    def _shaped(out, shape: tuple, dim: int):
+        """Per-position rows in the caller's key shape: ``shape + (dim,)``,
+        or ``shape`` for dim=1 tables."""
+        return out.reshape(shape) if dim == 1 else out.reshape(shape + (dim,))
+
+    @staticmethod
+    def _host_rows(rows, dtype, dim: int) -> np.ndarray:
+        """A reply's rows as a ``(n, dim)`` host array: wire replies are
+        numpy already; a ``device_replies`` server's tensor is read back."""
+        if isinstance(rows, torch.Tensor):
+            rows = rows.cpu().numpy()
+        return np.asarray(rows, dtype=dtype).reshape(-1, dim)
+
     def pull_result(self, ts: int, timeout: Optional[float] = None) -> np.ndarray:
         """Block for pull ``ts`` and reassemble per-position weight rows:
         ``keys.shape + (dim,)``, or ``keys.shape`` for dim=1 tables."""
@@ -1085,20 +1206,117 @@ class KVWorker(Customer):
         cfg = self.table_cfgs[plan["table"]]
         sole = self._sole_full_pair(pairs, plan["n_slots"])
         if sole is not None:
-            uniq_rows = np.asarray(sole, dtype=cfg.dtype).reshape(-1, cfg.dim)
+            uniq_rows = self._host_rows(sole, cfg.dtype, cfg.dim)
         else:
             uniq_rows = np.zeros((plan["n_slots"], cfg.dim), dtype=cfg.dtype)
             for pos, rows, *_meta in pairs:
-                uniq_rows[pos] = np.asarray(rows).reshape(-1, cfg.dim)
-        out = uniq_rows[plan["inverse"]]
-        if cfg.dim == 1:
-            return out.reshape(plan["shape"])
-        return out.reshape(plan["shape"] + (cfg.dim,))
+                uniq_rows[pos] = self._host_rows(rows, cfg.dtype, cfg.dim)
+        return self._shaped(uniq_rows[plan["inverse"]], plan["shape"], cfg.dim)
+
+    def pull_result_device(self, ts: int, timeout: Optional[float] = None) -> torch.Tensor:
+        """Like :meth:`pull_result` but assembles the rows on ``device``.
+
+        Replies of a ``KVServer(device_replies=True)`` on the same device
+        never touch host memory; numpy replies are uploaded once each.  The
+        unique rows land by ``index_copy_`` at their positions (every
+        position is written at most once: no float accumulation), then one
+        ``index_select`` by the inverse expands them per key.  Returns a
+        tensor on ``device`` of shape ``keys.shape + (dim,)`` (or
+        ``keys.shape`` for dim=1)."""
+        plan, pairs = self._pull_pairs(ts, timeout)
+        cfg = self.table_cfgs[plan["table"]]
+        dev = self.device
+        uniq = torch.zeros((plan["n_slots"], cfg.dim), dtype=torch.float32, device=dev)
+        for pos, rows, *_meta in pairs:
+            if not isinstance(rows, torch.Tensor):
+                rows = torch.from_numpy(np.asarray(rows, dtype=np.float32))
+            rows = rows.to(dev, non_blocking=True).reshape(-1, cfg.dim)
+            idx = torch.from_numpy(np.asarray(pos, dtype=np.int64)).to(dev)
+            uniq.index_copy_(0, idx, rows)
+        inverse = torch.from_numpy(np.asarray(plan["inverse"], dtype=np.int64)).to(dev)
+        return self._shaped(uniq.index_select(0, inverse), plan["shape"], cfg.dim)
 
     def pull_sync(
         self, table: str, keys: np.ndarray, timeout: Optional[float] = None
     ) -> np.ndarray:
         return self.pull_result(self.pull(table, keys), timeout)
+
+    # -- read-heavy serving plane ---------------------------------------------
+    def pull_serve(
+        self, table: str, keys: np.ndarray, timeout: Optional[float] = None
+    ) -> np.ndarray:
+        """Serve a read: hot-row cache first, read-only RPC for the misses.
+
+        Same output contract as :meth:`pull_sync`, but every key the cache
+        holds at a fresh version (entry ``__sver__`` >= the owner's observed
+        watermark) is answered locally; only the misses go on the wire —
+        stamped ``__ro__``, so the server answers them on its fast path.
+        Fetched rows are inserted at the version THEIR reply carried, which
+        keeps the bounded-staleness contract exact under races.  Without a
+        cache this is a plain read-only pull.
+        """
+        keys = np.asarray(keys)
+        cache = self.cache
+        if cache is None:
+            return self.pull_result(self.pull(table, keys, read_only=True), timeout)
+        cfg = self.table_cfgs[table]
+        # No dedup or sort on the hit path: ``assign`` is elementwise, so one
+        # slot is probed PER POSITION and the inverse is the identity; only
+        # the miss subset pays the sort ``slice_ids`` needs.
+        slots = self.localizers[table].assign(
+            np.ascontiguousarray(keys, dtype=np.uint64).ravel()
+        )
+        inverse = np.arange(slots.shape[0], dtype=np.int32)
+        tr = self.routing.tables[table]
+        grows = tr.rows
+        rows_out = np.zeros((int(slots.shape[0]), cfg.dim), dtype=cfg.dtype)
+        real = np.flatnonzero(slots < grows)
+        rslots = slots[real].astype(np.int64, copy=False)
+        seg = np.searchsorted(np.asarray(tr.offsets, dtype=np.int64), rslots, side="right") - 1
+        seg = np.clip(seg, 0, len(tr.owners) - 1)
+        # per-segment owner codes interned once per adopted routing table, so
+        # the batch compare inside the cache is vector ops only
+        owner_codes = self._serve_owner_codes(table, tr, cache)[seg]
+        hit, hit_rows = cache.lookup_many(table, rslots, owner_codes)
+        n_hit = int(hit.sum())
+        if n_hit:
+            rows_out[real[hit]] = hit_rows
+            flightrec.record("cache.hit", node=self.post.node_id, table=table, n=n_hit)
+        if n_hit < int(real.shape[0]):
+            miss = ~hit
+            # slice_ids routes by searchsorted: the subset must be sorted
+            pos = real[miss][np.argsort(rslots[miss], kind="stable")]
+            flightrec.record(
+                "cache.miss", node=self.post.node_id, table=table, n=int(pos.shape[0])
+            )
+            ts = self._submit_pull(
+                table, slots, inverse, keys.shape, positions=pos, read_only=True
+            )
+            _plan, pairs = self._pull_pairs(ts, timeout)
+            for p, rows, sver, sender in pairs:
+                rows = self._host_rows(rows, cfg.dtype, cfg.dim)
+                rows_out[p] = rows
+                ids = slots[p]
+                realm = ids < grows
+                if sver is not None and realm.any():
+                    cache.insert(table, ids[realm], rows[realm], int(sver), sender)
+        return self._shaped(rows_out[inverse], keys.shape, cfg.dim)
+
+    def pull_stale(self, table: str, keys: np.ndarray) -> Optional[np.ndarray]:
+        """Serve entirely from the cache IGNORING freshness — the "stale"
+        shed policy's degraded answer during overload.  Returns None unless
+        every real key is cached (a partly stale answer would mix freshness
+        classes invisibly); never touches the wire."""
+        if self.cache is None:
+            return None
+        keys = np.asarray(keys)
+        slots, inverse, _n = localize_to_slots(
+            keys, self.localizers[table], min_bucket=self.min_bucket
+        )
+        got = self._stale_rows(table, slots)
+        if got is None:
+            return None
+        return self._shaped(got[0][inverse], keys.shape, self.table_cfgs[table].dim)
 
     # -- consistency gate control -------------------------------------------
     def consist_hello(

@@ -8,7 +8,8 @@ and releases it when the fleet advances (observed through the worker's
 ``consist_waits`` with a bounded wait, never a fixed sleep); the
 ``__wait__`` reply is fence-shaped with the JAX package's payload; BSP
 under a strict alternation equals the ungated run; a push held past the
-gate deadline is forced through, never dropped; the live mode flip; the
+gate deadline is forced through, never dropped, and a pull sheds to the
+stale hot-row cache when it covers the waited rows; the live mode flip; the
 sync push's routing-fence retry, message for message; the worker's
 counter and digest keys.
 
@@ -31,13 +32,14 @@ from parameter_server_tpu.core import flightrec as jax_flightrec
 from parameter_server_tpu.core import netmon as jax_netmon
 from parameter_server_tpu.core import postoffice as jax_postoffice
 from parameter_server_tpu.core import van as jax_van
+from parameter_server_tpu.kv import cache as jax_cache
 from parameter_server_tpu.kv import consistency as jax_consistency
 from parameter_server_tpu.kv import routing as jax_routing
 from parameter_server_tpu.kv import server as jax_server
 from parameter_server_tpu.kv import worker as jax_worker
 from parameter_server_tpu_torch import config
 from parameter_server_tpu_torch.core import flightrec, netmon, postoffice, van
-from parameter_server_tpu_torch.kv import consistency, routing, server, worker
+from parameter_server_tpu_torch.kv import cache, consistency, routing, server, worker
 
 ROWS = 1 << 8
 DIM = 4
@@ -49,12 +51,12 @@ GRADS = np.ones((8, DIM), dtype=np.float32)
 JAX = types.SimpleNamespace(
     cfg=jax_config, post=jax_postoffice, van=jax_van, routing=jax_routing,
     server=jax_server, worker=jax_worker, consistency=jax_consistency,
-    flightrec=jax_flightrec, netmon=jax_netmon, kw={},
+    flightrec=jax_flightrec, netmon=jax_netmon, cache=jax_cache, kw={},
 )
 PORT = types.SimpleNamespace(
     cfg=config, post=postoffice, van=van, routing=routing, server=server,
     worker=worker, consistency=consistency, flightrec=flightrec, netmon=netmon,
-    kw={"device": "cpu"},
+    cache=cache, kw={"device": "cpu"},
 )
 PKGS = {"jax": JAX, "port": PORT}
 
@@ -71,12 +73,14 @@ def _table_cfgs(pkg, mode=None, bound=0, *, deadline=30.0):
     )}
 
 
-def _cluster(pkg, v, cfgs, n_workers=2, server_routing=None, worker_routing=None):
+def _cluster(pkg, v, cfgs, n_workers=2, server_routing=None, worker_routing=None,
+             caches=None):
     servers = [pkg.server.KVServer(pkg.post.Postoffice(f"S{s}", v), cfgs, s, NUM_SERVERS,
                                    routing=server_routing, **pkg.kw)
                for s in range(NUM_SERVERS)]
     workers = [pkg.worker.KVWorker(pkg.post.Postoffice(f"W{i}", v), cfgs, NUM_SERVERS,
-                                   routing=worker_routing, **pkg.kw)
+                                   routing=worker_routing, cache=(caches or {}).get(i),
+                                   **pkg.kw)
                for i in range(n_workers)]
     return servers, workers
 
@@ -322,7 +326,7 @@ def _forced_run(pkg, gated):
 
 
 def test_gate_deadline_forces_push_through_never_dropped():
-    """A push (and a pull: the port has no stale cache to shed to) held
+    """A push (and a pull: this worker has no stale cache to shed to) held
     past the gate deadline is forced through ungated, journaled as
     ``consist.shed`` ``how=forced``; the gradient is never dropped, so the
     table equals an ungated run of the same two steps exactly, and the JAX
@@ -343,6 +347,47 @@ def test_gate_deadline_forces_push_through_never_dropped():
         np.testing.assert_allclose(a, b, **TOL)
     for k in ("consist_forced", "consist_sheds", "consist_degraded", "consist_step"):
         assert counters[k] == ref_counters[k], k
+
+
+def _stale_shed_run(pkg):
+    pkg.flightrec.configure(enabled=True, clear=True)
+    v = pkg.van.LoopbackVan()
+    c = pkg.cache.HotRowCache(1 << 8, node="W0")
+    servers, (wa, wb) = _cluster(pkg, v, _table_cfgs(pkg, "ssp", 0, deadline=0.4),
+                                 caches={0: c})
+    try:
+        wa.consist_hello(table="w")
+        wb.consist_hello(table="w")
+        _step(wa, KEYS, GRADS)  # step 0 for wa; wb never advances
+        # warm the cache through the serving path (read-only, never gated)
+        warm = np.asarray(wa.pull_serve("w", KEYS, timeout=30))
+        t0 = time.monotonic()
+        got = np.asarray(wa.pull_sync("w", KEYS, timeout=30))  # step 1: parks, sheds
+        waited = time.monotonic() - t0
+        sheds = [(e["how"], e["op"]) for e in pkg.flightrec.get().events()
+                 if e["kind"] == "consist.shed" and e.get("node") == "W0"]
+        return warm, got, waited, wa.counters(), sheds
+    finally:
+        _close(v, servers)
+
+
+def test_gate_deadline_sheds_read_to_stale_cache():
+    """A pull parked past the gate deadline answers from the hot-row cache's
+    stale path (rows as the warm ``pull_serve`` got them) and journals
+    ``consist.shed`` ``how=stale-cache``; nothing is forced through.  The
+    JAX package's run gives the same counters and rows within 1e-5."""
+    warm, got, waited, counters, sheds = _stale_shed_run(PORT)
+    assert 0.4 < waited < 10
+    np.testing.assert_array_equal(got, warm)
+    assert counters["consist_sheds"] == 1 and counters["consist_forced"] == 0
+    assert counters["consist_degraded"] == 1 and counters["consist_waits"] > 0
+    assert sheds == [("stale-cache", "pull")]
+    ref_warm, ref_got, _, ref_counters, ref_sheds = _stale_shed_run(JAX)
+    np.testing.assert_allclose(got, ref_got, **TOL)
+    np.testing.assert_allclose(warm, ref_warm, **TOL)
+    for k in ("consist_sheds", "consist_forced", "consist_degraded", "consist_step"):
+        assert counters[k] == ref_counters[k], k
+    assert sheds == ref_sheds
 
 
 def _mode_flip(pkg):
@@ -448,11 +493,30 @@ def test_counter_and_digest_keys_match_the_jax_worker():
 
 def test_ssp_spread_never_exceeds_bound_plus_one():
     """3 workers under SSP(1), worker 0 a straggler: the servers' fleet
-    clocks sampled through the run never spread past bound + 1, and every
-    worker finishes (no deadlock)."""
+    clocks never spread past bound + 1, and every worker finishes (no
+    deadlock).
+
+    The straggler is a handshake, not a wall-clock sleep: before each of
+    its even steps worker 0 is held until the servers have deferred a peer
+    (or both peers are done), so the peers are parked at the gate on every
+    hold whatever the machine's load.  The clocks are sampled when a hold
+    is released and after every step of every worker."""
     v = van.LoopbackVan()
     servers, workers = _cluster(PORT, v, _table_cfgs(PORT, "ssp", 1), n_workers=3)
     spreads, errs = [], []
+    sample_lock = threading.Lock()
+    holds = [threading.Event() for _ in range(3)]  # before worker 0's steps 0, 2, 4
+
+    def sample():
+        with sample_lock:
+            for s in servers:
+                snap = s._consist["w"]["clock"].snapshot()
+                if len(snap) == 3:
+                    spreads.append(max(snap.values()) - min(snap.values()))
+
+    def defers():
+        return sum(s.consist_defers for s in servers)
+
     try:
         for w in workers:
             w.consist_hello(table="w")
@@ -461,8 +525,9 @@ def test_ssp_spread_never_exceeds_bound_plus_one():
             try:
                 for t in range(6):
                     if i == 0 and t % 2 == 0:
-                        time.sleep(0.02)
+                        assert holds[t // 2].wait(30), f"hold {t // 2} never released"
                     _step(w, KEYS + 8 * i, GRADS)
+                    sample()
             except Exception as e:  # noqa: BLE001
                 errs.append(e)
 
@@ -470,14 +535,15 @@ def test_ssp_spread_never_exceeds_bound_plus_one():
                    for i, w in enumerate(workers)]
         for t in threads:
             t.start()
-        while any(t.is_alive() for t in threads):
-            for s in servers:
-                snap = s._consist["w"]["clock"].snapshot()
-                if len(snap) == 3:
-                    spreads.append(max(snap.values()) - min(snap.values()))
-            time.sleep(0.001)
+        for hold in holds:
+            base = defers()
+            parked = _until(lambda: defers() > base or all(
+                w.consist_step("w") == 6 for w in workers[1:]), deadline_s=20.0)
+            sample()
+            hold.set()
+            assert parked, "no peer was deferred while worker 0 was held"
         for t in threads:
-            t.join(timeout=5)
+            t.join(timeout=30)
         assert not errs, errs
         assert spreads and max(spreads) <= 2
         assert [w.consist_step("w") for w in workers] == [6, 6, 6]

@@ -1,0 +1,237 @@
+"""The port's hot-replica chain against the JAX package's, on the CPU.
+
+Ports of the JAX package's replica tests: a primary dies mid-run, its
+standby is promoted, and training continues as if nothing happened — every
+loss equal to an uninterrupted run of the port (sync chain; async after a
+flush).  The sync chain acks after the standby applied; promotion keeps the
+optimizer state; ``ReplicaSet.on_node_dead`` promotes.  Then the port's
+loss trajectory, with the kill and the promotion, against the JAX
+package's.
+
+Not ported here: the heartbeat-driven promotion (it needs the JAX
+package's ``core/manager.py``) and forwarding over real sockets (the TCP
+van).
+
+Tolerances: within the port exactly (the standby replays the same update
+stream through the same apply); against the JAX package rtol = atol = 1e-4
+(a 12-step loss trajectory in two frameworks).
+"""
+
+import numpy as np
+import pytest
+import torch
+
+import jax.numpy as jnp
+
+from parameter_server_tpu import config as jax_config
+from parameter_server_tpu.core.postoffice import Postoffice as JaxPostoffice
+from parameter_server_tpu.core.van import LoopbackVan as JaxLoopbackVan
+from parameter_server_tpu.data.synthetic import SyntheticCTR as JaxSyntheticCTR
+from parameter_server_tpu.kv import replica as jax_replica
+from parameter_server_tpu.kv.worker import KVWorker as JaxKVWorker
+from parameter_server_tpu.models import linear as jax_linear
+from parameter_server_tpu_torch import config as port_config
+from parameter_server_tpu_torch.core import flightrec
+from parameter_server_tpu_torch.core.postoffice import Postoffice
+from parameter_server_tpu_torch.core.van import LoopbackVan
+from parameter_server_tpu_torch.data.synthetic import SyntheticCTR
+from parameter_server_tpu_torch.kv import replica as replica_lib
+from parameter_server_tpu_torch.kv.server import KVServer
+from parameter_server_tpu_torch.kv.worker import KVWorker
+from parameter_server_tpu_torch.models import linear
+
+ROWS = 1 << 10
+NUM_SERVERS = 2
+STEPS = 12
+KILL_AFTER = 6
+TRAJ_TOL = dict(rtol=1e-4, atol=1e-4)
+
+
+def _table_cfgs(cfg=port_config):
+    return {"w": cfg.TableConfig(
+        name="w", rows=ROWS, dim=1,
+        optimizer=cfg.OptimizerConfig(kind="adagrad", learning_rate=0.1),
+    )}
+
+
+def _batches(synthetic=SyntheticCTR):
+    data = synthetic(key_space=4 * ROWS, nnz=8, batch_size=128, seed=3)
+    return [data.next_batch() for _ in range(STEPS)]
+
+
+def _train(worker, batches, on_step=None) -> list:
+    losses = []
+    for i, (keys, labels) in enumerate(batches):
+        w_pos = worker.pull_sync("w", keys, timeout=30)
+        g, _gb, loss = linear.grad_rows(torch.from_numpy(w_pos),
+                                        torch.from_numpy(labels.astype(np.float32)))
+        ts = worker.push("w", keys, g.numpy() / labels.shape[0])
+        assert worker.wait(ts, timeout=30)
+        losses.append(float(loss))
+        if on_step is not None:
+            on_step(i)
+    return losses
+
+
+def _close(van, servers):
+    van.close()
+    for s in servers:
+        if s.ledger is not None:
+            s.ledger.close()
+
+
+def _worker(van):
+    return KVWorker(Postoffice("W0", van), _table_cfgs(), NUM_SERVERS, device="cpu")
+
+
+def _reference_losses() -> list:
+    van = LoopbackVan()
+    servers = [KVServer(Postoffice(f"S{s}", van), _table_cfgs(), s, NUM_SERVERS, device="cpu")
+               for s in range(NUM_SERVERS)]
+    try:
+        return _train(_worker(van), _batches())
+    finally:
+        _close(van, servers)
+
+
+def _killed_run(sync: bool) -> list:
+    van = LoopbackVan()
+    primaries, standbys = replica_lib.make_replicated_servers(
+        van, _table_cfgs(), NUM_SERVERS, sync=sync, max_lag=4, device="cpu")
+    try:
+        worker = _worker(van)
+
+        def on_step(i):
+            if i != KILL_AFTER - 1:
+                return
+            if not sync:
+                # async chain: forwards may still be in flight; drain them
+                # to model the lag window being clear at the failure instant
+                primaries[0].flush_replica()
+            van.unbind("S0")  # the primary dies
+            replica_lib.promote(van, standbys[0], "S0")
+
+        return _train(worker, _batches(), on_step=on_step)
+    finally:
+        _close(van, primaries + standbys)
+
+
+@pytest.mark.parametrize("sync", [True, False], ids=["sync=True", "sync=False"])
+def test_promoted_standby_continues_trajectory_exactly(sync):
+    """Kill primary S0 mid-run, promote its standby, keep training: every
+    loss equals the uninterrupted run's — no update lost (sync chain), or
+    none after an explicit flush (async with bounded lag)."""
+    flightrec.configure(enabled=True, clear=True)
+    losses = _killed_run(sync)
+    assert losses == _reference_losses()
+    promos = [e for e in flightrec.get().events() if e["kind"] == "node.promote"]
+    assert [(e["node"], e["standby"]) for e in promos] == [("S0", "R0")]
+
+
+def test_sync_chain_acks_after_replica_applied():
+    """replica_sync=True: when the worker's push ack fires, the standby has
+    already applied the update (tables bitwise equal right then)."""
+    van = LoopbackVan()
+    primaries, standbys = replica_lib.make_replicated_servers(
+        van, _table_cfgs(), NUM_SERVERS, sync=True, device="cpu")
+    try:
+        _train(_worker(van), _batches()[:1])
+        for p, s in zip(primaries, standbys):
+            assert p.pushes == s.pushes == 1
+            torch.testing.assert_close(p.tables["w"].value, s.tables["w"].value,
+                                       rtol=0, atol=0)
+    finally:
+        _close(van, primaries + standbys)
+
+
+def test_promotion_preserves_optimizer_state():
+    """AdaGrad accumulators ride the chain too: post-promotion updates use
+    the primary's accumulated state, not a fresh one."""
+    van = LoopbackVan()
+    primaries, standbys = replica_lib.make_replicated_servers(
+        van, _table_cfgs(), NUM_SERVERS, sync=True, device="cpu")
+    try:
+        _train(_worker(van), _batches()[:4])
+        for p, s in zip(primaries, standbys):
+            assert set(p.tables["w"].state) == {"sum_sq"}
+            for k, st in p.tables["w"].state.items():
+                assert st.abs().max() > 0
+                torch.testing.assert_close(st, s.tables["w"].state[k], rtol=0, atol=0)
+    finally:
+        _close(van, primaries + standbys)
+
+
+def test_replica_set_on_node_dead_promotes_once():
+    """``on_node_dead("S1")`` promotes standby 1 (once; worker and unknown
+    ids are ignored) and training continues on the promoted standby."""
+    van = LoopbackVan()
+    primaries, standbys = replica_lib.make_replicated_servers(
+        van, _table_cfgs(), NUM_SERVERS, sync=True, device="cpu")
+
+    class Manager:
+        on_node_dead: list = []
+
+    mgr = Manager()
+    try:
+        rset = replica_lib.ReplicaSet(van, standbys, manager=mgr)
+        assert mgr.on_node_dead == [rset.on_node_dead]
+        worker = _worker(van)
+        batches = _batches()
+        _train(worker, batches[:3])
+        van.unbind("S1")
+        for nid in ("W0", "S7", "S1", "S1"):
+            rset.on_node_dead(nid)
+        assert list(rset.promoted) == [1] and rset.promoted[1] is standbys[1]
+        assert standbys[1].post.node_id == "S1"
+        losses = _train(worker, batches[3:6])
+        assert np.all(np.isfinite(losses))
+        assert standbys[1].pushes == 6  # 3 forwarded, 3 direct
+    finally:
+        _close(van, primaries + standbys)
+
+
+def test_make_replicated_servers_chains_every_shard():
+    van = LoopbackVan()
+    primaries, standbys = replica_lib.make_replicated_servers(
+        van, _table_cfgs(), NUM_SERVERS, sync=False, max_lag=3, device_replies=True,
+        device="cpu")
+    try:
+        assert [p.replica for p in primaries] == ["R0", "R1"]
+        assert [s.post.node_id for s in standbys] == ["R0", "R1"]
+        assert all(s.replica is None for s in standbys)
+        assert all(p.max_replica_lag == 3 and not p.replica_sync for p in primaries)
+        assert all(x.device_replies for x in primaries + standbys)
+        assert [p._fwd_post.node_id for p in primaries] == ["S0.fw", "S1.fw"]
+    finally:
+        _close(van, primaries + standbys)
+
+
+def _jax_killed_run(sync: bool) -> list:
+    cfgs = _table_cfgs(jax_config)
+    van = JaxLoopbackVan()
+    try:
+        primaries, standbys = jax_replica.make_replicated_servers(
+            van, cfgs, NUM_SERVERS, sync=sync, max_lag=4)
+        worker = JaxKVWorker(JaxPostoffice("W0", van), cfgs, NUM_SERVERS)
+        losses = []
+        for i, (keys, labels) in enumerate(_batches(JaxSyntheticCTR)):
+            w_pos = worker.pull_sync("w", keys, timeout=30)
+            g, _gb, loss = jax_linear.grad_rows(jnp.asarray(w_pos), jnp.asarray(labels))
+            assert worker.wait(worker.push("w", keys, np.asarray(g) / labels.shape[0]),
+                               timeout=30)
+            losses.append(float(loss))
+            if i == KILL_AFTER - 1:
+                if not sync:
+                    primaries[0].flush_replica()
+                van.unbind("S0")
+                jax_replica.promote(van, standbys[0], "S0")
+        return losses
+    finally:
+        van.close()
+
+
+@pytest.mark.parametrize("sync", [True, False], ids=["sync=True", "sync=False"])
+def test_killed_run_loss_trajectory_matches_jax(sync):
+    port, ref = _killed_run(sync), _jax_killed_run(sync)
+    assert port[-1] < port[0]
+    np.testing.assert_allclose(port, ref, **TRAJ_TOL)

@@ -1,13 +1,18 @@
 """Package rules of the PyTorch port, checked on the source.
 
 - ``parameter_server_tpu_torch/`` and ``chip_smoke.py`` import neither
-  ``jax`` nor anything of the JAX package ``parameter_server_tpu``.
+  ``jax`` nor anything of the JAX package ``parameter_server_tpu``; the scan
+  covers the serving plane (``kv/cache.py``, ``serve/``) and the replica
+  chain (``kv/replica.py``) by name.
 - The server's push-ack path — ``_ack_push`` and the grouped apply
   (``_apply_push_group``, ``_push_group_rounds``, ``_push_group_combined``),
   with every method of the server they call — never reads device state
   back: no ``.item()``, ``.cpu()``, ``.tolist()``, ``.numpy()``, ``.to()``,
   ``synchronize()`` or numpy conversion.  The upload helpers they call fill
-  pinned host buffers and copy them up without waiting on the device.
+  pinned host buffers and copy them up without waiting on the device.  The
+  replica forwarding it reaches (``_forward_push``) is wire I/O on the
+  planes as received: a sync chain waits there for the standby's ack,
+  never for the device.
 - The consistency gate — the ``__cstep__`` branch of
   ``_validate_data_request`` and ``_wait_reply``, with every server method
   they call — and the group booking and step commit in ``_ack_push`` read
@@ -45,6 +50,7 @@ from parameter_server_tpu_torch.kv.server import KVServer
 from parameter_server_tpu_torch.kv.table import KVTable
 from parameter_server_tpu_torch.kv.worker import KVWorker
 from parameter_server_tpu_torch.kv.dense import DenseKVServer, DenseKVWorker
+from parameter_server_tpu_torch.kv.replica import make_replicated_servers
 from parameter_server_tpu_torch.learner.dense import AsyncDenseLearner, SpmdDenseTrainer
 from parameter_server_tpu_torch.learner.sgd import AsyncLRLearner, LocalLRTrainer
 from parameter_server_tpu_torch.models.dlrm import SpmdDLRMTrainer
@@ -74,8 +80,17 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package(path):
     assert not bad, f"{path.relative_to(ROOT)} imports {bad}"
 
 
+#: the serving plane's and the replica chain's modules, which the scan must
+#: hold by name (a rename must not drop them from it silently)
+SERVING_AND_REPLICA = ("kv/cache.py", "kv/replica.py", "kv/server.py", "kv/worker.py",
+                       "config.py", "serve/__init__.py", "serve/admission.py",
+                       "serve/loadgen.py")
+
+
 def test_the_import_scan_sees_every_module():
     assert len(SOURCES) >= 25
+    scanned = {str(p.relative_to(PORT)) for p in SOURCES if PORT in p.parents}
+    assert set(SERVING_AND_REPLICA) <= scanned
     assert _forbidden("jax.numpy") and _forbidden("parameter_server_tpu.kv.table")
     assert not _forbidden("parameter_server_tpu_torch.kv.table")
 
@@ -134,7 +149,7 @@ def _reached_calls(methods, roots, skip=()):
 
 def test_ack_push_is_sync_free():
     seen, calls = _reached_calls(_method_bodies(), ["_ack_push"])
-    assert {"_ack_push", "_stamp_version"} <= seen
+    assert {"_ack_push", "_stamp_version", "_forward_push"} <= seen
     bad = [(fn, attr) for fn, attr in calls if attr in SYNCING]
     assert not bad, f"device reads in the push ack path: {bad}"
 
@@ -364,12 +379,32 @@ def test_the_dense_sync_scan_catches_a_readback(src, want):
 @pytest.mark.parametrize("entry", [KVTable, KVServer, KVWorker, AsyncLRLearner,
                                    LocalLRTrainer, PrefetchPipeline, SpmdDLRMTrainer,
                                    DenseKVServer, DenseKVWorker, SpmdDenseTrainer,
-                                   AsyncDenseLearner],
+                                   AsyncDenseLearner, make_replicated_servers],
                          ids=lambda c: c.__name__)
 def test_entry_points_default_to_the_card(entry):
-    param = inspect.signature(entry.__init__).parameters["device"]
+    fn = entry.__init__ if inspect.isclass(entry) else entry
+    param = inspect.signature(fn).parameters["device"]
     assert param.default == "cuda"
     assert param.kind is inspect.Parameter.KEYWORD_ONLY
+
+
+def test_serving_entry_points_build_on_the_card_by_default():
+    """The serving plane's new options keep the card default: a server with
+    ``device_replies`` / ``replica`` and a worker with a cache, built without
+    ``device``, hold ``cuda`` (with no tables nothing is allocated, so this
+    runs on a host without a card)."""
+    from parameter_server_tpu_torch.kv.cache import HotRowCache
+
+    van = LoopbackVan()
+    srv = KVServer(Postoffice("S0", van), {}, 0, 1, device_replies=True, replica="R0",
+                   replica_sync=True)
+    try:
+        wkr = KVWorker(Postoffice("W0", van), {}, 1, cache=HotRowCache(8))
+        assert srv.device.type == wkr.device.type == "cuda"
+        assert srv._fwd_post.node_id == "S0.fw"
+    finally:
+        van.close()
+        srv.ledger.close()
 
 
 def test_dlrm_scale_defaults_to_the_card():
