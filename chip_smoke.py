@@ -127,6 +127,9 @@ Phases, each printing one JSON line (``"phase": ...``):
              ResNet-50, a fixed batch of 64 each: images/s, PUSH and PULL
              bytes a step, the loss falling, BatchNorm statistics local; 2
              more steps profiled.
+   dense_ckpt  ResNet-50's flat vector on 2 ``DenseKVServer``s with AdaGrad,
+             one seeded push, ``DenseKVWorker.save_model``, ``load_model``
+             onto 3 servers: value and state bitwise equal; write and read s.
    serve     the serving plane over config #3's table: 2 KVServers holding
              2^28 x 16 AdaGrad (2^27 + 1 rows a shard, value + sum_sq, 32
              GiB read from the tensors) and one KVWorker with
@@ -159,6 +162,32 @@ Phases, each printing one JSON line (``"phase": ...``):
              its plain version on the same ids and gradients; push
              p50s; ``pull_result_device`` on the card equal to
              ``pull_result``, every reply value a CUDA tensor.
+   durable   the durability plane over config #3's table at 2^27 x 16
+             AdaGrad (the replica phase's cut; Zipf(1.1) keys, 65,536 a
+             push), after the host's free disk and memory are checked:
+             ``ckpt_legacy`` (config #1's table after 8 PS-loop steps,
+             ``save_model`` on 2 servers, ``load_model`` onto 3, every row
+             bitwise); ``migrate_chain`` (config #1's table on 2 sync
+             replica chains, 2^20 rows of S0 moved to S1 with a push between
+             chunks: the standbys follow through ``migrate_adopt`` /
+             ``migrate_release``, bitwise equal to their primaries);
+             ``snapshot`` (2 servers, 4 warm pushes, full snapshot
+             step 1 with a push right after ``snap_begin`` and one after the
+             segment writes, 2 pushes into S0's range, incremental step 2
+             with S1's file carried, ``load_snapshot`` onto 3 servers, every
+             row bitwise on the card; write s and GB/s, each commit's
+             freeze and delta rows, restore s); ``migrate`` (``ShardMigrator
+             (chunk_rows=65536)`` moves 2^22 rows of S0 to S1 with pushes
+             between chunks, the restored fleet taking the same pushes as
+             the control, every row bitwise; rows/s, the freeze, the delta,
+             each ``_rebuild_table``'s ms and memory peak; ``save_checkpoint``
+             refused with ``CheckpointLayoutError``); ``restart`` (snapshot
+             step 3 of the migrated fleet, S1 unbound and brought back by
+             ``restart_same_id`` from it: source ``partitioned``, the new
+             epoch, rows bitwise equal to S1 before; the time to recover);
+             the ack's dirty tracking cost.  Every ``ps_gather`` and
+             ``ps_scatter_set`` launch of the 2^27 path held to
+             ``index_select`` (exact), ``ps_apply`` to its plain version.
 9. times     every kernel at the main path's shapes: device time per call
              (CUDA-graph replay), the byte bound at 3.35 TB/s, the plain
              version's time and one PyTorch library call's time; an empty
@@ -246,6 +275,13 @@ SERVE_STALE_KEYS, SERVE_STALE_DEADLINE_S = 4096, 0.4
 #: seeded keys, the step after which S0 dies, the async chain's lag bound
 REPLICA_ROWS_LOG2, REPLICA_STEPS, REPLICA_KEYS, REPLICA_KILL_AFTER = 27, 8, 1 << 16, 4
 REPLICA_MAX_LAG, REPLICA_SEED = 4, 21
+#: the durability plane at the replica phase's depth (2^27 x 16 AdaGrad):
+#: seeded Zipf(1.1) keys, 65,536 a push, warm-up pushes, the migrated range
+#: and its chunks
+DURABLE_ROWS_LOG2, DURABLE_KEYS, DURABLE_SEED, DURABLE_WARM = 27, 1 << 16, 33, 4
+DURABLE_MIG_ROWS, DURABLE_CHUNK, DURABLE_ZIPF = 1 << 22, 1 << 16, 1.1
+#: the dense store's checkpoint: AdaGrad servers over ResNet-50's vector
+DENSE_CKPT_LR = 0.01
 DEVICE = "cuda"
 SOURCE = "parameter_server_tpu_torch/csrc/scatter_kernels.cu"
 REPLACES = {
@@ -383,6 +419,7 @@ def main() -> int:
     batches = resnet_batches()
     emit("dense_spmd", **dense_spmd(torch, dev, batches[0]))
     emit("dense_async", **dense_async(torch, dev, batches))
+    emit("dense_ckpt", **dense_ckpt(torch, dev))
     del batches
     torch.cuda.empty_cache()
 
@@ -392,11 +429,18 @@ def main() -> int:
     replica, replica_launches = replica_phase(torch, scatter, dev, errs)
     emit("replica", **replica)
 
+    # -- 8e. the durability plane over config #3's table at 2^27 rows ---------------
+    durable, durable_launches = durable_phase(torch, scatter, dev, errs)
+    emit("durable", **durable)
+
     # -- 9. times ----------------------------------------------------------------
     kernels = times_phase(torch, scatter, dev, errs, launches)
     for k in kernels:
         k["serve_launches"] = serve_launches[k["name"]]
         k["replica_launches"] = replica_launches[k["name"]]
+        k["durable_launches"] = durable_launches[k["name"]]
+        # scatter-add is not on the durability path
+        k["durable"] = durable.get(f"{k['name']}_check")
         if k["name"] == "gather":
             k["serve"] = serve["gather_at_serving_shape"]
         if k["name"] == "apply":
@@ -2487,6 +2531,71 @@ def dense_async(torch, dev, batches):
             "loss_first_step_mean": first, "loss_last_step_mean": last}
 
 
+def dense_ckpt(torch, dev):
+    """ResNet-50's flat vector on 2 ``DenseKVServer``s with AdaGrad (value and
+    ``sum_sq`` on the card), one seeded gradient pushed so the state is not
+    its fill; ``DenseKVWorker.save_model``, then ``load_model`` onto 3
+    servers: every element of value and state bitwise equal."""
+    import os
+    import shutil
+
+    from parameter_server_tpu_torch.config import OptimizerConfig
+    from parameter_server_tpu_torch.core.postoffice import Postoffice
+    from parameter_server_tpu_torch.core.van import LoopbackVan
+    from parameter_server_tpu_torch.kv.dense import DenseKVServer, DenseKVWorker, PytreeCodec
+    from parameter_server_tpu_torch.models.layers import params_tree
+
+    model = _resnet50(torch)
+    tree = params_tree(model)
+    init = PytreeCodec(tree).flatten(tree)
+    del model, tree
+    total = int(init.size)
+    opt = OptimizerConfig(kind="adagrad", learning_rate=DENSE_CKPT_LR)
+    root = os.path.join(_durable_root(), "dense")
+    shutil.rmtree(root, ignore_errors=True)
+    vans = [LoopbackVan(), LoopbackVan()]
+    try:
+        fleets = []
+        for van, n in zip(vans, (2, 3)):
+            servers = [DenseKVServer(Postoffice(f"S{i}", van), {"model": (total, opt)}, i, n,
+                                     init_vectors={"model": init}, device=dev)
+                       for i in range(n)]
+            fleets.append((servers, DenseKVWorker(Postoffice("W0", van), {"model": total}, n,
+                                                  device=dev)))
+        (writers, wkr), (readers, rdr) = fleets
+        grad = np.random.default_rng(5).normal(size=total).astype(np.float32)
+        check(wkr.wait(wkr.push("model", grad), timeout=300), "dense push timed out")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        wkr.save_model(root, 1)
+        write_s = time.perf_counter() - t0
+        nbytes = _dir_bytes(root)
+        t0 = time.perf_counter()
+        rdr.load_model(root, 1)
+        torch.cuda.synchronize()
+        read_s = time.perf_counter() - t0
+
+        def whole(servers, name):
+            return torch.cat([(s.segments["model"]["value"] if name == "value"
+                               else s.segments["model"]["state"][name]).reshape(-1)
+                              for s in servers])
+
+        for name in ("value", "sum_sq"):
+            check(torch.equal(whole(writers, name), whole(readers, name)),
+                  f"dense {name} differs after the reshard")
+        check(bool(whole(writers, "sum_sq").abs().max() > 0), "dense state is zero")
+        check(all(s.segments["model"]["value"].device.type == dev.type for s in readers),
+              "dense readers off the card")
+        return {"model": "resnet50", "params": total, "optimizer": "adagrad",
+                "writers": 2, "readers": 3, "bytes": nbytes, "write_s": write_s,
+                "read_s": read_s, "write_gb_per_s": nbytes / write_s / 1e9,
+                "read_gb_per_s": nbytes / read_s / 1e9, "value_and_state_bitwise_equal": True}
+    finally:
+        for van in vans:
+            van.close()
+        shutil.rmtree(root, ignore_errors=True)
+
+
 # ---------------------------------------------------------------------------
 # phase 8d: the serving plane and the replica chain
 # ---------------------------------------------------------------------------
@@ -3029,6 +3138,585 @@ def replica_phase(torch, scatter, dev, errs):
             "push_p50_ms": {"no_replica": cf["push_p50_ms"], "sync_chain": sf["push_p50_ms"],
                             "async_chain": af["push_p50_ms"]},
             "launches": counts}, counts
+
+
+# ---------------------------------------------------------------------------
+# phase 8e: the durability plane
+# ---------------------------------------------------------------------------
+
+
+class PlanesTap:
+    """Holds ``ps_gather`` and ``ps_scatter_set`` to their plain versions on
+    the path's own inputs, every launch while installed.
+
+    ``scatter.cuda_gather_planes`` and ``cuda_scatter_set_planes`` are
+    wrapped: each launch runs as the path asked, then its result is compared
+    on the launching stream with ``index_select`` of the same planes at the
+    same ids (exact: both move rows).  The errors stay on the card until
+    :meth:`result`."""
+
+    def __init__(self, torch, scatter):
+        self.torch, self.scatter = torch, scatter
+        self.records = {"gather": [], "scatter_set": []}
+
+    def __enter__(self):
+        self.orig = (self.scatter.cuda_gather_planes, self.scatter.cuda_scatter_set_planes)
+        self.scatter.cuda_gather_planes = self._gather
+        self.scatter.cuda_scatter_set_planes = self._scatter_set
+        return self
+
+    def __exit__(self, *exc):
+        self.scatter.cuda_gather_planes, self.scatter.cuda_scatter_set_planes = self.orig
+
+    def _err(self, got, tables, ids):
+        idx = ids.long()
+        return self.torch.stack([(g - t.index_select(0, idx)).abs().max()
+                                 if g.numel() else g.new_zeros(())
+                                 for g, t in zip(got, tables)]).max()
+
+    def _gather(self, tables, ids):
+        outs = self.orig[0](tables, ids)
+        self.records["gather"].append((int(ids.shape[0]), len(tables),
+                                       self._err(outs, tables, ids)))
+        return outs
+
+    def _scatter_set(self, tables, ids, rows):
+        out = self.orig[1](tables, ids, rows)
+        self.records["scatter_set"].append((int(ids.shape[0]), len(tables),
+                                            self._err(rows, tables, ids)))
+        return out
+
+    def result(self, errs, name):
+        self.torch.cuda.synchronize()
+        recs = self.records[name]
+        check(bool(recs), f"no {name} launch was held to its plain version")
+        err = max(float(r[2]) for r in recs)
+        check(err == 0.0, f"{name} on the durability path vs index_select: max err {err}")
+        errs[name] = max(errs[name], err)
+        return {"launches_held": len(recs), "ids": [r[0] for r in recs],
+                "planes": [r[1] for r in recs], "max_abs_err": err, "tolerance": 0.0}
+
+
+class RebuildTap:
+    """Times ``KVServer._rebuild_table`` on the card (synchronised before and
+    after) and reads its memory peak, per server."""
+
+    def __init__(self, torch):
+        from parameter_server_tpu_torch.kv.server import KVServer
+
+        self.torch, self.cls, self.records = torch, KVServer, []
+
+    def __enter__(self):
+        self.orig = self.cls._rebuild_table
+        tap = self
+
+        def rebuild(srv, t, new_segs, extra):
+            torch = tap.torch
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            old_rows = srv.tables[t].rows
+            t0 = time.perf_counter()
+            tap.orig(srv, t, new_segs, extra)
+            torch.cuda.synchronize()
+            tap.records.append({
+                "server": srv.post.node_id, "old_rows": old_rows,
+                "new_rows": srv.tables[t].rows, "ms": 1e3 * (time.perf_counter() - t0),
+                "allocated_before_gib": base / 2**30,
+                "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+                "peak_over_before_gib": (torch.cuda.max_memory_allocated() - base) / 2**30})
+
+        self.cls._rebuild_table = rebuild
+        return self
+
+    def __exit__(self, *exc):
+        self.cls._rebuild_table = self.orig
+
+
+def _durable_root():
+    import os
+
+    return os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        "parameter_server_tpu_torch", "build", "durable")
+
+
+def _host_room(root, need_disk, need_ram):
+    """Free disk at ``root`` and available host memory, in GiB; fails with a
+    clear message when either is below what the phase writes and holds."""
+    import os
+    import shutil
+
+    os.makedirs(root, exist_ok=True)
+    disk = shutil.disk_usage(root).free / 2**30
+    with open("/proc/meminfo") as f:
+        meminfo = dict(line.split(":", 1) for line in f)
+    ram = int(meminfo["MemAvailable"].split()[0]) / 2**20
+    check(disk >= need_disk, f"durable: {disk:.1f} GiB free at {root}, the phase writes "
+          f"up to {need_disk:.1f} GiB")
+    check(ram >= need_ram, f"durable: {ram:.1f} GiB of host memory available, the phase "
+          f"needs {need_ram:.1f} GiB")
+    return {"disk_free_gib": disk, "ram_available_gib": ram, "disk_needed_gib": need_disk,
+            "ram_needed_gib": need_ram}
+
+
+def _dir_bytes(path):
+    import os
+
+    return sum(os.path.getsize(os.path.join(d, f)) for d, _, fs in os.walk(path) for f in fs)
+
+
+def _zipf_keys(rng, rows, n):
+    """``n`` seeded Zipf(1.1) draws over ``rows`` keys (rank - 1, folded)."""
+    return ((rng.zipf(DURABLE_ZIPF, size=n) - 1) % rows).astype(np.int64)
+
+
+def _durable_batch(rng, rows, keep=None, loc=None):
+    """One push of ``DURABLE_KEYS`` Zipf keys and dim-16 gradients; with
+    ``keep`` (a slot range), only keys whose slots fall in it."""
+    if keep is None:
+        keys = _zipf_keys(rng, rows, DURABLE_KEYS)
+    else:
+        parts, got = [], 0
+        while got < DURABLE_KEYS:
+            k = _zipf_keys(rng, rows, 2 * DURABLE_KEYS)
+            slots = loc.assign(k.astype(np.uint64))
+            k = k[(slots >= keep[0]) & (slots < keep[1])]
+            parts.append(k)
+            got += k.size
+        keys = np.concatenate(parts)[:DURABLE_KEYS]
+    return keys, rng.normal(size=(keys.size, SERVE_DIM)).astype(np.float32)
+
+
+def _durable_fleet(torch, dev, van, n, rows):
+    from parameter_server_tpu_torch.core.postoffice import Postoffice
+    from parameter_server_tpu_torch.kv.server import KVServer
+    from parameter_server_tpu_torch.kv.worker import KVWorker
+
+    cfgs = _serve_tables(rows)
+    servers = [KVServer(Postoffice(f"S{s}", van), cfgs, s, n, device=dev) for s in range(n)]
+    return cfgs, servers, KVWorker(Postoffice("W0", van), cfgs, n, device=dev)
+
+
+def _fleets_equal(torch, a, a_routing, b, b_routing, table="w"):
+    """Every row of two fleets' shards, value and state, compared on the card
+    range by range (each overlap of an A segment with a B segment is one
+    slice of each plane).  Returns the rows compared."""
+    def pieces(servers, routing):
+        out = []
+        for i, (lo, hi, o) in enumerate(routing.tables[table].segments()):
+            starts, _, locs = servers[o]._shard_maps[table]
+            j = int(np.searchsorted(starts, lo, side="right")) - 1
+            out.append((lo, hi, servers[o].tables[table], int(locs[j])))
+        return out
+
+    pa, pb = pieces(a, a_routing), pieces(b, b_routing)
+    rows, bad = 0, []
+    for lo_a, hi_a, ta, la in pa:
+        for lo_b, hi_b, tb, lb in pb:
+            x, y = max(lo_a, lo_b), min(hi_a, hi_b)
+            if x >= y:
+                continue
+            sa, sb = la + x - lo_a, lb + x - lo_b
+            n = y - x
+            for name, pa_, pb_ in [("value", ta.value, tb.value),
+                                   *((k, ta.state[k], tb.state[k]) for k in ta.state)]:
+                if not torch.equal(pa_[sa:sa + n], pb_[sb:sb + n]):
+                    bad.append((name, x, y))
+            rows += n
+    check(not bad, f"fleets differ in {bad[:4]}")
+    return rows
+
+
+def _snapshot_window(worker, pushes):
+    """Push ``pushes[0]`` right after ``snap_begin`` and ``pushes[1]`` after
+    the first ``snap_write`` round of the next ``save_snapshot`` (on a
+    2-server fleet, the only one): writes land inside its open window,
+    deterministically, as the JAX package's freeze test drives its control
+    rounds.  Returns the function that removes the hook."""
+    orig = worker._control_round
+    todo = list(pushes)
+
+    def hooked(msgs, what, timeout):
+        out = orig(msgs, what, timeout)
+        if todo and what in ("snap_begin", "snap_write"):
+            worker.push_sync("w", *todo.pop(0), timeout=300)
+        return out
+
+    worker._control_round = hooked
+    return lambda: setattr(worker, "_control_round", orig)
+
+
+def ack_dirty_cost(torch, srv, keys, reps=50):
+    """Host time of the push ack (``KVServer._ack_push``) on one request of
+    ``keys`` (global rows srv owns) with no window open, with a snapshot
+    window and with a migration window over all of them: the dirty tracking
+    the ack pays while a window is open.  Each under
+    ``set_sync_debug_mode("error")``.  Beside it, the same rows added to a
+    Python set one key at a time, as the JAX server tracks them."""
+    from parameter_server_tpu_torch.core.messages import Message, Task, TaskKind
+
+    msg = Message(task=Task(TaskKind.PUSH, "kv", payload={"table": "w"}), sender="W0",
+                  recver=srv.post.node_id, keys=keys, values=[None])
+    kn, segs = keys.astype(np.int64), np.zeros(1, np.int64)
+    lo, hi = int(kn.min()), int(kn.max()) + 1
+
+    def timed():
+        samples = []
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            for _ in range(reps):
+                t0 = time.perf_counter()
+                srv._ack_push(msg, "w", kn, segs)
+                samples.append(1e3 * (time.perf_counter() - t0))
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        return _ms_quantiles(samples)
+
+    out = {"keys": int(kn.size), "none": timed()}
+    srv._snapshots["probe"] = {"dirty": {}}
+    out["snapshot_window"] = timed()
+    dirty = srv._snapshots.pop("probe")["dirty"]["w"].rows()
+    check(np.array_equal(dirty, np.unique(kn)), "the snapshot window's dirty rows")
+    from parameter_server_tpu_torch.kv.server import _DirtyRows
+
+    srv._migrations["probe"] = {"table": "w", "lo": lo, "hi": hi, "dirty": _DirtyRows()}
+    out["migration_window"] = timed()
+    srv._migrations.pop("probe")
+    samples = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        py_set = set()
+        py_set.update(int(x) for x in kn[(kn >= lo) & (kn < hi)])
+        samples.append(1e3 * (time.perf_counter() - t0))
+    out["python_set_per_key"] = _ms_quantiles(samples)
+    return out
+
+
+def ckpt_legacy_leg(torch, dev, root):
+    """Config #1's table (2^22 x 1 AdaGrad) after 8 PS-loop steps on 2
+    servers: ``save_model``, then ``load_model`` onto 3 servers; every row of
+    value and state bitwise equal to the writers'."""
+    import os
+
+    from parameter_server_tpu_torch.config import ConsistencyConfig
+    from parameter_server_tpu_torch.core.postoffice import Postoffice
+    from parameter_server_tpu_torch.core.van import LoopbackVan
+    from parameter_server_tpu_torch.data.synthetic import SyntheticCTR
+    from parameter_server_tpu_torch.kv.server import KVServer
+    from parameter_server_tpu_torch.kv.worker import KVWorker
+    from parameter_server_tpu_torch.learner.sgd import AsyncLRLearner
+
+    van, servers, workers = build_cluster(torch, dev, rows=ROWS, fused=True, n_workers=2)
+    van2 = LoopbackVan()
+    readers = []
+    try:
+        data = [SyntheticCTR(key_space=KEY_SPACE, nnz=NNZ, batch_size=BATCH, seed=i,
+                             informative=0.1) for i in range(2)]
+        AsyncLRLearner(workers, ConsistencyConfig(), device=dev).run(
+            [d.next_batch for d in data], MAIN_STEPS, timeout=300)
+        ckpt = os.path.join(root, "legacy")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        workers[0].save_model(ckpt, MAIN_STEPS)
+        write_s = time.perf_counter() - t0
+        nbytes = _dir_bytes(ckpt)
+        cfgs = servers[0].table_cfgs
+        readers = [KVServer(Postoffice(f"S{i}", van2), cfgs, i, 3, device=dev)
+                   for i in range(3)]
+        reader = KVWorker(Postoffice("W0", van2), cfgs, 3, device=dev)
+        t0 = time.perf_counter()
+        reader.load_model(ckpt, MAIN_STEPS)
+        torch.cuda.synchronize()
+        read_s = time.perf_counter() - t0
+        rows = _fleets_equal(torch, servers, workers[0].routing, readers, reader.routing)
+        check(rows == ROWS, f"legacy restore compared {rows} rows of {ROWS}")
+        check(bool(servers[0].tables["w"].state["sum_sq"].abs().max() > 0),
+              "the legacy writer's optimizer state is zero")
+        return {"table_rows": ROWS, "dim": DIM, "steps": MAIN_STEPS, "writers": 2,
+                "readers": 3, "write_s": write_s, "read_s": read_s, "bytes": nbytes,
+                "write_gb_per_s": nbytes / write_s / 1e9, "read_gb_per_s": nbytes / read_s / 1e9,
+                "rows_bitwise_equal": rows}
+    finally:
+        close_cluster(van, servers)
+        close_cluster(van2, readers)
+
+
+def migrate_chain_leg(torch, dev):
+    """Config #1's table on 2 sync replica chains: 2 pushes, then a live
+    migration of the upper half of S0's range (2^20 rows) to S1 with a push
+    between chunks, and one push after.  The standbys follow through ``_forward_control``: R1 adopts
+    the range (``migrate_adopt``, one ``ps_scatter_set`` over 2^20 ids), R0
+    drops it (``migrate_release``); every plane of every standby bitwise
+    equal to its primary's, all four at the new epoch."""
+    from parameter_server_tpu_torch.config import OptimizerConfig, TableConfig
+    from parameter_server_tpu_torch.core.postoffice import Postoffice
+    from parameter_server_tpu_torch.core.van import LoopbackVan
+    from parameter_server_tpu_torch.data.synthetic import SyntheticCTR
+    from parameter_server_tpu_torch.kv import replica as replica_lib
+    from parameter_server_tpu_torch.kv.migrate import ShardMigrator
+    from parameter_server_tpu_torch.kv.worker import KVWorker
+
+    cfgs = {"w": TableConfig(name="w", rows=ROWS, dim=DIM,
+                             optimizer=OptimizerConfig(kind="adagrad", learning_rate=0.05))}
+    van = LoopbackVan()
+    primaries, standbys = replica_lib.make_replicated_servers(van, cfgs, 2, sync=True,
+                                                              device=dev)
+    try:
+        worker = KVWorker(Postoffice("W0", van), cfgs, 2, device=dev)
+        data = SyntheticCTR(key_space=KEY_SPACE, nnz=NNZ, batch_size=BATCH, seed=7,
+                            informative=0.1)
+        grads = np.random.default_rng(DURABLE_SEED).normal(size=(BATCH, NNZ)).astype(np.float32)
+
+        def push():
+            worker.push_sync("w", data.next_batch()[0], grads, timeout=300)
+
+        push()
+        push()
+        mig = ShardMigrator(Postoffice("M1", van), chunk_rows=DURABLE_CHUNK, timeout=300)
+        rpc, sent = mig._rpc, []
+
+        def chunked(recver, payload):
+            reply = rpc(recver, payload)
+            if payload["op"] == "migrate_send":
+                sent.append(payload["lo"])
+                if len(sent) == 1:
+                    push()
+            return reply
+
+        mig._rpc = chunked
+        s0_lo, hi = primaries[0].routing.tables["w"].owned_segments(0)[0]
+        lo = (s0_lo + hi) // 2  # the upper half of S0's range: 2^20 rows
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        routing = mig.migrate(worker.routing, "w", lo, hi, 1)
+        torch.cuda.synchronize()
+        mig_s = time.perf_counter() - t0
+        check(worker.adopt_routing(routing), "the worker did not adopt the new routing")
+        push()
+        for p, sb in zip(primaries, standbys):
+            pt, st = p.tables["w"], sb.tables["w"]
+            check(p.routing.epoch == sb.routing.epoch == routing.epoch,
+                  f"{p.post.node_id} / {sb.post.node_id} epochs")
+            check(pt.rows == st.rows and torch.equal(pt.value, st.value)
+                  and all(torch.equal(pt.state[k], st.state[k]) for k in pt.state),
+                  f"standby {sb.post.node_id} differs from its primary after the migration")
+        return {"table_rows": ROWS, "dim": DIM, "moved": [lo, hi], "chunks": len(sent),
+                "seconds": mig_s, "commit_freeze_ms": 1e3 * primaries[0].migration_freeze_last_s,
+                "rows_migrated_in": [s.rows_migrated_in for s in primaries + standbys],
+                "shard_rows": [s.tables["w"].rows for s in primaries + standbys],
+                "standbys_bitwise_equal": True}
+    finally:
+        close_cluster(van, primaries + standbys)
+
+
+def durable_phase(torch, scatter, dev, errs):
+    """The durability plane over config #3's table at 2^27 x 16 AdaGrad:
+    ``ckpt_legacy``, ``snapshot``, ``migrate``, ``restart`` (see the module
+    docstring).  Returns (fields, launches)."""
+    import os
+    import shutil
+
+    from parameter_server_tpu_torch import checkpoint
+    from parameter_server_tpu_torch.core.postoffice import Postoffice
+    from parameter_server_tpu_torch.core.van import LoopbackVan
+    from parameter_server_tpu_torch.kv import replica as replica_lib
+    from parameter_server_tpu_torch.kv.migrate import ShardMigrator
+
+    rows = 1 << DURABLE_ROWS_LOG2
+    plane_gib = (rows + 2) * SERVE_DIM * 4 / 2**30
+    root = _durable_root()
+    shutil.rmtree(root, ignore_errors=True)
+    # the snapshot files at their peak (the full and the incremental) and the
+    # host copies three restoring servers hold at once
+    out = {"host": _host_room(root, need_disk=3.5 * plane_gib, need_ram=4.0 * plane_gib),
+           "rows": rows, "dim": SERVE_DIM, "keys_per_push": DURABLE_KEYS,
+           "zipf_s": DURABLE_ZIPF}
+    emit("durable_host", **out["host"])
+    rng = np.random.default_rng(DURABLE_SEED)
+    out["ckpt_legacy"] = ckpt_legacy_leg(torch, dev, root)
+    emit("durable_ckpt_legacy", **out["ckpt_legacy"])
+    torch.cuda.synchronize()
+    scatter.reset_launch_counts()
+    van, ctl_van = LoopbackVan(), LoopbackVan()
+    servers, control, old_s1 = [], [], None
+    try:
+        with PlanesTap(torch, scatter) as planes, ApplyTap(torch, scatter) as applies, \
+                RebuildTap(torch) as rebuilds:
+            out["migrate_chain"] = migrate_chain_leg(torch, dev)
+            emit("durable_migrate_chain", **out["migrate_chain"])
+            cfgs, servers, worker = _durable_fleet(torch, dev, van, 2, rows)
+            loc = worker.localizers["w"]
+            for _ in range(DURABLE_WARM):
+                worker.push_sync("w", *_durable_batch(rng, rows), timeout=300)
+            # -- snapshot: full step 1 with writes in its window, 2 pushes into
+            # S0's range, incremental step 2, restore onto 3 servers
+            snap = os.path.join(root, "snap")
+            window = [_durable_batch(rng, rows) for _ in range(2)]
+            restore_hook = _snapshot_window(worker, window)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            full = worker.save_snapshot(snap, 1)
+            full_s = time.perf_counter() - t0
+            restore_hook()
+            full_bytes = _dir_bytes(os.path.join(snap, "snap_000001"))
+            full_delta = [srv.ckpt_delta_rows for srv in servers]
+            check(full["delta_rows"] > 0 and full["carried"] == 0, f"full snapshot {full}")
+            s0_range = worker.routing.tables["w"].owned_segments(0)[0]
+            for _ in range(2):
+                worker.push_sync("w", *_durable_batch(rng, rows, keep=s0_range, loc=loc),
+                                 timeout=300)
+            t0 = time.perf_counter()
+            inc = worker.save_snapshot(snap, 2, base_step=1)
+            inc_s = time.perf_counter() - t0
+            inc_bytes = _dir_bytes(os.path.join(snap, "snap_000002"))
+            manifest = checkpoint.read_snapshot(snap, 2)
+            ref_bytes = sum(e["bytes"] for e in manifest["segments"] + manifest["deltas"])
+            carried = [e for e in manifest["segments"] if e["file"].startswith("snap_000001/")]
+            check(inc["carried"] == 1 and len(carried) == 1 and carried[0]["lo"] == s0_range[1],
+                  f"S1's segment must carry: {inc}, {carried}")
+            ctl_cfgs, control, ctl_worker = _durable_fleet(torch, dev, ctl_van, 3, rows)
+            t0 = time.perf_counter()
+            ctl_worker.load_snapshot(snap, 2)
+            torch.cuda.synchronize()
+            restore_s = time.perf_counter() - t0
+            restored = _fleets_equal(torch, servers, worker.routing, control,
+                                     ctl_worker.routing)
+            check(restored == rows, f"snapshot restore compared {restored} rows")
+            out["snapshot"] = {
+                "full": {"write_s": full_s, "bytes": full_bytes,
+                         "gb_per_s": full_bytes / full_s / 1e9, "segments": full["segments"],
+                         "delta_rows": full["delta_rows"],
+                         "per_server_delta_rows": full_delta,
+                         "per_server_freeze_ms": [1e3 * f for f in full["freeze_s"]]},
+                "incremental": {"write_s": inc_s, "bytes": inc_bytes,
+                                "gb_per_s": inc_bytes / inc_s / 1e9, "carried": inc["carried"],
+                                "delta_rows": inc["delta_rows"],
+                                "per_server_freeze_ms": [1e3 * f for f in inc["freeze_s"]]},
+                "restore": {"servers": 3, "seconds": restore_s, "bytes_referenced": ref_bytes,
+                            "gb_per_s": ref_bytes / restore_s / 1e9,
+                            "rows_bitwise_equal": restored},
+                "gather_launches": scatter.launch_counts()["gather"]}
+            emit("durable_snapshot", **out["snapshot"])
+            shutil.rmtree(snap, ignore_errors=True)
+            # -- migrate: [lo, lo + 2^22) of S0 to S1 in 65,536-row chunks,
+            # pushes between chunks; the restored 3-server fleet is the control
+            lo = s0_range[1] // 2
+            hi = lo + DURABLE_MIG_ROWS
+            mig = ShardMigrator(Postoffice("M0", van), chunk_rows=DURABLE_CHUNK, timeout=300)
+            between = [_durable_batch(rng, rows) for _ in range(2)]
+            chunks = -(-DURABLE_MIG_ROWS // DURABLE_CHUNK)
+            at = {chunks // 4: between[0], (3 * chunks) // 4: between[1]}
+            rpc, sent = mig._rpc, []
+
+            def chunked(recver, payload):
+                reply = rpc(recver, payload)
+                if payload["op"] == "migrate_send":
+                    sent.append(payload["lo"])
+                    if len(sent) in at:
+                        worker.push_sync("w", *at[len(sent)], timeout=300)
+                return reply
+
+            mig._rpc = chunked
+            n_rebuilds, before = len(rebuilds.records), scatter.launch_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            routing = mig.migrate(worker.routing, "w", lo, hi, 1)
+            torch.cuda.synchronize()
+            mig_s = time.perf_counter() - t0
+            check(worker.adopt_routing(routing), "the worker did not adopt the new routing")
+            after = scatter.launch_counts()
+            for batch in between:
+                ctl_worker.push_sync("w", *batch, timeout=300)
+            check(routing.tables["w"].owned_segments(1)[0] == (lo, hi),
+                  f"migrated layout {routing.tables['w']}")
+            same = _fleets_equal(torch, servers, routing, control, ctl_worker.routing)
+            # the commit's delta: the donor's one gather, the recipient's one
+            # scatter-set, over the same rows
+            launched = {k: after[k] - before[k] for k in after}
+            check(launched["gather"] == 1 and launched["scatter_set"] == 1,
+                  f"migration launches {launched}")
+            delta_rows = planes.records["scatter_set"][-1][0]
+            check(delta_rows > 0 and planes.records["gather"][-1][0] == delta_rows,
+                  "no push landed in the moving range between chunks")
+            layout_refused = False
+            try:
+                servers[0].save_checkpoint(os.path.join(root, "refused"), 1)
+            except checkpoint.CheckpointLayoutError:
+                layout_refused = True
+            check(layout_refused, "save_checkpoint on a migrated layout did not refuse")
+            out["migrate"] = {
+                "lo": lo, "hi": hi, "rows": DURABLE_MIG_ROWS, "chunk_rows": DURABLE_CHUNK,
+                "chunks": len(sent), "seconds": mig_s, "rows_per_s": DURABLE_MIG_ROWS / mig_s,
+                "commit_freeze_ms": 1e3 * servers[0].migration_freeze_last_s,
+                "delta_rows": delta_rows, "epoch": routing.epoch,
+                "rebuilds": rebuilds.records[n_rebuilds:], "launches": launched,
+                "rows_bitwise_equal_to_control": same,
+                "save_checkpoint_refused": "CheckpointLayoutError"}
+            emit("durable_migrate", **out["migrate"])
+            close_cluster(ctl_van, control)
+            control = []
+            torch.cuda.empty_cache()
+            # -- restart: snapshot step 3 of the migrated fleet, S1 killed and
+            # brought back under its own id from it
+            snap3 = os.path.join(root, "snap3")
+            t0 = time.perf_counter()
+            s3 = worker.save_snapshot(snap3, 3)
+            s3_s = time.perf_counter() - t0
+            s3_bytes = _dir_bytes(snap3)
+            old_s1 = servers[1]
+            old_s1.ledger.close()
+            van.unbind("S1")
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            new_s1, source = replica_lib.restart_same_id(van, cfgs, 1, 2, ckpt_root=snap3,
+                                                         device=dev)
+            torch.cuda.synchronize()
+            recover_s = time.perf_counter() - t0
+            servers[1] = new_s1
+            check(source == "partitioned" and new_s1.routing.epoch == routing.epoch > 0,
+                  f"restart from {source} at epoch {new_s1.routing.epoch}")
+            check(new_s1.routing.tables["w"].owned_segments(1)
+                  == old_s1.routing.tables["w"].owned_segments(1), "restarted layout")
+            old_t, new_t = old_s1.tables["w"], new_s1.tables["w"]
+            check(torch.equal(old_t.value, new_t.value)
+                  and all(torch.equal(old_t.state[k], new_t.state[k]) for k in old_t.state),
+                  "the restarted S1 differs from S1 before the kill")
+            old_s1.tables.clear()
+            old_s1 = None
+            worker.push_sync("w", *_durable_batch(rng, rows), timeout=300)  # serving again
+            own = servers[0].routing.tables["w"].owned_segments(0)[0]
+            slots = np.unique(loc.assign(_zipf_keys(rng, rows, 8 * DURABLE_KEYS)
+                                         .astype(np.uint64)).astype(np.int64))
+            slots = slots[(slots >= own[0]) & (slots < own[1])][:DURABLE_KEYS]
+            out["ack_dirty_cost_ms"] = ack_dirty_cost(torch, servers[0], slots)
+            emit("durable_ack_cost", **out["ack_dirty_cost_ms"])
+            out["restart"] = {"snapshot_write_s": s3_s, "snapshot_bytes": s3_bytes,
+                              "snapshot_gb_per_s": s3_bytes / s3_s / 1e9,
+                              "segments": s3["segments"], "source": source,
+                              "epoch": new_s1.routing.epoch, "recover_s": recover_s,
+                              "rows": new_t.rows, "bitwise_equal": True}
+            emit("durable_restart", **out["restart"])
+            counts = scatter.launch_counts()
+            out["gather_check"] = planes.result(errs, "gather")
+            out["scatter_set_check"] = planes.result(errs, "scatter_set")
+            check(len(applies.records) >= 2, f"{len(applies.records)} applies held")
+            out["apply_check"] = applies.result(errs, len(applies.records))
+    finally:
+        close_cluster(van, servers)
+        close_cluster(ctl_van, control)
+        servers.clear()
+        shutil.rmtree(root, ignore_errors=True)
+        import gc
+
+        gc.collect()
+        torch.cuda.empty_cache()
+        empty_host = getattr(torch._C, "_host_emptyCache", None)
+        if empty_host is not None:
+            empty_host()
+    check(counts["gather"] > 0 and counts["scatter_set"] > 0 and counts["apply"] > 0,
+          f"durable launches {counts}")
+    out["launches"] = counts
+    return out, counts
 
 
 # ---------------------------------------------------------------------------

@@ -1,7 +1,7 @@
 """Configuration dataclasses: the fields of the JAX package's ``config.py``
 that the sparse-LR push/pull loop, the server's apply ledger, the
-consistency gate, worker groups and the serving plane read, with the same
-names, defaults and validation."""
+consistency gate, worker groups, the serving plane and the durability plane
+read, with the same names, defaults and validation."""
 
 from __future__ import annotations
 
@@ -186,6 +186,42 @@ class ServeConfig:
             raise ValueError(
                 f"serve policy must be reject|stale|queue, got {self.policy!r}"
             )
+
+
+@dataclasses.dataclass(frozen=True)
+class CheckpointConfig:
+    """Durability-plane knobs: the partitioned snapshot cadence.
+
+    The partitioned snapshot path (``KVWorker.save_snapshot`` +
+    ``checkpoint.finalize_snapshot``) snapshots any routing layout: one file
+    per segment, a segment whose ``__sver__`` clock has not advanced carried
+    forward from the base snapshot, and a dirty-row delta log that bounds the
+    commit freeze.
+    """
+
+    #: target wall-clock seconds between durable manifests
+    interval_s: float = 60.0
+    #: soft bound on the dirty-row delta a snapshot commit exports in its
+    #: freeze; a commit over it still lands, flagged ``over_bound`` on its
+    #: ``ckpt.commit`` event and counted in ``ckpt_delta_overflow``
+    max_delta_rows: int = 65536
+    #: snapshots kept by ``checkpoint.retain_snapshots`` (chain bases that
+    #: kept manifests reference are kept regardless)
+    retention: int = 3
+    #: "auto" = legacy uniform shards while the layout allows them, the
+    #: partitioned path once the fleet has rebalanced (or a snapshot chain
+    #: exists to extend); "partitioned" / "legacy" force one path
+    mode: str = "auto"
+
+    def __post_init__(self) -> None:
+        if self.interval_s <= 0:
+            raise ValueError(f"interval_s must be > 0, got {self.interval_s!r}")
+        if self.max_delta_rows < 1:
+            raise ValueError(f"max_delta_rows must be >= 1, got {self.max_delta_rows!r}")
+        if self.retention < 0:
+            raise ValueError(f"retention must be >= 0, got {self.retention!r}")
+        if self.mode not in ("auto", "legacy", "partitioned"):
+            raise ValueError(f"mode must be auto|legacy|partitioned, got {self.mode!r}")
 
 
 @dataclasses.dataclass(frozen=True)

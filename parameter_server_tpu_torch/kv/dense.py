@@ -11,9 +11,10 @@ slices through the Van with the usual timestamp API.  The wire carries numpy
 float32, as the JAX package's does.
 
 A server applies a segment push to just that element range of its planes,
-in place.  The checkpoint control ops (``save_model`` / ``load_model``) are
-not ported: every control op is refused, as the JAX server refuses an
-unknown one.
+in place.  The checkpoint control ops (``save_model`` / ``load_model``) write
+and read the legacy uniform shard files of ``checkpoint.py``, element ranges
+as ``[n, 1]`` planes exactly as the JAX package writes them, so a restore may
+reshard onto another server count; every other control op is refused.
 """
 
 from __future__ import annotations
@@ -23,6 +24,7 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from parameter_server_tpu_torch import checkpoint
 from parameter_server_tpu_torch.config import OptimizerConfig
 from parameter_server_tpu_torch.core.messages import Message, Task, TaskKind, server_id
 from parameter_server_tpu_torch.core.postoffice import Customer, Postoffice
@@ -152,7 +154,7 @@ class DenseKVServer(Customer):
 
     def handle_request(self, msg: Message) -> Message:
         if msg.task.kind == TaskKind.CONTROL:
-            raise ValueError(f"unsupported control op {msg.task.payload.get('op')!r}")
+            return self._handle_control(msg)
         table = msg.task.payload["table"]
         seg = self.segments[table]
         offset = msg.task.payload.get("offset")  # segment traffic when set
@@ -171,6 +173,42 @@ class DenseKVServer(Customer):
             # a copy: the reply must not alias the planes later pushes update
             return msg.reply(values=[w.to("cpu", copy=True).numpy().ravel()])
         raise ValueError(f"unsupported task kind {msg.task.kind}")
+
+    # -- checkpoint (the dense counterpart of KVServer's save_model) ---------
+    def _handle_control(self, msg: Message) -> Message:
+        op = msg.task.payload.get("op")
+        if op == "save_model":
+            self.save_checkpoint(msg.task.payload["root"], msg.task.payload["step"])
+            return msg.reply()
+        if op == "load_model":
+            self.restore_checkpoint(msg.task.payload["root"], msg.task.payload["step"])
+            return msg.reply()
+        raise ValueError(f"unsupported control op {op!r}")
+
+    def save_checkpoint(self, root: str, step: int) -> None:
+        """Write this server's element range of every dense vector (value and
+        state planes, copied to the host once)."""
+        for t, seg in self.segments.items():
+            checkpoint.save_arrays_shard(
+                root, step, t, self.server_index, self.num_servers,
+                int(self.offsets[t][self.server_index]),
+                seg["value"].to("cpu").numpy(),
+                {k: v.to("cpu").numpy() for k, v in seg["state"].items()},
+            )
+
+    def restore_checkpoint(self, root: str, step: int) -> None:
+        """Load this server's element range; the saved server count may
+        differ (the files overlapping the range are read and sliced)."""
+        for t, seg in self.segments.items():
+            arrays = checkpoint.load_arrays_shard(root, step, t, self.server_index,
+                                                  self.num_servers)
+            n = seg["value"].shape[0]
+            if arrays["value"].shape != (n, 1):
+                raise ValueError(f"dense {t!r}: saved range {arrays['value'].shape}, "
+                                 f"server holds {(n, 1)}")
+            seg["value"] = _device_rows(arrays["value"], self.device)
+            seg["state"] = {k: _device_rows(arrays[f"state.{k}"], self.device)
+                            for k in seg["state"]}
 
 
 class DenseKVWorker(Customer):
@@ -319,6 +357,45 @@ class DenseKVWorker(Customer):
 
     def pull_sync(self, table: str, timeout: Optional[float] = None) -> torch.Tensor:
         return self.pull_result(self.pull(table), timeout)
+
+    # -- checkpoint broadcast (as KVWorker.save_model / load_model) ----------
+    def save_model(
+        self,
+        root: str,
+        step: int,
+        *,
+        clocks: Optional[List[int]] = None,
+        extras: Optional[dict] = None,
+        timeout: Optional[float] = 600.0,
+    ) -> None:
+        """Every server writes its element ranges; then the manifest is
+        committed.  Use a root apart from any sparse-table checkpoint's (one
+        manifest lists one worker's tables)."""
+        self._control_round("save_model", {"root": root, "step": step}, timeout)
+        checkpoint.finalize(
+            root, step, self.num_servers,
+            {t: int(off[-1]) for t, off in self.offsets.items()},
+            clocks=clocks, extras=extras,
+        )
+
+    def load_model(self, root: str, step: int, *, timeout: Optional[float] = 600.0) -> None:
+        """Every server restores its element ranges (any saved server count)."""
+        self._control_round("load_model", {"root": root, "step": step}, timeout)
+
+    def _broadcast_control(self, op: str, payload: dict) -> int:
+        return self.submit(
+            [Message(task=Task(TaskKind.CONTROL, self.name, payload={"op": op, **payload}),
+                     recver=server_id(s))
+             for s in range(self.num_servers)],
+            keep_responses=True,
+        )
+
+    def _control_round(self, op: str, payload: dict, timeout: Optional[float]) -> None:
+        ts = self._broadcast_control(op, payload)
+        if not self.wait(ts, timeout):
+            raise TimeoutError(f"dense {op} timed out")
+        self.check(ts)
+        self.take_responses(ts)
 
 
 class PytreeCodec:

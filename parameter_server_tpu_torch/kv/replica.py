@@ -16,19 +16,24 @@ recovery of a dead server's key range from a replica chain):
   the primary's node id: workers keep addressing ``S{i}`` and the
   trajectory continues without a checkpoint rewind.
 
+- :func:`restart_same_id` brings ``S{i}`` back under its own node id:
+  state from a live standby, else the newest partitioned snapshot (adopting
+  its routing), else the newest legacy checkpoint, else a cold seeded init.
+
 Promotion rebinds a Van endpoint, which is in-process state: it covers the
-``LoopbackVan``.  Not ported yet: ``restart_same_id`` (it restores from
-``checkpoint.py``) and ``ReplicaSet``'s wiring into a manager's heartbeat
-sweep (``core/manager.py``); :meth:`ReplicaSet.on_node_dead` is called
-directly instead.
+``LoopbackVan``.  Not ported yet: ``ReplicaSet``'s wiring into a manager's
+heartbeat sweep (``core/manager.py``); :meth:`ReplicaSet.on_node_dead` is
+called directly instead.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Optional
+import logging
+from typing import Callable, Dict, Optional
 
 import torch
 
+from parameter_server_tpu_torch import checkpoint
 from parameter_server_tpu_torch.config import TableConfig
 from parameter_server_tpu_torch.core import flightrec
 from parameter_server_tpu_torch.core.postoffice import Postoffice
@@ -101,6 +106,92 @@ def promote(van: Van, standby: KVServer, primary_id: str) -> KVServer:
         reconnect(primary_id)
     flightrec.record("node.promote", node=primary_id, standby=old_id)
     return standby
+
+
+def restart_same_id(
+    van: Van,
+    table_cfgs: Dict[str, TableConfig],
+    server_index: int,
+    num_servers: int,
+    *,
+    standby: Optional[KVServer] = None,
+    ckpt_root: Optional[str] = None,
+    register: Optional[Callable[[Postoffice], None]] = None,
+    device_replies: bool = False,
+    replica_sync: bool = True,
+    max_lag: int = 8,
+    routing: Optional[RoutingTable] = None,
+    device: str | torch.device = "cuda",
+) -> tuple[KVServer, str]:
+    """Bring ``S{server_index}`` back under its OWN node id after a crash.
+
+    1. The dead process's endpoints (``S{i}``, ``S{i}.fw``, ``S{i}.mig``) are
+       unbound and the identity stays disconnected while state restores: a
+       retransmit landing on a cold table that the restore then overwrites
+       would be an acked but lost update.
+    2. A fresh :class:`KVServer` is built on ``device`` (same index: same row
+       range and init seed) and restores, in order of preference, from the
+       live ``standby`` (bit-identical, optimizer state included), from the
+       newest partitioned snapshot in ``ckpt_root`` (adopting the manifest's
+       newer routing, so a migrated shard comes back at the fleet's epoch),
+       from the newest legacy checkpoint there, or cold (seeded init).  A
+       corrupt snapshot falls through to the next source.
+    3. On the checkpoint and cold paths the van's dedup windows into ``S{i}``
+       would claim effects the rewind lost, so ``drop_inbound_state`` (where
+       the van has it) clears them.
+    4. The identity reconnects, and ``register`` (when given) re-registers it
+       with a scheduler.
+
+    Returns ``(server, source)``, source in {"replica", "partitioned",
+    "checkpoint", "cold"}.  With a standby the new server chains to it.
+    """
+    primary_id = f"S{server_index}"
+    endpoints = (primary_id, f"{primary_id}.fw", f"{primary_id}.mig")
+    for nid in endpoints:
+        van.unbind(nid)  # the dead process's endpoints, where still bound
+    disconnect = getattr(van, "disconnect", None)
+    if disconnect is not None:
+        disconnect(primary_id)
+    if routing is None and standby is not None:
+        # a post-migration layout lives in the standby's routing; the new
+        # server must hold the same map for the imported shard to fit
+        routing = standby.routing
+    server = KVServer(
+        Postoffice(primary_id, van), table_cfgs, server_index, num_servers,
+        device_replies=device_replies,
+        replica=None if standby is None else standby.post.node_id,
+        replica_sync=replica_sync, max_replica_lag=max_lag, routing=routing,
+        device=device,
+    )
+    if standby is not None:
+        server.import_shard(standby.export_shard())
+        source = "replica"
+    else:
+        source = "cold"
+        if ckpt_root is not None:
+            snap = checkpoint.latest_snapshot(ckpt_root)
+            if snap is not None:
+                try:
+                    server.restore_snapshot(ckpt_root, snap, adopt_routing=True)
+                    source = "partitioned"
+                except (OSError, checkpoint.CheckpointCorruptError):
+                    source = "cold"
+            if source == "cold":
+                step = checkpoint.latest_step(ckpt_root)
+                if step is not None:
+                    server.restore_checkpoint(ckpt_root, step)
+                    source = "checkpoint"
+        if hasattr(van, "drop_inbound_state"):
+            van.drop_inbound_state(primary_id)
+    logging.getLogger(__name__).info("restart_same_id: %s restored from %s", primary_id, source)
+    flightrec.record("node.restart", node=primary_id, source=source)
+    reconnect = getattr(van, "reconnect", None)
+    if reconnect is not None:
+        for nid in endpoints:
+            reconnect(nid)
+    if register is not None:
+        register(server.post)
+    return server, source
 
 
 class ReplicaSet:

@@ -5,12 +5,15 @@ wire payload keys, :class:`WorkerGroup` (group membership and the
 deterministic per-``(table, step)`` leader election), :class:`TableRouting`
 and the epoch-stamped :class:`RoutingTable` with its request slicing (the
 ``Parameter::Slice`` analogue) and its wire form, which fence replies carry
-and workers adopt (highest epoch wins).  Live migration (``move``) is not
-ported yet: every table here is the epoch-0 uniform split.
+and workers adopt (highest epoch wins); and the rewrites live migration
+makes (``move``: split at the range's bounds, reassign, coalesce, epoch + 1)
+with the queries the durability plane iterates (``segments``,
+``owner_of``).
 """
 
 from __future__ import annotations
 
+import bisect
 import dataclasses
 import functools
 import zlib
@@ -136,6 +139,39 @@ class TableRouting:
     def distinct_owners(self) -> Tuple[int, ...]:
         return tuple(sorted(set(self.owners)))
 
+    def segments(self) -> List[Tuple[int, int, int]]:
+        """All segments as ``[(lo, hi, owner), ...]`` in row order: the
+        partitioned snapshot writes one file per entry, by its owner."""
+        return [
+            (int(self.offsets[i]), int(self.offsets[i + 1]), int(o))
+            for i, o in enumerate(self.owners)
+        ]
+
+    def owner_of(self, row: int) -> int:
+        """Owner of global ``row``; the trash row (== rows) maps to the last
+        segment's owner."""
+        if row >= self.rows:
+            return self.owners[-1]
+        return self.owners[bisect.bisect_right(self.offsets, row) - 1]
+
+    def move(self, lo: int, hi: int, to: int) -> "TableRouting":
+        """Reassign global rows ``[lo, hi)`` to server ``to``: split the
+        segments at the range's bounds, then coalesce adjacent segments of
+        one owner, so two moves that land on the same ownership compare
+        equal."""
+        if not (0 <= lo < hi <= self.rows):
+            raise ValueError(f"bad range [{lo}, {hi}) for rows={self.rows}")
+        bounds = sorted(set(self.offsets) | {lo, hi})
+        offsets, owners = [0], []
+        for a, b in zip(bounds, bounds[1:]):
+            o = to if lo <= a < hi else self.owner_of(a)
+            if owners and o == owners[-1]:
+                offsets[-1] = b  # coalesce with the previous segment
+            else:
+                owners.append(o)
+                offsets.append(b)
+        return TableRouting(self.rows, tuple(offsets), tuple(owners))
+
 
 @dataclasses.dataclass(frozen=True)
 class RoutingTable:
@@ -161,6 +197,13 @@ class RoutingTable:
         for tr in self.tables.values():
             out.update(tr.owners)
         return tuple(sorted(out))
+
+    def move(self, table: str, lo: int, hi: int, to: int) -> "RoutingTable":
+        """A new table at ``epoch + 1`` with ``[lo, hi)`` of ``table`` owned
+        by ``to``."""
+        tables = dict(self.tables)
+        tables[table] = tables[table].move(lo, hi, to)
+        return RoutingTable(self.epoch + 1, tables)
 
     def slice_ids(
         self, table: str, sorted_ids: np.ndarray

@@ -54,8 +54,27 @@ and ``consist_set`` (live mode / bound retune).  Group-stamped pushes
 ``group_pushes`` / ``group_members``.  The gate and the booking are host
 dict and int work: nothing on either path reads the card.
 
-Not ported yet: live migration (the ``migrate_*`` ops and the replica
-chain's ``_forward_control``), snapshots, and request tracing.
+The durability plane: legacy uniform checkpoints (``save_model`` /
+``load_model``), format-2 partitioned incremental snapshots (``snap_begin`` /
+``snap_write`` / ``snap_commit`` / ``snap_abort``, ``restore_snap``) and live
+shard migration (the ``migrate_*`` ops, chained to a standby by
+``_forward_control``), with the JAX server's wire protocol and files.  On the
+card every path moves only the rows the protocol names:
+
+- a contiguous owned range (a migration chunk, a snapshot segment) is one
+  slice of each plane, copied to the host;
+- rows at arbitrary ids (a commit's dirty delta) are one ``ps_gather`` launch
+  over the value and state planes (:meth:`_export_rows`);
+- a layout change (:meth:`_rebuild_table`) builds the new shard on the card:
+  slice copies of the kept segments and of the adopted range, rows at
+  arbitrary ids by one ``ps_scatter_set`` launch, the trash row carried;
+- streamed chunks are uploaded when they are staged, and the recipient writes
+  the commit's delta into the assembled range with one ``ps_scatter_set``.
+
+Dirty tracking for open migrations and snapshots appends the request's host
+key array in ``_ack_push`` (no device read, no per-key Python work) and dedups
+once at commit.  Every read of a plane runs on this receive thread's stream,
+after every apply it launched there.  Not ported yet: request tracing.
 """
 
 from __future__ import annotations
@@ -70,6 +89,7 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from parameter_server_tpu_torch import checkpoint
 from parameter_server_tpu_torch.config import (
     ApplyEngineConfig,
     ConsistencyMode,
@@ -82,6 +102,7 @@ from parameter_server_tpu_torch.core.messages import Message, Task, TaskKind
 from parameter_server_tpu_torch.core.postoffice import Customer, Postoffice
 from parameter_server_tpu_torch.kv.consistency import MODE_CODES, FleetClock
 from parameter_server_tpu_torch.kv.ledger import COMPLETED, ApplyLedger
+from parameter_server_tpu_torch.kv.partition import RangePartition
 from parameter_server_tpu_torch.kv.routing import (
     BUSY_KEY,
     CONSIST_STEP_KEY,
@@ -95,6 +116,7 @@ from parameter_server_tpu_torch.kv.routing import (
     RoutingTable,
 )
 from parameter_server_tpu_torch.kv.table import KVTable
+from parameter_server_tpu_torch.ops import scatter
 from parameter_server_tpu_torch.utils.keys import bucket_size
 from parameter_server_tpu_torch.utils.trace import LatencyHistogram
 
@@ -102,6 +124,30 @@ from parameter_server_tpu_torch.utils.trace import LatencyHistogram
 def _bucket(n: int) -> int:
     """Server-side id bucket: next power of two, >= 8."""
     return bucket_size(max(n, 1), min_bucket=8)
+
+
+class _DirtyRows:
+    """The global rows written while a migration or snapshot window is open.
+
+    The push ack appends the request's host key array as it is (one mask and
+    one list append, no per-key Python work); :meth:`rows` dedups once, at
+    the commit."""
+
+    __slots__ = ("_parts",)
+
+    def __init__(self) -> None:
+        self._parts: List[np.ndarray] = []
+
+    def add(self, rows: np.ndarray) -> None:
+        if rows.size:
+            self._parts.append(rows)
+
+    def rows(self) -> np.ndarray:
+        """The distinct rows, ascending (int64)."""
+        if not self._parts:
+            return np.empty(0, dtype=np.int64)
+        self._parts = [np.unique(np.concatenate(self._parts).astype(np.int64, copy=False))]
+        return self._parts[0]
 
 
 class KVServer(Customer):
@@ -121,6 +167,7 @@ class KVServer(Customer):
         max_replica_lag: int = 8,
         replica_ack_timeout: float = 60.0,
         routing: Optional[RoutingTable] = None,
+        migrate_timeout: float = 30.0,
         apply: Optional[ApplyEngineConfig] = None,
         devobs: Optional[LedgerConfig] = None,
         device: str | torch.device = "cuda",
@@ -136,7 +183,12 @@ class KVServer(Customer):
         ``replica_sync=True`` is chain semantics (the worker's ack fires
         after the standby applied); ``False`` forwards asynchronously with at
         most ``max_replica_lag`` forwards in flight.  A forward not acked
-        within ``replica_ack_timeout`` seconds fails the push."""
+        within ``replica_ack_timeout`` seconds fails the push.
+
+        ``routing``: an explicit ownership map (default: the uniform epoch-0
+        split); a post-migration table spawns a server into a rebalanced
+        fleet.  ``migrate_timeout``: seconds a donor waits on each of the
+        recipient's stage and install acks."""
         super().__init__(name, post)
         self.device = torch.device(device)
         self.device_replies = device_replies
@@ -154,6 +206,10 @@ class KVServer(Customer):
             ApplyLedger(post.node_id, devobs) if devobs.enabled else None
         )
         self.server_index = server_index
+        #: the uniform split: the legacy checkpoint's layout contract
+        self.partitions = {
+            t: RangePartition(cfg.rows, num_servers) for t, cfg in table_cfgs.items()
+        }
         self.table_cfgs = table_cfgs
         self.routing = routing or RoutingTable.uniform(table_cfgs, num_servers)
         self._shard_maps: Dict[str, tuple] = {
@@ -208,6 +264,32 @@ class KVServer(Customer):
         if self._consist and hasattr(post.van, "on_incarnation_advance"):
             # a same-id restart: the dead incarnation must not wedge the minimum
             post.van.on_incarnation_advance.append(self._consist_incarnation)
+        # -- durability plane --------------------------------------------------
+        self.rows_migrated_in = 0
+        self.rows_migrated_out = 0
+        self.migration_freeze_s = 0.0
+        self.migration_freeze_last_s = 0.0
+        self.migrate_timeout = migrate_timeout
+        #: open donor migrations: mid -> {table, lo, hi, dirty}
+        self._migrations: Dict[str, dict] = {}
+        #: recipient staging: mid -> {table, chunks: [(lo, hi, value, state)]},
+        #: the chunks already on ``device``
+        self._staging: Dict[str, dict] = {}
+        #: open snapshot windows: sid -> {dirty: {table: _DirtyRows}}
+        self._snapshots: Dict[str, dict] = {}
+        self.ckpt_commits = 0
+        self.ckpt_freeze_s = 0.0
+        self.ckpt_freeze_last_s = 0.0
+        self.ckpt_delta_rows = 0
+        self.ckpt_delta_overflow = 0
+        #: soft bound on a snapshot commit's delta (``CheckpointConfig.
+        #: max_delta_rows``)
+        self.ckpt_max_delta_rows = 65536
+        #: basis of the ``ckpt_age_s`` gauge: construction, then every
+        #: snapshot commit or restore
+        self._ckpt_commit_t = time.monotonic()
+        #: the donor's streaming client on ``<node>.mig``, made on first use
+        self._mig: Optional[Customer] = None
         # -- hot-replica forwarding ------------------------------------------
         self.replica = replica
         self.replica_sync = replica_sync
@@ -228,11 +310,42 @@ class KVServer(Customer):
         """``(starts, ends, locals)`` of this server's owned segments: global
         row ``g`` in segment ``i`` lives at local row ``g - starts[i] +
         locals[i]``."""
-        segs = routing.tables[table].owned_segments(self.server_index)
+        return self._map_of(routing.tables[table].owned_segments(self.server_index))
+
+    @staticmethod
+    def _map_of(segs: List[Tuple[int, int]]) -> tuple:
+        """The ``_make_map`` triple of a list of owned segments, packed
+        contiguously in global order."""
         starts = np.asarray([lo for lo, _ in segs], dtype=np.int64)
         ends = np.asarray([hi for _, hi in segs], dtype=np.int64)
         locs = np.concatenate([[0], np.cumsum(ends - starts)])[:-1].astype(np.int64)
         return starts, ends, locs
+
+    @staticmethod
+    def _localize(smap: tuple, gids) -> Tuple[np.ndarray, np.ndarray]:
+        """Global rows -> ``(local, owned)`` against a ``_make_map`` triple;
+        ``local[i]`` is valid iff ``owned[i]``."""
+        starts, ends, locs = smap
+        gids = np.asarray(gids, dtype=np.int64)
+        if starts.size == 0:
+            return np.zeros(gids.shape, np.int64), np.zeros(gids.shape, bool)
+        idx = np.searchsorted(starts, gids, side="right") - 1
+        idx_c = np.clip(idx, 0, None)
+        owned = (idx >= 0) & (gids >= 0) & (gids < ends[idx_c])
+        return np.where(owned, gids - starts[idx_c] + locs[idx_c], 0), owned
+
+    def _try_localize(self, table: str, gids) -> Tuple[np.ndarray, np.ndarray]:
+        """Global rows -> ``(local, owned)`` against the CURRENT shard map."""
+        return self._localize(self._shard_maps[table], gids)
+
+    def _local_range(self, table: str, lo: int, hi: int) -> Optional[int]:
+        """Local row of global ``lo`` when ``[lo, hi)`` lies inside one owned
+        segment (so it is one contiguous slice of every plane), else None."""
+        starts, ends, locs = self._shard_maps[table]
+        i = int(np.searchsorted(starts, lo, side="right")) - 1
+        if i < 0 or lo < starts[i] or hi > ends[i] or hi <= lo:
+            return None
+        return int(lo - starts[i] + locs[i])
 
     def _localize_request(
         self, table: str, keys
@@ -530,6 +643,18 @@ class KVServer(Customer):
             sver = int(ver[segs].max())
         else:
             sver = self.version_max(tname)
+        if self._migrations:
+            # rows of a migrating range written after their chunk may have
+            # shipped: the commit re-sends exactly these (host key arrays)
+            for m in self._migrations.values():
+                if m["table"] == tname:
+                    m["dirty"].add(kn[(kn >= m["lo"]) & (kn < m["hi"])])
+        if self._snapshots:
+            # rows written during an open snapshot window go stale against
+            # the segment files already written: snap_commit's delta log
+            hit = kn[kn < self.routing.tables[tname].rows]
+            for sn in self._snapshots.values():
+                sn["dirty"].setdefault(tname, _DirtyRows()).add(hit)
         if self.replica is not None:
             # forward AFTER the local apply, in apply order (this receive
             # thread is the only writer), so the standby replays the
@@ -583,6 +708,26 @@ class KVServer(Customer):
                 self._fwd.cancel(old, "replica flush deadline")
                 raise RuntimeError(f"replica flush: ts={old} not acked")
 
+    def _forward_control(self, payload: dict, keys=None, values=None) -> None:
+        """Chain a migration control op to the standby, synchronously: it
+        rides the forwarded pushes' FIFO, so the standby changes its shard
+        map after every push that preceded it here."""
+        msg = Message(
+            task=Task(TaskKind.CONTROL, self._fwd.name, payload=payload),
+            recver=self.replica,
+            keys=keys,
+            values=values if values is not None else [],
+        )
+        ts = self._fwd.submit([msg], keep_responses=True)
+        if not self._fwd.wait(ts, timeout=self.replica_ack_timeout):
+            self._fwd.cancel(ts, "replica control deadline", remote=True)
+            self._fwd.take_responses(ts)
+            raise RuntimeError(f"replica {self.replica} did not ack {payload.get('op')!r}")
+        errs = self._fwd.errors(ts)
+        self._fwd.take_responses(ts)
+        if errs:
+            raise RuntimeError(f"replica {payload.get('op')!r} failed: " + "; ".join(errs))
+
     def _pull_device(
         self, msg: Message, tname: str, ids_np: np.ndarray, segs: np.ndarray,
         *, read_only: bool = False,
@@ -609,7 +754,24 @@ class KVServer(Customer):
         return list(slices) if self.device_replies else self._readback(slices)
 
     def _handle_control(self, msg: Message) -> Message:
-        op = msg.task.payload.get("op")
+        p = msg.task.payload
+        op = p.get("op")
+        if op == "save_model":
+            self.save_checkpoint(p["root"], p["step"])
+            return msg.reply()
+        if op == "load_model":
+            self.restore_checkpoint(p["root"], p["step"])
+            return msg.reply()
+        if op == "adopt_routing":
+            self.adopt_routing(p["routing"])
+            return msg.reply()
+        if op and op.startswith("migrate_"):
+            return self._handle_migrate(msg)
+        if op and op.startswith("snap_"):
+            return self._handle_snapshot(msg)
+        if op == "restore_snap":
+            self.restore_snapshot(p["root"], p["step"])
+            return msg.reply()
         if op == "consist_hello":
             return self._handle_consist_hello(msg)
         if op == "consist_set":
@@ -858,16 +1020,28 @@ class KVServer(Customer):
 
     # -- telemetry-facing reads -------------------------------------------------
     def counters(self) -> dict:
-        """Fence, read-only, group and version counters, the consistency gate's
-        totals and gauges on gated servers, plus the ledger's gauges and
-        totals (``inflight_bundles``/``inflight_rows``, ``backlog_age_s``,
-        ``applies_*``), Dashboard-mergeable."""
+        """Fence, read-only, group and version counters, the migration and
+        snapshot counters (``rows_migrated_*``, ``migration_freeze_s``,
+        ``ckpt_*``), the consistency gate's totals and gauges on gated
+        servers, plus the ledger's gauges and totals (``inflight_bundles``/
+        ``inflight_rows``, ``backlog_age_s``, ``applies_*``),
+        Dashboard-mergeable."""
         out = {
             "fenced_rejects": self.fenced_rejects,
             "ro_pulls": self.ro_pulls,
             "group_pushes": self.group_pushes,
             "group_members": self.group_members,
             "seg_version_max": sum(self.version_max(t) for t in self.tables),
+            "rows_migrated_in": self.rows_migrated_in,
+            "rows_migrated_out": self.rows_migrated_out,
+            "migration_freeze_s": round(self.migration_freeze_s, 6),
+            # seconds since this shard last committed to (or restored from)
+            # a durable snapshot, commit totals and the bounded freeze
+            "ckpt_age_s": round(time.monotonic() - self._ckpt_commit_t, 3),
+            "ckpt_commits": self.ckpt_commits,
+            "ckpt_freeze_s": round(self.ckpt_freeze_s, 6),
+            "ckpt_delta_rows": self.ckpt_delta_rows,
+            "ckpt_delta_overflow": self.ckpt_delta_overflow,
         }
         if self._consist:
             # defer/release totals and the first gated table's mode/bound
@@ -919,3 +1093,518 @@ class KVServer(Customer):
                     f"server holds {(table.rows + 1, table.dim)}"
                 )
             table.resize(blob["value"], blob["state"])
+
+    # -- row export and upload ---------------------------------------------------
+    def _host_rows(self, tensors: List[torch.Tensor]) -> List[np.ndarray]:
+        """Host copies of row blocks of the planes (one synchronisation on the
+        card); on the CPU the blocks are cloned, since they may be views of
+        planes that later pushes update."""
+        if self.device.type != "cuda":
+            tensors = [t.clone() for t in tensors]
+        return self._readback(tensors)
+
+    def _upload_rows(self, rows) -> torch.Tensor:
+        """A received ``[n, dim]`` row block as a float32 tensor of its own on
+        ``device``: one pinned buffer, one asynchronous copy up."""
+        if isinstance(rows, torch.Tensor):
+            return rows.to(self.device, torch.float32, copy=True).contiguous()
+        arr = np.asarray(rows, dtype=np.float32)
+        buf = self._pinned(arr.shape, torch.float32)
+        buf.numpy()[...] = arr
+        return buf.to(self.device, non_blocking=True)
+
+    def _export_rows(
+        self, table: str, gids: np.ndarray
+    ) -> Tuple[np.ndarray, Dict[str, np.ndarray]]:
+        """Value and optimizer-state rows at owned GLOBAL ids, as host numpy:
+        one ``ps_gather`` launch over every plane, one readback."""
+        tbl = self.tables[table]
+        local, owned = self._try_localize(table, gids)
+        if not owned.all():
+            raise ValueError(f"export of un-owned rows of {table!r} on {self.post.node_id}")
+        ids = self._upload_ids(local.astype(np.int32))
+        host = self._readback(scatter.gather_rows_planes([tbl.value, *tbl.state.values()], ids))
+        return host[0], dict(zip(tbl.state, host[1:]))
+
+    def export_range(
+        self, table: str, lo: int, hi: int
+    ) -> Tuple[np.ndarray, Dict[str, np.ndarray]]:
+        """Rows ``[lo, hi)`` of ``table`` (value and state) as host numpy: a
+        slice of each plane when the range lies in one owned segment, else a
+        gather."""
+        tbl = self.tables[table]
+        a = self._local_range(table, lo, hi)
+        if a is None:
+            return self._export_rows(table, np.arange(lo, hi, dtype=np.int64))
+        b = a + hi - lo
+        host = self._host_rows([tbl.value[a:b], *(p[a:b] for p in tbl.state.values())])
+        return host[0], dict(zip(tbl.state, host[1:]))
+
+    # -- live migration ------------------------------------------------------------
+    def _ensure_mig(self) -> Customer:
+        """The donor's streaming client on its own endpoint ``<node>.mig``:
+        stage and install acks are processed by that endpoint's receive
+        thread while this server's receive thread waits in the handler."""
+        if self._mig is None:
+            self._mig = Customer(self.name, Postoffice(f"{self.post.node_id}.mig", self.post.van))
+        return self._mig
+
+    def _mig_rpc(self, recver: str, payload: dict, keys=None, values=None) -> Message:
+        mig = self._ensure_mig()
+        ts = mig.submit(
+            [Message(task=Task(TaskKind.CONTROL, mig.name, payload=payload),
+                     recver=recver, keys=keys, values=values)],
+            keep_responses=True,
+        )
+        if not mig.wait(ts, timeout=self.migrate_timeout):
+            mig.cancel(ts, f"migration {payload.get('op')!r} deadline", remote=True)
+            mig.take_responses(ts)
+            raise TimeoutError(f"{payload.get('op')!r} to {recver} timed out")
+        errs = mig.errors(ts)
+        responses = mig.take_responses(ts)
+        if errs:
+            raise RuntimeError(f"{payload.get('op')!r} to {recver} failed: " + "; ".join(errs))
+        return responses[0]
+
+    def _install_routing(self, new_routing: RoutingTable, extra: Optional[dict] = None) -> None:
+        """Adopt ``new_routing``, rebuilding every table whose owned segments
+        change.  ``extra``: ``{table: (where, value, state)}``, the source of
+        newly adopted rows (see :meth:`_rebuild_table`).  Runs on the receive
+        thread, so it is atomic with respect to pushes."""
+        # files an open snapshot already wrote describe the old layout: abort
+        # it, so its coordinator's commit fails and no manifest names them
+        for sid in list(self._snapshots):
+            del self._snapshots[sid]
+            flightrec.record("ckpt.abort", node=self.post.node_id, sid=sid,
+                             why="routing changed mid-snapshot")
+        for t in self.tables:
+            new_segs = new_routing.tables[t].owned_segments(self.server_index)
+            old_segs = self.routing.tables[t].owned_segments(self.server_index)
+            ex = (extra or {}).get(t)
+            if new_segs != old_segs or ex is not None:
+                self._rebuild_table(t, new_segs, ex)
+        self.routing = new_routing
+        self._shard_maps = {t: self._make_map(new_routing, t) for t in self.tables}
+        # new segment layouts restart from the shard's previous maximum, so
+        # the per-table version never goes backwards
+        self._seg_versions = {
+            t: np.full(self._shard_maps[t][0].shape[0],
+                       self.version_max(t) if t in self._seg_versions else 0, dtype=np.int64)
+            for t in self.tables
+        }
+
+    def _rebuild_table(self, t: str, new_segs: List[Tuple[int, int]], extra) -> None:
+        """Re-pack the shard of ``t`` for a new segment layout, on ``device``.
+
+        New planes are allocated and filled from the old shard (a slice copy
+        per kept overlap) and from ``extra``: ``(lo, value, state)`` with
+        ``int`` ``lo`` is a contiguous range of tensors on ``device`` (slice
+        copies); ``(gids, value, state)`` are rows at arbitrary global ids
+        (host arrays, written by one ``ps_scatter_set`` launch).  The old
+        trash row is carried over.  A new-layout row that neither source
+        covers is a protocol error, raised before anything is replaced; card
+        memory peaks at the old shard plus the new one."""
+        tbl = self.tables[t]
+        names = list(tbl.state)
+        old = [tbl.value, *(tbl.state[k] for k in names)]
+        n = sum(hi - lo for lo, hi in new_segs)
+        new = [torch.empty((n + 1, tbl.dim), dtype=torch.float32, device=self.device)
+               for _ in old]
+        for dst, src in zip(new, old):
+            dst[n:].copy_(src[tbl.rows:])
+        covered = np.zeros(n, dtype=bool)
+
+        def copy_range(src_planes, src_lo: int, src_hi: int, src_local: int) -> None:
+            """Slice-copy global rows ``[src_lo, src_hi)``, stored from local
+            row ``src_local`` of ``src_planes``, to where the new layout has
+            them."""
+            at = 0
+            for lo, hi in new_segs:
+                a, b = max(lo, src_lo), min(hi, src_hi)
+                if a < b:
+                    for dst, src in zip(new, src_planes):
+                        dst[at + a - lo:at + b - lo].copy_(
+                            src[src_local + a - src_lo:src_local + b - src_lo])
+                    covered[at + a - lo:at + b - lo] = True
+                at += hi - lo
+
+        starts, ends, locs = self._shard_maps[t]
+        for s_lo, s_hi, s_loc in zip(starts.tolist(), ends.tolist(), locs.tolist()):
+            copy_range(old, s_lo, s_hi, s_loc)
+        if extra is not None:
+            where, e_value, e_state = extra
+            e_planes = [e_value, *(e_state[k] for k in names)]
+            if isinstance(where, (int, np.integer)):
+                copy_range(e_planes, int(where), int(where) + int(e_value.shape[0]), 0)
+            else:
+                new_map = self._map_of(new_segs)
+                local, hit = self._localize(new_map, where)
+                if hit.any():
+                    sel = None if hit.all() else np.nonzero(hit)[0]
+                    ids = self._upload_ids(local[hit].astype(np.int32))
+                    rows = [self._upload_rows(p if sel is None else np.asarray(p)[sel])
+                            for p in e_planes]
+                    scatter.scatter_update_rows_planes(new, ids, rows)
+                    covered[local[hit]] = True
+        if n and not covered.all():
+            missing = np.flatnonzero(~covered)
+            raise RuntimeError(
+                f"shard rebuild of {t!r} on {self.post.node_id}: {missing.size} rows "
+                f"uncovered (first local: {missing[:4]})"
+            )
+        del old
+        tbl.adopt_planes(new[0], dict(zip(names, new[1:])))
+
+    def adopt_routing(self, routing) -> bool:
+        """Adopt a broadcast routing table (a payload dict or a
+        :class:`RoutingTable`) on a server the migration did not involve.
+        Only a newer epoch applies, and it must not change this server's
+        owned segments: content moves only through the migrate ops."""
+        if isinstance(routing, dict):
+            routing = RoutingTable.from_payload(routing)
+        if routing.epoch <= self.routing.epoch:
+            return False
+        for t in self.tables:
+            if (routing.tables[t].owned_segments(self.server_index)
+                    != self.routing.tables[t].owned_segments(self.server_index)):
+                raise ValueError(
+                    f"adopt_routing would change owned segments of {t!r} on "
+                    f"{self.post.node_id}; use the migration protocol"
+                )
+        self._install_routing(routing)
+        return True
+
+    def _handle_migrate(self, msg: Message) -> Message:
+        p = msg.task.payload
+        op = p["op"]
+        if op == "migrate_begin":
+            # donor: arm dirty tracking for [lo, hi); a fresh mid for the same
+            # range supersedes a stale attempt
+            mid, t, lo, hi = p["mid"], p["table"], int(p["lo"]), int(p["hi"])
+            if self._local_range(t, lo, hi) is None:
+                _, owned = self._try_localize(t, np.arange(lo, hi, dtype=np.int64))
+                if not owned.all():
+                    raise ValueError(
+                        f"migrate_begin: {self.post.node_id} does not own [{lo}, {hi}) of {t!r}"
+                    )
+            for k in [k for k, m in self._migrations.items()
+                      if (m["table"], m["lo"], m["hi"]) == (t, lo, hi)]:
+                del self._migrations[k]
+            self._migrations[mid] = {"table": t, "lo": lo, "hi": hi, "dirty": _DirtyRows()}
+            flightrec.record("migrate.begin", node=self.post.node_id, mid=mid,
+                             table=t, lo=lo, hi=hi)
+            return msg.reply()
+        if op == "migrate_send":
+            # donor: stream one live chunk; requests queued behind this
+            # handler wait one chunk, not the whole transfer
+            m = self._migrations[p["mid"]]
+            lo, hi = int(p["lo"]), int(p["hi"])
+            flightrec.record("migrate.send", node=self.post.node_id, mid=p["mid"],
+                             to=p["to"], lo=lo, hi=hi)
+            value, state = self.export_range(m["table"], lo, hi)
+            skeys = sorted(state)
+            self._mig_rpc(
+                p["to"],
+                {"op": "migrate_stage", "mid": p["mid"], "table": m["table"],
+                 "lo": lo, "hi": hi, "state_keys": skeys},
+                values=[value] + [state[k] for k in skeys],
+            )
+            return msg.reply()
+        if op == "migrate_stage":
+            # recipient: upload the chunk now, so the install reads no host
+            # copy of anything
+            st = self._staging.setdefault(p["mid"], {"table": p["table"], "chunks": []})
+            value = self._upload_rows(msg.values[0])
+            state = {k: self._upload_rows(v) for k, v in zip(p["state_keys"], msg.values[1:])}
+            st["chunks"].append((int(p["lo"]), int(p["hi"]), value, state))
+            flightrec.record("migrate.stage", node=self.post.node_id, mid=p["mid"],
+                             lo=int(p["lo"]), hi=int(p["hi"]))
+            return msg.reply()
+        if op == "migrate_commit":
+            return self._commit_migration(msg)
+        if op == "migrate_install":
+            return self._install_migration(msg)
+        if op == "migrate_adopt":
+            # recipient's standby: adopt the assembled range, chained by the
+            # recipient's install after every push it forwarded before
+            routing = RoutingTable.from_payload(p["routing"])
+            gids = np.asarray(msg.keys, dtype=np.int64)
+            state = dict(zip(p["state_keys"], msg.values[1:]))
+            self._install_routing(routing, extra={p["table"]: (gids, msg.values[0], state)})
+            self.rows_migrated_in += int(gids.size)
+            flightrec.record("migrate.adopt", node=self.post.node_id, table=p["table"],
+                             rows=int(gids.size))
+            return msg.reply()
+        if op == "migrate_release":
+            # donor's standby: drop the moved range, as its primary did
+            self._install_routing(RoutingTable.from_payload(p["routing"]))
+            flightrec.record("migrate.release", node=self.post.node_id, table=p["table"])
+            return msg.reply()
+        if op == "migrate_abort":
+            self._migrations.pop(p["mid"], None)
+            self._staging.pop(p["mid"], None)
+            flightrec.record("migrate.abort", node=self.post.node_id, mid=p["mid"])
+            return msg.reply()
+        raise ValueError(f"unsupported migration op {op!r}")
+
+    def _commit_migration(self, msg: Message) -> Message:
+        """Donor commit, the freeze, bounded by the dirty delta: export the
+        rows written since their chunk shipped (one gather launch), hand them
+        to the recipient, which installs atomically, then shrink this shard
+        and adopt the new epoch.  All on the receive thread, so no push
+        interleaves; requests queued meanwhile meet the new table and fence.
+        A failed install leaves the range owned and tracked here."""
+        p = msg.task.payload
+        m = self._migrations.pop(p["mid"])
+        t0 = time.perf_counter()
+        new_routing = RoutingTable.from_payload(p["routing"])
+        t = m["table"]
+        dirty = m["dirty"].rows()
+        d_value, d_state = self._export_rows(t, dirty)
+        skeys = sorted(d_state)
+        try:
+            self._mig_rpc(
+                p["to"],
+                {"op": "migrate_install", "mid": p["mid"], "table": t, "lo": m["lo"],
+                 "hi": m["hi"], "state_keys": skeys, "routing": new_routing.to_payload()},
+                keys=dirty,
+                values=[d_value] + [d_state[k] for k in skeys],
+            )
+        except Exception:
+            self._migrations[p["mid"]] = m  # still owned here: re-arm
+            raise
+        self._install_routing(new_routing)
+        self.rows_migrated_out += m["hi"] - m["lo"]
+        if self.replica is not None:
+            self._forward_control({"op": "migrate_release", "table": t,
+                                   "routing": new_routing.to_payload()})
+        freeze = time.perf_counter() - t0
+        self.migration_freeze_last_s = freeze
+        self.migration_freeze_s += freeze
+        flightrec.record(
+            "migrate.commit", node=self.post.node_id, mid=p["mid"], table=t,
+            rows=m["hi"] - m["lo"], dirty=int(dirty.size), epoch=new_routing.epoch,
+            freeze_ms=round(1e3 * freeze, 3),
+        )
+        return msg.reply(values=[np.asarray([freeze], np.float64)])
+
+    def _install_migration(self, msg: Message) -> Message:
+        """Recipient install: the staged chunks (already on ``device``) are
+        slice-copied into the range ``[lo, hi)``, the commit's dirty delta is
+        written over them by one ``ps_scatter_set`` launch, and the range is
+        slice-copied into the grown shard."""
+        p = msg.task.payload
+        t, lo, hi = p["table"], int(p["lo"]), int(p["hi"])
+        st = self._staging.pop(p["mid"], {"chunks": []})
+        tbl = self.tables[t]
+        n = hi - lo
+        names = sorted(tbl.state)
+        planes = [torch.empty((n, tbl.dim), dtype=torch.float32, device=self.device)
+                  for _ in range(1 + len(names))]
+        covered = np.zeros(n, dtype=bool)
+        for c_lo, c_hi, c_val, c_state in st["chunks"]:
+            a, b = c_lo - lo, c_hi - lo
+            for dst, src in zip(planes, [c_val, *(c_state[k] for k in names)]):
+                dst[a:b].copy_(src)
+            covered[a:b] = True
+        d_ids = np.asarray(msg.keys if msg.keys is not None else [], dtype=np.int64)
+        if d_ids.size:
+            d_state = dict(zip(p["state_keys"], msg.values[1:]))
+            rows = [self._upload_rows(msg.values[0]),
+                    *(self._upload_rows(d_state[k]) for k in names)]
+            scatter.scatter_update_rows_planes(
+                planes, self._upload_ids((d_ids - lo).astype(np.int32)), rows)
+            covered[d_ids - lo] = True
+        if not covered.all():
+            raise RuntimeError(
+                f"migrate_install of {t!r}[{lo}:{hi}) on {self.post.node_id}: "
+                f"{int((~covered).sum())} rows never staged"
+            )
+        routing = RoutingTable.from_payload(p["routing"])
+        state = dict(zip(names, planes[1:]))
+        self._install_routing(routing, extra={t: (lo, planes[0], state)})
+        self.rows_migrated_in += n
+        flightrec.record("migrate.install", node=self.post.node_id, mid=p["mid"],
+                         table=t, lo=lo, hi=hi, epoch=routing.epoch)
+        if self.replica is not None:
+            self._forward_control(
+                {"op": "migrate_adopt", "table": t, "lo": lo, "hi": hi,
+                 "state_keys": names, "routing": routing.to_payload()},
+                keys=np.arange(lo, hi, dtype=np.int64),
+                values=self._host_rows(planes),
+            )
+        return msg.reply()
+
+    # -- legacy checkpoints ----------------------------------------------------------
+    def save_checkpoint(self, root: str, step: int) -> None:
+        """Write this server's row range of every table (value and state) as
+        a legacy uniform shard file.  A post-migration layout is refused with
+        :class:`~parameter_server_tpu_torch.checkpoint.CheckpointLayoutError`:
+        the format is uniform-contiguous; snapshot such a fleet with
+        ``KVWorker.save_snapshot``."""
+        for t, table in self.tables.items():
+            part = self.partitions[t]
+            lo, hi = int(part.offsets[self.server_index]), int(part.offsets[self.server_index + 1])
+            segs = self.routing.tables[t].owned_segments(self.server_index)
+            if segs != [seg for seg in [(lo, hi)] if seg[1] > seg[0]]:
+                raise checkpoint.CheckpointLayoutError(
+                    f"save_checkpoint: {self.post.node_id} owns migrated segments {segs} of "
+                    f"{t!r} (uniform shard is {[(lo, hi)]}); the legacy shard-file format is "
+                    "uniform-contiguous — use the partitioned durability plane "
+                    "(KVWorker.save_snapshot) or drain the migration back"
+                )
+            checkpoint.save_shard(root, step, t, table, self.server_index,
+                                  part.num_servers, lo)
+
+    def restore_checkpoint(self, root: str, step: int) -> None:
+        """Load this server's row range; the saved server count may differ."""
+        for t, table in self.tables.items():
+            checkpoint.restore_shard(root, step, t, table, self.server_index,
+                                     self.partitions[t].num_servers)
+
+    # -- partitioned incremental snapshots ---------------------------------------------
+    def _handle_snapshot(self, msg: Message) -> Message:
+        """The three-phase snapshot:
+
+        - ``snap_begin`` arms per-table dirty tracking (``_ack_push`` appends
+          host key arrays: sync-free);
+        - ``snap_write`` writes ONE owned segment to its file, a slice of
+          each plane copied to the host; pushes interleave between segments.
+          A segment whose version clock still equals the coordinator's
+          ``base_sver`` is not written: the coordinator carries the base
+          entry;
+        - ``snap_commit``, the only freeze: the rows dirtied since
+          ``snap_begin`` (one gather launch a table) become the delta log,
+          and the commit-time segment versions are stamped;
+        - ``snap_abort`` drops the bookkeeping (files left behind are never
+          named by a manifest; retention sweeps them).
+        """
+        p = msg.task.payload
+        op = p["op"]
+        if op == "snap_begin":
+            sid = str(p["sid"])
+            self._snapshots[sid] = {"dirty": {}}
+            flightrec.record("ckpt.begin", node=self.post.node_id, sid=sid)
+            return msg.reply()
+        if op == "snap_abort":
+            if self._snapshots.pop(str(p["sid"]), None) is not None:
+                flightrec.record("ckpt.abort", node=self.post.node_id, sid=str(p["sid"]),
+                                 why=str(p.get("why", "coordinator abort")))
+            return msg.reply()
+        sid = str(p["sid"])
+        if sid not in self._snapshots:
+            raise RuntimeError(
+                f"snapshot {sid!r} is not open on {self.post.node_id} "
+                "(aborted by a routing change?)"
+            )
+        reply = msg.reply()
+        if op == "snap_write":
+            t, lo, hi = p["table"], int(p["lo"]), int(p["hi"])
+            starts, ends, _ = self._shard_maps[t]
+            hit = np.nonzero((starts == lo) & (ends == hi))[0]
+            if hit.size != 1:
+                raise RuntimeError(
+                    f"snap_write: {self.post.node_id} does not own segment "
+                    f"{t}[{lo}:{hi}) as a whole"
+                )
+            cur = int(self._seg_versions[t][int(hit[0])])
+            base = p.get("base_sver")
+            out = {"carried": True, "sver": cur, "table": t, "lo": lo, "hi": hi}
+            if base is None or int(base) != cur:
+                value, state = self.export_range(t, lo, hi)
+                entry = checkpoint.write_segment_file(
+                    str(p["root"]), int(p["step"]), t, lo, hi, value, state)
+                flightrec.record("ckpt.segment", node=self.post.node_id, sid=sid, table=t,
+                                 lo=lo, hi=hi, bytes=entry["bytes"])
+                out.update(carried=False, entry=entry)
+            reply.task = dataclasses.replace(msg.task, payload=out)
+            return reply
+        if op == "snap_commit":
+            return self._commit_snapshot(msg, sid)
+        raise ValueError(f"unsupported snapshot op {op!r}")
+
+    def _commit_snapshot(self, msg: Message, sid: str) -> Message:
+        """``snap_commit``: export each table's dirty rows (one gather launch,
+        one readback) into its delta file; stamp the segment versions."""
+        p = msg.task.payload
+        sn = self._snapshots.pop(sid)
+        t0 = time.perf_counter()
+        root, step = str(p["root"]), int(p["step"])
+        deltas: List[dict] = []
+        n_dirty = 0
+        for t in sorted(sn["dirty"]):
+            gids = sn["dirty"][t].rows()
+            if not gids.size:
+                continue
+            value, state = self._export_rows(t, gids)
+            entry = checkpoint.write_delta_file(root, step, t, self.server_index, gids,
+                                                value, state)
+            if entry is not None:
+                deltas.append(entry)
+                n_dirty += int(gids.size)
+        svers = [
+            [t, int(s), int(e), int(v)]
+            for t in sorted(self.tables)
+            for s, e, v in zip(self._shard_maps[t][0], self._shard_maps[t][1],
+                               self._seg_versions[t])
+        ]
+        freeze = time.perf_counter() - t0
+        self.ckpt_freeze_last_s = freeze
+        self.ckpt_freeze_s += freeze
+        self.ckpt_commits += 1
+        self.ckpt_delta_rows += n_dirty
+        over = n_dirty > self.ckpt_max_delta_rows
+        if over:  # a soft bound: the snapshot commits, the breach is counted
+            self.ckpt_delta_overflow += 1
+        self._ckpt_commit_t = time.monotonic()
+        flightrec.record("ckpt.commit", node=self.post.node_id, sid=sid, step=step,
+                         dirty=n_dirty, freeze_ms=round(1e3 * freeze, 3), over_bound=over)
+        reply = msg.reply()
+        reply.task = dataclasses.replace(
+            msg.task, payload={"deltas": deltas, "svers": svers, "freeze_s": freeze})
+        return reply
+
+    def restore_snapshot(self, root: str, step: int, *, adopt_routing: bool = False) -> None:
+        """Point-in-time restore from a partitioned snapshot: this server
+        reads the manifest and the file ranges covering the segments it owns
+        under its CURRENT routing (the snapshot may come from a fleet of any
+        shape), and re-seeds its segment version clock from the manifest.
+
+        ``adopt_routing``: first adopt the manifest's routing when it is
+        NEWER — a same-id restart, where the fresh server starts at the
+        uniform epoch 0 but the snapshot's fleet had migrated since; without
+        it the restarted server would not own its migrated segments.  A fleet
+        restore (``load_snapshot``) keeps the current fleet's routing."""
+        manifest = checkpoint.read_snapshot(root, step)
+        if adopt_routing:
+            snap_routing = RoutingTable.from_payload(manifest["routing"])
+            if snap_routing.epoch > self.routing.epoch:
+                # metadata only: every owned row is about to be overwritten
+                # from the snapshot, which re-sizes the shard
+                self.routing = snap_routing
+                self._shard_maps = {t: self._make_map(snap_routing, t) for t in self.tables}
+                self._seg_versions = {
+                    t: np.zeros(self._shard_maps[t][0].shape[0], dtype=np.int64)
+                    for t in self.tables
+                }
+        by_seg: Dict[Tuple[str, int, int], int] = {}
+        for e in manifest["segments"]:
+            key = (str(e["table"]), int(e["lo"]), int(e["hi"]))
+            by_seg[key] = max(by_seg.get(key, 0), int(e.get("sver", 0)))
+        for t, table in self.tables.items():
+            segs = self.routing.tables[t].owned_segments(self.server_index)
+            checkpoint.restore_segments(root, manifest, t, segs, table)
+            ver = self._seg_versions[t]
+            starts, ends, _ = self._shard_maps[t]
+            for i in range(starts.shape[0]):
+                lo, hi = int(starts[i]), int(ends[i])
+                # exact match first; else the max over overlapping segments
+                # (a restore onto another fleet shape)
+                v = by_seg.get((t, lo, hi))
+                if v is None:
+                    v = max((sv for (tt, sl, sh), sv in by_seg.items()
+                             if tt == t and sl < hi and sh > lo), default=0)
+                ver[i] = max(int(ver[i]), v)
+        self._ckpt_commit_t = time.monotonic()
+        flightrec.record("ckpt.restore", node=self.post.node_id, step=int(step),
+                         tables=len(self.tables))

@@ -142,23 +142,50 @@ class KVTable:
         self.value = _to_device(value, self.device)
         self.value[-1].zero_()
 
-    def install_rows(self, value: np.ndarray, state: Dict[str, np.ndarray]) -> None:
-        """Replace the shard with ``[rows, dim]`` host arrays (NO trash row):
-        a fresh trash row (zero value, init state fills) is appended and the
-        shard installed via :meth:`resize`."""
+    def install_rows(self, value, state: Dict[str, np.ndarray]) -> None:
+        """Replace the shard with ``[rows, dim]`` host arrays (NO trash row),
+        possibly of another row count (a restore onto another fleet shape).
+
+        New planes are allocated on the device and each host array is copied
+        into its first ``rows`` rows once; the trash row gets its fill.  The
+        old planes are dropped first, so a restore needs no room for two
+        shards."""
         if set(state) != set(self.state):
             raise ValueError(
                 f"optimizer state keys mismatch: {set(state)} != {set(self.state)}"
             )
         n = int(value.shape[0])
-        buf = np.zeros((n + 1, self.dim), np.float32)
-        buf[:n] = value
-        sbuf = {}
-        for k, fill in self.optimizer.state_shapes().items():
-            sk = np.full((n + 1, self.dim), fill, np.float32)
-            sk[:n] = state[k]
-            sbuf[k] = sk
-        self.resize(buf, sbuf)
+        if value.ndim != 2 or value.shape[1] != self.dim:
+            raise ValueError(f"bad install_rows value shape {tuple(value.shape)}")
+        self.value, self.state = None, {k: None for k in self.state}
+        planes = {}
+        for k, rows in [("", value), *((k, state[k]) for k in sorted(state))]:
+            plane = torch.empty((n + 1, self.dim), dtype=torch.float32, device=self.device)
+            if n:
+                plane[:n].copy_(_host_tensor(rows))
+            planes[k] = plane
+        self.adopt_planes(planes.pop(""), planes)
+        self._reset_trash_row()
+
+    def adopt_planes(self, value: torch.Tensor, state: Dict[str, torch.Tensor]) -> None:
+        """Take ``[new_rows + 1, dim]`` float32 planes on this table's device
+        as the shard, without a copy, trash row as given (a migration rebuilds
+        the planes on the card and carries the old trash row over)."""
+        if set(state) != set(self.state):
+            raise ValueError(
+                f"optimizer state keys mismatch: {set(state)} != {set(self.state)}"
+            )
+        for plane in (value, *state.values()):
+            if (plane.dim() != 2 or plane.shape != value.shape or plane.shape[1] != self.dim
+                    or plane.shape[0] < 1 or plane.dtype != torch.float32
+                    or not _on(plane, self.device) or not plane.is_contiguous()):
+                raise ValueError(
+                    f"adopt_planes: need contiguous float32 [rows + 1, {self.dim}] planes "
+                    f"on {self.device}, got {tuple(plane.shape)} {plane.dtype} on {plane.device}"
+                )
+        self.rows = int(value.shape[0]) - 1
+        self.value = value
+        self.state = {k: state[k] for k in self.state}
 
     def resize(self, value, state) -> None:
         """Replace the shard wholesale, possibly with a different row count;
@@ -174,6 +201,24 @@ class KVTable:
         self.value = _to_device(value, self.device)
         self.state = {k: _to_device(v, self.device) for k, v in state.items()}
         self._reset_trash_row()
+
+
+def _on(t: torch.Tensor, device: torch.device) -> bool:
+    """``t`` lies on ``device`` (``cuda`` matches ``cuda:<current>``)."""
+    if t.device.type != device.type:
+        return False
+    if device.type != "cuda":
+        return True
+    index = torch.cuda.current_device() if device.index is None else device.index
+    return t.device.index == index
+
+
+def _host_tensor(arr) -> torch.Tensor:
+    """A float32 host array (or tensor) as a tensor to copy from: numpy is
+    wrapped without a copy where it is writable float32 and C-contiguous."""
+    if isinstance(arr, torch.Tensor):
+        return arr.to(torch.float32)
+    return torch.from_numpy(np.require(arr, np.float32, ["C", "W"]))
 
 
 def _to_device(arr, device: torch.device) -> torch.Tensor:

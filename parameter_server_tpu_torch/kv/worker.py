@@ -49,8 +49,12 @@ misses as read-only ``__ro__`` pulls, which are never gated;
 past the gate deadline sheds to the stale cache when it covers the waited
 rows (``consist_sheds``), else it is forced through.
 
-Not ported yet: snapshots and model save/load (``save_*`` / ``load_*``),
-and request tracing.
+The durability plane: :meth:`save_model` / :meth:`load_model` broadcast the
+legacy uniform checkpoint ops and commit its manifest; :meth:`save_snapshot`
+drives a partitioned incremental snapshot (begin, one write per segment,
+commit, then the CRC-armored manifest) over any routing layout, and
+:meth:`load_snapshot` restores one onto the current fleet, whatever its
+shape.  Not ported yet: request tracing.
 """
 
 from __future__ import annotations
@@ -64,6 +68,7 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from parameter_server_tpu_torch import checkpoint
 from parameter_server_tpu_torch.config import GroupConfig, TableConfig
 from parameter_server_tpu_torch.core import flightrec
 from parameter_server_tpu_torch.core.coalesce import GroupReducer
@@ -84,7 +89,11 @@ from parameter_server_tpu_torch.kv.routing import (
     WorkerGroup,
 )
 from parameter_server_tpu_torch.ops import scatter
-from parameter_server_tpu_torch.utils.keys import HashLocalizer, localize_to_slots
+from parameter_server_tpu_torch.utils.keys import (
+    HashLocalizer,
+    localize_to_slots,
+    localizer_meta,
+)
 from parameter_server_tpu_torch.utils.trace import LatencyHistogram
 
 
@@ -1373,6 +1382,181 @@ class KVWorker(Customer):
         flightrec.record(
             "consist.retune", node=self.post.node_id, table=table or "*",
             bound=-1 if bound is None else int(bound), mode=mode or "-", why=why[:120],
+        )
+
+    # -- durability plane ---------------------------------------------------
+    def save_model(
+        self,
+        root: str,
+        step: int,
+        *,
+        clocks: Optional[list] = None,
+        extras: Optional[dict] = None,
+        timeout: Optional[float] = 600.0,
+    ) -> None:
+        """Broadcast ``save_model`` to every server, then commit the manifest
+        (``checkpoint.finalize``).  Blocks until every shard is on disk;
+        raises if any server's save failed instead of committing a partial
+        checkpoint.  The manifest records each table's localizer, so offline
+        evaluation rebuilds the exact key -> row map."""
+        ts = self._broadcast_control("save_model", {"root": root, "step": step})
+        if not self.wait(ts, timeout):
+            raise TimeoutError("save_model timed out")
+        self.check(ts)
+        self.take_responses(ts)
+        extras = dict(extras or {})
+        extras.setdefault(
+            "localizers", {t: localizer_meta(loc) for t, loc in self.localizers.items()}
+        )
+        checkpoint.finalize(
+            root, step, self.num_servers,
+            {t: cfg.rows for t, cfg in self.table_cfgs.items()},
+            clocks=clocks, extras=extras,
+        )
+
+    def load_model(self, root: str, step: int, *, timeout: Optional[float] = 600.0) -> None:
+        """Broadcast ``load_model``: every server restores its row range."""
+        ts = self._broadcast_control("load_model", {"root": root, "step": step})
+        if not self.wait(ts, timeout):
+            raise TimeoutError("load_model timed out")
+        self.check(ts)
+        self.take_responses(ts)
+
+    def _broadcast_control(self, op: str, payload: dict) -> int:
+        """Submit ``op`` to the CURRENT owner set (after a migration it need
+        not be ``0..num_servers-1``); returns the timestamp."""
+        return self.submit(self._control_msgs(op, payload), keep_responses=True)
+
+    def _control_to(self, server: int, payload: dict) -> Message:
+        return Message(task=Task(TaskKind.CONTROL, self.name, payload=payload),
+                       recver=server_id(server))
+
+    def save_snapshot(
+        self,
+        root: str,
+        step: int,
+        *,
+        base_step: Optional[int] = None,
+        clocks: Optional[list] = None,
+        extras: Optional[dict] = None,
+        timeout: Optional[float] = 600.0,
+    ) -> dict:
+        """Partitioned, incremental, non-blocking snapshot of every table.
+
+        Works for any routing layout: each owner writes one file per owned
+        segment and this worker assembles and CRC-verifies the manifest.
+        With ``base_step``, a segment whose version clock has not advanced is
+        not rewritten: the base snapshot's file is carried by reference and
+        only the dirty-row delta logs ship.  Pushes keep applying throughout;
+        the only freeze is each server's delta export at ``snap_commit``.
+
+        Returns ``{"step", "segments", "carried", "delta_rows", "freeze_s"}``
+        (``freeze_s``: one commit freeze per server, in seconds).
+        """
+        base = checkpoint.read_snapshot(root, base_step) if base_step is not None else None
+        base_entries = {
+            (e["table"], int(e["lo"]), int(e["hi"])): e
+            for e in (base["segments"] if base else [])
+        }
+        sid = f"ckpt-{int(step)}-e{self.routing.epoch}"
+        servers = self.routing.servers()
+        begun = False
+        try:
+            self._control_round([self._control_to(s, {"op": "snap_begin", "sid": sid})
+                                 for s in servers], "snap_begin", timeout)
+            begun = True
+            # one snap_write per segment, to its owner; the servers take them
+            # one at a time on their receive threads, so pushes interleave
+            # between segments
+            writes = []
+            for t in sorted(self.routing.tables):
+                for lo, hi, owner in self.routing.tables[t].segments():
+                    payload = {"op": "snap_write", "sid": sid, "root": root,
+                               "step": int(step), "table": t, "lo": lo, "hi": hi}
+                    be = base_entries.get((t, lo, hi))
+                    if be is not None:
+                        payload["base_sver"] = int(be.get("sver", 0))
+                    writes.append(self._control_to(owner, payload))
+            # a migrated owner holds several segments, and a task takes one
+            # response per sender: spread the writes over rounds that address
+            # each server at most once
+            rounds: List[List[Message]] = []
+            for m in writes:
+                for batch in rounds:
+                    if all(b.recver != m.recver for b in batch):
+                        batch.append(m)
+                        break
+                else:
+                    rounds.append([m])
+            entries: List[dict] = []
+            carried_tables: set = set()
+            n_carried = 0
+            for batch in rounds:
+                for r in self._control_round(batch, "snap_write", timeout):
+                    pl = r.task.payload
+                    key = (str(pl["table"]), int(pl["lo"]), int(pl["hi"]))
+                    if pl.get("carried"):
+                        entries.append(dict(base_entries[key]))
+                        carried_tables.add(key[0])
+                        n_carried += 1
+                    else:
+                        entries.append(dict(pl["entry"]))
+            # commit: the measured, delta-bounded freeze on every server
+            deltas: List[dict] = []
+            svers: Dict[tuple, int] = {}
+            freezes: List[float] = []
+            delta_rows = 0
+            commits = [self._control_to(s, {"op": "snap_commit", "sid": sid, "root": root,
+                                            "step": int(step)}) for s in servers]
+            for r in self._control_round(commits, "snap_commit", timeout):
+                pl = r.task.payload
+                for d in pl["deltas"]:
+                    deltas.append(dict(d))
+                    delta_rows += int(d["rows"])
+                for t, lo, hi, v in pl["svers"]:
+                    svers[(str(t), int(lo), int(hi))] = int(v)
+                freezes.append(float(pl["freeze_s"]))
+        except Exception:
+            if begun:
+                # release the servers' dirty tracking; orphan files are swept
+                # by retention, and with no manifest the step never exists
+                try:
+                    self._control_round(
+                        [self._control_to(s, {"op": "snap_abort", "sid": sid,
+                                              "why": "coordinator error"}) for s in servers],
+                        "snap_abort", timeout)
+                except Exception:  # noqa: BLE001 — the original error is what matters
+                    pass
+            raise
+        # commit-time segment versions: a row pushed between a segment's write
+        # and the commit is in this snapshot's delta log, so the next snapshot
+        # may carry the file at the commit-time clock
+        for e in entries:
+            key = (e["table"], int(e["lo"]), int(e["hi"]))
+            if key in svers:
+                e["sver"] = svers[key]
+        # chains stay flat: carry the base's deltas only for tables that
+        # carried a base file (fresh files carry THIS step's stamp, so older
+        # deltas never apply to them)
+        if base is not None:
+            deltas.extend(dict(d) for d in base["deltas"] if d["table"] in carried_tables)
+        extras = dict(extras or {})
+        extras.setdefault(
+            "localizers", {t: localizer_meta(loc) for t, loc in self.localizers.items()}
+        )
+        checkpoint.finalize_snapshot(
+            root, step, self.routing.to_payload(), entries, deltas,
+            base_step=base_step, clocks=clocks, extras=extras,
+        )
+        return {"step": int(step), "segments": len(entries), "carried": n_carried,
+                "delta_rows": delta_rows, "freeze_s": freezes}
+
+    def load_snapshot(self, root: str, step: int, *, timeout: Optional[float] = 600.0) -> None:
+        """Restore a partitioned snapshot onto the current fleet, whatever its
+        shape: each server reads the file ranges covering its segments."""
+        self._control_round(
+            self._control_msgs("restore_snap", {"root": root, "step": int(step)}),
+            "restore_snap", timeout,
         )
 
     def _control_msgs(self, op: str, payload: dict) -> List[Message]:

@@ -8,9 +8,13 @@ optimizer state; ``ReplicaSet.on_node_dead`` promotes.  Then the port's
 loss trajectory, with the kill and the promotion, against the JAX
 package's.
 
+Then the same-id restart's restore cases: the legacy-checkpoint fallback
+with its bounded rewind, and the restore preference replica > checkpoint >
+cold, each beside the JAX package's run.
+
 Not ported here: the heartbeat-driven promotion (it needs the JAX
-package's ``core/manager.py``) and forwarding over real sockets (the TCP
-van).
+package's ``core/manager.py``), forwarding over real sockets (the TCP
+van), and the restart cases over the reliable and chaos vans.
 
 Tolerances: within the port exactly (the standby replays the same update
 stream through the same apply); against the JAX package rtol = atol = 1e-4
@@ -28,6 +32,7 @@ from parameter_server_tpu.core.postoffice import Postoffice as JaxPostoffice
 from parameter_server_tpu.core.van import LoopbackVan as JaxLoopbackVan
 from parameter_server_tpu.data.synthetic import SyntheticCTR as JaxSyntheticCTR
 from parameter_server_tpu.kv import replica as jax_replica
+from parameter_server_tpu.kv.server import KVServer as JaxKVServer
 from parameter_server_tpu.kv.worker import KVWorker as JaxKVWorker
 from parameter_server_tpu.models import linear as jax_linear
 from parameter_server_tpu_torch import config as port_config
@@ -235,3 +240,120 @@ def test_killed_run_loss_trajectory_matches_jax(sync):
     port, ref = _killed_run(sync), _jax_killed_run(sync)
     assert port[-1] < port[0]
     np.testing.assert_allclose(port, ref, **TRAJ_TOL)
+
+
+# -- same-id restart (ports of tests/test_restart.py's restore cases) ----------
+
+
+def _restart_fallback_run(pkg, root):
+    """Save a legacy checkpoint at step 3, kill S0 at step 7 and restart it
+    with no standby: the checkpoint path.  Returns the losses, the shard at
+    save time, the restarted shard and the source."""
+    if pkg == "port":
+        van, cfgs, lib = LoopbackVan(), _table_cfgs(), replica_lib
+        servers = [KVServer(Postoffice(f"S{s}", van), cfgs, s, NUM_SERVERS, device="cpu")
+                   for s in range(NUM_SERVERS)]
+        worker, batches, kw = _worker(van), _batches(), {"device": "cpu"}
+    else:
+        van, cfgs, lib = JaxLoopbackVan(), _table_cfgs(jax_config), jax_replica
+        servers = [JaxKVServer(JaxPostoffice(f"S{s}", van), cfgs, s, NUM_SERVERS)
+                   for s in range(NUM_SERVERS)]
+        worker = JaxKVWorker(JaxPostoffice("W0", van), cfgs, NUM_SERVERS)
+        batches, kw = _batches(JaxSyntheticCTR), {}
+    got = {}
+    try:
+        losses = []
+        for i, (keys, labels) in enumerate(batches):
+            w_pos = np.asarray(worker.pull_sync("w", keys, timeout=30))
+            g, _gb, loss = linear.grad_rows(torch.from_numpy(w_pos),
+                                            torch.from_numpy(labels.astype(np.float32)))
+            worker.push_sync("w", keys, g.numpy() / labels.shape[0], timeout=30)
+            losses.append(float(loss))
+            if i == 3:
+                worker.save_model(root, step=i, timeout=60)
+                got["at_save"] = servers[0].export_shard()
+            if i == 7:
+                van.unbind("S0")
+                srv, got["source"] = lib.restart_same_id(van, cfgs, 0, NUM_SERVERS,
+                                                         ckpt_root=root, **kw)
+                servers.append(srv)
+                got["restored"] = srv.export_shard()
+        return losses, got
+    finally:
+        van.close()
+        for s in servers:
+            if getattr(s, "ledger", None) is not None:
+                s.ledger.close()
+
+
+def test_same_id_restart_checkpoint_fallback_bounded_rewind(tmp_path):
+    """No standby: the restarted shard rewinds to the latest committed
+    checkpoint and no further (its rows equal the shard at save time, bit for
+    bit), and training completes through the rewind.  The same run through
+    the JAX package: the same source, losses within the trajectory
+    tolerance (the rewind is part of both trajectories)."""
+    losses, got = _restart_fallback_run("port", str(tmp_path / "port"))
+    assert got["source"] == "checkpoint" and len(losses) == STEPS
+    np.testing.assert_array_equal(got["restored"]["w"]["value"], got["at_save"]["w"]["value"])
+    for k, v in got["at_save"]["w"]["state"].items():
+        np.testing.assert_array_equal(got["restored"]["w"]["state"][k], v)
+    j_losses, j_got = _restart_fallback_run("jax", str(tmp_path / "jax"))
+    assert j_got["source"] == got["source"]
+    np.testing.assert_allclose(losses, j_losses, **TRAJ_TOL)
+
+
+def _restore_selection(pkg, root):
+    """Server, standby and checkpoint in three distinct states, then
+    restarts: standby > checkpoint > cold.  Returns each source with the
+    restored value plane, and the three states."""
+    if pkg == "port":
+        van, cfgs, lib, kw = LoopbackVan(), _table_cfgs(), replica_lib, {"device": "cpu"}
+        from parameter_server_tpu_torch import checkpoint as ckpt
+
+        make = lambda nid: KVServer(Postoffice(nid, van), cfgs, 0, 1, device="cpu")  # noqa: E731
+        worker = KVWorker(Postoffice("W0", van), cfgs, 1, device="cpu")
+    else:
+        van, cfgs, lib, kw = JaxLoopbackVan(), _table_cfgs(jax_config), jax_replica, {}
+        from parameter_server_tpu import checkpoint as ckpt
+
+        make = lambda nid: JaxKVServer(JaxPostoffice(nid, van), cfgs, 0, 1)  # noqa: E731
+        worker = JaxKVWorker(JaxPostoffice("W0", van), cfgs, 1)
+    server, standby = make("S0"), make("R0")
+    servers = [server, standby]
+    try:
+        states = {"cold": server.export_shard()["w"]["value"].copy()}
+        keys = np.arange(16, dtype=np.int64)
+        worker.push_sync("w", keys, np.ones(16, np.float32), timeout=60)
+        server.save_checkpoint(root, step=1)
+        ckpt.finalize(root, 1, 1, {"w": cfgs["w"].rows})
+        states["checkpoint"] = server.export_shard()["w"]["value"].copy()
+        worker.push_sync("w", keys, np.ones(16, np.float32), timeout=60)
+        standby.import_shard(server.export_shard())
+        states["replica"] = standby.export_shard()["w"]["value"].copy()
+        restored = []
+        for extra in ({"standby": standby, "ckpt_root": root}, {"ckpt_root": root}, {}):
+            van.unbind("S0")
+            srv, source = lib.restart_same_id(van, cfgs, 0, 1, **extra, **kw)
+            servers.append(srv)
+            restored.append((source, np.asarray(srv.export_shard()["w"]["value"]).copy()))
+        return restored, states
+    finally:
+        van.close()
+        for s in servers:
+            if getattr(s, "ledger", None) is not None:
+                s.ledger.close()
+
+
+def test_restore_selection_replica_then_checkpoint_then_cold(tmp_path):
+    """restart_same_id's preference: live standby > latest committed
+    checkpoint > cold seeded init, each restoring its source's rows exactly;
+    the JAX package picks the same sources and its states agree."""
+    restored, states = _restore_selection("port", str(tmp_path / "port"))
+    assert not np.array_equal(states["checkpoint"], states["replica"])
+    assert [s for s, _ in restored] == ["replica", "checkpoint", "cold"]
+    for source, value in restored:
+        np.testing.assert_array_equal(value, states[source])
+    j_restored, j_states = _restore_selection("jax", str(tmp_path / "jax"))
+    assert [s for s, _ in j_restored] == [s for s, _ in restored]
+    for source in states:
+        np.testing.assert_allclose(states[source], j_states[source], rtol=1e-5, atol=1e-5)

@@ -21,6 +21,13 @@
   ``overloaded``, ``_Inflight.mark_host`` / ``mark_h2d``) never waits on or
   polls a completion handle: no ``synchronize()``, ``query()`` or the calls
   above.
+- The durability plane's freeze and rebuild paths — ``_export_rows``,
+  ``_rebuild_table``, ``_commit_migration``, ``_install_migration`` and
+  ``snap_commit`` (``_commit_snapshot``), with every server method they
+  reach — never read a whole table plane to the host: no ``.cpu()``,
+  ``.numpy()``, ``.tolist()``, ``.to()``, ``np.asarray`` / ``np.array`` or
+  readback of ``tbl.value`` / ``tbl.state[...]`` (the JAX server's versions
+  of these methods do, and the scan flags them).
 - Every ``flightrec.record("<kind>", ...)`` in the port names a literal kind
   of the ``EVENTS`` registry, and the ledger's ``apply.*`` kinds are there.
 - ``LocalLRTrainer.step_block_device`` and the dense steps of
@@ -36,6 +43,7 @@ import ast
 import inspect
 import json
 import pathlib
+import re
 import shutil
 import subprocess
 import sys
@@ -50,7 +58,7 @@ from parameter_server_tpu_torch.kv.server import KVServer
 from parameter_server_tpu_torch.kv.table import KVTable
 from parameter_server_tpu_torch.kv.worker import KVWorker
 from parameter_server_tpu_torch.kv.dense import DenseKVServer, DenseKVWorker
-from parameter_server_tpu_torch.kv.replica import make_replicated_servers
+from parameter_server_tpu_torch.kv.replica import make_replicated_servers, restart_same_id
 from parameter_server_tpu_torch.learner.dense import AsyncDenseLearner, SpmdDenseTrainer
 from parameter_server_tpu_torch.learner.sgd import AsyncLRLearner, LocalLRTrainer
 from parameter_server_tpu_torch.models.dlrm import SpmdDLRMTrainer
@@ -212,6 +220,84 @@ def test_upload_helpers_copy_without_waiting():
     bad = {name: _banned_attr_calls(methods[name], UPLOAD_BANNED)
            for name in sorted(UPLOAD_HELPERS)}
     assert not any(bad.values()), f"an upload helper waits: {bad}"
+
+
+#: the durability plane's freeze and rebuild paths
+DURABLE_ROOTS = ("_export_rows", "_rebuild_table", "_commit_migration",
+                 "_install_migration", "_commit_snapshot")
+#: a whole table plane: ``tbl.value``, ``table.state[k]``, ``self.tables[t].value``
+_WHOLE_PLANE = re.compile(r"^(tbl|table|self\.tables\[[^\]]+\])\.(value|state\[[^\]]+\])$")
+#: reading a receiver to the host, and functions that read their arguments
+PLANE_READ_ATTRS = {"cpu", "numpy", "tolist", "to"}
+PLANE_READ_FUNCS = {"asarray", "array", "_readback", "_host_rows"}
+
+
+def _whole_plane(node) -> bool:
+    return bool(_WHOLE_PLANE.match(ast.unparse(node)))
+
+
+def _plane_reads(methods, roots):
+    """``(seen, [(method, call)])``: calls in ``roots`` and every server
+    method they reach that read a whole plane to the host."""
+    seen, todo, bad = set(), list(roots), []
+    while todo:
+        name = todo.pop()
+        if name in seen or name not in methods:
+            continue
+        seen.add(name)
+        for node in ast.walk(methods[name]):
+            if not isinstance(node, ast.Call):
+                continue
+            f = node.func
+            fname = f.attr if isinstance(f, ast.Attribute) else getattr(f, "id", None)
+            args = [a for arg in node.args
+                    for a in (arg.elts if isinstance(arg, (ast.List, ast.Tuple)) else [arg])]
+            if ((isinstance(f, ast.Attribute) and fname in PLANE_READ_ATTRS
+                 and _whole_plane(f.value))
+                    or (fname in PLANE_READ_FUNCS and any(_whole_plane(a) for a in args))):
+                bad.append((name, ast.unparse(node)))
+            if (isinstance(f, ast.Attribute) and isinstance(f.value, ast.Name)
+                    and f.value.id == "self"):
+                todo.append(f.attr)
+    return seen, bad
+
+
+def test_durable_paths_read_no_whole_plane():
+    methods = _method_bodies()
+    seen, bad = _plane_reads(methods, DURABLE_ROOTS)
+    assert {*DURABLE_ROOTS, "_install_routing", "_upload_rows", "_readback"} <= seen
+    assert not bad, f"whole-plane host reads on the durability plane: {bad}"
+    # snap_commit is _commit_snapshot
+    src = ast.unparse(methods["_handle_snapshot"])
+    assert "op == 'snap_commit'" in src and "self._commit_snapshot(" in src
+
+
+def _jax_server_methods():
+    tree = ast.parse((ROOT / "parameter_server_tpu" / "kv" / "server.py").read_text())
+    cls = next(n for n in tree.body if isinstance(n, ast.ClassDef) and n.name == "KVServer")
+    return {f.name: f for f in cls.body if isinstance(f, ast.FunctionDef)}
+
+
+@pytest.mark.parametrize("planted", ["jax_export_rows", "jax_rebuild_table",
+                                     "jax_install_migration", "readback", "state_plane"])
+def test_the_plane_scan_catches_a_whole_plane_read(planted):
+    """The JAX server's own versions copy whole planes (``np.asarray(tbl.
+    value)``): the scan flags each; so does a planted readback."""
+    methods = dict(_method_bodies())
+    if planted.startswith("jax_"):
+        name = planted[len("jax_"):]
+        methods[name] = _jax_server_methods()[f"_{name}"]
+        _, bad = _plane_reads(methods, [name])
+        assert any("np.asarray(tbl" in call for _, call in bad), bad
+        return
+    src = {"readback": "def _export_rows(self, table, gids):\n"
+                       "    tbl = self.tables[table]\n"
+                       "    return self._readback([tbl.value, tbl.state['sum_sq']])\n",
+           "state_plane": "def _export_rows(self, table, gids):\n"
+                          "    return self.tables[table].state['sum_sq'].cpu()[gids]\n"}[planted]
+    methods["_export_rows"] = ast.parse(src).body[0]
+    _, bad = _plane_reads(methods, ["_export_rows"])
+    assert len(bad) == 1 and bad[0][0] == "_export_rows"
 
 
 #: the ledger's submit side (JAX's ``LEDGER_SYNC_FREE_FUNCS``): SYNCING plus
@@ -379,7 +465,8 @@ def test_the_dense_sync_scan_catches_a_readback(src, want):
 @pytest.mark.parametrize("entry", [KVTable, KVServer, KVWorker, AsyncLRLearner,
                                    LocalLRTrainer, PrefetchPipeline, SpmdDLRMTrainer,
                                    DenseKVServer, DenseKVWorker, SpmdDenseTrainer,
-                                   AsyncDenseLearner, make_replicated_servers],
+                                   AsyncDenseLearner, make_replicated_servers,
+                                   restart_same_id],
                          ids=lambda c: c.__name__)
 def test_entry_points_default_to_the_card(entry):
     fn = entry.__init__ if inspect.isclass(entry) else entry
