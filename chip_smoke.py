@@ -188,6 +188,30 @@ Phases, each printing one JSON line (``"phase": ...``):
              the ack's dirty tracking cost.  Every ``ps_gather`` and
              ``ps_scatter_set`` launch of the 2^27 path held to
              ``index_select`` (exact), ``ps_apply`` to its plain version.
+   elastic   the membership and elasticity plane at config #1 width (2^22 x 1
+             AdaGrad on 2 servers, SyntheticCTR batches of 16384 x 39, 2
+             batches a workload), each leg a ``launch_local_cluster`` on a
+             LoopbackVan with ``ElasticTrainer``'s heartbeat thread (0.2 s)
+             and the scheduler's monitor (timeout 2 s), every
+             ``on_node_dead`` call recorded: ``worker_death`` (3 workers x 12
+             workloads under ASP, W2 killed after 2: all done, W2 alone
+             dead, kill-to-detection s, examples/s); ``server_death`` (2
+             workers, a legacy checkpoint every 2 workloads, S1 disconnected:
+             a pull raises; ``recover_server`` on the card bitwise the
+             checkpoint, a push moves it; recovery s, checkpoint bytes);
+             ``promotion`` (sync chains, ``ReplicaSet(manager=sched)``, 1
+             worker x 6 workloads: S0 silent after 2 and promoted, S1
+             restarted by ``restart_server`` from its standby after 4 at
+             incarnation 1 with its range; the last beat to promotion; rows
+             and losses bitwise the 2-server control's); ``scale``
+             (``scale_up`` onto S2 streaming over workload 4, ``drain_down``
+             of S1 over workload 5, each commit between workloads, tables
+             adopted from the scheduler's broadcast: bitwise the control's,
+             as many push retries, a nonempty delta each; rows moved,
+             freezes); ``vs_cpu`` (4 workloads on the card and on the CPU:
+             losses 1e-4, tables 1e-5).  Every ``ps_gather`` and
+             ``ps_scatter_set`` launch held to ``index_select`` (exact), the
+             first ``ps_apply`` on each table to its plain version.
 9. times     every kernel at the main path's shapes: device time per call
              (CUDA-graph replay), the byte bound at 3.35 TB/s, the plain
              version's time and one PyTorch library call's time; an empty
@@ -282,6 +306,19 @@ DURABLE_ROWS_LOG2, DURABLE_KEYS, DURABLE_SEED, DURABLE_WARM = 27, 1 << 16, 33, 4
 DURABLE_MIG_ROWS, DURABLE_CHUNK, DURABLE_ZIPF = 1 << 22, 1 << 16, 1.1
 #: the dense store's checkpoint: AdaGrad servers over ResNet-50's vector
 DENSE_CKPT_LR = 0.01
+#: the membership and elasticity plane at config #1 width: the heartbeat
+#: timeout (safely above a step's host time, 3-4 threads sharing the GIL)
+#: and interval, batches a workload, the worker-death run's workloads and the
+#: workloads done before the kill, the 1-worker legs' workloads, when S0 dies
+#: and S1 restarts, when scale_up starts (drain_down one workload later),
+#: the migration chunk, the card-vs-CPU run's workloads, the data seed
+ELASTIC_HB_TIMEOUT_S, ELASTIC_HB_INTERVAL_S, ELASTIC_BATCHES = 2.0, 0.2, 2
+ELASTIC_WORKLOADS, ELASTIC_KILL_AFTER, ELASTIC_RUN_WORKLOADS = 12, 2, 6
+ELASTIC_PROMOTE_AFTER, ELASTIC_RESTART_AFTER, ELASTIC_SCALE_AT = 2, 4, 3
+ELASTIC_CHUNK, ELASTIC_REF_WORKLOADS, ELASTIC_SEED = 1 << 16, 4, 41
+#: the worker-death run's request timeout: a request the victim had in
+#: flight at the kill never gets its reply, and the run waits it out
+ELASTIC_DEATH_TIMEOUT_S = 10.0
 DEVICE = "cuda"
 SOURCE = "parameter_server_tpu_torch/csrc/scatter_kernels.cu"
 REPLACES = {
@@ -433,12 +470,20 @@ def main() -> int:
     durable, durable_launches = durable_phase(torch, scatter, dev, errs)
     emit("durable", **durable)
 
+    # -- 8f. the membership and elasticity plane at config #1 width -----------------
+    elastic, elastic_launches = elastic_phase(torch, scatter, dev, errs)
+    emit("elastic", **{k: elastic[k] for k in ("launches", "phase_s", "gather_check",
+                                                "scatter_set_check", "apply_check")})
+
     # -- 9. times ----------------------------------------------------------------
     kernels = times_phase(torch, scatter, dev, errs, launches)
     for k in kernels:
         k["serve_launches"] = serve_launches[k["name"]]
         k["replica_launches"] = replica_launches[k["name"]]
         k["durable_launches"] = durable_launches[k["name"]]
+        k["elastic_launches"] = elastic_launches[k["name"]]
+        # scatter-add is not on the elasticity path either
+        k["elastic"] = elastic.get(f"{k['name']}_check")
         # scatter-add is not on the durability path
         k["durable"] = durable.get(f"{k['name']}_check")
         if k["name"] == "gather":
@@ -3716,6 +3761,508 @@ def durable_phase(torch, scatter, dev, errs):
     check(counts["gather"] > 0 and counts["scatter_set"] > 0 and counts["apply"] > 0,
           f"durable launches {counts}")
     out["launches"] = counts
+    return out, counts
+
+
+# ---------------------------------------------------------------------------
+# phase 8f: the membership and elasticity plane
+# ---------------------------------------------------------------------------
+
+
+def _elastic_shards(n, seed):
+    """``n`` workloads of ``ELASTIC_BATCHES`` config #1 batches each."""
+    from parameter_server_tpu_torch.data.synthetic import SyntheticCTR
+
+    data = SyntheticCTR(key_space=KEY_SPACE, nnz=NNZ, batch_size=BATCH, seed=seed,
+                        informative=0.1)
+    return [[data.next_batch() for _ in range(ELASTIC_BATCHES)] for _ in range(n)]
+
+
+def _tables_on(servers):
+    """The devices every plane of every server's tables lives on."""
+    return sorted({str(t.device) for srv in servers for tbl in srv.tables.values()
+                   for t in [tbl.value, *tbl.state.values()]})
+
+
+class _Cluster:
+    """``launch_local_cluster`` on a LoopbackVan (scheduler, ``n_servers``
+    servers, ``n_workers`` workers, each with its Manager), config #1's
+    table, and every ``on_node_dead`` call the scheduler makes, timed."""
+
+    def __init__(self, torch, dev, *, n_workers, n_servers=2, chain=False):
+        from parameter_server_tpu_torch.core.manager import launch_local_cluster
+        from parameter_server_tpu_torch.core.van import LoopbackVan
+        from parameter_server_tpu_torch.kv import replica as replica_lib
+        from parameter_server_tpu_torch.kv.server import KVServer
+        from parameter_server_tpu_torch.kv.worker import KVWorker
+
+        self.torch, self.van, self.cfgs = torch, LoopbackVan(), _config1_tables()
+        self.sched, self.managers, self.posts = launch_local_cluster(
+            self.van, num_workers=n_workers, num_servers=n_servers, key_space=ROWS,
+            heartbeat_timeout=ELASTIC_HB_TIMEOUT_S)
+        self.deaths = []
+        self.sched.on_node_dead.append(lambda nid: self.deaths.append((nid, time.monotonic())))
+        self.standbys = []
+        if chain:
+            self.servers, self.standbys = replica_lib.make_replicated_servers(
+                self.van, self.cfgs, n_servers, sync=True, device=dev, posts=self.posts)
+        else:
+            self.servers = [KVServer(self.posts[f"S{s}"], self.cfgs, s, n_servers, device=dev)
+                            for s in range(n_servers)]
+        self.workers = {f"W{i}": KVWorker(self.posts[f"W{i}"], self.cfgs, n_servers,
+                                          device=dev) for i in range(n_workers)}
+        check(_tables_on(self.servers + self.standbys) == [str(torch.empty(0, device=dev).device)],
+              f"elastic: server tables on {_tables_on(self.servers + self.standbys)}")
+
+    def trainer(self, shards, dev, timeout=300.0, **kw):
+        from parameter_server_tpu_torch.config import ConsistencyConfig, ConsistencyMode
+        from parameter_server_tpu_torch.learner.elastic import ElasticTrainer
+
+        return ElasticTrainer(self.workers, self.sched, shards,
+                              ConsistencyConfig(mode=ConsistencyMode.ASP), managers=self.managers,
+                              heartbeat_interval=ELASTIC_HB_INTERVAL_S, timeout=timeout,
+                              device=dev, **kw)
+
+    def dead(self):
+        return [nid for nid, _ in self.deaths]
+
+    def close(self):
+        _free_cluster(self.torch, self.van,
+                      [s for s in self.servers + self.standbys if s is not None])
+
+
+def _on_done(trainer, fn):
+    """Call ``fn(num_done)`` on the finishing worker's thread after each
+    workload that counted: between two workloads, so a 1-worker run is
+    deterministic around the event."""
+    finish = trainer.pool.finish
+
+    def hooked(worker, workload_id):
+        ok = finish(worker, workload_id)
+        if ok:
+            fn(trainer.pool.num_done())
+        return ok
+
+    trainer.pool.finish = hooked
+
+
+def _wait_for(predicate, seconds, what):
+    deadline = time.monotonic() + seconds
+    while not predicate():
+        check(time.monotonic() < deadline, f"elastic: {what} within {seconds} s")
+        time.sleep(0.01)
+
+
+def _timed_run(torch, trainer):
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    losses = trainer.run()
+    torch.cuda.synchronize()
+    return losses, time.perf_counter() - t0
+
+
+def elastic_worker_death(torch, scatter, dev, shards):
+    """3 workers draw the workloads under ASP; W2 is killed (its thread stops,
+    its endpoint disconnected) once 2 are done.  Every workload completes,
+    W2 alone is reported dead; the time from the kill to detection, and
+    examples/s until the last workload is done (the run itself also waits
+    out the victim's request that was in flight at the kill: the trainer's
+    timeout)."""
+    import threading
+
+    cl = _Cluster(torch, dev, n_workers=3)
+    try:
+        trainer = cl.trainer(shards, dev, timeout=ELASTIC_DEATH_TIMEOUT_S)
+        drained = []
+        _on_done(trainer, lambda n: n == len(shards) and drained.append(time.perf_counter()))
+        before = scatter.launch_counts()
+        out = {}
+        t_start = time.perf_counter()
+        runner = threading.Thread(target=lambda: out.update(zip(("losses", "wall"),
+                                                               _timed_run(torch, trainer))))
+        runner.start()
+        _wait_for(lambda: trainer.pool.num_done() >= ELASTIC_KILL_AFTER or not runner.is_alive(),
+                  300, "2 workloads done")
+        kill_t = time.monotonic()
+        trainer.kill("W2")
+        cl.van.disconnect("W2")
+        runner.join(600)
+        check("losses" in out, "elastic worker_death: the run raised or hung")
+        check(trainer.pool.all_done(), f"{trainer.pool.num_done()}/{len(trainer.pool)} done")
+        after = scatter.launch_counts()
+        # detection is asynchronous to completion: the survivors keep beating
+        # (the trainer's heartbeat thread ended with its run) while it sweeps
+        while "W2" not in cl.dead():
+            check(time.monotonic() - kill_t < 60, "W2 never detected dead")
+            for nid, mgr in cl.managers.items():
+                if nid not in ("H", "W2"):
+                    mgr.send_heartbeat()
+            cl.sched.check_heartbeats()
+            time.sleep(ELASTIC_HB_INTERVAL_S)
+        check(cl.dead() == ["W2"], f"elastic worker_death: dead {cl.dead()}, only W2 died")
+        check(len(drained) == 1, "the last workload's completion was not seen")
+        drain_s = drained[0] - t_start
+        by = {}
+        for w in trainer.pool._workloads.values():
+            by[w.completed_by] = by.get(w.completed_by, 0) + 1
+        launched = {k: after[k] - before[k] for k in after}
+        check(launched["gather"] > 0 and launched["apply"] > 0, f"launches {launched}")
+        return {"workers": 3, "workloads": len(shards), "batches_per_workload": ELASTIC_BATCHES,
+                "kill_after_workloads": ELASTIC_KILL_AFTER, "all_done": True,
+                "dead": cl.dead(), "kill_to_detect_s": cl.deaths[0][1] - kill_t,
+                "heartbeat_timeout_s": ELASTIC_HB_TIMEOUT_S,
+                "heartbeat_interval_s": ELASTIC_HB_INTERVAL_S,
+                "steps_trained": len(out["losses"]), "drain_s": drain_s,
+                "examples_per_s": len(out["losses"]) * BATCH / drain_s,
+                "run_s": out["wall"], "trainer_timeout_s": ELASTIC_DEATH_TIMEOUT_S,
+                "completed_by": by, "launches": launched, "tables_on": _tables_on(cl.servers)}
+    finally:
+        cl.close()
+
+
+def elastic_server_death(torch, scatter, dev, shards, root):
+    """2 workers with a checkpoint every 2 workloads (``CheckpointConfig()``,
+    auto); S1 is disconnected, a pull raises; ``recover_server`` rebuilds it
+    on the card from the latest checkpoint: its rows bitwise the
+    checkpoint's, and a push moves them."""
+    import gc
+    import os
+
+    from parameter_server_tpu_torch import checkpoint
+    from parameter_server_tpu_torch.config import CheckpointConfig
+    from parameter_server_tpu_torch.core.postoffice import Postoffice
+    from parameter_server_tpu_torch.kv.server import KVServer
+    from parameter_server_tpu_torch.learner.elastic import recover_server
+
+    cl = _Cluster(torch, dev, n_workers=2)
+    try:
+        trainer = cl.trainer(shards, dev, ckpt_root=root, ckpt_every=2,
+                             ckpt_config=CheckpointConfig())
+        losses, wall = _timed_run(torch, trainer)
+        step = checkpoint.latest_step(root)
+        plane = "partitioned" if checkpoint.latest_snapshot(root) is not None else "legacy"
+        check(step is not None and step == trainer.last_ckpt_step and plane == "legacy",
+              f"checkpoint plane {plane} at step {step} ({trainer.last_ckpt_step})")
+        w0 = cl.workers["W0"]
+        keys = shards[0][0][0]
+        cl.van.disconnect("S1")
+        raised = False
+        try:
+            w0.pull_sync("w", keys, timeout=10)
+        except (RuntimeError, TimeoutError):
+            raised = True
+        check(raised, "a pull with S1 dead returned instead of raising")
+        old = cl.servers[1]  # the dead shard's card memory goes first
+        old.ledger.close()
+        old.tables.clear()
+        cl.servers[1] = old = None
+        gc.collect()
+        torch.cuda.empty_cache()
+        cl.van.unbind("S1")
+        cl.van.reconnect("S1")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        new = recover_server(lambda: KVServer(Postoffice("S1", cl.van), cl.cfgs, 1, 2,
+                                              device=dev), root)
+        torch.cuda.synchronize()
+        recover_s = time.perf_counter() - t0
+        cl.servers[1] = new
+        check(_tables_on([new]) == _tables_on(cl.servers[:1]), "recovered S1 is not on the card")
+        lo, hi = (int(x) for x in new.partitions["w"].offsets[1:3])
+        saved = checkpoint.load_global_arrays(root, step, "w")
+        tbl = new.tables["w"]
+        same = (np.array_equal(tbl.value[:hi - lo].cpu().numpy(), saved["value"][lo:hi])
+                and all(np.array_equal(tbl.state[k][:hi - lo].cpu().numpy(), saved[f"state.{k}"][lo:hi])
+                        for k in tbl.state))
+        check(same, "the recovered S1 differs from the checkpoint on its range")
+        slots = w0.localizers["w"].assign(keys.reshape(-1))
+        probe = np.unique(keys.reshape(-1)[(slots >= lo) & (slots < hi)])[:4096]
+        before = w0.pull_sync("w", probe, timeout=60)
+        w0.push_sync("w", probe, np.ones((probe.size, DIM), np.float32), timeout=60)
+        moved = float(np.abs(w0.pull_sync("w", probe, timeout=60) - before).max())
+        check(moved > 1e-4, f"a push to the recovered S1 moved its rows by {moved}")
+        step_dir = next(d for d in os.listdir(root) if d.endswith(f"{step:06d}"))
+        return {"workers": 2, "workloads": len(shards), "ckpt_every": 2, "plane": plane,
+                "ckpt_step": step, "ckpt_bytes": _dir_bytes(os.path.join(root, step_dir)),
+                "run_s": wall, "steps_trained": len(losses), "dead_pull_raised": True,
+                "recover_s": recover_s, "rows_bitwise_equal_to_ckpt": hi - lo,
+                "push_moved_max": moved, "dead": cl.dead()}
+    finally:
+        cl.close()
+
+
+def elastic_control(torch, dev, shards):
+    """The fixed 2-server, 1-worker run the event legs are held to; returns
+    (cluster, losses, the worker's counters), the cluster still open."""
+    cl = _Cluster(torch, dev, n_workers=1)
+    losses, wall = _timed_run(torch, cl.trainer(shards, dev))
+    check(cl.dead() == [], f"control: dead {cl.dead()}")
+    return cl, losses, cl.workers["W0"].counters(), wall
+
+
+def elastic_promotion(torch, scatter, dev, shards, control):
+    """Sync replica chains on the cluster's postoffices, ``ReplicaSet(van,
+    standbys, manager=sched)``, 1 worker: after workload 2 S0 stops beating
+    and is disconnected; the scheduler's monitor finds it silent and the set
+    promotes standby 0.  After workload 4 S1 is restarted under its own id by
+    ``restart_server`` from its standby.  Losses, rows and optimizer state
+    equal the control's bit for bit; S0 alone is reported dead."""
+    import gc
+
+    from parameter_server_tpu_torch.kv.replica import ReplicaSet
+    from parameter_server_tpu_torch.learner.elastic import restart_server
+
+    ctl, ctl_losses, ctl_counters, _ = control
+    cl = _Cluster(torch, dev, n_workers=1, chain=True)
+    try:
+        rset = ReplicaSet(cl.van, cl.standbys, manager=cl.sched)
+        promoted_at = []
+        cl.sched.on_node_dead.append(lambda nid: promoted_at.append(time.monotonic()))
+        trainer = cl.trainer(shards, dev)
+        s1_before = next(n for n in cl.sched.nodes() if n.node_id == "S1")
+        ev = {}
+
+        def event(n):
+            if n == ELASTIC_PROMOTE_AFTER:
+                ev["kill_t"] = time.monotonic()
+                trainer.kill("S0")  # its beats stop
+                cl.van.disconnect("S0")  # the primary process dies
+                _wait_for(lambda: 0 in rset.promoted, 60, "standby 0 promoted")
+            elif n == ELASTIC_RESTART_AFTER:
+                old = cl.servers[1]  # S1 crashes: its card memory goes first
+                old.ledger.close()
+                old.tables.clear()
+                cl.servers[1] = old = None
+                gc.collect()
+                torch.cuda.empty_cache()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                server, source, mgr = restart_server(
+                    cl.van, cl.cfgs, 1, 2, num_workers=1, standby=cl.standbys[1],
+                    heartbeat_timeout=ELASTIC_HB_TIMEOUT_S, device=dev)
+                torch.cuda.synchronize()
+                ev["restart_s"] = time.perf_counter() - t0
+                cl.servers[1] = server
+                trainer.managers["S1"] = mgr  # the new process beats
+                ev["source"] = source
+
+        _on_done(trainer, event)
+        losses, wall = _timed_run(torch, trainer)
+        s0_row = next(n for n in cl.sched.nodes() if n.node_id == "S0")
+        s1_row = next(n for n in cl.sched.nodes() if n.node_id == "S1")
+        check(cl.dead() == ["S0"] and not s0_row.alive, f"promotion: dead {cl.dead()}")
+        check(ev.get("source") == "replica", f"restart source {ev.get('source')}")
+        check(s1_row.alive and s1_row.incarnation == 1
+              and (s1_row.range_begin, s1_row.range_end)
+              == (s1_before.range_begin, s1_before.range_end),
+              f"S1 after the restart: {s1_row}")
+        fleet = [rset.promoted[0], cl.servers[1]]
+        check(_tables_on(fleet) == _tables_on(ctl.servers), "promoted fleet is not on the card")
+        check(losses == ctl_losses, "promotion: the losses differ from the control's")
+        rows = _fleets_equal(torch, fleet, cl.workers["W0"].routing, ctl.servers,
+                             ctl.workers["W0"].routing)
+        check(rows == ROWS, f"promotion compared {rows} rows")
+        return {"workers": 1, "workloads": len(shards), "chains": "sync",
+                "promote_after_workloads": ELASTIC_PROMOTE_AFTER, "dead": cl.dead(),
+                "last_beat_to_promotion_s": promoted_at[0] - s0_row.last_seen,
+                "kill_to_promotion_s": promoted_at[0] - ev["kill_t"],
+                "restart_after_workloads": ELASTIC_RESTART_AFTER, "restart_source": ev["source"],
+                "restart_s": ev["restart_s"], "s1_incarnation": s1_row.incarnation,
+                "s1_range": [s1_row.range_begin, s1_row.range_end],
+                "run_s": wall, "losses_equal_control": True, "rows_bitwise_equal_control": rows}
+    finally:
+        cl.close()
+
+
+class _CommitGate:
+    """Holds every ``migrate_commit`` of a migrator until :meth:`release`:
+    chunks stream while the worker trains a workload, and the commit (the
+    freeze) lands between two workloads."""
+
+    def __init__(self, migrator):
+        import threading
+
+        self.migrator, self.rpc, self.open = migrator, migrator._rpc, threading.Event()
+        migrator._rpc = self._rpc
+
+    def _rpc(self, recver, payload):
+        if payload["op"] == "migrate_commit":
+            check(self.open.wait(600), "a migration commit was never released")
+        return self.rpc(recver, payload)
+
+    def release(self):
+        self.open.set()
+
+    def close(self):
+        self.migrator._rpc = self.rpc
+
+
+def elastic_scale(torch, scatter, dev, shards, control, planes):
+    """1 worker; ``scale_up`` onto S2 streams while the 4th workload trains
+    and commits after it, ``drain_down`` of S1 likewise over the 5th.  The
+    scheduler broadcasts each table (``sched=``), the worker adopts it
+    through ``Manager.on_routing``.  Trajectory and table bitwise the
+    control's, with as many push retries."""
+    import threading
+
+    from parameter_server_tpu_torch.core.postoffice import Postoffice
+    from parameter_server_tpu_torch.kv.migrate import ShardMigrator
+    from parameter_server_tpu_torch.learner.elastic import drain_down, scale_up
+
+    ctl, ctl_losses, ctl_counters, _ = control
+    cl = _Cluster(torch, dev, n_workers=1)
+    worker = cl.workers["W0"]
+    try:
+        cl.managers["W0"].on_routing.append(worker.adopt_routing)
+        mig = ShardMigrator(Postoffice("M0", cl.van), chunk_rows=ELASTIC_CHUNK, timeout=300)
+        trainer = cl.trainer(shards, dev)
+        by_index = dict(enumerate(cl.servers))
+        legs, state = [], {}
+
+        def start(name, fn):
+            gate = _CommitGate(mig)
+            before = scatter.launch_counts()
+            n_sets = len(planes.records["scatter_set"])
+            rows0 = mig.rows_moved
+
+            def body():
+                state[name] = fn()
+
+            t = threading.Thread(target=body)
+            t0 = time.perf_counter()
+            t.start()
+            return {"name": name, "gate": gate, "thread": t, "t0": t0, "before": before,
+                    "n_sets": n_sets, "rows0": rows0}
+
+        def finish(leg):
+            leg["gate"].release()
+            leg["thread"].join(600)
+            leg["gate"].close()
+            check(leg["name"] in state, f"{leg['name']} raised")
+            epoch = cl.sched.routing.epoch
+            _wait_for(lambda: worker.routing.epoch == epoch, 60, "the broadcast adopted")
+            torch.cuda.synchronize()
+            after = scatter.launch_counts()
+            deltas = [r[0] for r in planes.records["scatter_set"][leg["n_sets"]:]]
+            legs.append({"op": leg["name"], "seconds": time.perf_counter() - leg["t0"],
+                         "rows_moved": mig.rows_moved - leg["rows0"], "epoch": epoch,
+                         "commit_freeze_ms": 1e3 * mig.freeze_s_last,
+                         "delta_rows": deltas,
+                         "launches": {k: after[k] - leg["before"][k] for k in after}})
+
+        def event(n):
+            if n == ELASTIC_SCALE_AT:
+                state["up"] = start("scale_up", lambda: scale_up(
+                    cl.van, cl.cfgs, worker.routing, 2, migrator=mig, num_servers=3,
+                    sched=cl.sched, device=dev))
+            elif n == ELASTIC_SCALE_AT + 1:
+                finish(state["up"])
+                by_index[2], routing = state["scale_up"]
+                cl.servers.append(by_index[2])
+                check(routing.tables["w"].server_rows(2) > 0, "S2 owns no rows")
+                state["down"] = start("drain_down", lambda: drain_down(
+                    cl.van, routing, 1, migrator=mig, sched=cl.sched))
+            elif n == ELASTIC_SCALE_AT + 2:
+                finish(state["down"])
+
+        _on_done(trainer, event)
+        losses, wall = _timed_run(torch, trainer)
+        routing = state["drain_down"]
+        check(1 not in routing.servers() and worker.routing.epoch == routing.epoch,
+              f"final routing {routing.tables['w']}")
+        check(cl.dead() == [], f"scale: dead {cl.dead()}")
+        fleet = {s: by_index[s] for s in routing.servers()}
+        check(_tables_on(fleet.values()) == _tables_on(ctl.servers), "scaled fleet off the card")
+        check(losses == ctl_losses, "scale: the losses differ from the control's")
+        rows = _fleets_equal(torch, fleet, routing, ctl.servers, ctl.workers["W0"].routing)
+        check(rows == ROWS, f"scale compared {rows} rows")
+        retries = worker.counters()["push_retries"]
+        check(retries == ctl_counters["push_retries"],
+              f"push retries {retries} vs the control's {ctl_counters['push_retries']}")
+        check(all(leg["delta_rows"] and leg["delta_rows"][0] > 0 for leg in legs),
+              f"a commit's delta was empty: {legs}")
+        return {"workers": 1, "workloads": len(shards), "chunk_rows": ELASTIC_CHUNK,
+                "legs": legs, "run_s": wall, "epoch": routing.epoch,
+                "segments": routing.tables["w"].segments(), "push_retries": retries,
+                "losses_equal_control": True, "rows_bitwise_equal_control": rows}
+    finally:
+        cl.close()
+
+
+def elastic_vs_cpu(torch, dev, shards):
+    """The 1-worker run on the card and with ``device="cpu"`` servers and
+    worker: losses within 1e-4, every row of value and state within 1e-5."""
+    out = {}
+    for side, device in (("card", dev), ("cpu", torch.device("cpu"))):
+        cl = _Cluster(torch, device, n_workers=1)
+        try:
+            losses = cl.trainer(shards, device).run()
+            out[side] = (np.asarray(losses), [s.export_shard()["w"] for s in cl.servers])
+        finally:
+            cl.close()
+    lg, lc = out["card"][0], out["cpu"][0]
+    check(np.allclose(lg, lc, rtol=1e-4, atol=1e-4), f"losses {lg} vs cpu {lc}")
+    err = 0.0
+    for sg, sc in zip(out["card"][1], out["cpu"][1]):
+        for a, b in [(sg["value"], sc["value"]),
+                     *((sg["state"][k], sc["state"][k]) for k in sc["state"])]:
+            check(np.allclose(a, b, rtol=1e-5, atol=1e-5), "elastic card vs cpu tables")
+            err = max(err, float(np.abs(a - b).max()))
+    return {"workloads": len(shards), "steps": int(lg.size),
+            "loss_max_abs_err": float(np.abs(lg - lc).max()), "table_max_abs_err": err,
+            "loss_tol": 1e-4, "table_tol": 1e-5}
+
+
+def elastic_phase(torch, scatter, dev, errs):
+    """The membership and elasticity plane at config #1 width: legs
+    ``worker_death``, ``server_death``, ``promotion`` (with the same-id
+    ``restart``), ``scale`` and the kernel checks.  Returns (fields,
+    launches)."""
+    import os
+    import shutil
+
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        "parameter_server_tpu_torch", "build", "elastic")
+    shutil.rmtree(root, ignore_errors=True)
+    t_phase = time.perf_counter()
+    death_shards = _elastic_shards(ELASTIC_WORKLOADS, ELASTIC_SEED)
+    shards = death_shards[:ELASTIC_RUN_WORKLOADS]
+    out = {"rows": ROWS, "dim": DIM, "batch": BATCH, "nnz": NNZ,
+           "heartbeat_timeout_s": ELASTIC_HB_TIMEOUT_S,
+           "heartbeat_interval_s": ELASTIC_HB_INTERVAL_S}
+    torch.cuda.synchronize()
+    scatter.reset_launch_counts()
+    control = None
+    try:
+        with PlanesTap(torch, scatter) as planes, ApplyTap(torch, scatter) as applies:
+            out["worker_death"] = elastic_worker_death(torch, scatter, dev, death_shards)
+            emit("elastic_worker_death", **out["worker_death"])
+            out["server_death"] = elastic_server_death(torch, scatter, dev, shards, root)
+            emit("elastic_server_death", **out["server_death"])
+            control = elastic_control(torch, dev, shards)
+            out["control"] = {"run_s": control[3], "steps": len(control[1]),
+                              "push_retries": control[2]["push_retries"]}
+            out["promotion"] = elastic_promotion(torch, scatter, dev, shards, control)
+            emit("elastic_promotion", **out["promotion"])
+            out["scale"] = elastic_scale(torch, scatter, dev, shards, control, planes)
+            emit("elastic_scale", **out["scale"])
+            control[0].close()
+            control = None
+            out["vs_cpu"] = elastic_vs_cpu(torch, dev, shards[:ELASTIC_REF_WORKLOADS])
+            emit("elastic_vs_cpu", **out["vs_cpu"])
+            counts = scatter.launch_counts()
+            out["gather_check"] = planes.result(errs, "gather")
+            out["scatter_set_check"] = planes.result(errs, "scatter_set")
+            check(len(applies.records) >= 4, f"{len(applies.records)} applies held")
+            out["apply_check"] = applies.result(errs, len(applies.records))
+    finally:
+        if control is not None:
+            control[0].close()
+        shutil.rmtree(root, ignore_errors=True)
+    check(counts["gather"] > 0 and counts["apply"] > 0 and counts["scatter_set"] > 0,
+          f"elastic launches {counts}")
+    out["launches"] = counts
+    out["phase_s"] = time.perf_counter() - t_phase
     return out, counts
 
 

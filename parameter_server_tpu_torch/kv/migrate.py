@@ -113,9 +113,10 @@ class ShardMigrator(Customer):
 
         The whole range must currently belong to ONE donor (split a
         multi-owner range into per-donor calls).  Returns the new routing
-        table (epoch + 1); ``sched``: anything with ``set_routing`` (a
-        scheduler that broadcasts the table fleet-wide; the port has none
-        yet, so workers converge off fences).  On failure
+        table (epoch + 1); ``sched``: the scheduler's
+        :class:`~parameter_server_tpu_torch.core.manager.Manager`, whose
+        ``set_routing`` broadcasts the table fleet-wide (without one, workers
+        converge off fences).  On failure
         both sides are aborted and :class:`MigrationError` raised —
         ownership is unchanged and the call is safe to re-run.
         """

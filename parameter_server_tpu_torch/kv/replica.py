@@ -21,9 +21,9 @@ recovery of a dead server's key range from a replica chain):
   its routing), else the newest legacy checkpoint, else a cold seeded init.
 
 Promotion rebinds a Van endpoint, which is in-process state: it covers the
-``LoopbackVan``.  Not ported yet: ``ReplicaSet``'s wiring into a manager's
-heartbeat sweep (``core/manager.py``); :meth:`ReplicaSet.on_node_dead` is
-called directly instead.
+``LoopbackVan``.  :class:`ReplicaSet` registered on the scheduler's
+:class:`~parameter_server_tpu_torch.core.manager.Manager` promotes on a
+missed-heartbeat death.
 """
 
 from __future__ import annotations
@@ -56,11 +56,16 @@ def make_replicated_servers(
     device_replies: bool = False,
     routing: Optional[RoutingTable] = None,
     device: str | torch.device = "cuda",
+    posts: Optional[Dict[str, Postoffice]] = None,
 ) -> tuple[list[KVServer], list[KVServer]]:
     """Build ``num_servers`` primaries on ``device``, each chained to a hot
     standby.  Returns ``(primaries, standbys)``; standby ``i`` mirrors shard
     ``i``.  ``routing`` seeds one ownership map on both sides of every
-    chain (a standby must hold its primary's exact shard layout)."""
+    chain (a standby must hold its primary's exact shard layout).
+    ``posts``: existing Postoffices by node id (a cluster's, from
+    ``launch_local_cluster``, whose Managers share them); a primary ``S{i}``
+    attaches to ``posts["S{i}"]`` where given, else to a new one."""
+    posts = posts or {}
     standbys = [
         KVServer(
             Postoffice(replica_id(s), van), table_cfgs, s, num_servers,
@@ -70,7 +75,7 @@ def make_replicated_servers(
     ]
     primaries = [
         KVServer(
-            Postoffice(f"S{s}", van), table_cfgs, s, num_servers,
+            posts.get(f"S{s}") or Postoffice(f"S{s}", van), table_cfgs, s, num_servers,
             device_replies=device_replies, replica=replica_id(s),
             replica_sync=sync, max_replica_lag=max_lag, routing=routing,
             device=device,
@@ -195,11 +200,15 @@ def restart_same_id(
 
 
 class ReplicaSet:
-    """Promote standby ``i`` when ``S{i}`` is reported dead.
+    """Wire hot-standby promotion into the Manager's failure detection.
 
-    ``manager``: anything with an ``on_node_dead`` callback list (the JAX
-    package's heartbeat-sweeping manager); the port has no manager yet, so
-    its callers invoke :meth:`on_node_dead` themselves.
+    The composition the reference paper describes (heartbeats -> dead
+    server -> chain replica takes over the key range [U §4.3]): register
+    this on the SCHEDULER's
+    :class:`~parameter_server_tpu_torch.core.manager.Manager` (``manager=``)
+    and a missed-heartbeat death of ``S{i}`` promotes standby ``i`` —
+    workers' next pull/push to ``S{i}`` lands on the replica with the full
+    state, instead of a checkpoint rewind.
     """
 
     def __init__(self, van: Van, standbys: list, *, manager=None) -> None:

@@ -1,8 +1,9 @@
-"""Metrics and dashboard: AUC and per-iteration progress rows.
+"""Metrics and dashboard: AUC, counter merging and per-iteration rows.
 
-Host-side code from ``parameter_server_tpu/utils/metrics.py``: :func:`auc`
-as it is, and :class:`Dashboard` without its transport, prefetch, migration,
-tracer and MFU attachments (not ported yet).
+Host-side code from ``parameter_server_tpu/utils/metrics.py``: :func:`auc`,
+:func:`transport_counters` (the heartbeat's ``net`` stat) and
+:class:`CounterGroup` as they are, and :class:`Dashboard` without its
+transport, prefetch, migration, tracer and MFU attachments (not ported yet).
 """
 
 from __future__ import annotations
@@ -38,6 +39,64 @@ def auc(labels: np.ndarray, scores: np.ndarray) -> float:
             ranks[order[i : j + 1]] = (i + 1 + j + 1) / 2.0
         i = j + 1
     return float((ranks[pos].sum() - n_pos * (n_pos + 1) / 2.0) / (n_pos * n_neg))
+
+
+def transport_counters(van) -> dict:
+    """Merge dashboard counters from a (possibly wrapped) Van stack.
+
+    Walks the ``.inner`` chain of Van decorators (``MeteredVan``,
+    ``CoalescingVan``) down to the base transport, merging each layer's
+    ``counters()`` dict into one flat dict.  Same-named keys across layers
+    are summed.
+    """
+    out: dict = {}
+    seen = set()
+    v = van
+    while v is not None and id(v) not in seen:
+        seen.add(id(v))
+        get = getattr(v, "counters", None)
+        if callable(get):
+            try:
+                for k, val in get().items():
+                    out[k] = out.get(k, 0) + val
+            except Exception:  # pragma: no cover — metrics must never crash
+                pass
+        v = getattr(v, "inner", None)
+    return out
+
+
+class CounterGroup:
+    """Merge several ``counters()`` sources into one dict (summed keys).
+
+    The migration plane's counters live on many objects: each
+    :class:`~parameter_server_tpu_torch.kv.server.KVServer`
+    (``fenced_rejects``, ``rows_migrated_in/out``, freeze seconds), each
+    :class:`~parameter_server_tpu_torch.kv.worker.KVWorker`
+    (``refresh_retries``) and the
+    :class:`~parameter_server_tpu_torch.kv.migrate.ShardMigrator`
+    (moves/aborts).  Group them (``CounterGroup(*servers, *workers,
+    migrator)``) to read a rebalance in one dict.
+    """
+
+    def __init__(self, *sources) -> None:
+        self.sources = list(sources)
+
+    def add(self, *sources) -> "CounterGroup":
+        self.sources.extend(sources)
+        return self
+
+    def counters(self) -> dict:
+        out: dict = {}
+        for src in self.sources:
+            get = getattr(src, "counters", None)
+            if not callable(get):
+                continue
+            try:
+                for k, v in get().items():
+                    out[k] = out.get(k, 0) + v
+            except Exception:  # pragma: no cover — metrics must never crash
+                pass
+        return out
 
 
 @dataclasses.dataclass

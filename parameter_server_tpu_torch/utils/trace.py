@@ -1,16 +1,18 @@
-"""Host-side latency histograms.
+"""Host-side latency histograms and the process resource snapshot.
 
-The port's copy of ``LatencyHistogram`` from
+The port's copies of ``LatencyHistogram`` and ``resource_usage`` from
 ``parameter_server_tpu/utils/trace.py`` (stdlib only): the same buckets,
 percentiles and ``to_dict`` digest, so the apply ledger's digests
 (``kv/ledger.py``) read the same in both packages and merge with the JAX
-package's.  The span ``Tracer`` and the device-profiler hook are not ported
-yet.
+package's; ``resource_usage`` is the heartbeat's ``resource`` stat.  The
+span ``Tracer`` and the device-profiler hook are not ported yet.
 """
 
 from __future__ import annotations
 
 import math
+import os
+import time
 
 
 class LatencyHistogram:
@@ -131,3 +133,25 @@ class LatencyHistogram:
         for i, c in (d.get("b") or {}).items():
             h.counts[int(i)] = int(c)
         return h
+
+
+def resource_usage() -> dict:
+    """Process CPU/memory snapshot (reference ``util/resource_usage.h`` [U]).
+
+    Reads ``/proc`` directly (Linux); suitable as heartbeat ``stats`` payload.
+    """
+    out: dict = {"time": time.time()}
+    try:
+        with open("/proc/self/stat") as f:
+            stat = f.read()
+        # field 2 is "(comm)" and may itself contain spaces/parens — split
+        # only AFTER the last ')', then index relative to field 3 ("state")
+        parts = stat[stat.rindex(")") + 2 :].split()
+        tick = os.sysconf("SC_CLK_TCK")
+        out["cpu_user_s"] = int(parts[11]) / tick  # utime (field 14)
+        out["cpu_sys_s"] = int(parts[12]) / tick  # stime (field 15)
+        out["threads"] = int(parts[17])  # num_threads (field 20)
+        out["rss_mb"] = int(parts[21]) * os.sysconf("SC_PAGE_SIZE") / 2**20
+    except (OSError, IndexError, ValueError):
+        pass  # non-Linux: time-only heartbeat stats
+    return out

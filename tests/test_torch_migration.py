@@ -14,10 +14,11 @@ Ports of ``tests/test_migration.py``:
 
 Each runs the same seeded batches through the JAX package's migration too:
 losses and tables against it, and the migrator's and the servers' migration
-counters equal to its own.  Not ported here: the chaos cases (a donor killed
-mid-stream, a stale worker fenced under packet loss: the reliable van), the
-fleet monitor's rebalance, the scheduler broadcast and the dashboard counter
-group.
+counters equal to its own.  The scale case goes through the port's
+``learner.elastic.scale_up`` / ``drain_down``.  Not ported here: the chaos
+cases (a donor killed mid-stream, a stale worker fenced under packet loss:
+the reliable van).  The fleet monitor's rebalance, the scheduler broadcast
+and the counter group are in ``test_torch_elastic.py``.
 
 Tolerances: within the port bit for bit (the per-row apply does not depend
 on the layout); against the JAX package rtol = atol = 1e-5 for tables and
@@ -48,6 +49,7 @@ from parameter_server_tpu_torch.data.synthetic import SyntheticCTR
 from parameter_server_tpu_torch.kv.migrate import MigrationError, ShardMigrator
 from parameter_server_tpu_torch.kv.server import KVServer
 from parameter_server_tpu_torch.kv.worker import KVWorker
+from parameter_server_tpu_torch.learner.elastic import drain_down, scale_up
 from parameter_server_tpu_torch.models import linear
 from parameter_server_tpu_torch.utils.keys import HashLocalizer
 
@@ -264,28 +266,21 @@ def _elastic_run(pkg):
         def on_step(i):
             routing = state["routing"]
             if i == STEPS // 3:
+                # scale_up: a server that owns no rows joins, then the tail
+                # half of the largest segment migrates onto it
                 if pkg == "jax":
                     server, routing = jax_scale_up(fleet.van, fleet.cfgs, routing, 2,
                                                    migrator=fleet.migrator, num_servers=3)
                 else:
-                    # scale_up: a server that owns no rows joins, then the tail
-                    # half of the largest segment migrates onto it
-                    server = KVServer(Postoffice("S2", fleet.van), fleet.cfgs, 2, 3,
-                                      routing=routing, device="cpu")
-                    lo, hi = max((seg for s in routing.servers()
-                                  for seg in routing.tables["w"].owned_segments(s)),
-                                 key=lambda ab: ab[1] - ab[0])
-                    routing = fleet.migrator.migrate(routing, "w", (lo + hi) // 2, hi, 2)
+                    server, routing = scale_up(fleet.van, fleet.cfgs, routing, 2,
+                                               migrator=fleet.migrator, num_servers=3,
+                                               device="cpu")
                 fleet.servers[2] = server
                 assert routing.tables["w"].server_rows(2) > 0
             elif i == 2 * STEPS // 3:
-                if pkg == "jax":
-                    routing = jax_drain_down(fleet.van, routing, 1, migrator=fleet.migrator)
-                else:
-                    # drain_down: every range off S1, then its endpoints go
-                    routing = fleet.migrator.drain(routing, 1)
-                    for endpoint in ("S1", "S1.fw", "S1.mig"):
-                        fleet.van.unbind(endpoint)
+                # drain_down: every range off S1, then its endpoints go
+                drain = jax_drain_down if pkg == "jax" else drain_down
+                routing = drain(fleet.van, routing, 1, migrator=fleet.migrator)
             else:
                 return
             state["routing"] = routing

@@ -12,14 +12,20 @@ Then the same-id restart's restore cases: the legacy-checkpoint fallback
 with its bounded rewind, and the restore preference replica > checkpoint >
 cold, each beside the JAX package's run.
 
-Not ported here: the heartbeat-driven promotion (it needs the JAX
-package's ``core/manager.py``), forwarding over real sockets (the TCP
-van), and the restart cases over the reliable and chaos vans.
+And the heartbeat-driven promotion: ``ReplicaSet(manager=)`` on the
+scheduler's :class:`~parameter_server_tpu_torch.core.manager.Manager`
+promotes when the sweep finds the primary silent, every loss equal to the
+uninterrupted run's, beside the JAX package's same loop.
+
+Not ported here: forwarding over real sockets (the TCP van), and the
+restart cases over the reliable and chaos vans.
 
 Tolerances: within the port exactly (the standby replays the same update
 stream through the same apply); against the JAX package rtol = atol = 1e-4
 (a 12-step loss trajectory in two frameworks).
 """
+
+import time
 
 import numpy as np
 import pytest
@@ -193,6 +199,82 @@ def test_replica_set_on_node_dead_promotes_once():
         assert standbys[1].pushes == 6  # 3 forwarded, 3 direct
     finally:
         _close(van, primaries + standbys)
+
+
+def _heartbeat_promotion_run(pkg):
+    """Sync chains on a ``launch_local_cluster`` fleet: 4 steps, then S0's
+    process dies (disconnected, no more beats); the other nodes keep beating
+    while the scheduler sweeps until ``ReplicaSet`` has promoted standby 0;
+    then 4 more steps.  Returns the losses, the dead ids and the promoted
+    indexes."""
+    if pkg == "port":
+        from parameter_server_tpu_torch.core.manager import launch_local_cluster
+
+        van, cfgs, lib = LoopbackVan(), _table_cfgs(), replica_lib
+        kw, batches = {"device": "cpu"}, _batches()
+        post_cls, server_cls, worker_cls = Postoffice, KVServer, KVWorker
+    else:
+        from parameter_server_tpu.core.manager import launch_local_cluster
+
+        van, cfgs, lib = JaxLoopbackVan(), _table_cfgs(jax_config), jax_replica
+        kw, batches = {}, _batches(JaxSyntheticCTR)
+        post_cls, server_cls, worker_cls = JaxPostoffice, JaxKVServer, JaxKVWorker
+    servers = []
+    try:
+        sched, managers, posts = launch_local_cluster(van, num_workers=1,
+                                                      num_servers=NUM_SERVERS,
+                                                      heartbeat_timeout=0.6)
+        dead = []
+        sched.on_node_dead.append(dead.append)
+        # the primaries share the cluster's S* postoffices with their managers
+        standbys = [server_cls(post_cls(lib.replica_id(s), van), cfgs, s, NUM_SERVERS, **kw)
+                    for s in range(NUM_SERVERS)]
+        primaries = [server_cls(posts[f"S{s}"], cfgs, s, NUM_SERVERS,
+                                replica=lib.replica_id(s), replica_sync=True, **kw)
+                     for s in range(NUM_SERVERS)]
+        servers = primaries + standbys
+        rset = lib.ReplicaSet(van, standbys, manager=sched)
+        worker = worker_cls(posts["W0"], cfgs, NUM_SERVERS, **kw)
+        losses = []
+        beating = [m for nid, m in managers.items() if nid != "H"]
+        for i, (keys, labels) in enumerate(batches[:8]):
+            w_pos = worker.pull_sync("w", keys, timeout=30)
+            if pkg == "port":
+                g, _gb, loss = linear.grad_rows(torch.from_numpy(w_pos),
+                                                torch.from_numpy(labels.astype(np.float32)))
+                g = g.numpy()
+            else:
+                g, _gb, loss = jax_linear.grad_rows(jnp.asarray(w_pos), jnp.asarray(labels))
+                g = np.asarray(g)
+            assert worker.wait(worker.push("w", keys, g / labels.shape[0]), timeout=30)
+            losses.append(float(loss))
+            if i == 3:
+                van.disconnect("S0")  # the primary process dies, its beats stop
+                beating = [m for nid, m in managers.items() if nid not in ("H", "S0")]
+                deadline = time.monotonic() + 10.0
+                while time.monotonic() < deadline and 0 not in rset.promoted:
+                    for mgr in beating:
+                        assert mgr.wait(mgr.send_heartbeat(), timeout=30)
+                    time.sleep(0.1)
+                    sched.check_heartbeats()
+                assert not sched.is_alive("S0")
+            for mgr in beating:  # every live node beats once a step
+                assert mgr.wait(mgr.send_heartbeat(), timeout=30)
+        return losses, dead, sorted(rset.promoted)
+    finally:
+        _close(van, servers if pkg == "port" else [])
+
+
+def test_manager_heartbeat_death_triggers_promotion():
+    """The failure loop end to end: the scheduler's heartbeat sweep finds the
+    dead primary and the ReplicaSet promotes its standby; the worker keeps
+    pulling from S0 and every loss equals the uninterrupted run's."""
+    losses, dead, promoted = _heartbeat_promotion_run("port")
+    assert dead == ["S0"] and promoted == [0]
+    assert losses == _reference_losses()[:8]
+    j_losses, j_dead, j_promoted = _heartbeat_promotion_run("jax")
+    assert (j_dead, j_promoted) == (dead, promoted)
+    np.testing.assert_allclose(losses, j_losses, **TRAJ_TOL)
 
 
 def test_make_replicated_servers_chains_every_shard():

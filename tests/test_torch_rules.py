@@ -2,8 +2,9 @@
 
 - ``parameter_server_tpu_torch/`` and ``chip_smoke.py`` import neither
   ``jax`` nor anything of the JAX package ``parameter_server_tpu``; the scan
-  covers the serving plane (``kv/cache.py``, ``serve/``) and the replica
-  chain (``kv/replica.py``) by name.
+  covers the serving plane (``kv/cache.py``, ``serve/``), the replica
+  chain (``kv/replica.py``) and the membership and elasticity plane
+  (``core/manager.py``, ``core/fleet.py``, ``learner/*.py``) by name.
 - The server's push-ack path — ``_ack_push`` and the grouped apply
   (``_apply_push_group``, ``_push_group_rounds``, ``_push_group_combined``),
   with every method of the server they call — never reads device state
@@ -60,6 +61,7 @@ from parameter_server_tpu_torch.kv.worker import KVWorker
 from parameter_server_tpu_torch.kv.dense import DenseKVServer, DenseKVWorker
 from parameter_server_tpu_torch.kv.replica import make_replicated_servers, restart_same_id
 from parameter_server_tpu_torch.learner.dense import AsyncDenseLearner, SpmdDenseTrainer
+from parameter_server_tpu_torch.learner.elastic import ElasticTrainer, restart_server, scale_up
 from parameter_server_tpu_torch.learner.sgd import AsyncLRLearner, LocalLRTrainer
 from parameter_server_tpu_torch.models.dlrm import SpmdDLRMTrainer
 from parameter_server_tpu_torch.parallel import dlrm_scale
@@ -95,10 +97,18 @@ SERVING_AND_REPLICA = ("kv/cache.py", "kv/replica.py", "kv/server.py", "kv/worke
                        "serve/loadgen.py")
 
 
+#: the membership and elasticity plane's modules, held by name too
+MEMBERSHIP_AND_ELASTIC = ("core/manager.py", "core/fleet.py", "utils/metrics.py",
+                          "utils/trace.py", "learner/workload.py", "learner/elastic.py",
+                          "learner/sgd.py", "learner/dense.py")
+
+
 def test_the_import_scan_sees_every_module():
     assert len(SOURCES) >= 25
     scanned = {str(p.relative_to(PORT)) for p in SOURCES if PORT in p.parents}
     assert set(SERVING_AND_REPLICA) <= scanned
+    assert set(MEMBERSHIP_AND_ELASTIC) <= scanned
+    assert {str(p.relative_to(PORT)) for p in (PORT / "learner").glob("*.py")} <= scanned
     assert _forbidden("jax.numpy") and _forbidden("parameter_server_tpu.kv.table")
     assert not _forbidden("parameter_server_tpu_torch.kv.table")
 
@@ -466,7 +476,8 @@ def test_the_dense_sync_scan_catches_a_readback(src, want):
                                    LocalLRTrainer, PrefetchPipeline, SpmdDLRMTrainer,
                                    DenseKVServer, DenseKVWorker, SpmdDenseTrainer,
                                    AsyncDenseLearner, make_replicated_servers,
-                                   restart_same_id],
+                                   restart_same_id, ElasticTrainer, scale_up,
+                                   restart_server],
                          ids=lambda c: c.__name__)
 def test_entry_points_default_to_the_card(entry):
     fn = entry.__init__ if inspect.isclass(entry) else entry
