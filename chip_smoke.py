@@ -212,6 +212,34 @@ Phases, each printing one JSON line (``"phase": ...``):
              losses 1e-4, tables 1e-5).  Every ``ps_gather`` and
              ``ps_scatter_set`` launch held to ``index_select`` (exact), the
              first ``ps_apply`` on each table to its plain version.
+   wire      the wire's reliability layer at config #1 width: 1 worker x 2
+             servers (2^22 x 1 AdaGrad, lr 0.05) run 8 steps of pull_sync ->
+             card gradient -> push_sync over SyntheticCTR(2^26 keys) batches
+             of 16384 x 39 on three stacks: ``clean`` (LoopbackVan), ``drop``
+             (``ReliableVan(ChaosVan(LoopbackVan(), seed 0, drop 0.05))``, a
+             flat 0.25 s retransmit deadline) and ``framed`` (``CoalescingVan(
+             MeteredVan(ReliableVan(ChaosVan(FrameCodecVan(LoopbackVan()),
+             drop, duplicate and corrupt 0.05))))``: every message rides real
+             frame bytes).  Losses and every row of value and sum_sq of both
+             shards bitwise equal to ``clean``; the servers' pushes and the
+             ``ps_apply`` / ``ps_gather`` launches equal to clean's (exactly
+             once, seen at the kernel); nothing given up, drops injected, no
+             pull retry, ``flush`` settled; in ``framed`` corrupt frames
+             injected and rejected by the CRC, no message passed unframed,
+             frame bytes above payload bytes.  Then a ``push_device`` push of
+             a CUDA plane over the framed stack (one message a server): each
+             passes the codec unframed (``frame_passthrough`` rises once for
+             each delivery), is applied once and not rejected for good.
+             Examples/s of each run, the resender's counters, server 0's
+             push frame (bytes, overhead, ``encode`` / ``decode`` us, median
+             of 20 on the host clock).  ``straggler``: 2 workers x 2 servers
+             on ``MeteredVan(ReliableVan(ChaosVan(LoopbackVan())))`` with
+             ``launch_local_cluster``: ``slow_node("S1", 120)`` gets S1
+             flagged by ``FleetMonitor`` within 5 heartbeats and no healthy
+             node ever; ``slow_node("S1", 0)`` and a fresh monitor over the
+             traffic since: no node flagged in 5 beats.  The first
+             ``ps_apply`` on each table held to its plain version, every
+             ``ps_gather`` to ``index_select``.
 9. times     every kernel at the main path's shapes: device time per call
              (CUDA-graph replay), the byte bound at 3.35 TB/s, the plain
              version's time and one PyTorch library call's time; an empty
@@ -319,6 +347,14 @@ ELASTIC_CHUNK, ELASTIC_REF_WORKLOADS, ELASTIC_SEED = 1 << 16, 4, 41
 #: the worker-death run's request timeout: a request the victim had in
 #: flight at the kill never gets its reply, and the run waits it out
 ELASTIC_DEATH_TIMEOUT_S = 10.0
+#: the wire's reliability layer at config #1 width: one worker's steps (the
+#: first untimed), the chaos seed and rates, the resender's flat retransmit
+#: deadline (above the clean run's pull round trips after its first step,
+#: printed beside it) and budget, the codec's timing reps, the straggler
+#: leg's slow delay and beats, the ``push_device`` leg's keys
+WIRE_STEPS, WIRE_SEED, WIRE_DROP, WIRE_DUP, WIRE_CORRUPT = 8, 0, 0.05, 0.05, 0.05
+WIRE_TIMEOUT_S, WIRE_RETRIES, WIRE_CODEC_REPS = 0.25, 60, 20
+WIRE_SLOW_MS, WIRE_BEATS, WIRE_DEVICE_KEYS = 120.0, 5, 4096
 DEVICE = "cuda"
 SOURCE = "parameter_server_tpu_torch/csrc/scatter_kernels.cu"
 REPLACES = {
@@ -475,9 +511,17 @@ def main() -> int:
     emit("elastic", **{k: elastic[k] for k in ("launches", "phase_s", "gather_check",
                                                 "scatter_set_check", "apply_check")})
 
+    # -- 8g. the wire's reliability layer at config #1 width -------------------------
+    wire, wire_launches = wire_phase(torch, scatter, dev, errs)
+    emit("wire", **{k: wire[k] for k in ("launches", "phase_s", "gather_check",
+                                          "apply_check")})
+
     # -- 9. times ----------------------------------------------------------------
     kernels = times_phase(torch, scatter, dev, errs, launches)
     for k in kernels:
+        k["wire_launches"] = wire_launches[k["name"]]
+        # scatter-set and scatter-add are not on the wire path
+        k["wire"] = wire.get(f"{k['name']}_check")
         k["serve_launches"] = serve_launches[k["name"]]
         k["replica_launches"] = replica_launches[k["name"]]
         k["durable_launches"] = durable_launches[k["name"]]
@@ -4264,6 +4308,344 @@ def elastic_phase(torch, scatter, dev, errs):
     out["launches"] = counts
     out["phase_s"] = time.perf_counter() - t_phase
     return out, counts
+
+
+def wire_batches():
+    """The config #1 batches of phase ``wire``: one stream, seed 51."""
+    from parameter_server_tpu_torch.data.synthetic import SyntheticCTR
+
+    data = SyntheticCTR(key_space=KEY_SPACE, nnz=NNZ, batch_size=BATCH, seed=51,
+                        informative=0.1)
+    return [data.next_batch() for _ in range(WIRE_STEPS)]
+
+
+def wire_stack(kind):
+    """The van of run ``kind`` and its layers by name: ``clean`` is a plain
+    LoopbackVan; ``drop`` the reference's ``_reliable_stack``
+    (``tests/test_chaos.py:50``) at 5% drop; ``framed`` its production stack
+    over real frame bytes (``tests/test_frame.py:644``)."""
+    from parameter_server_tpu_torch.core.chaos import ChaosVan
+    from parameter_server_tpu_torch.core.coalesce import CoalescingVan
+    from parameter_server_tpu_torch.core.frame import FrameCodecVan
+    from parameter_server_tpu_torch.core.netmon import MeteredVan
+    from parameter_server_tpu_torch.core.resender import ReliableVan
+    from parameter_server_tpu_torch.core.van import LoopbackVan
+
+    if kind == "clean":
+        return LoopbackVan(), {}
+    layers = {}
+    base = LoopbackVan()
+    faults = dict(drop=WIRE_DROP)
+    if kind == "framed":
+        base = layers["codec"] = FrameCodecVan(base)
+        faults.update(duplicate=WIRE_DUP, corrupt=WIRE_CORRUPT)
+    layers["chaos"] = ChaosVan(base, seed=WIRE_SEED, **faults)
+    van = layers["reliable"] = ReliableVan(
+        layers["chaos"], timeout=WIRE_TIMEOUT_S, backoff=1.0, max_retries=WIRE_RETRIES,
+        seed=WIRE_SEED)
+    if kind == "framed":
+        layers["metered"] = MeteredVan(van, stamp=False)
+        van = CoalescingVan(layers["metered"])
+    return van, layers
+
+
+class _PushFrameTap:
+    """Keeps the last PUSH request to S0 that reaches a FrameCodecVan, and
+    counts the messages with a plane on the card that reach it."""
+
+    def __init__(self, torch, codec):
+        self.torch, self.codec, self.orig = torch, codec, codec.send
+        self.push, self.card_planes = None, []
+        codec.send = self._send
+
+    def _send(self, msg):
+        if msg.is_request and msg.recver == "S0" and msg.task.kind.value == "push":
+            self.push = msg
+        if any(isinstance(v, self.torch.Tensor) and v.is_cuda for v in msg.values):
+            self.card_planes.append(msg.recver)
+        return self.orig(msg)
+
+
+def wire_run(torch, scatter, dev, batches, kind):
+    """One worker's pull_sync -> card gradient -> push_sync over stack
+    ``kind``: losses, both shards' planes, pushes, launches, counters."""
+    from parameter_server_tpu_torch.core.postoffice import Postoffice
+    from parameter_server_tpu_torch.kv.server import KVServer
+    from parameter_server_tpu_torch.kv.worker import KVWorker
+
+    van, layers = wire_stack(kind)
+    servers = []
+    try:
+        servers = [KVServer(Postoffice(f"S{s}", van), _config1_tables(), s, 2, device=dev)
+                   for s in range(2)]
+        worker = KVWorker(Postoffice("W0", van), _config1_tables(), 2, device=dev)
+        tap = _PushFrameTap(torch, layers["codec"]) if "codec" in layers else None
+        losses, pull_s = [], []
+        torch.cuda.synchronize()
+        scatter.reset_launch_counts()
+        for step, (keys, labels) in enumerate(batches):
+            if step == 1:  # the first step warms the path up: time the rest
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+            t1 = time.perf_counter()
+            w_pos = worker.pull_sync("w", keys, timeout=120)
+            pull_s.append(time.perf_counter() - t1)
+            grad, loss = _card_grad(torch, dev, w_pos, labels)
+            worker.push_sync("w", keys, grad, timeout=120)
+            losses.append(loss)
+        torch.cuda.synchronize()
+        elapsed = time.perf_counter() - t0
+        counts = scatter.launch_counts()
+        check(van.flush(10), f"wire {kind}: the van did not settle")
+        out = {"losses": np.asarray(losses),
+               "examples_per_s": BATCH * (len(batches) - 1) / elapsed,
+               "timed_s": elapsed, "launches": counts,
+               "pushes": sum(s.pushes for s in servers), "pull_retries": worker.pull_retries,
+               "pull_s": pull_s,
+               "planes": [(e["value"], [e["state"][k] for k in sorted(e["state"])])
+                          for e in (s.export_shard()["w"] for s in servers)]}
+        if "reliable" in layers:
+            out["reliable"] = layers["reliable"].counters()
+            out["chaos"] = layers["chaos"].counters()
+        if tap is not None:
+            out.update(codec=layers["codec"].counters(), metered=layers["metered"].counters())
+            out["push_frame"] = codec_times(tap.push)
+            out["device_push"] = wire_device_push(torch, scatter, dev, worker, servers, layers,
+                                                  tap)
+        return out
+    finally:
+        _free_cluster(torch, van, servers)
+
+
+def codec_times(msg):
+    """Server 0's push frame as the codec writes it: bytes, overhead, and
+    ``encode`` / ``decode`` us, medians of ``WIRE_CODEC_REPS`` (host clock)."""
+    from parameter_server_tpu_torch.core import frame
+
+    check(msg is not None, "wire framed: no PUSH request to S0 reached the codec")
+    enc, dec = [], []
+    for _ in range(WIRE_CODEC_REPS):
+        t0 = time.perf_counter()
+        buf = frame.encode(msg)
+        t1 = time.perf_counter()
+        frame.decode(buf)
+        dec.append(time.perf_counter() - t1)
+        enc.append(t1 - t0)
+    info = frame.peek(buf)
+    check(frame.frame_nbytes(msg) == (len(buf), info.overhead), "frame_nbytes vs encode")
+    return {"bytes": len(buf), "overhead_bytes": info.overhead, "keys": int(msg.keys.size),
+            "encode_us": 1e6 * float(np.median(enc)), "decode_us": 1e6 * float(np.median(dec))}
+
+
+def wire_device_push(torch, scatter, dev, worker, servers, layers, tap):
+    """A ``push_device`` push of a plane on the card over the framed stack
+    (one message a server, each with a CUDA plane): every such message
+    reaches the codec unframed (``frame_passthrough`` rises once a delivery,
+    twice where chaos duplicates one), each server applies it once, and it
+    is not rejected as corrupt for good (nothing gave up, the van settled)."""
+    keys = np.arange(WIRE_DEVICE_KEYS, dtype=np.uint64)
+    grads = torch.full((WIRE_DEVICE_KEYS,), 1e-3, device=dev)
+    codec, rel = layers["codec"], layers["reliable"]
+    before = (codec.frame_passthrough, len(tap.card_planes), [s.pushes for s in servers],
+              scatter.launch_counts()["apply"], rel.rejected_corrupt)
+    check(worker.wait(worker.push_device("w", keys, grads), timeout=120),
+          "wire: push_device did not complete")
+    check(layers["metered"].flush(10), "wire: the van did not settle after push_device")
+    passthrough = codec.frame_passthrough - before[0]
+    reached = tap.card_planes[before[1]:]
+    pushes = [s.pushes - b for s, b in zip(servers, before[2])]
+    applies = scatter.launch_counts()["apply"] - before[3]
+    check(reached and passthrough == len(reached),
+          f"push_device: {passthrough} unframed of {len(reached)} card-plane deliveries")
+    check(sorted(set(reached)) == [f"S{i}" for i in range(len(servers))]
+          and pushes == [1] * len(servers),
+          f"push_device applied {pushes} times per server, sent to {sorted(set(reached))}")
+    check(1 <= applies <= len(servers), f"push_device: {applies} ps_apply launches")
+    check(rel.gave_up == 0, "push_device: the resender gave up")
+    return {"passthrough": passthrough, "card_plane_deliveries": len(reached),
+            "applied": pushes, "apply_launches": applies,
+            "rejected_corrupt": rel.rejected_corrupt - before[4]}
+
+
+def _same_run(clean, got, kind):
+    """Hold run ``kind`` bitwise to the clean run, exactly once."""
+    check(np.array_equal(got["losses"], clean["losses"]),
+          f"wire {kind}: losses {got['losses']} vs clean {clean['losses']}")
+    for (gv, gs), (cv, cs) in zip(got["planes"], clean["planes"]):
+        check(np.array_equal(gv, cv) and all(np.array_equal(a, b) for a, b in zip(gs, cs)),
+              f"wire {kind}: a table plane differs from the clean run")
+    check(got["pushes"] == clean["pushes"],
+          f"wire {kind}: {got['pushes']} pushes applied, clean {clean['pushes']}")
+    for name in ("apply", "gather"):
+        check(got["launches"][name] == clean["launches"][name],
+              f"wire {kind}: {name} launches {got['launches']} vs clean {clean['launches']}")
+    rel, chaos = got["reliable"], got["chaos"]
+    check(rel["gave_up"] == 0, f"wire {kind}: gave up {rel['gave_up']}")
+    check(chaos["chaos_drops"] > 0, f"wire {kind}: no drop injected")
+    check(got["pull_retries"] == 0, f"wire {kind}: {got['pull_retries']} pull retries")
+
+
+class _WindowedFleet:
+    """A FleetMonitor fed only the traffic since it was made: each link's
+    deliver histogram less its state at that moment (the per-link digests
+    riding heartbeats are cumulative)."""
+
+    def __init__(self, monitor, metered):
+        from parameter_server_tpu_torch.utils.trace import LatencyHistogram
+
+        self.monitor, self.hist = monitor, LatencyHistogram
+        self.base = {link: d["deliver"] for link, d in metered.links().items()}
+
+    def _since(self, link, digest):
+        base = self.base.get(link)
+        if base is None:
+            return digest
+        h = self.hist.from_dict(digest["deliver"])
+        b = self.hist.from_dict(base)
+        h.counts = [c - o for c, o in zip(h.counts, b.counts)]
+        h.count -= b.count
+        h.sum_s -= b.sum_s
+        top = max((i for i, c in enumerate(h.counts) if c), default=None)
+        # the window's max is unknown: bound it by its top bucket's edge
+        h.max_s = 0.0 if top is None else h.BASE * h.GROWTH ** top
+        return {**digest, "deliver": h.to_dict()}
+
+    def observe(self, node_id, stats, now=None):
+        stats = dict(stats or {})
+        stats["links"] = {link: self._since(link, d)
+                          for link, d in (stats.get("links") or {}).items()}
+        self.monitor.observe(node_id, stats, now)
+
+    def __getattr__(self, name):
+        return getattr(self.monitor, name)
+
+
+def wire_straggler(torch, dev, batches):
+    """``tests/test_fleet.py:201`` at config #1 width on the card: S1 slowed
+    by ``WIRE_SLOW_MS`` must be flagged within ``WIRE_BEATS`` heartbeats and
+    no healthy node ever; healed, a fresh monitor flags no node."""
+    from parameter_server_tpu_torch.core.chaos import ChaosVan
+    from parameter_server_tpu_torch.core.fleet import FleetMonitor, StragglerPolicy
+    from parameter_server_tpu_torch.core.manager import launch_local_cluster
+    from parameter_server_tpu_torch.core.messages import SCHEDULER
+    from parameter_server_tpu_torch.core.netmon import MeteredVan
+    from parameter_server_tpu_torch.core.resender import ReliableVan
+    from parameter_server_tpu_torch.core.van import LoopbackVan
+    from parameter_server_tpu_torch.kv.server import KVServer
+    from parameter_server_tpu_torch.kv.worker import KVWorker
+
+    chaos = ChaosVan(LoopbackVan(), seed=0)
+    reliable = ReliableVan(chaos, timeout=5.0, backoff=1.0, max_retries=3, seed=0)
+    van = MeteredVan(reliable)
+    servers = []
+    try:
+        sched, managers, posts = launch_local_cluster(van, num_workers=2, num_servers=2,
+                                                      key_space=ROWS)
+        servers = [KVServer(posts[f"S{s}"], _config1_tables(), s, 2, device=dev)
+                   for s in range(2)]
+        workers = [KVWorker(posts[f"W{w}"], _config1_tables(), 2, device=dev) for w in range(2)]
+        rng = np.random.default_rng(7)
+        feed = itertools.cycle(batches)
+
+        def beats(monitor):
+            """``WIRE_BEATS`` rounds of one push a worker and one heartbeat a
+            node; the stragglers after each round."""
+            sched.fleet = monitor
+            flags = []
+            for _ in range(WIRE_BEATS):
+                for w in workers:
+                    keys = next(feed)[0]
+                    grads = rng.standard_normal(keys.size).astype(np.float32) / BATCH
+                    check(w.wait(w.push("w", keys, grads), timeout=120), "straggler: push")
+                for nid, mgr in managers.items():
+                    if nid != SCHEDULER:
+                        check(mgr.wait(mgr.send_heartbeat(), timeout=120), "straggler: beat")
+                flags.append(sorted(monitor.stragglers()))
+            return flags
+
+        policy = StragglerPolicy(k=4.0, p99_floor_ms=40.0)
+        chaos.slow_node("S1", WIRE_SLOW_MS)
+        slow_monitor = FleetMonitor(policy=policy)
+        t0 = time.perf_counter()
+        slowed = beats(slow_monitor)
+        flagged_at = next((i + 1 for i, f in enumerate(slowed) if "S1" in f), None)
+        check(all(set(f) <= {"S1"} for f in slowed), f"straggler: a healthy node flagged {slowed}")
+        check(flagged_at is not None, f"straggler: S1 not flagged in {WIRE_BEATS} beats: "
+              f"{slow_monitor.snapshot()}")
+        injected = chaos.injected_slow
+        check(injected > 0, "straggler: no slowed delivery")
+        chaos.slow_node("S1", 0)
+        healed_monitor = _WindowedFleet(FleetMonitor(policy=policy), van)
+        healed = beats(healed_monitor)
+        check(all(not f for f in healed), f"straggler: flags after the heal {healed}")
+        check(chaos.injected_slow == injected, "straggler: slowed deliveries after the heal")
+        snap = slow_monitor.snapshot()
+        return {"slow_ms": WIRE_SLOW_MS, "beats": WIRE_BEATS, "flagged_at_beat": flagged_at,
+                "flags_by_beat": slowed, "healed_flags_by_beat": healed,
+                "slowed_deliveries": injected,
+                "s1_push_p99_ms": snap["S1"].get("push_p99_ms"),
+                "s0_push_p99_ms": snap["S0"].get("push_p99_ms"),
+                "s1_push_p99_ms_healed": healed_monitor.snapshot()["S1"].get("push_p99_ms"),
+                "seconds": time.perf_counter() - t0}
+    finally:
+        _free_cluster(torch, van, servers)
+
+
+def wire_phase(torch, scatter, dev, errs):
+    """The wire's reliability layer at config #1 width: runs ``clean``,
+    ``drop`` and ``framed`` of one worker, the ``push_device`` leg and the
+    straggler leg.  Returns (fields, launches of the phase's runs)."""
+    t_phase = time.perf_counter()
+    batches = wire_batches()
+    total = dict.fromkeys(REPLACES, 0)
+    runs = {}
+    with PlanesTap(torch, scatter) as planes, ApplyTap(torch, scatter) as applies:
+        for kind in ("clean", "drop", "framed"):
+            applies.seen.clear()  # hold each run's first apply on every table
+            runs[kind] = wire_run(torch, scatter, dev, batches, kind)
+            counts = scatter.launch_counts()  # the framed run's include push_device
+            for name in total:
+                total[name] += counts[name]
+        # the retransmit deadline against the clean run's pull round trips
+        # after the warm-up step (an upper bound on the ACK's round trip)
+        steady = runs["clean"]["pull_s"][1:]
+        out = {"rows": ROWS, "dim": DIM, "batch": BATCH, "nnz": NNZ, "steps": WIRE_STEPS,
+               "seed": WIRE_SEED, "timeout_s": WIRE_TIMEOUT_S,
+               "clean_pull_s_median": float(np.median(steady)),
+               "clean_pull_s_max": float(max(steady))}
+        clean = runs["clean"]
+        for kind in ("drop", "framed"):
+            _same_run(clean, runs[kind], kind)
+        fr = runs["framed"]
+        check(fr["chaos"]["chaos_corrupt"] > 0 and fr["reliable"]["rejected_corrupt"] > 0,
+              f"wire framed: corruption {fr['chaos']} / {fr['reliable']}")
+        check(fr["codec"]["frame_passthrough"] == 0,
+              f"wire framed: {fr['codec']['frame_passthrough']} messages passed unframed")
+        check(fr["metered"]["wire_frame_bytes"] > fr["metered"]["wire_bytes"],
+              f"wire framed: metering {fr['metered']}")
+        for kind, r in runs.items():
+            out[kind] = {k: r[k] for k in ("examples_per_s", "timed_s", "launches", "pushes",
+                                           "pull_s")}
+            out[kind]["loss_first"], out[kind]["loss_last"] = map(float, r["losses"][[0, -1]])
+            for k in ("reliable", "chaos", "codec", "metered", "push_frame", "device_push"):
+                if k in r:
+                    out[kind][k] = r[k]
+            emit("wire_" + kind, **out[kind])
+        scatter.reset_launch_counts()
+        applies.seen.clear()
+        out["straggler"] = wire_straggler(torch, dev, batches)
+        emit("wire_straggler", **out["straggler"])
+        counts = scatter.launch_counts()
+        for name in total:
+            total[name] += counts[name]
+        out["gather_check"] = planes.result(errs, "gather")
+        check(len(applies.records) == 8, f"{len(applies.records)} applies held, expected 8 "
+              "(2 tables x 3 runs and the straggler leg)")
+        out["apply_check"] = applies.result(errs, len(applies.records))
+    check(total["gather"] > 0 and total["apply"] > 0, f"wire launches {total}")
+    out["launches"] = total
+    out["phase_s"] = time.perf_counter() - t_phase
+    return out, total
 
 
 # ---------------------------------------------------------------------------

@@ -1,7 +1,7 @@
 """Configuration dataclasses: the fields of the JAX package's ``config.py``
 that the sparse-LR push/pull loop, the server's apply ledger, the
-consistency gate, worker groups, the serving plane and the durability plane
-read, with the same names, defaults and validation."""
+consistency gate, worker groups, the serving plane, the durability plane and
+the transport read, with the same names, defaults and validation."""
 
 from __future__ import annotations
 
@@ -222,6 +222,44 @@ class CheckpointConfig:
             raise ValueError(f"retention must be >= 0, got {self.retention!r}")
         if self.mode not in ("auto", "legacy", "partitioned"):
             raise ValueError(f"mode must be auto|legacy|partitioned, got {self.mode!r}")
+
+
+@dataclasses.dataclass(frozen=True)
+class TransportConfig:
+    """Transport knobs: wire backend + colocated shm rings.
+
+    ``TcpVan`` consumes this; both knobs also answer to env overrides
+    (``PS_WIRE=epoll|threaded``, ``PS_NO_SHM=1``) so tests and rollouts can
+    flip backends without plumbing a config through every constructor.
+    """
+
+    #: native wire backend: "epoll" (one event-loop thread multiplexing all
+    #: connections, vectored writev sends, bounded write queues —
+    #: ``native/src/epollvan.cc``) or "threaded" (the thread-per-
+    #: connection core, ``native/src/tcpvan.cc``).  "epoll" quietly falls
+    #: back to "threaded" when the epoll backend fails to build.
+    wire: str = "epoll"
+    #: negotiate shared-memory rings for colocated links (same boot id):
+    #: frames bypass TCP via ``core/shm_ring.py``; any doubt (ring full,
+    #: peer dead, old peer that never acks) degrades per-frame to TCP.
+    shm: bool = True
+    #: per-direction ring capacity in bytes.
+    ring_capacity: int = 4 << 20
+    #: how long a sender waits for ring space before falling back to TCP
+    #: for that frame (counted in ``ring_full``).
+    ring_wait_s: float = 0.0005
+
+    def __post_init__(self) -> None:
+        if self.wire not in ("epoll", "threaded"):
+            raise ValueError(f"wire must be epoll|threaded, got {self.wire!r}")
+        if self.ring_capacity < 4096:
+            raise ValueError(
+                f"ring_capacity must be >= 4096, got {self.ring_capacity!r}"
+            )
+        if self.ring_wait_s < 0:
+            raise ValueError(
+                f"ring_wait_s must be >= 0, got {self.ring_wait_s!r}"
+            )
 
 
 @dataclasses.dataclass(frozen=True)

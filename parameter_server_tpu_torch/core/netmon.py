@@ -13,12 +13,17 @@ latency distributions in mergeable
   ``time.monotonic()`` into ``Task.payload`` (``__mts__``) on the way out and
   stripping it in a receive wrapper on the way in.
 
-Stack position: the JAX package meters OUTERMOST, or under a
-``CoalescingVan`` to count each bundle member's verb as sent.  The frame
-sizes of the flat wire codec (``frame_bytes``, ``overhead_bytes``) and the
-compressed-plane ``raw_bytes`` need ``core/frame.py`` and the filters, which
-are not ported yet; ``bytes`` here is the same payload count as the JAX
-package's.
+Besides the payload ``bytes`` each link counts ``frame_bytes``, the exact
+flat-frame size of the message as sent (planes plus the 52-byte header and
+the meta section, sized by ``core/frame.py::frame_nbytes`` without building
+the frame), its non-plane share ``overhead_bytes``, and ``raw_bytes``: the
+payload before a lossy wire codec (its ``COMPRESSED_KEY`` marker's
+``saved``), equal to ``bytes`` on uncompressed links.  All are the JAX
+package's counts for the same traffic.
+
+Stack position: OUTERMOST — ``MeteredVan(ReliableVan(ChaosVan(base)))`` — so
+each logical message is counted once (retransmits and ACKs happen below),
+or under a ``CoalescingVan`` to count each bundle member's verb as sent.
 """
 
 from __future__ import annotations
@@ -29,7 +34,7 @@ from typing import Callable, Dict, Optional, Tuple
 
 import numpy as np
 
-from parameter_server_tpu_torch.core import flightrec
+from parameter_server_tpu_torch.core import flightrec, frame
 from parameter_server_tpu_torch.core.messages import Message, Task
 from parameter_server_tpu_torch.core.van import Van, VanWrapper
 from parameter_server_tpu_torch.utils.trace import LatencyHistogram
@@ -55,11 +60,18 @@ def payload_nbytes(msg: Message) -> int:
 class _LinkStats:
     """Counters + histograms for one directed link."""
 
-    __slots__ = ("msgs", "bytes", "verbs", "send", "deliver")
+    __slots__ = ("msgs", "bytes", "raw_bytes", "frame_bytes",
+                 "overhead_bytes", "verbs", "send", "deliver")
 
     def __init__(self) -> None:
         self.msgs = 0
         self.bytes = 0
+        #: payload bytes before a lossy wire codec (``bytes`` plus its saving)
+        self.raw_bytes = 0
+        #: exact flat-frame size: planes plus the fixed header and meta
+        self.frame_bytes = 0
+        #: the non-plane share of ``frame_bytes`` (header + meta)
+        self.overhead_bytes = 0
         #: per-verb split of msgs/bytes: ``{"PUSH": [msgs, bytes], ...}``
         self.verbs: Dict[str, list] = {}
         self.send = LatencyHistogram()
@@ -69,6 +81,9 @@ class _LinkStats:
         return {
             "msgs": self.msgs,
             "bytes": self.bytes,
+            "raw_bytes": self.raw_bytes,
+            "frame_bytes": self.frame_bytes,
+            "overhead_bytes": self.overhead_bytes,
             "verbs": {v: {"msgs": c[0], "bytes": c[1]} for v, c in self.verbs.items()},
             "send": self.send.to_dict(),
             "deliver": self.deliver.to_dict(),
@@ -110,6 +125,12 @@ class MeteredVan(VanWrapper):
     # -- send path -----------------------------------------------------------
     def send(self, msg: Message) -> bool:
         nbytes = payload_nbytes(msg)
+        saved = 0
+        p = msg.task.payload
+        if isinstance(p, dict):
+            wc = p.get(frame.COMPRESSED_KEY)
+            if isinstance(wc, dict):
+                saved = int(wc.get("saved", 0))
         out = msg
         if self._stamp:
             # direct constructors, not dataclasses.replace (per-message hot path)
@@ -123,6 +144,13 @@ class MeteredVan(VanWrapper):
                 sender=msg.sender, recver=msg.recver, keys=msg.keys,
                 values=msg.values, is_request=msg.is_request,
             )
+        # exact wire framing for this message as sent (with the __mts__
+        # stamp just added); resender stamps added below ride the fixed
+        # header, so they add no meta bytes
+        try:
+            fbytes, obytes = frame.frame_nbytes(out)
+        except frame.FrameError:  # uncodable payload object (in-process only)
+            fbytes, obytes = nbytes + frame.HEADER_SIZE, frame.HEADER_SIZE
         t0 = time.perf_counter()
         ok = self.inner.send(out)
         dt = time.perf_counter() - t0
@@ -131,6 +159,9 @@ class MeteredVan(VanWrapper):
             st = self._link(msg.sender, msg.recver)
             st.msgs += 1
             st.bytes += nbytes
+            st.raw_bytes += nbytes + saved
+            st.frame_bytes += fbytes
+            st.overhead_bytes += obytes
             vb = st.verbs.get(verb)
             if vb is None:
                 vb = st.verbs[verb] = [0, 0]
@@ -183,6 +214,9 @@ class MeteredVan(VanWrapper):
             return {
                 "wire_msgs": sum(st.msgs for st in self._links.values()),
                 "wire_bytes": sum(st.bytes for st in self._links.values()),
+                "wire_raw_bytes": sum(st.raw_bytes for st in self._links.values()),
+                "wire_frame_bytes": sum(st.frame_bytes for st in self._links.values()),
+                "wire_overhead_bytes": sum(st.overhead_bytes for st in self._links.values()),
                 "wire_links": len(self._links),
                 "wire_undeliverable": self.undeliverable,
             }

@@ -5,7 +5,11 @@ module's bundle format and ``CoalescingVan``.  These tests hold ``_pack`` /
 ``_unpack`` to the JAX ones byte for byte (and across packages), replay the
 JAX package's flush-trigger and KV-plane cases on the port, and run a
 2 workers x 2 servers two-table loop through ``push_many`` on both
-packages' coalescing stacks.
+packages' coalescing stacks.  Over ``CoalescingVan(ReliableVan(ChaosVan(
+LoopbackVan())))`` with drop and duplication: bundles delivered exactly once
+and in order; one LR step bitwise the clean one; windows of pushes with
+cross-member duplicate ids, bundled and applied as a group, bitwise the clean
+per-request run (the JAX apply engine's acceptance gate).
 
 Tolerances: host code (bundle index, key bytes, counters) exactly; tables
 bitwise within the port (bundled against unbundled), within rtol = atol =
@@ -508,3 +512,131 @@ def test_push_many_loop_matches_jax_on_coalescing_stacks():
     for (pw, pu), (jw, ju) in zip(port_pulled, jax_pulled):
         np.testing.assert_allclose(pw, np.asarray(jw), **TOL)
         np.testing.assert_allclose(pu, np.asarray(ju), **TOL)
+
+
+# ------------------------------------------------------------ chaos stack
+
+
+def _chaos_stack(seed, **faults):
+    from parameter_server_tpu_torch.core.chaos import ChaosVan
+    from parameter_server_tpu_torch.core.resender import ReliableVan
+
+    chaos = ChaosVan(LoopbackVan(), seed=seed, **faults)
+    rel = ReliableVan(chaos, timeout=0.05, backoff=1.0, max_retries=60, seed=seed)
+    return CoalescingVan(rel), rel, chaos
+
+
+def _close_all(van, servers):
+    van.close()
+    for s in servers:
+        if s.ledger is not None:
+            s.ledger.close()
+
+
+@pytest.mark.chaos
+@pytest.mark.parametrize("seed", [0, 1])
+def test_bundles_exactly_once_under_chaos(seed):
+    """Bundles are retransmitted and deduplicated as units: under drop and
+    duplication each sub-message arrives exactly once, in order within its
+    bundle."""
+    van, rel, chaos = _chaos_stack(seed, drop=0.05, duplicate=0.05)
+    try:
+        got = []
+        van.bind("B", got.append)
+        van.bind("A", lambda m: None)  # A receives B's ACKs
+        n = 40
+        for i in range(n):
+            with van.window():
+                van.send(_msg(i, customer="w"))
+                van.send(_msg(i, customer="u"))
+        assert van.flush(30)
+        assert _settle(lambda: len(got) == 2 * n)
+        by_time = {}
+        for m in got:
+            by_time.setdefault(m.task.time, []).append(m.task.customer)
+        assert set(by_time) == set(range(n))
+        assert all(pair == ["w", "u"] for pair in by_time.values())
+        assert rel.gave_up == 0
+        assert chaos.injected_drops + chaos.injected_dups > 0
+        assert van.counters()["coalesce_frames"] >= n
+    finally:
+        van.close()
+
+
+@pytest.mark.chaos
+def test_lr_step_parity_through_full_chaos_stack():
+    """One pull -> grad -> push LR step through the full stack under 5% drop
+    equals the clean LoopbackVan step bit for bit."""
+    from parameter_server_tpu_torch.models import linear
+
+    rng = np.random.default_rng(5)
+    keys = rng.integers(0, 1 << 20, size=(128, 8), dtype=np.uint32)
+    labels = (np.arange(128) % 2).astype(np.float32)
+
+    def run(van, servers):
+        worker = _make_worker(van, servers)
+        w = worker.pull_sync("w", keys, timeout=60)
+        g, _gb, loss = linear.grad_rows(torch.from_numpy(w), torch.from_numpy(labels))
+        worker.push_sync("w", keys, g.numpy() / 128.0, timeout=60)
+        return float(loss), worker.pull_sync("w", keys, timeout=60)
+
+    clean, servers = LoopbackVan(), []
+    try:
+        loss_ref, w_ref = run(clean, servers)
+    finally:
+        _close_all(clean, servers)
+    van, rel, _chaos = _chaos_stack(3, drop=0.05)
+    servers = []
+    try:
+        loss_got, w_got = run(van, servers)
+        assert loss_got == loss_ref
+        np.testing.assert_array_equal(w_got, w_ref)
+        assert van.flush(10)
+        assert rel.gave_up == 0
+    finally:
+        _close_all(van, servers)
+
+
+def _e2e_run(van, servers, steps=3):
+    """Each step pushes the same table twice in one coalescing window with
+    overlapping keys, so every server's bundle holds duplicate rows across
+    its members; then the whole table is pulled."""
+    cfgs = {"w": TableConfig(name="w", rows=1 << 10, dim=4,
+                             optimizer=OptimizerConfig(kind="adagrad", learning_rate=0.1))}
+    servers += [KVServer(Postoffice(f"S{s}", van), cfgs, s, NUM_SERVERS, device="cpu")
+                for s in range(NUM_SERVERS)]
+    worker = KVWorker(Postoffice("W0", van), cfgs, NUM_SERVERS, device="cpu")
+    rng = np.random.default_rng(11)
+    for _ in range(steps):
+        pool = rng.choice(1 << 10, size=96, replace=False).astype(np.uint32)
+        k1, k2 = np.sort(pool[:64]), np.sort(pool[32:])
+        g1 = rng.normal(size=(64, 4)).astype(np.float32)
+        g2 = rng.normal(size=(64, 4)).astype(np.float32)
+        with worker.coalesce_window():
+            t1 = worker.push("w", k1, g1)
+            t2 = worker.push("w", k2, g2)
+        assert worker.wait(t1, timeout=60) and worker.wait(t2, timeout=60)
+    return worker.pull_sync("w", np.arange(1 << 10, dtype=np.uint32), timeout=60)
+
+
+@pytest.mark.chaos
+def test_e2e_bundled_batched_pushes_bitwise_match_sequential_under_chaos():
+    """Coalesced bundles, batch delivery and grouped applies with
+    retransmission under drop and duplication land the same bits as clean
+    per-request handling over a plain LoopbackVan."""
+    clean, servers = LoopbackVan(), []
+    try:
+        want = _e2e_run(clean, servers)
+    finally:
+        _close_all(clean, servers)
+    van, rel, chaos = _chaos_stack(2, drop=0.05, duplicate=0.05)
+    servers = []
+    try:
+        got = _e2e_run(van, servers)
+        assert van.flush(30)
+        assert rel.gave_up == 0
+        assert chaos.injected_drops + chaos.injected_dups > 0
+        assert van.counters()["coalesce_msgs"] > van.counters()["coalesce_frames"]
+    finally:
+        _close_all(van, servers)
+    np.testing.assert_array_equal(got, want)

@@ -11,7 +11,11 @@ under a strict alternation equals the ungated run; a push held past the
 gate deadline is forced through, never dropped, and a pull sheds to the
 stale hot-row cache when it covers the waited rows; the live mode flip; the
 sync push's routing-fence retry, message for message; the worker's
-counter and digest keys.
+counter and digest keys.  Under ``ReliableVan(ChaosVan(...))`` with drop,
+duplication and delay, 3 workers under SSP(2) through a live migration and a
+same-id worker restart: the all-live clocks never spread past bound + 1, the
+dead incarnation's entry is pruned, every worker finishes and nothing is
+forced or shed; the straggler is held on the gate's defers, not on sleeps.
 
 Tolerances: host code (clock answers, tuner decisions, payloads, counters,
 message counts) exactly; tables bitwise within the port and within rtol =
@@ -558,3 +562,106 @@ def test_table_config_consistency_field_matches_jax():
     assert fields["consistency"] is ref["consistency"] is None
     with pytest.raises(ValueError):
         config.ConsistencyConfig(gate_retry_s=0)
+
+
+# ------------------------------------------------- the chaos acceptance case
+
+
+@pytest.mark.chaos
+@pytest.mark.parametrize("seed", [0, 3])
+def test_ssp_bound_holds_under_chaos_migration_and_restart(seed):
+    """3 workers under SSP(bound=2) over seeded drop / duplicate / delay, a
+    live migration and a same-id restart of W2 mid-run: the all-live
+    clocks never spread past bound + 1, the restart's stale entry is pruned,
+    every worker completes, the final clocks agree, nothing forced or shed.
+
+    Worker 0 is the straggler by handshake: before each of its first
+    ``HELD`` steps it waits until the servers have deferred a peer (or W1 is
+    done), so the gate is exercised whatever the machine's load."""
+    from parameter_server_tpu_torch.core.chaos import ChaosVan
+    from parameter_server_tpu_torch.core.postoffice import Postoffice
+    from parameter_server_tpu_torch.core.resender import ReliableVan
+    from parameter_server_tpu_torch.kv.migrate import ShardMigrator
+
+    BOUND, STEPS, HELD = 2, 20, 6
+    chaos = ChaosVan(van.LoopbackVan(), seed=seed, drop=0.05, duplicate=0.1, delay=0.002)
+    v = ReliableVan(chaos, timeout=0.05, backoff=1.0, max_retries=120, seed=seed)
+    cfgs = _table_cfgs(PORT, "ssp", BOUND, deadline=0.0)
+    servers, workers = _cluster(PORT, v, cfgs, n_workers=3)
+    phase, spreads, fails = [0], [], []
+    done = [threading.Event() for _ in range(3)]
+    stop = threading.Event()
+
+    def sample():
+        for s in servers:
+            snap = s._consist["w"]["clock"].snapshot()
+            if len(snap) >= 2:
+                sp = max(snap.values()) - min(snap.values())
+                spreads.append((phase[0], sp))  # the phase read after the sample
+
+    def defers():
+        return sum(s.consist_defers for s in servers)
+
+    def loop(i, kv):
+        rng = np.random.default_rng(1000 * seed + i)
+        try:
+            for t in range(STEPS):
+                if i == 0 and t < HELD:
+                    base = defers()
+                    assert _until(lambda: defers() > base or done[1].is_set(), 60.0), \
+                        f"hold {t}: no peer deferred"
+                keys = rng.choice(ROWS, size=8, replace=False).astype(np.int64)
+                _step(kv, keys, GRADS, timeout=60.0)
+                sample()
+        except Exception as e:  # noqa: BLE001 — surfaced below
+            fails.append((i, e))
+        finally:
+            done[i].set()
+
+    def audit():
+        while not stop.wait(0.005):
+            sample()
+
+    try:
+        for w in workers:
+            w.consist_hello(table="w")
+        auditor = threading.Thread(target=audit, daemon=True)
+        auditor.start()
+        threads = [threading.Thread(target=loop, args=(i, kv), daemon=True)
+                   for i, kv in enumerate(workers[:2])]
+        for th in threads:
+            th.start()
+        w2 = workers[2]
+        for _ in range(5):
+            _step(w2, KEYS, GRADS, timeout=60.0)
+        restored_step = w2.consist_step("w")
+        phase[0] = 1
+        v.unbind("W2")
+        v.restart_node("W2")
+        assert any(s.counters().get("consist_pruned", 0) > 0 for s in servers), \
+            "incarnation advance did not prune the dead entry"
+        w2b = worker.KVWorker(Postoffice("W2", v), cfgs, NUM_SERVERS, device="cpu")
+        w2b.consist_hello(table="w", step=restored_step)
+        th2 = threading.Thread(target=loop, args=(2, w2b), daemon=True)
+        th2.start()
+        mig = ShardMigrator(Postoffice("M0", v), chunk_rows=64)
+        new_routing = mig.migrate(workers[0].routing, "w", ROWS - ROWS // 4, ROWS, 0)
+        assert workers[0].adopt_routing(new_routing)
+        for th in threads + [th2]:
+            th.join(timeout=180)
+        stop.set()
+        auditor.join(timeout=5)
+        assert not fails, f"worker failures: {fails}"
+        assert all(not th.is_alive() for th in threads + [th2]), "a worker never finished"
+        assert chaos.injected_drops > 0
+        strict = [sp for ph, sp in spreads if ph == 0]
+        assert strict, "the all-live phase was never sampled"
+        assert max(strict) <= BOUND + 1, f"clock spread {max(strict)} > bound {BOUND} + 1"
+        for s in servers:
+            snap = s._consist["w"]["clock"].snapshot()
+            assert len(snap) == 3
+            assert max(snap.values()) - min(snap.values()) == 0, snap
+        assert sum(w.consist_sheds + w.consist_forced for w in list(workers[:2]) + [w2b]) == 0
+    finally:
+        stop.set()
+        _close(v, servers)

@@ -14,8 +14,10 @@ JSONL rows must be equal, bit for bit:
   feeding the scheduler's monitor over the port's ``MeteredVan``, and
   ``sync_clock`` over a loopback.
 
-Not ported here: the two end-to-end slow-node cases (``ChaosVan``'s
-``slow_node``).
+- the two end-to-end slow-node cases over the port's ``ChaosVan``: a
+  ``slow_node`` server under ``MeteredVan(ReliableVan(ChaosVan(...)))``
+  flagged within five beats and no healthy node ever; ``slow_node(nid, 0)``
+  heals the link.
 """
 
 import io
@@ -284,5 +286,78 @@ def test_malformed_stats_never_cost_a_heartbeat(bad):
         for nid in ("S0", "W0"):
             assert managers[nid].wait(managers[nid].send_heartbeat(bad, auto=False), timeout=30)
         assert sched.check_heartbeats() == []
+    finally:
+        van.close()
+
+
+# ---------------------------------------------- gray failures over ChaosVan
+
+
+def test_e2e_slow_node_flagged_within_five_heartbeats():
+    """Metered(Reliable(Chaos(Loopback))) with ``slow_node`` on one server:
+    traffic and heartbeats flag the slowed server within 5 beats; healthy
+    nodes never."""
+    from parameter_server_tpu_torch.core.chaos import ChaosVan
+    from parameter_server_tpu_torch.core.resender import ReliableVan
+
+    chaos = ChaosVan(LoopbackVan(), seed=0)
+    van = MeteredVan(ReliableVan(chaos, timeout=5.0, backoff=1.0, max_retries=3, seed=0))
+    try:
+        sched, managers, posts = launch_local_cluster(van, num_workers=2, num_servers=2)
+        fleet = FleetMonitor(policy=StragglerPolicy(k=4.0, p99_floor_ms=40.0))
+        sched.fleet = fleet
+        cfgs = {"w": TableConfig(name="w", rows=1 << 10, dim=2,
+                                 optimizer=OptimizerConfig(kind="sgd", learning_rate=0.1))}
+        servers = [KVServer(posts[server_id(s)], cfgs, s, 2, device="cpu") for s in range(2)]
+        workers = [KVWorker(posts[worker_id(w)], cfgs, 2, min_bucket=16, device="cpu")
+                   for w in range(2)]
+        chaos.slow_node(server_id(1), 120.0)
+        rng = np.random.default_rng(1)
+        flagged_at = None
+        for beat in range(1, 6):
+            for w in workers:
+                keys = rng.integers(0, 1 << 10, size=48).astype(np.uint64)
+                grads = rng.standard_normal((48, 2)).astype(np.float32)
+                assert w.wait(w.push("w", keys, grads), timeout=60)
+            for nid, mgr in managers.items():
+                if nid != SCHEDULER:
+                    assert mgr.wait(mgr.send_heartbeat(), timeout=60)
+            flags = fleet.stragglers()
+            assert set(flags) <= {server_id(1)}
+            if server_id(1) in flags and flagged_at is None:
+                flagged_at = beat
+        assert flagged_at is not None and flagged_at <= 5, fleet.snapshot()
+        assert chaos.injected_slow > 0
+        del servers
+    finally:
+        van.close()
+
+
+def test_slow_node_heals_and_flags_clear_on_fresh_monitor():
+    """``slow_node(nid, 0)`` heals the link: the next delivery pays no delay."""
+    from parameter_server_tpu_torch.core.chaos import ChaosVan
+    from parameter_server_tpu_torch.core.messages import Message, Task, TaskKind
+
+    chaos = ChaosVan(LoopbackVan(), seed=0)
+    van = MeteredVan(chaos)
+    try:
+        got = []
+        van.bind("B", got.append)
+        van.bind("A", got.append)
+        chaos.slow_node("B", 50.0)
+        t0 = time.perf_counter()
+        van.send(Message(task=Task(TaskKind.CONTROL, "x"), sender="A", recver="B"))
+        deadline = time.time() + 5
+        while len(got) < 1 and time.time() < deadline:
+            time.sleep(0.005)
+        assert time.perf_counter() - t0 >= 0.05
+        chaos.slow_node("B", 0)
+        t1 = time.perf_counter()
+        van.send(Message(task=Task(TaskKind.CONTROL, "x"), sender="A", recver="B"))
+        deadline = time.time() + 5
+        while len(got) < 2 and time.time() < deadline:
+            time.sleep(0.005)
+        assert len(got) == 2
+        assert time.perf_counter() - t1 < 0.05
     finally:
         van.close()

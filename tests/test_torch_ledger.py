@@ -9,7 +9,9 @@ CPU).  These tests run the JAX package's scripted ledger cases on both
 ledgers with the same handle script, feed a port and a JAX ``KVServer`` the
 same pushes (single, three-pass, bundled under both duplicate policies) and
 compare their ledger entries, and drive the ``__busy__`` hint and
-``server_busy()`` with a completion handle that stays pending.
+``server_busy()`` with a completion handle that stays pending.  Over the
+full stack with seeded drop and duplication (``CoalescingVan(ReliableVan(
+ChaosVan(...)))``) every submitted apply retires exactly once.
 
 Tolerances: counters, events and ledger entries exactly; tables within
 rtol = atol = 1e-5.
@@ -489,3 +491,50 @@ def test_card_handle_is_a_blocking_event_on_the_apply_stream():
     finally:
         van.close()
         srv.ledger.close()
+
+
+# --------------------------------------------------- e2e: chaos accounting
+
+
+@pytest.mark.chaos
+def test_every_apply_retires_exactly_once_under_seeded_chaos():
+    """Coalesced bundles, retransmission over seeded drop / duplication and
+    grouped applies: every server's ledger balances, each submitted apply
+    retired once, nothing left in flight."""
+    from parameter_server_tpu_torch.config import OptimizerConfig, TableConfig
+    from parameter_server_tpu_torch.core.chaos import ChaosVan
+    from parameter_server_tpu_torch.core.coalesce import CoalescingVan
+    from parameter_server_tpu_torch.core.resender import ReliableVan
+
+    chaos = ChaosVan(LoopbackVan(), seed=2, drop=0.05, duplicate=0.05)
+    rel = ReliableVan(chaos, timeout=0.05, backoff=1.0, max_retries=60, seed=2)
+    van = CoalescingVan(rel)
+    servers = []
+    try:
+        cfgs = {"w": TableConfig(name="w", rows=1 << 10, dim=DIM,
+                                 optimizer=OptimizerConfig(kind="adagrad", learning_rate=0.1))}
+        servers = [KVServer(Postoffice(f"S{s}", van), cfgs, s, 2, device="cpu")
+                   for s in range(2)]
+        worker = KVWorker(Postoffice("W0", van), cfgs, 2, device="cpu")
+        rng = np.random.default_rng(11)
+        for _ in range(3):
+            pool = rng.choice(1 << 10, size=96, replace=False).astype(np.uint32)
+            k1, k2 = np.sort(pool[:64]), np.sort(pool[32:])
+            g1 = rng.normal(size=(64, DIM)).astype(np.float32)
+            g2 = rng.normal(size=(64, DIM)).astype(np.float32)
+            with worker.coalesce_window():
+                t1 = worker.push("w", k1, g1)
+                t2 = worker.push("w", k2, g2)
+            assert worker.wait(t1, timeout=60) and worker.wait(t2, timeout=60)
+        assert van.flush(30)
+        assert chaos.injected_drops + chaos.injected_dups > 0
+        for srv in servers:
+            _drained(srv.ledger, timeout=15.0)
+            c = srv.ledger.counters()
+            assert c["applies_submitted"] > 0
+            assert c["applies_retired"] == c["applies_submitted"], c
+            assert c["inflight_bundles"] == 0 and c["inflight_rows"] == 0, c
+    finally:
+        van.close()
+        for s in servers:
+            s.ledger.close()

@@ -18,9 +18,11 @@ Ports of ``tests/test_manager.py`` and the manager half of
 - re-registration under a known id bumps the row's incarnation, keeps its
   range and rebroadcasts (a ``LoopbackVan`` has no transport fence).
 
-Host state is compared bit for bit.  Not ported here:
-``test_barrier_survives_chaos_message_loss`` and the transport fence of the
-restart cases (they need the reliable and chaos vans).
+- the barrier over ``ReliableVan(ChaosVan(drop=0.2))``: every leg repaired
+  by retransmission, the quorum completes as on a clean van.
+
+Host state is compared bit for bit.  The transport fence of the restart
+cases is in ``tests/test_torch_replica.py``.
 """
 
 import ast
@@ -233,6 +235,35 @@ def test_barrier_completes_and_scheduler_drains():
         assert sched.barrier_drain("step", 2, timeout=10)
         # the final ack is fire-and-forget: its reply may still be in flight
         assert _settle(lambda: not any(managers[w].pending_count() for w in ("W0", "W1")))
+    finally:
+        van.close()
+
+
+def test_barrier_survives_chaos_message_loss():
+    """Barrier over ReliableVan(ChaosVan(drop=0.2)): every enter / poll / ack
+    leg is repaired by retransmission, so the quorum completes exactly as on
+    a clean van."""
+    from parameter_server_tpu_torch.core.chaos import ChaosVan
+    from parameter_server_tpu_torch.core.resender import ReliableVan
+
+    van = ReliableVan(ChaosVan(LoopbackVan(), seed=2, drop=0.2), timeout=0.05, backoff=1.0,
+                      max_retries=60)
+    try:
+        sched, managers, _ = port_manager.launch_local_cluster(van, num_workers=2,
+                                                               num_servers=1)
+        results = {}
+
+        def enter(nid):
+            results[nid] = managers[nid].barrier("noisy", 2, timeout=30)
+
+        threads = [threading.Thread(target=enter, args=(w,)) for w in ("W0", "W1")]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=60)
+        assert results == {"W0": True, "W1": True}
+        assert sched.barrier_drain("noisy", 2, timeout=30)
+        assert van.inner.injected_drops > 0
     finally:
         van.close()
 

@@ -15,10 +15,13 @@ Ports of ``tests/test_migration.py``:
 Each runs the same seeded batches through the JAX package's migration too:
 losses and tables against it, and the migrator's and the servers' migration
 counters equal to its own.  The scale case goes through the port's
-``learner.elastic.scale_up`` / ``drain_down``.  Not ported here: the chaos
-cases (a donor killed mid-stream, a stale worker fenced under packet loss:
-the reliable van).  The fleet monitor's rebalance, the scheduler broadcast
-and the counter group are in ``test_torch_elastic.py``.
+``learner.elastic.scale_up`` / ``drain_down``.  Then the chaos cases over
+``ReliableVan(ChaosVan(LoopbackVan()))`` at 5% drop, each bitwise equal to
+the port's fixed-topology run: a stale worker fenced, never lost, while its
+servers migrate under it; and a donor killed between migration chunks,
+restarted in place from its standby, the migration rerun from scratch.  The
+fleet monitor's rebalance, the scheduler broadcast and the counter group
+are in ``test_torch_elastic.py``.
 
 Tolerances: within the port bit for bit (the per-row apply does not depend
 on the layout); against the JAX package rtol = atol = 1e-5 for tables and
@@ -43,7 +46,10 @@ from parameter_server_tpu.learner.elastic import drain_down as jax_drain_down
 from parameter_server_tpu.learner.elastic import scale_up as jax_scale_up
 from parameter_server_tpu.models import linear as jax_linear
 from parameter_server_tpu_torch import config as port_config
+from parameter_server_tpu_torch.core.chaos import ChaosVan
 from parameter_server_tpu_torch.core.postoffice import Postoffice
+from parameter_server_tpu_torch.core.resender import ReliableVan
+from parameter_server_tpu_torch.kv import replica as replica_lib
 from parameter_server_tpu_torch.core.van import LoopbackVan
 from parameter_server_tpu_torch.data.synthetic import SyntheticCTR
 from parameter_server_tpu_torch.kv.migrate import MigrationError, ShardMigrator
@@ -413,3 +419,137 @@ def test_migration_is_chained_to_the_standbys():
     assert (counters, epochs) == (j_counters, j_epochs)
     np.testing.assert_allclose(losses, j_losses, **TRAJ_TOL)
     _assert_rows(rows, j_rows, TOL)
+
+
+# ------------------------------------------------- the chaos cases (5% drop)
+
+
+def _reliable_stack(*, seed=0, timeout=0.1, max_retries=60, **chaos_kw):
+    chaos = ChaosVan(LoopbackVan(), seed=seed, **chaos_kw)
+    return ReliableVan(chaos, timeout=timeout, backoff=1.0, max_retries=max_retries,
+                       seed=seed), chaos
+
+
+def _train_port(worker, batches, on_step=None):
+    losses = []
+    for i, (keys, labels) in enumerate(batches):
+        w_pos = worker.pull_sync("w", keys, timeout=60)
+        g, _gb, loss = linear.grad_rows(torch.from_numpy(w_pos),
+                                        torch.from_numpy(labels.astype(np.float32)))
+        worker.push_sync("w", keys, g.numpy() / labels.shape[0], timeout=60)
+        losses.append(float(loss))
+        if on_step is not None:
+            on_step(i)
+    return losses
+
+
+def _stitched(routing, servers):
+    parts = [servers[o].export_range("w", lo, hi) for lo, hi, o in routing.tables["w"].segments()]
+    return (np.concatenate([v for v, _ in parts]),
+            {k: np.concatenate([st[k] for _, st in parts]) for k in parts[0][1]})
+
+
+_CLEAN = {}
+
+
+def _clean_port():
+    """The port's fixed-topology run: losses, table, applied pushes; once."""
+    if not _CLEAN:
+        fleet = _Fleet("port")
+        try:
+            losses = fleet.train(_batches())
+            _CLEAN["ref"] = (losses, fleet.rows(),
+                             sum(s.pushes for s in fleet.servers.values()))
+        finally:
+            fleet.close()
+    return _CLEAN["ref"]
+
+
+def _close_all(van, servers):
+    van.close()
+    for s in servers:
+        if s.ledger is not None:
+            s.ledger.close()
+
+
+@pytest.mark.chaos
+@pytest.mark.parametrize("seed", [0])
+def test_stale_worker_is_fenced_not_lost_under_chaos(seed):
+    """The worker is not told of a mid-run migration: its requests carry the
+    old epoch and are fenced with the new table attached; under 5% drop the
+    run converges bitwise to the fixed-topology run."""
+    ref_losses, ref_rows, _ = _clean_port()
+    van, chaos = _reliable_stack(seed=seed, drop=0.05)
+    servers = {}
+    try:
+        servers = {s: KVServer(Postoffice(f"S{s}", van), _table_cfgs(), s, NUM_SERVERS,
+                               device="cpu") for s in range(NUM_SERVERS)}
+        worker = KVWorker(Postoffice("W0", van), _table_cfgs(), NUM_SERVERS, device="cpu")
+        mig = ShardMigrator(Postoffice("M0", van), chunk_rows=256)
+        moved = {}
+
+        def on_step(i):
+            if i == STEPS // 2:
+                moved["routing"] = mig.migrate(worker.routing, "w", 768, ROWS, 0)
+
+        assert _train_port(worker, _batches(), on_step=on_step) == ref_losses
+        assert sum(s.fenced_rejects for s in servers.values()) > 0
+        assert worker.refresh_retries > 0
+        assert worker.routing.epoch == moved["routing"].epoch
+        _assert_rows(_stitched(moved["routing"], servers), ref_rows)
+        assert chaos.injected_drops > 0
+        assert van.flush(10)
+    finally:
+        _close_all(van, list(servers.values()))
+
+
+@pytest.mark.chaos
+@pytest.mark.parametrize("seed", [0, 1])
+def test_donor_killed_mid_stream_migration_restarts_idempotently(seed):
+    """The donor dies between ``migrate_send`` chunks under 5% drop, comes
+    back in place from its sync standby, and the migration reruns with a
+    fresh id: the fixed-topology trajectory and table bit for bit, exactly
+    the clean number of pushes applied."""
+    ref_losses, ref_rows, ref_applied = _clean_port()
+    van, chaos = _reliable_stack(seed=seed, drop=0.05)
+    cfgs = _table_cfgs()
+    primaries, standbys = replica_lib.make_replicated_servers(van, cfgs, NUM_SERVERS, sync=True,
+                                                              device="cpu")
+    s1_instances = [primaries[1]]
+    try:
+        worker = KVWorker(Postoffice("W0", van), cfgs, NUM_SERVERS, device="cpu")
+        mig = ShardMigrator(Postoffice("M0", van), chunk_rows=64)
+        state = {"routing": worker.routing}
+
+        def on_step(i):
+            if i != STEPS // 2:
+                return
+            routing = state["routing"]
+            mid = f"test:kill:{seed}"
+            mig._rpc("S1", {"op": "migrate_begin", "mid": mid, "table": "w",
+                            "lo": 768, "hi": ROWS})
+            mig._rpc("S1", {"op": "migrate_send", "mid": mid, "to": "S0",
+                            "lo": 768, "hi": 832})
+            for endpoint in ("S1", "S1.fw", "S1.mig"):
+                van.unbind(endpoint)
+            van.restart_node("S1")
+            new_s1, source = replica_lib.restart_same_id(van, cfgs, 1, NUM_SERVERS,
+                                                         standby=standbys[1], device="cpu")
+            assert source == "replica"
+            assert new_s1.routing.epoch == routing.epoch
+            s1_instances.append(new_s1)
+            new_routing = mig.migrate(routing, "w", 768, ROWS, 0)
+            state["routing"] = new_routing
+            assert worker.adopt_routing(new_routing)
+
+        assert _train_port(worker, _batches(), on_step=on_step) == ref_losses
+        assert len(s1_instances) == 2
+        assert primaries[0].pushes + sum(s.pushes for s in s1_instances) == ref_applied
+        _assert_rows(_stitched(state["routing"], {0: primaries[0], 1: s1_instances[-1]}),
+                     ref_rows)
+        assert s1_instances[-1].rows_migrated_out == 256
+        assert van.flush(10)
+        assert van.gave_up == 0
+        assert chaos.injected_drops > 0
+    finally:
+        _close_all(van, primaries + standbys + s1_instances[1:])

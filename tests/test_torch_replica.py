@@ -17,8 +17,16 @@ scheduler's :class:`~parameter_server_tpu_torch.core.manager.Manager`
 promotes when the sweep finds the primary silent, every loss equal to the
 uninterrupted run's, beside the JAX package's same loop.
 
-Not ported here: forwarding over real sockets (the TCP van), and the
-restart cases over the reliable and chaos vans.
+Then the same-id restart over ``ReliableVan(ChaosVan(LoopbackVan()))``
+(twins of ``tests/test_restart.py``): S0 killed and restarted in place
+twice under 5% drop, bitwise the clean run with exactly-once pushes; a
+zombie's stale-incarnation frame fenced without an ACK; the seq space reset
+on an incarnation advance; the scheduler's re-registration reaching every
+endpoint's transport fence; the full lifecycle through
+``learner.elastic.restart_server``; and a remote cancel dropping queued
+work at the receiver.
+
+Not ported here: forwarding over real sockets (the TCP van).
 
 Tolerances: within the port exactly (the standby replays the same update
 stream through the same apply); against the JAX package rtol = atol = 1e-4
@@ -43,7 +51,10 @@ from parameter_server_tpu.kv.worker import KVWorker as JaxKVWorker
 from parameter_server_tpu.models import linear as jax_linear
 from parameter_server_tpu_torch import config as port_config
 from parameter_server_tpu_torch.core import flightrec
-from parameter_server_tpu_torch.core.postoffice import Postoffice
+from parameter_server_tpu_torch.core.chaos import ChaosConfig, ChaosVan
+from parameter_server_tpu_torch.core.messages import Message, Task, TaskKind
+from parameter_server_tpu_torch.core.postoffice import Customer, Postoffice
+from parameter_server_tpu_torch.core.resender import CRC_KEY, SEQ_KEY, ReliableVan, payload_crc32
 from parameter_server_tpu_torch.core.van import LoopbackVan
 from parameter_server_tpu_torch.data.synthetic import SyntheticCTR
 from parameter_server_tpu_torch.kv import replica as replica_lib
@@ -439,3 +450,246 @@ def test_restore_selection_replica_then_checkpoint_then_cold(tmp_path):
     assert [s for s, _ in j_restored] == [s for s, _ in restored]
     for source in states:
         np.testing.assert_allclose(states[source], j_states[source], rtol=1e-5, atol=1e-5)
+
+
+# ------------------------------------- same-id restart over the reliable wire
+
+
+def _reliable_stack(*, seed=0, timeout=0.05, max_retries=60, **chaos_kw):
+    chaos = ChaosVan(LoopbackVan(), seed=seed, **chaos_kw)
+    return ReliableVan(chaos, timeout=timeout, backoff=1.0, max_retries=max_retries,
+                       seed=seed), chaos
+
+
+def _settle(predicate, deadline_s=5.0):
+    deadline = time.monotonic() + deadline_s
+    while time.monotonic() < deadline:
+        if predicate():
+            return True
+        time.sleep(0.005)
+    return predicate()
+
+
+_CLEAN_APPLIED = {}
+
+
+def _clean_applied() -> int:
+    """Pushes the clean run's servers apply: the exactly-once ground truth."""
+    if not _CLEAN_APPLIED:
+        van = LoopbackVan()
+        servers = [KVServer(Postoffice(f"S{s}", van), _table_cfgs(), s, NUM_SERVERS,
+                            device="cpu") for s in range(NUM_SERVERS)]
+        try:
+            _train(_worker(van), _batches())
+            _CLEAN_APPLIED["n"] = sum(s.pushes for s in servers)
+        finally:
+            _close(van, servers)
+    return _CLEAN_APPLIED["n"]
+
+
+@pytest.mark.chaos
+@pytest.mark.parametrize("seed", [0, 1])
+def test_same_id_double_restart_under_drop_matches_clean_run(seed):
+    """S0 killed and restarted in place twice under seeded 5% drop, restored
+    from its sync standby each time: the clean trajectory bit for bit,
+    exactly the clean number of pushes applied, no stale frame delivered."""
+    ref_losses = _reference_losses()
+    van, chaos = _reliable_stack(seed=seed, timeout=0.1, drop=0.05)
+    primaries, standbys = replica_lib.make_replicated_servers(
+        van, _table_cfgs(), NUM_SERVERS, sync=True, device="cpu")
+    instances = [primaries[0]]
+    try:
+        worker = _worker(van)
+
+        def on_step(i):
+            if i in (STEPS // 3, 2 * STEPS // 3):
+                van.unbind("S0")
+                van.unbind("S0.fw")
+                van.restart_node("S0")
+                srv, source = replica_lib.restart_same_id(
+                    van, _table_cfgs(), 0, NUM_SERVERS, standby=standbys[0], device="cpu")
+                assert source == "replica"
+                instances.append(srv)
+
+        assert _train(worker, _batches(), on_step=on_step) == ref_losses
+        assert len(instances) == 3
+        assert sum(s.pushes for s in instances) + primaries[1].pushes == _clean_applied()
+        assert van.incarnations.get("S0") == 2
+        assert van.flush(10)
+        assert van.gave_up == 0
+        assert chaos.injected_drops > 0
+    finally:
+        _close(van, instances + primaries[1:] + standbys)
+
+
+class _Recorder(Customer):
+    def __init__(self, name, post, seen, field=None):
+        super().__init__(name, post)
+        self.seen, self.field = seen, field
+
+    def handle_request(self, msg):
+        self.seen.append(msg.task.payload.get(self.field) if self.field
+                         else float(msg.values[0][0]))
+        return msg.reply()
+
+
+@pytest.mark.chaos
+def test_zombie_stale_incarnation_frames_are_fenced():
+    """A frame stamped with a superseded incarnation (and a valid CRC) is
+    dropped without an ACK or delivery; the successor still works."""
+    van = ReliableVan(LoopbackVan(), timeout=30.0)
+    try:
+        seen = []
+        _Recorder("rec", Postoffice("S0", van), seen)
+        client = Customer("rec", Postoffice("W0", van))
+
+        def push(x):
+            return client.submit([Message(task=Task(TaskKind.PUSH, "rec"), recver="S0",
+                                          values=[np.array([x])])])
+
+        assert client.wait(push(1.0), timeout=10)
+        assert seen == [1.0]
+        assert van.restart_node("W0") == 1
+        zombie = Message(task=Task(TaskKind.PUSH, "rec"), sender="W0", recver="S0",
+                         values=[np.array([666.0])])
+        zombie.task.payload = {SEQ_KEY: 99, CRC_KEY: payload_crc32(zombie)}
+        acks_before = van.acks_sent
+        van.inner.send(zombie)  # below the resender's stamping
+        assert _settle(lambda: van.rejected_stale == 1)
+        time.sleep(0.05)  # the frame must not trickle through late
+        assert seen == [1.0]
+        assert van.acks_sent == acks_before
+        assert client.wait(push(2.0), timeout=10)
+        assert seen == [1.0, 2.0]
+    finally:
+        van.close()
+
+
+@pytest.mark.chaos
+def test_incarnation_advance_resets_windows_and_seq():
+    van = ReliableVan(LoopbackVan(), timeout=30.0)
+    try:
+        seen = []
+        _Recorder("rec", Postoffice("S0", van), seen, field="n")
+        client = Customer("rec", Postoffice("W0", van))
+
+        def push(n):
+            ts = client.submit([Message(task=Task(TaskKind.PUSH, "rec", payload={"n": n}),
+                                        recver="S0")])
+            assert client.wait(ts, timeout=10)
+
+        for n in range(3):
+            push(n)
+        assert seen == [0, 1, 2] and van.dup_suppressed == 0
+        van.restart_node("W0")
+        for n in range(3, 6):  # seqs 0..2 again, under the new incarnation
+            push(n)
+        assert seen == [0, 1, 2, 3, 4, 5]
+        assert van.dup_suppressed == 0 and van.rejected_stale == 0
+    finally:
+        van.close()
+
+
+@pytest.mark.chaos
+def test_manager_reregistration_reaches_the_transport_fence():
+    """A REGISTER for a known id bumps the row's incarnation, keeps its range,
+    rebroadcasts, and every endpoint's reliable van learns the new epoch."""
+    from parameter_server_tpu_torch.core.manager import Manager, launch_local_cluster
+
+    van, _chaos = _reliable_stack(seed=0, timeout=0.1)
+    try:
+        sched, managers, _posts = launch_local_cluster(van, num_workers=1, num_servers=1,
+                                                       heartbeat_timeout=30)
+        row = next(n for n in sched.nodes() if n.node_id == "S0")
+        assert row.incarnation == 0
+        van.unbind("S0")
+        new_mgr = Manager(Postoffice("S0", van), num_workers=1, num_servers=1)
+        assert new_mgr.register_with_scheduler(timeout=10)
+        row = next(n for n in sched.nodes() if n.node_id == "S0")
+        assert row.incarnation == 1 and row.alive
+        assert (row.range_begin, row.range_end) == sched.server_range("S0")
+        assert _settle(lambda: van.incarnations.get("S0") == 1)
+        assert _settle(lambda: len(new_mgr.nodes()) == len(sched.nodes()))
+        assert _settle(lambda: any(n.node_id == "S0" and n.incarnation == 1
+                                   for n in managers["W0"].nodes()))
+    finally:
+        van.close()
+
+
+@pytest.mark.chaos
+def test_full_restart_lifecycle_with_scheduler():
+    """``learner.elastic.restart_server`` under 2% drop: S0 crashes, restores
+    from its standby and re-registers; the scheduler and the transport both
+    hold incarnation 1 and training keeps the clean trajectory."""
+    from parameter_server_tpu_torch.core.manager import launch_local_cluster
+    from parameter_server_tpu_torch.learner.elastic import restart_server
+
+    ref_losses = _reference_losses()
+    van, _chaos = _reliable_stack(seed=4, timeout=0.1, drop=0.02)
+    servers = []
+    try:
+        sched, _managers, posts = launch_local_cluster(van, num_workers=1,
+                                                       num_servers=NUM_SERVERS,
+                                                       heartbeat_timeout=30)
+        cfgs = _table_cfgs()
+        standbys = [KVServer(Postoffice(f"R{s}", van), cfgs, s, NUM_SERVERS, device="cpu")
+                    for s in range(NUM_SERVERS)]
+        servers += standbys
+        servers += [KVServer(posts[f"S{s}"], cfgs, s, NUM_SERVERS, replica=f"R{s}",
+                             replica_sync=True, device="cpu") for s in range(NUM_SERVERS)]
+        worker = KVWorker(posts["W0"], cfgs, NUM_SERVERS, device="cpu")
+        restarted = {}
+
+        def on_step(i):
+            if i != STEPS // 2:
+                return
+            van.unbind("S0")
+            van.unbind("S0.fw")
+            server, source, mgr = restart_server(
+                van, cfgs, 0, NUM_SERVERS, num_workers=1, standby=standbys[0],
+                heartbeat_timeout=30, device="cpu")
+            assert source == "replica" and mgr is not None
+            restarted["server"] = server
+            servers.append(server)
+
+        assert _train(worker, _batches(), on_step=on_step) == ref_losses
+        assert "server" in restarted
+        assert next(n for n in sched.nodes() if n.node_id == "S0").incarnation == 1
+        assert van.incarnations.get("S0") == 1
+        assert van.flush(10)
+    finally:
+        _close(van, servers)
+
+
+@pytest.mark.chaos
+def test_remote_cancel_drops_queued_work_at_receiver():
+    """``Customer.cancel(remote=True)``: the CANCEL frame fences a delayed
+    request at the receiving Postoffice, which drops it unexecuted."""
+    chaos = ChaosVan(LoopbackVan(), seed=0)
+    try:
+        ran = []
+
+        class Ran(Customer):
+            def handle_request(self, msg):
+                ran.append(self.post.node_id)
+                return msg.reply()
+
+        s0_post, s1_post = Postoffice("S0", chaos), Postoffice("S1", chaos)
+        Ran("rec", s0_post)
+        Ran("rec", s1_post)
+        client = Customer("rec", Postoffice("W0", chaos))
+        chaos.set_link("W0", "S1", ChaosConfig(delay=0.4))
+        ts = client.submit([Message(task=Task(TaskKind.PUSH, "rec"), recver="S0"),
+                            Message(task=Task(TaskKind.PUSH, "rec"), recver="S1")])
+        assert _settle(lambda: ran == ["S0"])
+        chaos.set_link("W0", "S1", ChaosConfig())
+        assert client.cancel(ts, "test deadline", remote=True)
+        assert _settle(lambda: s1_post.cancelled_drops == 1, 3.0)
+        time.sleep(0.2)  # past the delayed delivery
+        assert ran == ["S0"]
+        assert s0_post.cancelled_drops == 0
+        ts = client.submit([Message(task=Task(TaskKind.PUSH, "rec"), recver="S1")])
+        assert client.wait(ts, timeout=10)
+        assert ran == ["S0", "S1"]
+    finally:
+        chaos.close()

@@ -35,6 +35,12 @@
   ``models/linear.py`` never wait on the device: no ``.item()``, ``.cpu()``,
   ``.tolist()``, ``.numpy()``, ``float(...)``, ``torch.unique``,
   ``torch.bincount`` or ``synchronize()``.
+- The port's Van wrappers (``core/van.py``, ``netmon.py``, ``coalesce.py``,
+  ``frame.py``, ``chaos.py``, ``resender.py``) keep the JAX package's wrapper
+  contract (``tools/check_wrappers.py``): an overridden ``flush`` /
+  ``close`` delegates to the inner van, ``counters()`` never merges the
+  inner van's, and the frame path (codec, resender, coalescer) imports no
+  pickle; ``ml_dtypes`` is as forbidden as ``jax``.
 - Every entry point's ``device`` defaults to ``"cuda"``.
 - ``chip_smoke.py`` fails, and prints no result, where there is no card or
   no package beside it.
@@ -81,7 +87,8 @@ def _imported_modules(path):
 
 def _forbidden(module: str) -> bool:
     top = module.split(".")[0]
-    return top in ("jax", "jaxlib", "parameter_server_tpu")
+    # ml_dtypes ships with jax: the card host has neither
+    return top in ("jax", "jaxlib", "parameter_server_tpu", "ml_dtypes")
 
 
 @pytest.mark.parametrize("path", SOURCES, ids=lambda p: str(p.relative_to(ROOT)))
@@ -556,3 +563,61 @@ def test_chip_smoke_fails_without_a_card_or_the_package(alone, tmp_path):
         assert not json.loads(last).get("ok")
     except ValueError:
         pass  # no JSON result line at all
+
+
+# -------------------------------------------------- the Van wrapper contract
+
+sys.path.insert(0, str(ROOT / "tools"))
+import check_wrappers  # noqa: E402
+
+#: the port's Van wrapper modules, held by name
+WIRE_WRAPPERS = ("core/van.py", "core/netmon.py", "core/coalesce.py", "core/frame.py",
+                 "core/chaos.py", "core/resender.py")
+#: the JAX package's no-pickle modules the port has not ported yet
+NOT_PORTED_HOT_PATH = {"core/tcp_van.py"}
+
+
+def test_port_wrappers_keep_the_wrapper_contract():
+    wrappers = sorted(str(f.relative_to(PORT)) for f in PORT.rglob("*.py")
+                      if "VanWrapper" in f.read_text())
+    assert set(WIRE_WRAPPERS) <= set(wrappers)
+    problems = [p for rel in wrappers for p in check_wrappers.check_file(PORT / rel)]
+    assert problems == [], "\n".join(problems)
+
+
+def test_port_frame_path_is_pickle_free():
+    present = [rel for rel in check_wrappers.NO_PICKLE_MODULES if (PORT / rel).is_file()]
+    assert set(check_wrappers.NO_PICKLE_MODULES) - set(present) == NOT_PORTED_HOT_PATH
+    problems = [p for rel in present + ["core/chaos.py"]
+                for p in check_wrappers.check_no_pickle(PORT / rel)]
+    assert problems == [], "\n".join(problems)
+
+
+@pytest.mark.parametrize("planted", ["flush", "close", "counters", "pickle", "ml_dtypes"])
+def test_the_wrapper_scans_catch_a_planted_violation(planted, tmp_path):
+    """A copy of a port module with one violation planted: the scan that
+    holds the real module must flag the copy."""
+    if planted in ("flush", "close"):
+        src = (PORT / "core/resender.py").read_text()
+        old = {"flush": "return self.inner.flush(max(deadline - time.monotonic(), 0.0))",
+               "close": "self._thread.join(timeout=5)\n        self.inner.close()"}[planted]
+        assert old in src
+        src = src.replace(old, {"flush": "return True", "close": "self._thread.join(timeout=5)"}[planted])
+    elif planted == "counters":
+        src = (PORT / "core/chaos.py").read_text()
+        old = "            return {\n                \"chaos_drops\""
+        assert old in src
+        src = src.replace(old, "            return {**self.inner.counters(),\n                \"chaos_drops\"")
+    else:
+        src = (PORT / "core/frame.py").read_text().replace(
+            "import zlib\n", "import zlib\nimport pickle\n" if planted == "pickle"
+            else "import zlib\nimport ml_dtypes\n", 1)
+    bad = tmp_path / "planted.py"
+    bad.write_text(src)
+    if planted == "pickle":
+        assert len(check_wrappers.check_no_pickle(bad)) == 1
+    elif planted == "ml_dtypes":
+        assert [m for m in _imported_modules(bad) if _forbidden(m)] == ["ml_dtypes"]
+    else:
+        problems = check_wrappers.check_file(bad)
+        assert len(problems) == 1 and planted in problems[0]

@@ -9,7 +9,10 @@ read-only fast path bitwise equal to ``pull`` and, in a bundle, not flushing
 the open push group; admission control's busy hint and its ``stale`` and
 ``queue`` policies; the load generator's request sequence against the JAX
 one for three seeds (with ``rate_fn`` thinning and ``shift_hot_set``); and
-``pull_result_device`` against ``pull_result``.
+``pull_result_device`` against ``pull_result``.  Then the serving plane's
+staleness invariant over ``ReliableVan(ChaosVan(...))`` (drop, duplication
+and delay) with interleaved writes and a live migration: every cache hit is
+at or above the worker's watermark, and the final serve equals the pull.
 
 Tolerances: rows at rtol = atol = 1e-6 against the JAX package (the same
 float math in two frameworks); within the port bitwise; hit / miss counts,
@@ -399,5 +402,50 @@ def test_loadgen_through_admission_serves_every_request():
         assert rep.cache_hits + rep.cache_misses == 8 * rep.pulls
         assert rep.hit_rate > 0
         assert sum(s.ro_pulls for s in servers) > 0 and sum(s.pulls for s in servers) == 0
+    finally:
+        _close(v, servers)
+
+
+# ---------------------------- bounded staleness under chaos + migration
+
+
+@pytest.mark.chaos
+def test_bounded_staleness_under_chaos_with_live_migration():
+    """Across drop / duplicate / delay chaos, interleaved writes and a live
+    shard migration, every cache hit served a row stamped at or above the
+    worker's observed ``__sver__`` watermark for the owning server, and the
+    final serve agrees with the RPC pull."""
+    from parameter_server_tpu_torch.core.chaos import ChaosVan
+    from parameter_server_tpu_torch.core.resender import ReliableVan
+    from parameter_server_tpu_torch.kv.migrate import ShardMigrator
+
+    chaos = ChaosVan(van.LoopbackVan(), seed=3, drop=0.2, duplicate=0.2, delay=0.01)
+    v = ReliableVan(chaos, timeout=0.05, backoff=1.0, max_retries=120, seed=3)
+    cfgs = _table_cfgs(PORT)
+    servers = [server.KVServer(postoffice.Postoffice(f"S{s}", v), cfgs, s, NUM_SERVERS,
+                               device="cpu") for s in range(NUM_SERVERS)]
+    try:
+        c = cache.HotRowCache(1 << 11, node="W0", audit=True)
+        w = worker.KVWorker(postoffice.Postoffice("W0", v), cfgs, NUM_SERVERS, cache=c,
+                            device="cpu")
+        mig = ShardMigrator(postoffice.Postoffice("M0", v), chunk_rows=128)
+        rng = np.random.default_rng(7)
+        hot = np.sort(rng.choice(ROWS, size=96, replace=False)).astype(np.int64)
+        w.push_sync("w", hot, rng.normal(size=(hot.size, DIM)).astype(np.float32), timeout=60)
+        for step in range(10):
+            w.pull_serve("w", hot, timeout=60)
+            w.pull_serve("w", hot, timeout=60)  # the hit-path serve
+            sub = hot[step % 3::3]
+            w.push_sync("w", sub, rng.normal(size=(sub.size, DIM)).astype(np.float32),
+                        timeout=60)
+            if step == 5:
+                new_routing = mig.migrate(w.routing, "w", ROWS - ROWS // 4, ROWS, 0)
+                assert w.adopt_routing(new_routing)
+        final = w.pull_serve("w", hot, timeout=60)
+        np.testing.assert_array_equal(final, w.pull_sync("w", hot, timeout=60))
+        assert chaos.injected_drops > 0
+        assert c.hits > 0 and c.audit
+        staler = [(t, k, sv, wm) for t, k, sv, wm in c.audit if sv < wm]
+        assert not staler, f"cached reads staler than the watermark: {staler[:5]}"
     finally:
         _close(v, servers)
