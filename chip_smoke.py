@@ -240,6 +240,33 @@ Phases, each printing one JSON line (``"phase": ...``):
              traffic since: no node flagged in 5 beats.  The first
              ``ps_apply`` on each table held to its plain version, every
              ``ps_gather`` to ``index_select``.
+   sockets   the production wire at config #1 width: 1 worker x 2 servers
+             (2^22 x 1 AdaGrad, lr 0.05), each node on its own ``TcpVan`` on
+             localhost, 8 steps of pull_sync -> card gradient -> push_sync
+             over the ``wire`` batches, legs ``tcp_shm`` (epoll core, shm
+             rings negotiated), ``tcp_only`` (shm off), ``threaded`` (the
+             thread-per-connection core), each bitwise equal to the
+             ``wire`` phase's ``clean`` LoopbackVan run (losses, every row of
+             both shards, pushes, ``ps_apply`` / ``ps_gather`` launches);
+             ``lossless`` (``make_chain("lossless")`` on every van) and
+             ``reliable`` (``ReliableVan(ChaosVan(TcpVan, drop 0.05))``
+             under the worker, ``ReliableVan(TcpVan)`` under each server;
+             nothing given up), each bitwise equal to ``tcp_shm``;
+             ``int8_ef`` (``CoalescingVan(codec=quantizer_from_tables)``
+             with int8 error feedback on table ``w``): final loss and the
+             mean of the last 3 within 0.03 of ``tcp_shm``'s, PUSH raw above
+             wire bytes.  Every van's backend ``epoll`` (``threaded`` in its
+             leg), shm frames in every leg but ``tcp_only``, no frame
+             rejected; push / pull p50 (host clock) beside LoopbackVan's,
+             payload bytes, codec overhead.  Then ``launch(device="cuda")``
+             (a scheduler, 2 servers, 2 workers as OS processes, config #1
+             width, 8 steps) with the default filters and with none: every
+             return code 0, the loss falls, every child reports ``cuda``,
+             the servers launched ``ps_gather`` and ``ps_apply``; payload
+             bytes of both runs and their ratio, the codec's overhead.
+             Every ``ps_gather`` of the in-process legs held to
+             ``index_select``, the first ``ps_apply`` on each table to its
+             plain version.
 9. times     every kernel at the main path's shapes: device time per call
              (CUDA-graph replay), the byte bound at 3.35 TB/s, the plain
              version's time and one PyTorch library call's time; an empty
@@ -516,9 +543,19 @@ def main() -> int:
     emit("wire", **{k: wire[k] for k in ("launches", "phase_s", "gather_check",
                                           "apply_check")})
 
+    # -- 8h. the production wire: sockets, filters and the launcher ------------------
+    sockets, sockets_launches = sockets_phase(torch, scatter, dev, errs, wire.pop("clean_run"))
+    emit("sockets", **{k: sockets[k] for k in ("launches", "phase_s", "gather_check",
+                                                "apply_check", "loopback", "launch",
+                                                "launch_child_launches")})
+
     # -- 9. times ----------------------------------------------------------------
     kernels = times_phase(torch, scatter, dev, errs, launches)
     for k in kernels:
+        k["sockets_launches"] = sockets_launches[k["name"]]
+        k["launch_child_launches"] = sockets["launch_child_launches"][k["name"]]
+        # scatter-set and scatter-add are not on the sockets path either
+        k["sockets"] = sockets.get(f"{k['name']}_check")
         k["wire_launches"] = wire_launches[k["name"]]
         # scatter-set and scatter-add are not on the wire path
         k["wire"] = wire.get(f"{k['name']}_check")
@@ -4380,30 +4417,11 @@ def wire_run(torch, scatter, dev, batches, kind):
                    for s in range(2)]
         worker = KVWorker(Postoffice("W0", van), _config1_tables(), 2, device=dev)
         tap = _PushFrameTap(torch, layers["codec"]) if "codec" in layers else None
-        losses, pull_s = [], []
-        torch.cuda.synchronize()
-        scatter.reset_launch_counts()
-        for step, (keys, labels) in enumerate(batches):
-            if step == 1:  # the first step warms the path up: time the rest
-                torch.cuda.synchronize()
-                t0 = time.perf_counter()
-            t1 = time.perf_counter()
-            w_pos = worker.pull_sync("w", keys, timeout=120)
-            pull_s.append(time.perf_counter() - t1)
-            grad, loss = _card_grad(torch, dev, w_pos, labels)
-            worker.push_sync("w", keys, grad, timeout=120)
-            losses.append(loss)
-        torch.cuda.synchronize()
-        elapsed = time.perf_counter() - t0
-        counts = scatter.launch_counts()
+        out = _timed_steps(torch, scatter, dev, batches, worker)
         check(van.flush(10), f"wire {kind}: the van did not settle")
-        out = {"losses": np.asarray(losses),
-               "examples_per_s": BATCH * (len(batches) - 1) / elapsed,
-               "timed_s": elapsed, "launches": counts,
-               "pushes": sum(s.pushes for s in servers), "pull_retries": worker.pull_retries,
-               "pull_s": pull_s,
-               "planes": [(e["value"], [e["state"][k] for k in sorted(e["state"])])
-                          for e in (s.export_shard()["w"] for s in servers)]}
+        out.update(pushes=sum(s.pushes for s in servers), pull_retries=worker.pull_retries,
+                   planes=[(e["value"], [e["state"][k] for k in sorted(e["state"])])
+                           for e in (s.export_shard()["w"] for s in servers)])
         if "reliable" in layers:
             out["reliable"] = layers["reliable"].counters()
             out["chaos"] = layers["chaos"].counters()
@@ -4467,22 +4485,30 @@ def wire_device_push(torch, scatter, dev, worker, servers, layers, tap):
             "rejected_corrupt": rel.rejected_corrupt - before[4]}
 
 
-def _same_run(clean, got, kind):
-    """Hold run ``kind`` bitwise to the clean run, exactly once."""
-    check(np.array_equal(got["losses"], clean["losses"]),
-          f"wire {kind}: losses {got['losses']} vs clean {clean['losses']}")
-    for (gv, gs), (cv, cs) in zip(got["planes"], clean["planes"]):
+def _same_tables(ref, got, what, ref_name):
+    """Hold run ``what`` bitwise to run ``ref_name``, exactly once: losses,
+    every row of both shards' planes, pushes applied, gather and apply
+    launches, no pull retried."""
+    check(np.array_equal(got["losses"], ref["losses"]),
+          f"{what}: losses {got['losses']} vs {ref_name} {ref['losses']}")
+    for (gv, gs), (cv, cs) in zip(got["planes"], ref["planes"]):
         check(np.array_equal(gv, cv) and all(np.array_equal(a, b) for a, b in zip(gs, cs)),
-              f"wire {kind}: a table plane differs from the clean run")
-    check(got["pushes"] == clean["pushes"],
-          f"wire {kind}: {got['pushes']} pushes applied, clean {clean['pushes']}")
+              f"{what}: a table plane differs from {ref_name}")
+    check(got["pushes"] == ref["pushes"],
+          f"{what}: {got['pushes']} pushes applied, {ref_name} {ref['pushes']}")
     for name in ("apply", "gather"):
-        check(got["launches"][name] == clean["launches"][name],
-              f"wire {kind}: {name} launches {got['launches']} vs clean {clean['launches']}")
+        check(got["launches"][name] == ref["launches"][name],
+              f"{what}: {name} launches {got['launches']} vs {ref_name} {ref['launches']}")
+    check(got["pull_retries"] == 0, f"{what}: {got['pull_retries']} pull retries")
+
+
+def _same_run(clean, got, kind):
+    """Hold run ``kind`` bitwise to the clean run, exactly once, with drops
+    injected and nothing given up."""
+    _same_tables(clean, got, f"wire {kind}", "clean")
     rel, chaos = got["reliable"], got["chaos"]
     check(rel["gave_up"] == 0, f"wire {kind}: gave up {rel['gave_up']}")
     check(chaos["chaos_drops"] > 0, f"wire {kind}: no drop injected")
-    check(got["pull_retries"] == 0, f"wire {kind}: {got['pull_retries']} pull retries")
 
 
 class _WindowedFleet:
@@ -4643,6 +4669,279 @@ def wire_phase(torch, scatter, dev, errs):
               "(2 tables x 3 runs and the straggler leg)")
         out["apply_check"] = applies.result(errs, len(applies.records))
     check(total["gather"] > 0 and total["apply"] > 0, f"wire launches {total}")
+    out["launches"] = total
+    out["phase_s"] = time.perf_counter() - t_phase
+    out["clean_run"] = runs["clean"]  # the sockets phase holds its legs to it
+    return out, total
+
+
+def _wire_tables(compression=None):
+    """Config #1's table, with a lossy wire codec for the ``int8_ef`` leg."""
+    import dataclasses
+
+    return {t: dataclasses.replace(c, compression=compression)
+            for t, c in _config1_tables().items()}
+
+
+def sockets_stack(kind):
+    """The vans of leg ``kind``: one ``TcpVan`` on localhost for each server
+    and one for the worker (three processes' worth of sockets, shm rings
+    negotiated unless the leg says otherwise), wrapped as the leg asks.
+    Returns (server vans, worker van, layers by name)."""
+    from parameter_server_tpu_torch.config import TransportConfig, WireCompressionConfig
+    from parameter_server_tpu_torch.core.chaos import ChaosVan
+    from parameter_server_tpu_torch.core.coalesce import CoalescingVan
+    from parameter_server_tpu_torch.core.filters import make_chain, quantizer_from_tables
+    from parameter_server_tpu_torch.core.netmon import MeteredVan
+    from parameter_server_tpu_torch.core.resender import ReliableVan
+    from parameter_server_tpu_torch.core.tcp_van import TcpVan
+
+    transport = {"tcp_only": TransportConfig(shm=False),
+                 "threaded": TransportConfig(wire="threaded")}.get(kind, TransportConfig())
+    spec = "lossless" if kind == "lossless" else "none"
+    tcps = [TcpVan(transport=transport, filter_chain=make_chain(spec)) for _ in range(3)]
+    layers = {"tcp": tcps}
+    server_vans, worker_van = list(tcps[:2]), tcps[2]
+    if kind == "int8_ef":
+        tables = _wire_tables(WireCompressionConfig(codec="int8", error_feedback=True))
+        server_vans = [CoalescingVan(t, codec=quantizer_from_tables(tables)) for t in tcps[:2]]
+        layers["metered"] = MeteredVan(tcps[2], stamp=False)
+        worker_van = CoalescingVan(layers["metered"], codec=quantizer_from_tables(tables))
+        layers["codec"] = worker_van.codec
+    elif kind == "reliable":
+        server_vans = [ReliableVan(t, timeout=WIRE_TIMEOUT_S, backoff=1.0,
+                                   max_retries=WIRE_RETRIES, seed=WIRE_SEED) for t in tcps[:2]]
+        layers["chaos"] = ChaosVan(tcps[2], seed=WIRE_SEED, drop=WIRE_DROP)
+        worker_van = layers["reliable"] = ReliableVan(
+            layers["chaos"], timeout=WIRE_TIMEOUT_S, backoff=1.0, max_retries=WIRE_RETRIES,
+            seed=WIRE_SEED)
+        layers["server_reliable"] = server_vans
+    for s, t in enumerate(tcps[:2]):
+        tcps[2].add_route(f"S{s}", t.address)
+    return server_vans, worker_van, layers
+
+
+def sockets_run(torch, scatter, dev, batches, kind):
+    """One worker's pull_sync -> card gradient -> push_sync with each node on
+    its own ``TcpVan`` (leg ``kind``): as ``wire_run``, plus the sockets'
+    counters, payload bytes and each van's wire backend."""
+    from parameter_server_tpu_torch.core.postoffice import Postoffice
+    from parameter_server_tpu_torch.kv.server import KVServer
+    from parameter_server_tpu_torch.kv.worker import KVWorker
+
+    server_vans, worker_van, layers = sockets_stack(kind)
+    compression = (layers["codec"].per_table["w"] if "codec" in layers else None)
+    tables = _wire_tables(compression)
+    servers = []
+    try:
+        servers = [KVServer(Postoffice(f"S{s}", v), tables, s, 2, device=dev)
+                   for s, v in enumerate(server_vans)]
+        worker = KVWorker(Postoffice("W0", worker_van), tables, 2, device=dev)
+        out = _timed_steps(torch, scatter, dev, batches, worker)
+        check(worker_van.flush(10), f"sockets {kind}: the worker's van did not settle")
+        tcps = layers["tcp"]
+        out.update(
+            pushes=sum(s.pushes for s in servers), pull_retries=worker.pull_retries,
+            planes=[(e["value"], [e["state"][k] for k in sorted(e["state"])])
+                    for e in (s.export_shard()["w"] for s in servers)],
+            backends=[t.wire_backend for t in tcps],
+            payload_bytes_sent=sum(t.payload_bytes_sent() for t in tcps),
+            socket_bytes_sent=sum(t.bytes_sent() for t in tcps),
+            tcp=[{k: c[k] for k in ("sent", "dropped", "frame_rejects", "shm_links",
+                                    "shm_frames_sent", "shm_frames_recv", "ring_full",
+                                    "writeq_full")}
+                 for c in (t.counters() for t in tcps)])
+        chains = [t.filter_chain for t in tcps if t.filter_chain is not None]
+        if chains:
+            out["filter_overhead"] = [c.overhead() for c in chains]
+            out["zlib_bytes_in_out"] = [c.compressed_bytes() for c in chains]
+        if "codec" in layers:
+            out["codec"] = layers["codec"].counters()
+            out["metered"] = layers["metered"].counters()
+            out["metered_links"] = {
+                link: {k: d[k] for k in ("msgs", "bytes", "raw_bytes", "frame_bytes", "verbs")}
+                for link, d in layers["metered"].links().items()}
+        if "reliable" in layers:
+            out["reliable"] = layers["reliable"].counters()
+            out["chaos"] = layers["chaos"].counters()
+            out["server_gave_up"] = sum(v.gave_up for v in layers["server_reliable"])
+        return out
+    finally:
+        for v in (worker_van, *server_vans):
+            v.close()
+        for srv in servers:
+            if srv.ledger is not None:
+                srv.ledger.close()
+            srv.tables.clear()
+        servers.clear()
+        import gc
+
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
+def _timed_steps(torch, scatter, dev, batches, worker):
+    """One worker's pull_sync -> card gradient -> push_sync over ``batches``,
+    launch counts from 0: the first step warms the path up, the rest are
+    timed; per-step pull and push seconds on the host clock."""
+    losses, pull_s, push_s = [], [], []
+    torch.cuda.synchronize()
+    scatter.reset_launch_counts()
+    for step, (keys, labels) in enumerate(batches):
+        if step == 1:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+        t1 = time.perf_counter()
+        w_pos = worker.pull_sync("w", keys, timeout=120)
+        pull_s.append(time.perf_counter() - t1)
+        grad, loss = _card_grad(torch, dev, w_pos, labels)
+        t1 = time.perf_counter()
+        worker.push_sync("w", keys, grad, timeout=120)
+        push_s.append(time.perf_counter() - t1)
+        losses.append(loss)
+    torch.cuda.synchronize()
+    elapsed = time.perf_counter() - t0
+    return {"losses": np.asarray(losses), "examples_per_s": BATCH * (len(batches) - 1) / elapsed,
+            "timed_s": elapsed, "launches": scatter.launch_counts(), "pull_s": pull_s,
+            "push_s": push_s}
+
+
+def _p50_ms(samples):
+    return 1e3 * float(np.median(samples[1:]))
+
+
+def sockets_launch_leg(torch, filters):
+    """``launch()`` itself at config #1 width on the card: a scheduler, 2
+    servers and 2 workers as OS processes over ``TcpVan`` with ``filters``.
+    Every child must exit 0 and report ``cuda``; the servers must have
+    launched ``ps_gather`` and ``ps_apply``; the loss must fall."""
+    import json
+    import os
+    import shutil
+
+    from parameter_server_tpu_torch.launch import launch
+
+    outdir = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                          "parameter_server_tpu_torch", "build", f"launch_{filters}")
+    shutil.rmtree(outdir, ignore_errors=True)
+    os.makedirs(outdir)
+    try:
+        t0 = time.perf_counter()
+        res = launch(device=DEVICE, num_workers=2, num_servers=2, rows=ROWS, batch_size=BATCH,
+                     nnz=NNZ, steps=WIRE_STEPS, filters=filters, run_timeout=300.0,
+                     outdir=outdir)
+        seconds = time.perf_counter() - t0
+        check(res["returncodes"] == [0] * 5, f"launch {filters}: return codes {res}")
+        check(res["workers_reported"] == ["W0", "W1"] and res["steps_total"] == 2 * WIRE_STEPS,
+              f"launch {filters}: {res}")
+        check(res["final_loss"] < res["first_loss"],
+              f"launch {filters}: loss {res['first_loss']} -> {res['final_loss']}")
+        children = {}
+        for node in ("S0", "S1", "W0", "W1"):
+            with open(os.path.join(outdir, f"{node}.json")) as f:
+                row = json.load(f)
+            check(row["device"] == "cuda", f"launch {filters}: {node} ran on {row['device']}")
+            children[node] = row["launches"]
+        for node in ("S0", "S1"):
+            check(children[node]["gather"] > 0 and children[node]["apply"] > 0,
+                  f"launch {filters}: {node} launches {children[node]}")
+        return {**res, "seconds": seconds, "child_launches": children}
+    finally:
+        shutil.rmtree(outdir, ignore_errors=True)
+
+
+def sockets_phase(torch, scatter, dev, errs, clean):
+    """The production wire at config #1 width: 1 worker x 2 servers, each on
+    its own ``TcpVan`` on localhost, legs ``tcp_shm``, ``tcp_only``,
+    ``threaded`` (each bitwise equal to the wire phase's ``clean``
+    LoopbackVan run), ``lossless`` and ``reliable`` (bitwise equal to
+    ``tcp_shm``), ``int8_ef`` (within 0.03 of ``tcp_shm``'s loss), then the
+    multi-process ``launch`` with the default filters and with none.
+    Returns (fields, launches of the in-process legs)."""
+    t_phase = time.perf_counter()
+    batches = wire_batches()
+    total = dict.fromkeys(REPLACES, 0)
+    runs = {}
+    legs = ("tcp_shm", "tcp_only", "threaded", "lossless", "int8_ef", "reliable")
+    with PlanesTap(torch, scatter) as planes, ApplyTap(torch, scatter) as applies:
+        for kind in legs:
+            applies.seen.clear()  # hold each run's first apply on every table
+            runs[kind] = sockets_run(torch, scatter, dev, batches, kind)
+            for name in total:
+                total[name] += runs[kind]["launches"][name]
+        out = {"rows": ROWS, "dim": DIM, "batch": BATCH, "nnz": NNZ, "steps": WIRE_STEPS,
+               "workers": 1, "servers": 2, "seed": WIRE_SEED}
+        for kind in ("tcp_shm", "tcp_only", "threaded"):
+            _same_tables(clean, runs[kind], f"sockets {kind}", "clean")
+        for kind in ("lossless", "reliable"):
+            _same_tables(runs["tcp_shm"], runs[kind], f"sockets {kind}", "tcp_shm")
+        for kind, r in runs.items():
+            want = "threaded" if kind == "threaded" else "epoll"
+            check(r["backends"] == [want] * 3, f"sockets {kind}: wire backends {r['backends']}")
+            shm = sum(c["shm_frames_sent"] for c in r["tcp"])
+            check((shm == 0) == (kind == "tcp_only"), f"sockets {kind}: {shm} frames on shm rings")
+            check(not any(c["frame_rejects"] for c in r["tcp"]),
+                  f"sockets {kind}: frames rejected {r['tcp']}")
+        rel = runs["reliable"]
+        check(rel["reliable"]["gave_up"] == 0 and rel["server_gave_up"] == 0,
+              f"sockets reliable: gave up {rel['reliable']}")
+        check(rel["chaos"]["chaos_drops"] > 0 and rel["reliable"]["retransmits"] > 0,
+              f"sockets reliable: {rel['chaos']} / {rel['reliable']}")
+        ef, ref = runs["int8_ef"], runs["tcp_shm"]
+        loss_gap = abs(float(ef["losses"][-1]) - float(ref["losses"][-1]))
+        last3_gap = abs(float(np.mean(ef["losses"][-3:])) - float(np.mean(ref["losses"][-3:])))
+        check(loss_gap < 0.03 and last3_gap < 0.03,
+              f"sockets int8_ef: loss {ef['losses']} vs uncompressed {ref['losses']}")
+        # the worker's outbound links carry its PUSHes (the only lossy
+        # planes) and its PULL requests (keys only, nothing saved)
+        push_links = {link: d for link, d in ef["metered_links"].items()
+                      if link.startswith("W0->S")}
+        check(all(d["raw_bytes"] > d["bytes"] for d in push_links.values()),
+              f"sockets int8_ef: metered links {push_links}")
+        check(ef["codec"]["compress_raw_bytes"] > ef["codec"]["compress_wire_bytes"] > 0,
+              f"sockets int8_ef: codec {ef['codec']}")
+        for kind, r in runs.items():
+            row = {k: r[k] for k in ("examples_per_s", "timed_s", "launches", "pushes",
+                                     "backends", "payload_bytes_sent", "socket_bytes_sent",
+                                     "tcp")}
+            row["loss_first"], row["loss_last"] = map(float, r["losses"][[0, -1]])
+            row["pull_p50_ms"], row["push_p50_ms"] = _p50_ms(r["pull_s"]), _p50_ms(r["push_s"])
+            row["examples_per_s_over_loopback"] = r["examples_per_s"] / clean["examples_per_s"]
+            for k in ("filter_overhead", "zlib_bytes_in_out", "codec", "metered", "reliable",
+                      "chaos", "server_gave_up"):
+                if k in r:
+                    row[k] = r[k]
+            out[kind] = row
+        out["loopback"] = {"examples_per_s": clean["examples_per_s"],
+                           "pull_p50_ms": _p50_ms(clean["pull_s"]),
+                           "push_p50_ms": _p50_ms(clean["push_s"])}
+        out["lossless"]["payload_bytes_over_tcp_shm"] = (
+            runs["lossless"]["payload_bytes_sent"] / runs["tcp_shm"]["payload_bytes_sent"])
+        out["int8_ef"].update(loss_gap=loss_gap, last3_gap=last3_gap, bound=0.03,
+                              push_links=push_links,
+                              wire_raw_bytes=ef["metered"].get("wire_raw_bytes"),
+                              wire_bytes=ef["metered"].get("wire_bytes"))
+        for kind in legs:
+            emit("sockets_" + kind, **out[kind])
+        out["gather_check"] = planes.result(errs, "gather")
+        check(len(applies.records) == 2 * len(legs),
+              f"{len(applies.records)} applies held, expected {2 * len(legs)}")
+        out["apply_check"] = applies.result(errs, len(applies.records))
+    check(total["gather"] > 0 and total["apply"] > 0, f"sockets launches {total}")
+    launches = {}
+    for filters in ("lossless", "none"):
+        launches[filters] = sockets_launch_leg(torch, filters)
+        emit("sockets_launch_" + filters, **launches[filters])
+    out["launch"] = {
+        "wire_sent": {f: r["wire_sent"] for f, r in launches.items()},
+        "wire_recv": {f: r["wire_recv"] for f, r in launches.items()},
+        "wire_sent_lossless_over_none": launches["lossless"]["wire_sent"]
+        / launches["none"]["wire_sent"],
+        "filter_overhead": launches["lossless"]["filter_overhead"],
+        "seconds": {f: r["seconds"] for f, r in launches.items()}}
+    out["launch_child_launches"] = {
+        name: sum(r["child_launches"][n][name] for r in launches.values()
+                  for n in r["child_launches"]) for name in REPLACES}
     out["launches"] = total
     out["phase_s"] = time.perf_counter() - t_phase
     return out, total

@@ -7,7 +7,7 @@ from __future__ import annotations
 
 import dataclasses
 import enum
-from typing import Optional
+from typing import Optional, Union
 
 
 class ConsistencyMode(str, enum.Enum):
@@ -263,6 +263,60 @@ class TransportConfig:
 
 
 @dataclasses.dataclass(frozen=True)
+class WireCompressionConfig:
+    """Lossy wire codec for a table's PUSH value plane.
+
+    Selected per table (``TableConfig.compression``) and composed under
+    ``CoalescingVan`` through :class:`~parameter_server_tpu_torch.core.
+    filters.QuantizingFilter`: one pass over the bundled value plane, PUSH
+    requests only (PULL replies stay bit-exact).
+
+    ``error_feedback`` keeps a per-(sender, table, key) residual on the
+    sender: the quantization error of each push is added to the NEXT push
+    of the same keys instead of lost, so the compressed run converges like
+    the uncompressed one.  Residuals are dropped on ``adopt_routing`` (a new
+    routing epoch), on a peer's incarnation advance and on a same-id
+    restart.
+
+    ``per_row``: ``True`` / ``False`` force per-row / per-tensor scales;
+    ``"auto"`` uses per-row scales only when the last dim is >= 16 (each
+    row scale costs 4 bytes, which would rival the int8 payload of a dim-1
+    table).
+    """
+
+    #: wire codec: "none" (bit-exact), "int8", or "fp8".
+    codec: str = "none"
+    #: fp8 bit layout: "e4m3" (more mantissa) or "e5m2" (more range).
+    fp8_format: str = "e4m3"
+    #: "nearest" or "stochastic" (seeded from ``seed``: deterministic).
+    rounding: str = "nearest"
+    #: carry quantization error forward per (sender, table, key).
+    error_feedback: bool = True
+    #: per-row scales: True | False | "auto".
+    per_row: Union[bool, str] = "auto"
+    #: stochastic-rounding rng seed.
+    seed: int = 0
+
+    def __post_init__(self) -> None:
+        if self.codec not in ("none", "int8", "fp8"):
+            raise ValueError(
+                f"codec must be none|int8|fp8, got {self.codec!r}"
+            )
+        if self.fp8_format not in ("e4m3", "e5m2"):
+            raise ValueError(
+                f"fp8_format must be e4m3|e5m2, got {self.fp8_format!r}"
+            )
+        if self.rounding not in ("nearest", "stochastic"):
+            raise ValueError(
+                f"rounding must be nearest|stochastic, got {self.rounding!r}"
+            )
+        if not (self.per_row in (True, False) or self.per_row == "auto"):
+            raise ValueError(
+                f'per_row must be True, False, or "auto", got {self.per_row!r}'
+            )
+
+
+@dataclasses.dataclass(frozen=True)
 class TableConfig:
     """A KV table: the unit that is range-partitioned across servers."""
 
@@ -279,6 +333,8 @@ class TableConfig:
     #: fused push apply (one gather -> rule -> scatter kernel); False selects
     #: the three-pass path (gathers, plain rule, scatter-sets).
     fused_apply: bool = True
+    #: lossy wire codec for this table's PUSH plane; None = bit-exact wire.
+    compression: Optional[WireCompressionConfig] = None
     #: wire-enforced consistency gate: when set, workers stamp their
     #: committed step (``__cstep__``) on this table's PUSH/PULL requests and
     #: servers gate them against the fleet's vector clock (SSP / BSP / ASP).

@@ -119,6 +119,10 @@ class _Endpoint:
                     flightrec.on_recv_exception(self.node_id, e)
                 except Exception:  # noqa: BLE001 — observability must never
                     pass  # take down the recv thread it exists to debug
+            # drop the handled message now, not when the next one arrives: its
+            # planes may be views into a shm ring slot or a native receive
+            # buffer, freed only when the last view dies
+            del msg
 
     def stop(self) -> None:
         self.inbox.put(None)
@@ -132,10 +136,17 @@ class LoopbackVan(Van):
     unspecified.
     """
 
-    def __init__(self) -> None:
+    def __init__(self, filter_chain=None) -> None:
+        """``filter_chain``: optional ``core.filters.FilterChain`` applied
+        encode-on-send / decode-on-receive, so in-process traffic takes the
+        codec path socket traffic does."""
         self._endpoints: dict[str, _Endpoint] = {}
         self._disconnected: set[str] = set()
         self._lock = threading.Lock()
+        # Filter traffic serializes per LINK (sender, recver): key caching
+        # needs wire FIFO per link, while different links encode in parallel.
+        self.filter_chain = filter_chain
+        self._link_locks: dict[tuple, threading.Lock] = {}
         #: counters for the dashboard (reference network_usage.h role).
         self.sent_messages = 0
         self.dropped_messages = 0
@@ -153,6 +164,13 @@ class LoopbackVan(Van):
                 self.dropped_messages += 1
                 return False
             self.sent_messages += 1
+        if self.filter_chain is not None:
+            with self._lock:
+                link_lock = self._link_locks.setdefault(
+                    (msg.sender, msg.recver), threading.Lock()
+                )
+            with link_lock:
+                msg = self.filter_chain.decode(self.filter_chain.encode(msg))
         ep.inbox.put(msg)
         return True
 

@@ -72,6 +72,7 @@ from parameter_server_tpu_torch import checkpoint
 from parameter_server_tpu_torch.config import GroupConfig, TableConfig
 from parameter_server_tpu_torch.core import flightrec
 from parameter_server_tpu_torch.core.coalesce import GroupReducer
+from parameter_server_tpu_torch.core.filters import find_quantizers
 from parameter_server_tpu_torch.core.messages import Message, Task, TaskKind, server_id
 from parameter_server_tpu_torch.core.postoffice import Customer, Postoffice
 from parameter_server_tpu_torch.kv.cache import HotRowCache
@@ -244,7 +245,9 @@ class KVWorker(Customer):
         """Adopt a routing table (or its wire payload, as fence replies carry
         it) iff it is NEWER than the one held: highest epoch wins.  Adoption
         drops every hot-row cache entry (a range that moved and moved back
-        across epochs could alias); the watermarks stay."""
+        across epochs could alias); the watermarks stay.  It also drops this
+        worker's error-feedback residuals in every wire quantizer of its van
+        stack: they describe error owed to the OLD owners of each range."""
         if routing is None:
             return False
         if isinstance(routing, dict):
@@ -255,6 +258,10 @@ class KVWorker(Customer):
             self.routing = routing
         if self.cache is not None:
             self.cache.invalidate_all(reason="routing-epoch")
+        van = getattr(self.post, "van", None)
+        if van is not None:
+            for codec in find_quantizers(van):
+                codec.reset_residuals(sender=self.post.node_id, reason="adopt_routing")
         return True
 
     def counters(self) -> dict:
@@ -1238,7 +1245,14 @@ class KVWorker(Customer):
         uniq = torch.zeros((plan["n_slots"], cfg.dim), dtype=torch.float32, device=dev)
         for pos, rows, *_meta in pairs:
             if not isinstance(rows, torch.Tensor):
-                rows = torch.from_numpy(np.asarray(rows, dtype=np.float32))
+                # a wire plane may be a view into a ring slot or a native
+                # receive buffer, freed when its last view dies: copy it on
+                # the host first, into a page-locked buffer the caching host
+                # allocator holds until the copy up has run
+                arr = np.asarray(rows, dtype=np.float32)
+                rows = torch.empty(arr.shape, dtype=torch.float32,
+                                   pin_memory=dev.type == "cuda")
+                rows.numpy()[...] = arr
             rows = rows.to(dev, non_blocking=True).reshape(-1, cfg.dim)
             idx = torch.from_numpy(np.asarray(pos, dtype=np.int64)).to(dev)
             uniq.index_copy_(0, idx, rows)

@@ -1,9 +1,12 @@
 """Native (C++) host components, built lazily with g++ and loaded via ctypes.
 
-The port's copy of ``parameter_server_tpu/native/__init__.py``.  Its only
-source so far is ``src/keymap.cc`` (a copy of the JAX package's), the
-persistent key -> slot map behind :class:`~parameter_server_tpu_torch.utils.
-keys.Localizer`.  The ABI is plain ``extern "C"`` + ctypes.
+The port's copy of ``parameter_server_tpu/native/__init__.py``.  Its
+sources are copies of the JAX package's: ``src/keymap.cc``, the persistent
+key -> slot map behind :class:`~parameter_server_tpu_torch.utils.keys.
+Localizer`, and the socket van's two wire cores, ``src/epollvan.cc`` (one
+event-loop thread) and ``src/tcpvan.cc`` (a thread per connection), loaded
+by :mod:`~parameter_server_tpu_torch.core.tcp_van`.  The ABI is plain
+``extern "C"`` + ctypes.
 
 :func:`load` compiles ``src/<name>.cc`` on first use — never at import —
 into ``parameter_server_tpu_torch/build/native/``; the library's file name

@@ -11,9 +11,8 @@ against the JAX package's, on the CPU.
   schedule; and the e2e runs (LR training under 5% drop, coalesced under
   drop and duplication, a server killed and its standby promoted, pulls
   retransmitted into a promotion, the deadline retry, seed determinism),
-  each bitwise equal to the port's own clean run.  The JAX package's
-  ``test_reliable_over_tcp_van_sockets`` waits for the TCP van (not
-  ported yet).
+  each bitwise equal to the port's own clean run; and the resender
+  repairing 30% loss over the port's ``TcpVan`` on real sockets.
 - **Fault-schedule parity**: one seed and one 2,000-message sequence give
   the same drops, duplicates, reorders, latencies and flipped byte and bit
   in both packages (a recording timer wheel, so no wall clock decides the
@@ -849,3 +848,35 @@ def test_incarnation_hooks_reach_the_reliable_van():
         assert source == "cold" and ("W0", "S0") not in rel._windows
     finally:
         _close(van, servers)
+
+
+def test_reliable_over_tcp_van_sockets():
+    """The reliability layer is Van-agnostic: the same protocol repairs
+    in-flight loss over the port's TcpVan (chaos under the worker's
+    resender; ACKs from the server ride the peer-connection reply path)."""
+    from parameter_server_tpu_torch import native
+
+    if native.load("tcpvan") is None:  # pragma: no cover
+        pytest.skip("no native toolchain for tcpvan")
+    from parameter_server_tpu_torch.core.tcp_van import TcpVan
+
+    van_s = ReliableVan(TcpVan(), timeout=0.1, backoff=1.0, max_retries=60)
+    chaos_w = ChaosVan(TcpVan(), seed=4, drop=0.3)
+    van_w = ReliableVan(chaos_w, timeout=0.1, backoff=1.0, max_retries=60)
+    try:
+        KVServer(Postoffice("S0", van_s), _table_cfgs(), 0, 1, device="cpu")
+        van_w.add_route("S0", van_s.address)
+        worker = KVWorker(Postoffice("W0", van_w), _table_cfgs(), 1, device="cpu")
+        keys, labels = _batches()[0]
+        for _ in range(10):  # enough traffic that 30% loss must bite
+            w_pos = worker.pull_sync("w", keys, timeout=60)
+            assert w_pos.shape == keys.shape
+        g, _gb, _loss = linear.grad_rows(torch.from_numpy(np.asarray(w_pos)),
+                                         torch.from_numpy(labels.astype(np.float32)))
+        worker.push_sync("w", keys, g.numpy() / labels.shape[0], timeout=60)
+        assert chaos_w.injected_drops > 0
+        assert van_w.retransmits > 0  # the losses crossed the repair path
+        assert van_w.gave_up == 0 and van_s.gave_up == 0
+    finally:
+        van_w.close()
+        van_s.close()

@@ -12,6 +12,11 @@ tests' 8 virtual CPU devices the JAX reducer takes its ``psum`` path, the
 port sums on the host in member order (a one-card host has no collective
 across members).
 
+Then the wire quantizer under groups: ``ef: "bypass"`` (rotating
+election) leaves a group PUSH unquantized, ``ef: "leader"`` (fixed
+election) quantizes it under the pinned leader's residual store, with the
+JAX codec's frame bytes; the ``GROUP_KEY`` mirror in ``core/filters.py``.
+
 Tolerances: host code (elections, validation, counters, wire counts,
 reducer output of the 2-member sum and of the merge) exactly; tables
 bitwise within the port and against the JAX package where the gradients are
@@ -469,3 +474,74 @@ def test_metered_van_counts_like_jax():
         finally:
             _close(v, servers)
     assert links["port"] == links["jax"]
+
+
+# ------------------------------------------------- error feedback under groups
+
+
+def test_group_key_mirrors_filters_module():
+    """kv/routing.py owns the wire constant; core/filters.py mirrors it to
+    avoid a core -> kv import cycle, in both packages."""
+    from parameter_server_tpu.core import filters as jax_filters
+    from parameter_server_tpu_torch.core import filters
+
+    assert routing.GROUP_KEY == filters._GROUP_KEY == jax_filters._GROUP_KEY
+
+
+def _group_push_msg(pkg, ef):
+    from parameter_server_tpu.core import messages as jax_messages
+    from parameter_server_tpu_torch.core import messages
+
+    msgs = messages if pkg is PORT else jax_messages
+    return msgs.Message(
+        task=msgs.Task(msgs.TaskKind.PUSH, "kv", payload={
+            "table": "w", pkg.routing.GROUP_KEY: {"id": "W0+W1", "n": 2, "step": 0, "ef": ef}}),
+        sender="W0", recver="S0", keys=np.array([1, 2], dtype=np.int32),
+        values=[np.array([[1.5], [2.5]], np.float32)],
+    )
+
+
+def _quantizer(pkg):
+    from parameter_server_tpu.core import filters as jax_filters
+    from parameter_server_tpu_torch.core import filters
+
+    mod = filters if pkg is PORT else jax_filters
+    return mod.QuantizingFilter(default=pkg.cfg.WireCompressionConfig(
+        codec="int8", error_feedback=True))
+
+
+def test_ef_bypass_skips_codec_for_rotating_groups():
+    for pkg in (PORT, JAX):
+        codec = _quantizer(pkg)
+        msg = _group_push_msg(pkg, "bypass")
+        out = codec.encode(msg)
+        # the frame untouched: float32 planes, no residual store created
+        assert out is msg and out.values[0].dtype == np.float32
+        assert codec.counters().get("compress_wire_bytes", 0) == 0
+        assert not codec._residuals
+
+
+def test_ef_leader_mode_quantizes_under_pinned_residual_as_jax():
+    from parameter_server_tpu.core import frame as jax_frame
+    from parameter_server_tpu_torch.core import frame
+
+    out = {}
+    for name, pkg in PKGS.items():
+        codec = _quantizer(pkg)
+        enc = codec.encode(_group_push_msg(pkg, "leader"))
+        assert enc.values[0].dtype == np.int8  # quantized
+        # the PINNED leader's (sender, table) store owns the group's residual
+        assert set(codec._residuals) == {("W0", "w")}
+        out[name] = bytes((frame if pkg is PORT else jax_frame).encode(enc))
+    assert out["port"] == out["jax"]
+
+
+def test_rotate_election_worker_stamps_bypass_ef():
+    names = ("W0", "W1")
+    for pkg in (PORT, JAX):
+        group, gcfg = _group(pkg, names, 2)
+        v, _m, servers, workers = _cluster(pkg, names, group=group, group_cfg=gcfg)
+        try:
+            assert [w._group_ef for w in workers] == ["bypass", "bypass"]
+        finally:
+            _close(v, servers)

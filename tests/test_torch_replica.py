@@ -26,7 +26,8 @@ endpoint's transport fence; the full lifecycle through
 ``learner.elastic.restart_server``; and a remote cancel dropping queued
 work at the receiver.
 
-Not ported here: forwarding over real sockets (the TCP van).
+And forwarding over real sockets: a primary on the port's ``TcpVan``
+forwards its applied pushes to a standby on another.
 
 Tolerances: within the port exactly (the standby replays the same update
 stream through the same apply); against the JAX package rtol = atol = 1e-4
@@ -693,3 +694,33 @@ def test_remote_cancel_drops_queued_work_at_receiver():
         assert ran == ["S0", "S1"]
     finally:
         chaos.close()
+
+
+def test_replica_forwarding_rides_real_sockets():
+    """The chain protocol is Van-agnostic: a primary on the port's TcpVan
+    forwards applied pushes to a standby over real sockets (twin of
+    ``tests/test_replica.py::test_replica_forwarding_rides_real_sockets``)."""
+    from parameter_server_tpu_torch import native
+
+    if native.load("tcpvan") is None:  # pragma: no cover
+        pytest.skip("no native toolchain for tcpvan")
+    from parameter_server_tpu_torch.core.tcp_van import TcpVan
+
+    van_w, van_p, van_r = TcpVan(), TcpVan(), TcpVan()
+    try:
+        cfgs = _table_cfgs()
+        standby = KVServer(Postoffice("R0", van_r), cfgs, 0, 1, device="cpu")
+        primary = KVServer(Postoffice("S0", van_p), cfgs, 0, 1, replica="R0",
+                           replica_sync=True, device="cpu")
+        van_p.add_route("R0", van_r.address)
+        van_w.add_route("S0", van_p.address)
+        worker = KVWorker(Postoffice("W0", van_w), cfgs, 1, device="cpu")
+        _train(worker, _batches()[:1])
+        np.testing.assert_array_equal(primary.tables["w"].value.numpy(),
+                                      standby.tables["w"].value.numpy())
+        assert primary.tables["w"].value.abs().sum() > 0
+        assert van_p.payload_bytes_sent() > 0  # the forward crossed a socket
+    finally:
+        van_w.close()
+        van_p.close()
+        van_r.close()

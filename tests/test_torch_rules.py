@@ -41,7 +41,10 @@
   ``close`` delegates to the inner van, ``counters()`` never merges the
   inner van's, and the frame path (codec, resender, coalescer) imports no
   pickle; ``ml_dtypes`` is as forbidden as ``jax``.
-- Every entry point's ``device`` defaults to ``"cuda"``.
+- Every entry point's ``device`` defaults to ``"cuda"``, the launcher's
+  child roles' ``--device`` too.
+- The shm ring's and the socket van's per-frame fast paths are copy-free
+  (``check_wrappers.check_copy_free``).
 - ``chip_smoke.py`` fails, and prints no result, where there is no card or
   no package beside it.
 """
@@ -69,6 +72,7 @@ from parameter_server_tpu_torch.kv.replica import make_replicated_servers, resta
 from parameter_server_tpu_torch.learner.dense import AsyncDenseLearner, SpmdDenseTrainer
 from parameter_server_tpu_torch.learner.elastic import ElasticTrainer, restart_server, scale_up
 from parameter_server_tpu_torch.learner.sgd import AsyncLRLearner, LocalLRTrainer
+from parameter_server_tpu_torch.launch import launch
 from parameter_server_tpu_torch.models.dlrm import SpmdDLRMTrainer
 from parameter_server_tpu_torch.parallel import dlrm_scale
 
@@ -484,7 +488,7 @@ def test_the_dense_sync_scan_catches_a_readback(src, want):
                                    DenseKVServer, DenseKVWorker, SpmdDenseTrainer,
                                    AsyncDenseLearner, make_replicated_servers,
                                    restart_same_id, ElasticTrainer, scale_up,
-                                   restart_server],
+                                   restart_server, launch],
                          ids=lambda c: c.__name__)
 def test_entry_points_default_to_the_card(entry):
     fn = entry.__init__ if inspect.isclass(entry) else entry
@@ -522,6 +526,19 @@ def test_dlrm_scale_defaults_to_the_card():
              and getattr(c.func, "attr", None) == "add_argument"}
     assert flags["--device"]["default"] == "cuda"
     assert flags["--mesh"]["default"] == "1,1"
+
+
+def test_launch_children_default_to_the_card():
+    """``python -m parameter_server_tpu_torch.launch`` roles run on the card
+    unless ``--device`` says otherwise, and ``launch()`` passes its own."""
+    from parameter_server_tpu_torch import launch as launch_mod
+
+    tree = ast.parse(inspect.getsource(launch_mod.main))
+    flags = {c.args[0].value: {k.arg: getattr(k.value, "value", None) for k in c.keywords}
+             for c in ast.walk(tree) if isinstance(c, ast.Call)
+             and getattr(c.func, "attr", None) == "add_argument"}
+    assert flags["--device"]["default"] == "cuda"
+    assert '"--device", device' in inspect.getsource(launch_mod.launch)
 
 
 def test_server_builds_a_ledger_by_default():
@@ -574,7 +591,7 @@ import check_wrappers  # noqa: E402
 WIRE_WRAPPERS = ("core/van.py", "core/netmon.py", "core/coalesce.py", "core/frame.py",
                  "core/chaos.py", "core/resender.py")
 #: the JAX package's no-pickle modules the port has not ported yet
-NOT_PORTED_HOT_PATH = {"core/tcp_van.py"}
+NOT_PORTED_HOT_PATH = set()
 
 
 def test_port_wrappers_keep_the_wrapper_contract():
@@ -591,6 +608,29 @@ def test_port_frame_path_is_pickle_free():
     problems = [p for rel in present + ["core/chaos.py"]
                 for p in check_wrappers.check_no_pickle(PORT / rel)]
     assert problems == [], "\n".join(problems)
+
+
+def test_port_shm_and_recv_fast_paths_are_copy_free():
+    """The ring's write / poll / read / release and the socket van's send
+    choke point, ring reader and receive dispatch make no per-frame copy
+    (``.tobytes()``, ``bytes(...)``, ``ctypes.string_at``), as the JAX
+    package's (``check_wrappers.check_copy_free``)."""
+    problems = check_wrappers.check_copy_free(
+        PORT / check_wrappers.SHM_RING_MODULE, check_wrappers.SHM_COPY_FREE_FUNCS,
+        "SHM_COPY_FREE_FUNCS")
+    problems += check_wrappers.check_copy_free(
+        PORT / "core/tcp_van.py", check_wrappers.VAN_COPY_FREE_FUNCS, "VAN_COPY_FREE_FUNCS")
+    assert problems == [], "\n".join(problems)
+
+
+def test_the_copy_free_scan_catches_a_planted_copy(tmp_path):
+    src = (PORT / "core/shm_ring.py").read_text()
+    old = "            view = self._data[pos + 4:pos + 4 + n]\n"
+    assert old in src
+    bad = tmp_path / "planted.py"
+    bad.write_text(src.replace(old, old + "            view = bytes(view)\n", 1))
+    problems = check_wrappers.check_copy_free(bad, check_wrappers.SHM_COPY_FREE_FUNCS, "X")
+    assert len(problems) == 1 and "bytes()" in problems[0]
 
 
 @pytest.mark.parametrize("planted", ["flush", "close", "counters", "pickle", "ml_dtypes"])
