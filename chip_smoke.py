@@ -112,7 +112,10 @@ Phases, each printing one JSON line (``"phase": ...``):
              past 2^32) against the plain versions; both kernels' times at the
              step's shape (8 consecutive batches' slots, CUDA-graph replay)
              beside the byte bound; then the 2^22 control and the step-time
-             flatness ratio.
+             flatness ratio.  The MFU of the timed steps: the dense part's
+             matmul FLOPs (``counted_flops`` on ``meta`` copies) against the
+             card's fp32 peak (the MLPs run in fp32: TF32 off), within
+             (0, 100%).
    dlrm_profile  ``torch.profiler`` over 3 steps: device busy, idle share,
              top device ops, the segment sum's share.
    dlrm_reference  the test's shape (2^14 x 16, batch 256) from one state on
@@ -121,7 +124,9 @@ Phases, each printing one JSON line (``"phase": ...``):
    dense_spmd  BASELINE config #2: ``SpmdDenseTrainer`` with ResNet-50 (224 x
              224, 1000 classes, one fixed batch of 64, SGD momentum 0.9):
              images/s, peak memory, the loss falling, 2 steps profiled; a
-             tiny ResNet on the card and the CPU, TF32 off, within 1e-4.
+             tiny ResNet on the card and the CPU, TF32 off, within 1e-4.  The
+             MFU of the timed steps against the card's TF32 peak (torch's
+             default runs the convolutions in TF32), within (0, 100%).
    dense_async  ``AsyncDenseLearner``, 2 workers x 2 servers (``DenseKVServer``
              on the card) on ``MeteredVan(LoopbackVan())`` under BSP,
              ResNet-50, a fixed batch of 64 each: images/s, PUSH and PULL
@@ -267,6 +272,37 @@ Phases, each printing one JSON line (``"phase": ...``):
              Every ``ps_gather`` of the in-process legs held to
              ``index_select``, the first ``ps_apply`` on each table to its
              plain version.
+   observe   the observability plane at config #1 width: 1 worker x 2
+             servers, each node on its own ``TcpVan`` (shm rings), 8 steps of
+             the ``wire`` batches (the first untimed) in three trace arms:
+             ``KVWorker(trace=TraceConfig(enabled=False))``, sampling 1/1024
+             and 1/1.  Each arm bitwise equal to the ``wire`` phase's clean
+             run, 16 ``ps_gather`` and 16 ``ps_apply`` launches each; the
+             1/1024 arm's payload bytes within 1% of the off arm's; in the
+             1/1 arm ``trace_samples == trace_closed > 0``.  Examples/s of
+             each arm over the off arm, reported (one run an arm cannot
+             resolve a 3% gate).  The 1/1 arm also carries the telemetry
+             plane (a scheduler ``H`` with a ``TelemetryAggregator`` over an
+             ``SloEngine`` of ``device_plane_specs`` and
+             ``tracing_plane_specs``, a ``TelemetryPublisher`` on every node,
+             one beat each 0.2 s) and a ``Tracer`` on every node: frames from
+             every node, no dedup drop, ``tools/pstop.py`` renders the
+             spill; the armed ``ro-p99`` serving spec (1 ns) shuts the
+             ``AdmissionController`` within the beats its window needs,
+             reads are shed, and reads flow again once it is lifted; the
+             verdicts; ``tools/critpath.py`` over the flight-recorder dump
+             (exit 0, every sampled request one complete span tree, a wire
+             segment, planes summing to its e2e within 10%) and
+             ``tools/merge_traces.py`` over the nodes' ``Tracer`` dumps
+             (valid, a flow across nodes); two more steps under
+             ``torch_profile``: device events of ``ps_gather`` and
+             ``ps_apply`` under their ``scatter_kernels.cu`` symbols.  Then
+             DLRM at 2^22 x 16, batch 8192, 4 steps, with and without its MFU
+             count: losses, table and MLP bitwise equal; and the war game's
+             ``smoke_scenario(0)`` on this host: the scorecard complete, the
+             report's postmortem and critpath sections present.  Every
+             ``ps_gather`` held to ``index_select``, the first ``ps_apply``
+             on each table to its plain version.
 9. times     every kernel at the main path's shapes: device time per call
              (CUDA-graph replay), the byte bound at 3.35 TB/s, the plain
              version's time and one PyTorch library call's time; an empty
@@ -382,6 +418,11 @@ ELASTIC_DEATH_TIMEOUT_S = 10.0
 WIRE_STEPS, WIRE_SEED, WIRE_DROP, WIRE_DUP, WIRE_CORRUPT = 8, 0, 0.05, 0.05, 0.05
 WIRE_TIMEOUT_S, WIRE_RETRIES, WIRE_CODEC_REPS = 0.25, 60, 20
 WIRE_SLOW_MS, WIRE_BEATS, WIRE_DEVICE_KEYS = 120.0, 5, 4096
+#: the observability plane at config #1 width: the trace arms (name, 1-in-N
+#: sampling; 0 = tracing off), the telemetry beat, the bound on the SLO
+#: leg's breach and recovery polls, the war game's seed
+OBSERVE_ARMS = (("off", 0), ("1/1024", 1024), ("1/1", 1))
+OBSERVE_BEAT_S, OBSERVE_SLO_DEADLINE_S, OBSERVE_SCENARIO_SEED = 0.2, 15.0, 0
 DEVICE = "cuda"
 SOURCE = "parameter_server_tpu_torch/csrc/scatter_kernels.cu"
 REPLACES = {
@@ -544,14 +585,24 @@ def main() -> int:
                                           "apply_check")})
 
     # -- 8h. the production wire: sockets, filters and the launcher ------------------
-    sockets, sockets_launches = sockets_phase(torch, scatter, dev, errs, wire.pop("clean_run"))
+    clean = wire.pop("clean_run")
+    sockets, sockets_launches = sockets_phase(torch, scatter, dev, errs, clean)
     emit("sockets", **{k: sockets[k] for k in ("launches", "phase_s", "gather_check",
                                                 "apply_check", "loopback", "launch",
                                                 "launch_child_launches")})
 
+    # -- 8i. the observability plane --------------------------------------------------
+    observe, observe_launches = observe_phase(torch, scatter, dev, errs, clean)
+    del clean
+    emit("observe", **{k: observe[k] for k in ("launches", "phase_s", "gather_check",
+                                                "apply_check", "wire_bytes_1_1024_vs_off")})
+
     # -- 9. times ----------------------------------------------------------------
     kernels = times_phase(torch, scatter, dev, errs, launches)
     for k in kernels:
+        k["observe_launches"] = observe_launches[k["name"]]
+        # scatter-set and scatter-add are not on the observability path
+        k["observe"] = observe.get(f"{k['name']}_check")
         k["sockets_launches"] = sockets_launches[k["name"]]
         k["launch_child_launches"] = sockets["launch_child_launches"][k["name"]]
         # scatter-set and scatter-add are not on the sockets path either
@@ -2198,6 +2249,19 @@ def _dlrm_stream(rows):
     return SyntheticDLRM(key_space=rows, batch_size=DLRM_BATCH, seed=3)
 
 
+def _mfu(dashboard, examples_per_s, what):
+    """The MFU fields of a trainer's dashboard at a rate measured on the
+    card: FLOPs per example (``counted_flops``), the card's data-sheet peak
+    for the step's math mode, the mode, and the utilisation, which must lie
+    strictly between 0 and 100%."""
+    fpe, peak = dashboard.flops_per_example, dashboard.peak_flops
+    check(fpe > 0 and peak > 0, f"{what}: flops/example {fpe}, peak {peak}")
+    pct = 100.0 * fpe * examples_per_s / peak
+    check(0.0 < pct < 100.0, f"{what}: mfu {pct}%")
+    return {"flops_per_example": fpe, "peak_flops": peak, "precision": dashboard.precision,
+            "examples_per_s": examples_per_s, "mfu_pct": pct}
+
+
 def dlrm_phase(torch, scatter, dev):
     """``dlrm_scale.scale_run`` at bench.py's stepped shape (2^28 x 16, batch
     8192, 1 warm + 4 timed steps) with the launch count of that run; then,
@@ -2277,6 +2341,9 @@ def dlrm_phase(torch, scatter, dev):
         "step_peak_less_before_bytes": peak - base, "trash_rows_at_fill": True,
         "repeated_batch_losses": rep, "positions": int(keys.size),
         "unique_slots": n_unique, "bucket": int(slots.size), "hottest_slot_positions": hot,
+        # the timed steps' median (host localize included) against the
+        # dense part's matmul FLOPs
+        "mfu": _mfu(trainer.dashboard, DLRM_BATCH / (out["step_ms_median"] / 1e3), "dlrm"),
     }
     return fields, counts, trainer
 
@@ -2535,6 +2602,7 @@ def dense_spmd(torch, dev, batch):
     check(all(p.device.type == dev.type for p in tr.model.parameters()),
           "resnet-50 params off the card")
     peak = torch.cuda.max_memory_allocated(dev)
+    mfu = _mfu(tr.dashboard, DENSE_TIMED * RESNET_BATCH / wall, "resnet-50")
     profiled = _device_profile(torch, lambda: [tr.step(*batch) for _ in range(2)], top_n=12)
     del tr
     return {"model": "resnet50", "hw": RESNET_HW, "classes": RESNET_CLASSES,
@@ -2542,7 +2610,7 @@ def dense_spmd(torch, dev, batch):
             "lr": DENSE_LR, "tf32": _tf32_flags(torch), "wall_s": wall,
             "images_per_s": DENSE_TIMED * RESNET_BATCH / wall,
             "ms_per_step": wall * 1e3 / DENSE_TIMED, "losses": losses,
-            "peak_memory_bytes": peak, "profile_2_steps": profiled,
+            "peak_memory_bytes": peak, "profile_2_steps": profiled, "mfu": mfu,
             "tiny_vs_cpu": _tiny_resnet_vs_cpu(torch, dev)}
 
 
@@ -4942,6 +5010,522 @@ def sockets_phase(torch, scatter, dev, errs, clean):
     out["launch_child_launches"] = {
         name: sum(r["child_launches"][n][name] for r in launches.values()
                   for n in r["child_launches"]) for name in REPLACES}
+    out["launches"] = total
+    out["phase_s"] = time.perf_counter() - t_phase
+    return out, total
+
+
+# ---------------------------------------------------------------------------
+# phase 8i: the observability plane
+# ---------------------------------------------------------------------------
+
+
+def _tool(name):
+    """A repo tool module (``tools/`` is not a package), loaded off disk."""
+    import importlib.util
+    import os
+
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tools", f"{name}.py")
+    spec = importlib.util.spec_from_file_location(name, path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _run_tool(name, *args):
+    """``python3 tools/<name>.py args``: (return code, stdout, stderr)."""
+    import os
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    proc = subprocess.run([sys.executable, os.path.join(root, "tools", f"{name}.py"), *args],
+                          capture_output=True, text=True, timeout=120, cwd=root)
+    return proc.returncode, proc.stdout, proc.stderr
+
+
+def _observe_root():
+    import os
+
+    return os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        "parameter_server_tpu_torch", "build", "observe")
+
+
+class _Beats:
+    """Every node's heartbeat, each ``OBSERVE_BEAT_S`` on one thread: a beat
+    also publishes the node's telemetry frame (``Manager.send_heartbeat``)."""
+
+    def __init__(self, managers):
+        import threading
+
+        self.managers, self.stop = managers, threading.Event()
+        self.errors = []
+        self.thread = threading.Thread(target=self._loop, name="observe-beats", daemon=True)
+        self.thread.start()
+
+    def _loop(self):
+        while not self.stop.is_set():
+            try:
+                for mgr in self.managers:
+                    mgr.send_heartbeat()
+            except Exception as e:  # noqa: BLE001 — surfaced by close()
+                self.errors.append(repr(e))
+                return
+            self.stop.wait(OBSERVE_BEAT_S)
+
+    def close(self):
+        self.stop.set()
+        self.thread.join(timeout=10)
+        check(not self.thread.is_alive(), "observe: the beat thread did not stop")
+        check(not self.errors, f"observe: heartbeats failed: {self.errors}")
+
+
+def _telemetry_plane(vans, posts, servers, worker, spill):
+    """The scheduler ``H`` with a ``TelemetryAggregator`` (over an SLO engine
+    of ``device_plane_specs`` and ``tracing_plane_specs``, spilling to
+    ``spill``) and a publisher on every node; the nodes register through
+    their Managers (the table broadcast wires their routes) and beat from
+    then on.  Returns (aggregator, base engine, beats)."""
+    from parameter_server_tpu_torch.core.fleet import FleetMonitor
+    from parameter_server_tpu_torch.core.manager import Manager
+    from parameter_server_tpu_torch.core.telemetry import TelemetryAggregator, TelemetryPublisher
+    from parameter_server_tpu_torch.utils.slo import (
+        SloEngine,
+        device_plane_specs,
+        tracing_plane_specs,
+    )
+
+    managers = {n: Manager(posts[n], num_workers=1, num_servers=2,
+                           advertise=vans[n].address, heartbeat_timeout=60.0)
+                for n in ("H", "S0", "S1", "W0")}
+    sched = managers["H"]
+    engine = SloEngine(device_plane_specs("w") + tracing_plane_specs())
+    agg = TelemetryAggregator(slo=engine, fleet=FleetMonitor(), jsonl_path=spill)
+    sched.fleet, sched.telemetry = agg.fleet, agg
+    sources = {"S0": servers[0], "S1": servers[1], "W0": worker}
+    for n in ("S0", "S1", "W0"):
+        vans[n].add_route("H", vans["H"].address)
+        managers[n].telemetry_pub = TelemetryPublisher(n, vans[n], sources=[sources[n]])
+        managers[n].register_with_scheduler(wait=False)
+    check(sched.wait_ready(60) and all(managers[n].wait_ready(60) for n in sources),
+          "observe: the node table never arrived")
+    return agg, engine, _Beats([managers[n] for n in ("S0", "S1", "W0")])
+
+
+def _wait_on(predicate, seconds, what):
+    """Poll ``predicate`` every 10 ms for at most ``seconds``."""
+    deadline = time.monotonic() + seconds
+    while not predicate():
+        check(time.monotonic() < deadline, f"observe: {what} within {seconds} s")
+        time.sleep(0.01)
+
+
+def observe_slo_leg(torch, worker, agg):
+    """Arm a serving spec the run must breach — ``ro-p99`` of the servers'
+    read-only pulls at 1 ns — as the live aggregator's engine, while
+    read-only pulls flow through an ``AdmissionController`` fed by the
+    engine's ``healthy``: the gate must shut within the beats the p99 window
+    needs (two frames of a server with read-only pulls after arming), reads
+    must be shed, and once the spec is lifted (an engine without it) reads
+    flow again.  ``tests/test_serving.py:291`` on the card, on live
+    telemetry.  The aggregator runs an engine with no spec before the leg,
+    so only the armed spec can shut the gate."""
+    from parameter_server_tpu_torch.serve.admission import AdmissionController, ShedError
+    from parameter_server_tpu_torch.utils.slo import SloEngine, SloSpec
+
+    keys = np.arange(1, 4097, dtype=np.int64) * 977 % ROWS
+    adm = AdmissionController(
+        worker, healthy=lambda: agg.slo.healthy("S0") and agg.slo.healthy("S1"))
+    _wait_on(lambda: not adm.overloaded("w"), OBSERVE_SLO_DEADLINE_S,
+             f"the gate open before arming (busy: {[worker.server_busy(s) for s in ('S0', 'S1')]})")
+    served = adm.pull("w", keys, timeout=60).shape[0]
+    armed = SloEngine([SloSpec("ro-p99", "ro_pull.w", 1e-6, source="p99", window_s=30.0)])
+    frames0 = {n: len(agg.rows(n)) for n in ("S0", "S1")}
+    agg.slo = armed
+    t0 = time.monotonic()
+    pulls_before_shed = 0
+    try:
+        while True:
+            check(time.monotonic() - t0 < OBSERVE_SLO_DEADLINE_S,
+                  f"observe: the armed ro-p99 spec never shut the gate ({pulls_before_shed} "
+                  "reads served)")
+            try:
+                adm.pull("w", keys, timeout=60)
+                pulls_before_shed += 1
+            except ShedError:
+                break
+            time.sleep(0.01)
+        breach_s = time.monotonic() - t0
+        beats = {n: len(agg.rows(n)) - frames0[n] for n in frames0}
+        breached = sorted(n for n in ("S0", "S1") if not armed.healthy(n))
+        check(bool(breached), "observe: shed while no server breached the armed spec")
+        sheds = 0
+        for _ in range(3):
+            try:
+                adm.pull("w", keys, timeout=60)
+            except ShedError:
+                sheds += 1
+        check(sheds == 3 and adm.serve_shed == 4, f"observe: {adm.serve_shed} reads shed")
+    finally:
+        agg.slo = SloEngine([])  # the spec lifted
+    t1 = time.monotonic()
+    _wait_on(lambda: not adm.overloaded("w"), OBSERVE_SLO_DEADLINE_S, "the gate open again")
+    recovered = adm.pull("w", keys, timeout=60).shape[0]
+    check(served == recovered == keys.size, "observe: a read after recovery lost rows")
+    return {"spec": {"name": "ro-p99", "metric": "ro_pull.w", "max_ms": 1e-6},
+            "reads_served_after_arming": pulls_before_shed, "breached": breached,
+            "frames_to_breach": beats, "seconds_to_breach": breach_s,
+            "reads_shed": adm.serve_shed, "seconds_to_recover": time.monotonic() - t1,
+            "recovered": True}
+
+
+def observe_profile(torch, scatter, dev, batches, worker, root):
+    """Two more steps of the full arm under ``torch_profile``: the exported
+    Chrome trace must hold device events of ``ps_gather``
+    (``move_*_kernel<0, ...>``) and ``ps_apply`` (``apply_*_kernel``), the
+    symbols of ``scatter_kernels.cu``, each with a duration above 0."""
+    import re
+
+    from parameter_server_tpu_torch.utils.trace import torch_profile
+
+    torch.cuda.synchronize()
+    with torch_profile(root, device=dev) as prof:
+        for keys, labels in batches[:2]:
+            w_pos = worker.pull_sync("w", keys, timeout=120)
+            grad, _loss = _card_grad(torch, dev, w_pos, labels)
+            worker.push_sync("w", keys, grad, timeout=120)
+    names = {"gather": re.compile(r"move_(dim1|rows)_kernel<(\(Move\))?0[,>]"),
+             "apply": re.compile(r"apply_(dim1|rows)_kernel<")}
+    out = {"trace": prof.path, "device_events": len(prof.device_events)}
+    for kernel, pat in names.items():
+        hits = [e for e in prof.device_events if pat.search(e["name"])]
+        check(bool(hits) and all(e["dur"] > 0 for e in hits),
+              f"observe profile: no {kernel} kernel with a duration in the trace "
+              f"({sorted({e['name'][:60] for e in prof.device_events})[:12]})")
+        out[kernel] = {"events": len(hits), "symbol": hits[0]["name"][:120],
+                       "dur_us_total": sum(e["dur"] for e in hits)}
+    return out
+
+
+def observe_stitch(root, tids, tracers):
+    """``tools/critpath.py`` over the full arm's flight-recorder dump, and
+    ``tools/merge_traces.py`` over the nodes' ``Tracer`` dumps, both run as
+    the user runs them.  Every sampled request of the arm (``tids``) must be
+    complete — one span tree (one submit, one closing ack), every plane
+    stamped, a wire segment above 0, its planes summing to its ``e2e``
+    within 10% — and the merged timeline must validate, with a flow arrow
+    between two nodes."""
+    import json as _json
+    import os
+
+    from parameter_server_tpu_torch.core import flightrec
+
+    bundles = flightrec.dump(os.path.join(root, "bundles"), reason="observe")
+    rc, stdout, stderr = _run_tool("critpath", "--json", "--requests", "0", *bundles)
+    check(rc == 0, f"observe: critpath exited {rc}: {stderr[-400:]}")
+    doc = _json.loads(stdout)
+    events = []
+    for b in bundles:
+        with open(b) as f:
+            events += _json.load(f)["events"]
+    subs = [e["tid"] for e in events if e.get("kind") == "trace.submit" and e["tid"] in tids]
+    acks = [e["tid"] for e in events if e.get("kind") == "trace.ack" and e["tid"] in tids]
+    check(sorted(subs) == sorted(acks) == sorted(tids),
+          f"observe: {len(tids)} sampled, {len(subs)} submits, {len(acks)} closing acks")
+    worst = 0.0
+    planes = {}
+    for tid in tids:
+        q = doc["requests"].get(tid)
+        check(q is not None and q["segments_s"] is not None, f"observe: {tid} incomplete: {q}")
+        segs = q["segments_s"]
+        check(segs["wire"] > 0 and all(v >= 0 for v in segs.values()),
+              f"observe: {tid} segments {segs}")
+        e2e = q["e2e_ms"] / 1e3
+        gap = abs(segs["e2e"] - e2e) / e2e
+        check(gap <= 0.1, f"observe: {tid} planes sum {segs['e2e']} s vs e2e {e2e} s")
+        worst = max(worst, gap)
+        for k, v in segs.items():
+            planes.setdefault(k, []).append(v)
+    dumps = []
+    for node, tr in tracers.items():
+        path = os.path.join(root, f"trace_{node}.json")
+        tr.dump_chrome_trace(path, process_name=node)
+        dumps.append(path)
+    merged_path = os.path.join(root, "merged_trace.json")
+    rc, stdout, stderr = _run_tool("merge_traces", "-o", merged_path, *dumps)
+    check(rc == 0, f"observe: merge_traces exited {rc}: {stderr[-400:]}")
+    with open(merged_path) as f:
+        merged = _json.load(f)
+    problems = _tool("merge_traces").validate_chrome_trace(merged)
+    check(problems == [], f"observe: merged trace invalid: {problems[:3]}")
+    flows = {}
+    for e in merged["traceEvents"]:
+        if e.get("ph") in ("s", "f"):
+            flows.setdefault(e["id"], set()).add(e["pid"])
+    cross = sum(1 for pids in flows.values() if len(pids) > 1)
+    check(cross > 0, f"observe: no flow crosses nodes ({len(flows)} flows)")
+    return {"critpath_rc": 0, "requests": len(tids), "complete": len(tids),
+            "planes_vs_e2e_worst": worst,
+            "plane_p50_ms": {k: 1e3 * float(np.median(v)) for k, v in planes.items()},
+            "attribution": doc["attribution"], "bundles": len(bundles),
+            "merged_flows": len(flows), "cross_node_flows": cross,
+            "merged_spans": sum(1 for e in merged["traceEvents"] if e.get("ph") == "X"),
+            "tracer_dumps": [os.path.basename(p) for p in dumps]}
+
+
+def observe_run(torch, scatter, dev, batches, arm, sample_every, root):
+    """One trace arm: 1 worker x 2 servers at config #1 width, each node on
+    its own ``TcpVan`` (shm rings), ``KVWorker(trace=TraceConfig(...))`` of
+    the arm (``sample_every`` 0 = ``enabled=False``); 8 steps of pull_sync
+    -> card gradient -> push_sync, the first untimed.  The ``1/1`` arm also
+    carries the telemetry plane (a scheduler, a publisher a node, a beat each
+    0.2 s) and a ``Tracer`` on every node, and after its steps runs the SLO
+    leg, the profiler hook and the stitch checks."""
+    import os
+
+    from parameter_server_tpu_torch.config import TraceConfig
+    from parameter_server_tpu_torch.core import flightrec
+    from parameter_server_tpu_torch.core.postoffice import Postoffice
+    from parameter_server_tpu_torch.core.tcp_van import TcpVan
+    from parameter_server_tpu_torch.kv.server import KVServer
+    from parameter_server_tpu_torch.kv.worker import KVWorker
+    from parameter_server_tpu_torch.utils.slo import SloEngine
+    from parameter_server_tpu_torch.utils.trace import NULL_TRACER, Tracer
+
+    full = sample_every == 1
+    names = ("S0", "S1", "W0") + (("H",) if full else ())
+    vans = {n: TcpVan() for n in names}
+    tracers = {n: Tracer() for n in ("S0", "S1", "W0")} if full else {}
+    trace = (TraceConfig(sample_every=sample_every) if sample_every
+             else TraceConfig(enabled=False))
+    servers, beats = [], None
+    try:
+        posts = {n: Postoffice(n, vans[n]) for n in names}
+        tables = _config1_tables()
+        servers = [KVServer(posts[f"S{s}"], tables, s, 2, device=dev,
+                            tracer=tracers.get(f"S{s}", NULL_TRACER)) for s in range(2)]
+        worker = KVWorker(posts["W0"], tables, 2, device=dev, trace=trace,
+                          tracer=tracers.get("W0", NULL_TRACER))
+        if full:
+            spill = os.path.join(root, "telemetry.jsonl")
+            agg, base, beats = _telemetry_plane(vans, posts, servers, worker, spill)
+        else:
+            for s in ("S0", "S1"):
+                vans["W0"].add_route(s, vans[s].address)
+        seq0 = flightrec.get().events()[-1]["seq"] if len(flightrec.get()) else -1
+        out = _timed_steps(torch, scatter, dev, batches, worker)
+        check(vans["W0"].flush(10), f"observe {arm}: the worker's van did not settle")
+        _wait_on(lambda: worker.trace_closed == worker.trace_samples, 10,
+                 f"{arm}: every sampled request closed")
+        data_vans = [vans[n] for n in ("S0", "S1", "W0")]
+        out.update(arm=arm, pushes=sum(s.pushes for s in servers),
+                   pull_retries=worker.pull_retries,
+                   trace_samples=worker.trace_samples, trace_closed=worker.trace_closed,
+                   payload_bytes_sent=sum(v.payload_bytes_sent() for v in data_vans),
+                   shm_frames_sent=sum(v.counters()["shm_frames_sent"] for v in data_vans),
+                   planes=[(e["value"], [e["state"][k] for k in sorted(e["state"])])
+                           for e in (s.export_shard()["w"] for s in servers)])
+        if not full:
+            return out
+        tids = sorted({e["tid"] for e in flightrec.get().events_since(seq0)
+                       if e.get("kind") == "trace.submit" and e.get("node") == "W0"})
+        out["sampled_tids"] = len(tids)
+        # the live plane: frames from every node, deduped, rendered by pstop
+        _wait_on(lambda: all(len(agg.rows(n)) >= 3 for n in ("S0", "S1", "W0")), 10,
+                 "three telemetry frames from every node")
+        # the base engine's verdicts, read once the scheduler stopped feeding
+        # it (an engine is fed and evaluated from one thread at a time)
+        agg.slo = SloEngine([])
+        frames = {n: len(agg.rows(n)) for n in ("S0", "S1", "W0")}
+        _wait_on(lambda: all(len(agg.rows(n)) >= frames[n] + 2 for n in frames), 10,
+                 "two frames a node after the base engine was detached")
+        out["verdicts"] = {n: {"healthy": v.healthy, "observed": v.observed,
+                               "breaches": v.breaches}
+                           for n, v in base.evaluate().items()}
+        out["slo"] = observe_slo_leg(torch, worker, agg)
+        beats.close()
+        beats = None
+        agg.flush_jsonl()
+        drops = {n: agg.drops(n) for n in ("S0", "S1", "W0")}
+        check(agg.counters()["telemetry_dup_frames"] == 0 and not any(drops.values()),
+              f"observe: telemetry dedup drops {agg.counters()} {drops}")
+        latest = agg.latest()
+        rc, stdout, stderr = _run_tool("pstop", "--once", spill)
+        check(rc == 0 and all(n in stdout for n in ("S0", "S1", "W0")),
+              f"observe: pstop exited {rc}: {stderr[-300:]}")
+        out["telemetry"] = {
+            "frames": {n: len(agg.rows(n)) for n in ("S0", "S1", "W0")},
+            "counters": agg.counters(), "drops": drops, "pstop_rc": rc,
+            "pstop": stdout.strip().splitlines()[:6],
+            "digests": {n: sorted(latest[n].get("digests", {})) for n in latest},
+            "w0_trace_e2e": latest["W0"].get("digests", {}).get("trace.e2e")}
+        out["stitch"] = observe_stitch(root, tids, tracers)
+        out["profile"] = observe_profile(torch, scatter, dev, batches, worker, root)
+        out["spans"] = {n: {k: v["count"] for k, v in tr.summary().items()}
+                        for n, tr in tracers.items()}
+        return out
+    finally:
+        if beats is not None:
+            beats.stop.set()
+            beats.thread.join(timeout=10)
+        for v in vans.values():
+            v.close()
+        for srv in servers:
+            if srv.ledger is not None:
+                srv.ledger.close()
+            srv.tables.clear()
+        servers.clear()
+        import gc
+
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
+def observe_mfu_leg(torch, dev):
+    """DLRM at the 2^22 control's shape (2^22 x 16 AdaGrad, batch 8192, 4
+    steps) twice from one seed, once counting its MFU and once with the count
+    replaced by nothing: the losses, the table and the MLP bitwise equal (the
+    count runs on ``meta`` copies and executes nothing on the live state)."""
+    from parameter_server_tpu_torch.config import OptimizerConfig, TableConfig
+    from parameter_server_tpu_torch.data.synthetic import SyntheticDLRM
+    from parameter_server_tpu_torch.models.dlrm import SpmdDLRMTrainer
+    from parameter_server_tpu_torch.utils import metrics as metrics_lib
+
+    rows = 1 << DLRM_CONTROL_LOG2
+    cfg = TableConfig(name="emb", rows=rows, dim=DLRM_DIM,
+                      optimizer=OptimizerConfig(kind="adagrad", learning_rate=0.05))
+    stream = SyntheticDLRM(key_space=rows, batch_size=DLRM_BATCH, seed=3)
+    batches = [stream.next_batch() for _ in range(DLRM_STEPS)]
+    real = metrics_lib.counted_flops_by_kind
+    runs = {}
+    for arm in ("counted", "not_counted"):
+        if arm == "not_counted":
+            metrics_lib.counted_flops_by_kind = lambda *a, **k: {"conv": 0.0, "matmul": 0.0}
+        try:
+            tr = SpmdDLRMTrainer(cfg, device=dev, learning_rate=0.01,
+                                 min_bucket=DLRM_MIN_BUCKET, table_init="normal")
+            losses = [tr.step(*b) for b in batches]
+        finally:
+            metrics_lib.counted_flops_by_kind = real
+        runs[arm] = (losses, tr)
+    (la, ta), (lb, tb) = runs["counted"], runs["not_counted"]
+    same = (la == lb and torch.equal(ta.emb_value, tb.emb_value)
+            and all(torch.equal(ta.emb_state[k], tb.emb_state[k]) for k in ta.emb_state)
+            and all(torch.equal(p, q) for p, q in zip(ta.model.parameters(),
+                                                       tb.model.parameters())))
+    check(same, f"observe mfu: losses {la} counted vs {lb} not counted")
+    check(ta.dashboard.flops_per_example > 0 and tb.dashboard.flops_per_example == 0,
+          "observe mfu: the count did not run in one arm only")
+    return {"rows_log2": DLRM_CONTROL_LOG2, "batch": DLRM_BATCH, "steps": DLRM_STEPS,
+            "losses": la, "bitwise_equal": True,
+            "flops_per_example": ta.dashboard.flops_per_example,
+            "precision": ta.dashboard.precision}
+
+
+def observe_scenario():
+    """The war game's ``smoke_scenario(seed=0)`` through the port's runner on
+    this host (no JAX): its scorecard written and complete, and the incident
+    report's tool-derived sections (``tools/postmortem.py`` chain,
+    ``tools/critpath.py`` attribution) present."""
+    import json as _json
+    import os
+
+    from parameter_server_tpu_torch.scenario import ScenarioRunner, render_report, smoke_scenario
+    from parameter_server_tpu_torch.scenario.scorecard import scorecard_json
+
+    runner = ScenarioRunner(smoke_scenario(OBSERVE_SCENARIO_SEED))
+    try:
+        t0 = time.perf_counter()
+        card = runner.run()
+        seconds = time.perf_counter() - t0
+        report = render_report(runner, card)
+    finally:
+        runner.close()
+    path = os.path.join(_observe_root(), "scorecard.json")
+    with open(path, "w") as f:
+        f.write(scorecard_json(card))
+    with open(path) as f:
+        written = _json.load(f)
+    check(set(card) == {"scenario", "fleet", "slo", "totals", "autoscaler", "telemetry"}
+          and written == _json.loads(scorecard_json(card)),
+          f"observe scenario: scorecard keys {sorted(card)}")
+    text = "\n".join(report)
+    for section in ("-- worst breach window:", "postmortem chain (worst breach window):",
+                    "critpath attribution"):
+        check(section in text, f"observe scenario: report lacks {section!r}")
+    check(card["slo"]["breach_minutes"] > 0 and card["telemetry"]["dedup_drops"] == 0,
+          f"observe scenario: {card['slo']['breach_minutes']} breach-minutes, "
+          f"{card['telemetry']['dedup_drops']} dedup drops")
+    return {"seed": OBSERVE_SCENARIO_SEED, "seconds": seconds,
+            "breach_minutes": card["slo"]["breach_minutes"], "totals": card["totals"],
+            "actions": len(card["autoscaler"]["actions"]),
+            "telemetry": card["telemetry"], "report_lines": len(report),
+            "report_head": report[:4]}
+
+
+def observe_phase(torch, scatter, dev, errs, clean):
+    """The observability plane at config #1 width (see the module docstring):
+    the three trace arms, each bitwise equal to the ``wire`` phase's clean
+    run; then the MFU count's no-effect leg and the war game.  Returns
+    (fields, launches of the three arms)."""
+    import os
+    import shutil
+
+    t_phase = time.perf_counter()
+    root = _observe_root()
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    batches = wire_batches()
+    total = dict.fromkeys(REPLACES, 0)
+    runs = {}
+    try:
+        with PlanesTap(torch, scatter) as planes, ApplyTap(torch, scatter) as applies:
+            for arm, every in OBSERVE_ARMS:
+                applies.seen.clear()  # hold each run's first apply on every table
+                runs[arm] = observe_run(torch, scatter, dev, batches, arm, every, root)
+                for name in total:
+                    total[name] += runs[arm]["launches"][name]
+            out = {"rows": ROWS, "dim": DIM, "batch": BATCH, "nnz": NNZ, "steps": WIRE_STEPS,
+                   "workers": 1, "servers": 2, "beat_s": OBSERVE_BEAT_S}
+            for arm, r in runs.items():
+                _same_tables(clean, r, f"observe {arm}", "clean")
+                check(r["launches"]["gather"] == r["launches"]["apply"] == 2 * WIRE_STEPS,
+                      f"observe {arm}: launches {r['launches']}")
+                check(r["shm_frames_sent"] > 0, f"observe {arm}: no frame on an shm ring")
+            off, some, every = runs["off"], runs["1/1024"], runs["1/1"]
+            check(off["trace_samples"] == 0, f"observe off: {off['trace_samples']} sampled")
+            bytes_gap = abs(some["payload_bytes_sent"] - off["payload_bytes_sent"]) / \
+                off["payload_bytes_sent"]
+            check(bytes_gap <= 0.01, f"observe 1/1024: wire bytes {some['payload_bytes_sent']} "
+                  f"vs off {off['payload_bytes_sent']}")
+            check(every["trace_samples"] == every["trace_closed"] > 0
+                  and every["sampled_tids"] == every["trace_samples"],
+                  f"observe 1/1: {every['trace_samples']} sampled, {every['trace_closed']} "
+                  f"closed, {every['sampled_tids']} submits")
+            for arm, r in runs.items():
+                row = {k: r[k] for k in ("examples_per_s", "timed_s", "launches", "pushes",
+                                         "trace_samples", "trace_closed",
+                                         "payload_bytes_sent")}
+                row["examples_per_s_over_off"] = r["examples_per_s"] / off["examples_per_s"]
+                row["loss_first"], row["loss_last"] = map(float, r["losses"][[0, -1]])
+                row["pull_p50_ms"], row["push_p50_ms"] = _p50_ms(r["pull_s"]), _p50_ms(r["push_s"])
+                emit("observe_trace_" + arm.replace("/", "_"), **row)
+                out[arm] = row
+            out["wire_bytes_1_1024_vs_off"] = bytes_gap
+            for k in ("verdicts", "slo", "telemetry", "stitch", "profile", "spans"):
+                out[k] = every[k]
+                emit("observe_" + k, **(every[k] if isinstance(every[k], dict) else {k: every[k]}))
+            out["gather_check"] = planes.result(errs, "gather")
+            check(len(applies.records) == 2 * len(OBSERVE_ARMS),
+                  f"{len(applies.records)} applies held, expected {2 * len(OBSERVE_ARMS)}")
+            out["apply_check"] = applies.result(errs, len(applies.records))
+        runs.clear()
+        torch.cuda.empty_cache()
+        out["mfu_count"] = observe_mfu_leg(torch, dev)
+        emit("observe_mfu_count", **out["mfu_count"])
+        torch.cuda.empty_cache()
+        out["scenario"] = observe_scenario()
+        emit("observe_scenario", **out["scenario"])
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
     out["launches"] = total
     out["phase_s"] = time.perf_counter() - t_phase
     return out, total

@@ -1,7 +1,8 @@
 """Configuration dataclasses: the fields of the JAX package's ``config.py``
 that the sparse-LR push/pull loop, the server's apply ledger, the
 consistency gate, worker groups, the serving plane, the durability plane and
-the transport read, with the same names, defaults and validation."""
+the transport read, and the tracing and telemetry knobs, with the same
+names, defaults and validation."""
 
 from __future__ import annotations
 
@@ -340,3 +341,78 @@ class TableConfig:
     #: servers gate them against the fleet's vector clock (SSP / BSP / ASP).
     #: None = ungated, no extra payload.
     consistency: Optional[ConsistencyConfig] = None
+
+
+@dataclasses.dataclass(frozen=True)
+class TraceConfig:
+    """Sampled end-to-end request tracing.
+
+    ``KVWorker`` consumes this to decide whether a PUSH/PULL submit stamps
+    a trace context (``core/tracectx.py``) into its payload.  Sampling is
+    a deterministic hash of ``(trace_id, seed)`` so seeded replays trace
+    the same requests and unsampled requests carry zero trace bytes on
+    the wire.
+    """
+
+    #: master switch; False stamps no contexts at all (the predicate the
+    #: hot path is gated behind — see tools/check_wrappers.py).
+    enabled: bool = True
+    #: trace 1-in-N requests.  1 = every request (tests), 0 = never;
+    #: 1024 is the default the bench gate holds to ≤3% overhead.
+    sample_every: int = 1024
+    #: seed folded into the sampling hash; replays with the same seed
+    #: sample the same trace ids.
+    seed: int = 0
+
+    def __post_init__(self) -> None:
+        if self.sample_every < 0:
+            raise ValueError(
+                f"sample_every must be >= 0, got {self.sample_every!r}"
+            )
+
+
+@dataclasses.dataclass(frozen=True)
+class TelemetryConfig:
+    """Scheduler-side telemetry aggregator sizing.
+
+    The aggregator keeps a bounded ring of derived rows per publishing
+    node.  A fixed per-node window tuned for ~4 nodes does not survive a
+    200-publisher war game: 256 rows x 200 nodes is ~50k retained rows on
+    the control plane.  Instead the per-node ring capacity is derived from
+    a FLEET-WIDE row budget — ``min(window, ring_budget_rows // fleet)``,
+    floored at ``min_window`` — and re-derived (rings re-capped in place)
+    as new publishers appear, so total retained rows stay near the budget
+    at any fleet size while small fleets keep the full ``window``.
+    """
+
+    #: per-node ring rows for small fleets.
+    window: int = 256
+    #: fleet-wide retained-row budget; per-node capacity shrinks as the
+    #: publisher count grows so the scheduler's memory stays flat.
+    ring_budget_rows: int = 8192
+    #: per-node capacity floor — even a 1000-node fleet keeps enough rows
+    #: per node for rate windows and pstop history.
+    min_window: int = 8
+
+    def __post_init__(self) -> None:
+        if self.window < 1:
+            raise ValueError(f"window must be >= 1, got {self.window!r}")
+        if self.min_window < 1:
+            raise ValueError(
+                f"min_window must be >= 1, got {self.min_window!r}"
+            )
+        if self.min_window > self.window:
+            raise ValueError(
+                f"min_window ({self.min_window!r}) must be <= window "
+                f"({self.window!r})"
+            )
+        if self.ring_budget_rows < self.window:
+            raise ValueError(
+                f"ring_budget_rows ({self.ring_budget_rows!r}) must be >= "
+                f"window ({self.window!r})"
+            )
+
+    def node_window(self, fleet_size: int) -> int:
+        """Per-node ring capacity for ``fleet_size`` publishers."""
+        n = max(1, int(fleet_size))
+        return max(self.min_window, min(self.window, self.ring_budget_rows // n))

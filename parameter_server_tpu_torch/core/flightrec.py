@@ -5,10 +5,10 @@ imports nothing of the JAX package), so both packages journal the same event
 kinds and write bundles that ``tools/postmortem.py`` merges unchanged.  The
 port records from the transport (``core/van.py`` receive-thread exceptions,
 ``core/postoffice.py`` cancellation drops, ``core/coalesce.py`` bundle
-flushes), the server's routing fence and the apply ledger
-(``kv/ledger.py``).  ``_walk_counters`` / ``_find_metered`` walk a van stack
-as the JAX module does; the port has no ``MeteredVan`` yet, so the per-link
-digests stay empty.
+flushes), the server's routing fence, the apply ledger (``kv/ledger.py``),
+the sampled request-tracing plane (``kv/worker.py``, ``kv/server.py``), the
+telemetry plane and the war game.  ``_walk_counters`` / ``_find_metered``
+walk a van stack as the JAX module does.
 
 This module is the black box: a bounded ring of structured,
 monotonic-stamped events recorded from every interesting transport and KV

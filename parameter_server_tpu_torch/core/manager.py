@@ -15,9 +15,14 @@ and the WorkloadPool, dead-server detection feeding
 and the routing-table broadcast of live migrations.
 
 Copied from the JAX package's ``core/manager.py``, which imports no JAX:
-the same verbs, payloads and node-table rows.  The TELEMETRY verb's
-aggregator and publisher are not ported yet, so ``telemetry`` and
-``telemetry_pub`` stay ``None`` unless a caller attaches its own.
+the same verbs, payloads and node-table rows.  The TELEMETRY verb carries
+the live telemetry plane: attach a
+:class:`~parameter_server_tpu_torch.core.telemetry.TelemetryAggregator` as
+the scheduler's ``telemetry`` and a
+:class:`~parameter_server_tpu_torch.core.telemetry.TelemetryPublisher` as
+each node's ``telemetry_pub``; ``send_heartbeat`` then publishes a frame on
+every beat and the scheduler ingests (and evaluates its SLO engine) before
+it replies.
 """
 
 from __future__ import annotations

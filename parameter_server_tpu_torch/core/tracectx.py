@@ -1,9 +1,10 @@
 """Trace-context plumbing for the sampled request-tracing plane.
 
 A copy of ``parameter_server_tpu/core/tracectx.py`` (stdlib only).  The
-port's :class:`~.coalesce.CoalescingVan` reads :data:`TRACE_KEY` and
-:func:`trace_ids` from it, so bundles carry sampled trace ids as the JAX
-package's do; request tracing itself (stamping, spans) is not ported yet.
+port's worker stamps contexts with :func:`sampled` (``kv/worker.py``), its
+server echoes them, and its :class:`~.coalesce.CoalescingVan`, resender and
+socket van read :data:`TRACE_KEY` and :func:`trace_ids` from here, so
+sampled requests carry the same ids and bytes as the JAX package's.
 
 A *trace context* is a tiny dict stamped into a sampled request's payload
 under :data:`TRACE_KEY` by the worker at submit time.  It rides the frame

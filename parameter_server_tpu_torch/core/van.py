@@ -10,7 +10,8 @@ the current CUDA stream of that thread (the device's default stream).  A
 handler exception is logged and journaled to the flight recorder
 (``recv.exception``); the thread keeps serving.  ``disconnect`` /
 ``reconnect`` simulate a dead node (every message to or from it is dropped,
-``send`` returns False).  Filter chains and the TCP van are not ported yet.
+``send`` returns False).  ``filter_chain=`` runs a wire filter chain
+(``core/filters.py``); the socket van is ``core/tcp_van.py``.
 """
 
 from __future__ import annotations

@@ -74,7 +74,20 @@ card every path moves only the rows the protocol names:
 Dirty tracking for open migrations and snapshots appends the request's host
 key array in ``_ack_push`` (no device read, no per-key Python work) and dedups
 once at commit.  Every read of a plane runs on this receive thread's stream,
-after every apply it launched there.  Not ported yet: request tracing.
+after every apply it launched there.
+
+Sampled request tracing: a request carrying a ``__trace__`` context (a
+sampled one; unsampled requests carry none) is journaled at dispatch
+(``trace.dispatch``, feeding the ``trace.wire`` / ``trace.sq`` digests from
+the van's ``rx`` stamp) and at its reply (``trace.reply``, ``trace.apply``
+= dispatch -> reply built), and every reply leg — ack, pull reply, fence,
+defer, error — echoes the context so the worker closes the span tree.  Its
+trace id rides into the apply ledger, whose retirement records the device
+child ``trace.apply`` from the apply's CUDA event.  ``tracer=`` records the
+host spans ``kv.server.push`` / ``kv.server.pull`` / ``kv.server.pull_ro``
+/ ``kv.server.push_batch``: they time the launch on the host (CUDA work is
+asynchronous), never the card.  All of it is host dict and int work: no
+span or record reads a tensor's value.
 """
 
 from __future__ import annotations
@@ -100,6 +113,7 @@ from parameter_server_tpu_torch.convert import shard_from_numpy
 from parameter_server_tpu_torch.core import flightrec
 from parameter_server_tpu_torch.core.messages import Message, Task, TaskKind
 from parameter_server_tpu_torch.core.postoffice import Customer, Postoffice
+from parameter_server_tpu_torch.core.tracectx import TRACE_KEY
 from parameter_server_tpu_torch.kv.consistency import MODE_CODES, FleetClock
 from parameter_server_tpu_torch.kv.ledger import COMPLETED, ApplyLedger
 from parameter_server_tpu_torch.kv.partition import RangePartition
@@ -118,7 +132,7 @@ from parameter_server_tpu_torch.kv.routing import (
 from parameter_server_tpu_torch.kv.table import KVTable
 from parameter_server_tpu_torch.ops import scatter
 from parameter_server_tpu_torch.utils.keys import bucket_size
-from parameter_server_tpu_torch.utils.trace import LatencyHistogram
+from parameter_server_tpu_torch.utils.trace import NULL_TRACER, LatencyHistogram, Tracer
 
 
 def _bucket(n: int) -> int:
@@ -161,6 +175,7 @@ class KVServer(Customer):
         num_servers: int,
         *,
         name: str = "kv",
+        tracer: Tracer = NULL_TRACER,
         device_replies: bool = False,
         replica: Optional[str] = None,
         replica_sync: bool = False,
@@ -174,6 +189,9 @@ class KVServer(Customer):
     ) -> None:
         """``devobs``: the apply ledger's knobs; the default builds an
         enabled ledger, ``LedgerConfig(enabled=False)`` none.
+
+        ``tracer``: host span recorder for the handlers (see the module
+        docstring: host launch time, not device time).
 
         ``device_replies``: answer pulls with the gathered tensors on
         ``device`` instead of host numpy (in-process planes only).
@@ -191,6 +209,7 @@ class KVServer(Customer):
         recipient's stage and install acks."""
         super().__init__(name, post)
         self.device = torch.device(device)
+        self.tracer = tracer
         self.device_replies = device_replies
         self.apply_cfg = apply or ApplyEngineConfig()
         if self.apply_cfg.dup_policy not in ("rounds", "combine"):
@@ -264,6 +283,16 @@ class KVServer(Customer):
         if self._consist and hasattr(post.van, "on_incarnation_advance"):
             # a same-id restart: the dead incarnation must not wedge the minimum
             post.van.on_incarnation_advance.append(self._consist_incarnation)
+        # -- sampled request tracing --------------------------------------------
+        #: plane attribution across sampled requests (:meth:`latency_digests`):
+        #: ``trace.wire`` = worker submit -> van receive (same-host monotonic
+        #: clocks), ``trace.sq`` = van receive -> handler dispatch (server
+        #: queue), ``trace.apply`` = dispatch -> reply built.  Receive-thread
+        #: only, like ``ro_hist``.
+        self._trace_hists: Dict[str, LatencyHistogram] = {}
+        #: tid -> dispatch monotonic time, bridging :meth:`_trace_dispatch` to
+        #: the reply site; bounded (error paths may never reply)
+        self._trace_disp: Dict[str, float] = {}
         # -- durability plane --------------------------------------------------
         self.rows_migrated_in = 0
         self.rows_migrated_out = 0
@@ -374,7 +403,9 @@ class KVServer(Customer):
 
     def _fence_reply(self, msg: Message, why: str) -> Message:
         """Typed reject: ``__error__`` + ``__fenced__`` + the current table
-        and the shard's version stamp."""
+        and the shard's version stamp.  A fence is still a reply leg of a
+        sampled request: the trace context is echoed onto the fresh payload
+        and the verdict journaled."""
         self.fenced_rejects += 1
         flightrec.record(
             "fence.routing", node=self.post.node_id, sender=msg.sender,
@@ -386,6 +417,13 @@ class KVServer(Customer):
             FENCED_KEY: True,
             ROUTING_KEY: self.routing.to_payload(),
         }
+        tctx = msg.task.payload.get(TRACE_KEY)
+        if isinstance(tctx, dict) and tctx.get("tid") is not None:
+            payload[TRACE_KEY] = tctx
+            self._trace_disp.pop(tctx["tid"], None)
+            flightrec.record(
+                "trace.reply", tid=tctx["tid"], node=self.post.node_id, verdict="fenced",
+            )
         tname = msg.task.payload.get("table")
         if tname in self._seg_versions:
             payload["table"] = tname
@@ -399,7 +437,8 @@ class KVServer(Customer):
         Fence-SHAPED (``__error__`` + ``__fenced__`` + the current routing
         table), so a worker without the gate retries it as a fence; workers
         with it key on ``__wait__`` first and retry on the gate budget,
-        honouring ``retry_after``.  The fleet clock snapshot rides along.
+        honouring ``retry_after``.  The fleet clock snapshot rides along,
+        and a sampled request's trace context, as on a fence.
         """
         st = self._consist[tname]
         self.consist_defers += 1
@@ -427,6 +466,13 @@ class KVServer(Customer):
             "table": tname,
             VERSION_KEY: self.version_max(tname),
         }
+        tctx = msg.task.payload.get(TRACE_KEY)
+        if isinstance(tctx, dict) and tctx.get("tid") is not None:
+            payload[TRACE_KEY] = tctx
+            self._trace_disp.pop(tctx["tid"], None)
+            flightrec.record(
+                "trace.reply", tid=tctx["tid"], node=self.post.node_id, verdict="wait",
+            )
         reply.task = dataclasses.replace(msg.task, payload=payload)
         return reply
 
@@ -446,7 +492,21 @@ class KVServer(Customer):
     def _stamp_version(self, msg: Message, reply: Message, sver: int) -> Message:
         """Stamp ``__sver__`` onto a data reply, copy-on-write: the reply
         shares the request's Task, whose payload dict on a Loopback plane IS
-        the sender's object, so the Task is replaced, never mutated."""
+        the sender's object, so the Task is replaced, never mutated.
+
+        A sampled request's ``__trace__`` rides the copied payload back (the
+        worker closes its span tree off it); this is also the one choke
+        point every data reply passes, so the ``trace.reply`` event and the
+        dispatch -> reply-built ``trace.apply`` digest are recorded here,
+        gated on the context."""
+        tctx = msg.task.payload.get(TRACE_KEY)
+        if isinstance(tctx, dict) and tctx.get("tid") is not None:
+            t_disp = self._trace_disp.pop(tctx["tid"], None)
+            if t_disp is not None:
+                self._trace_hist("trace.apply").record(max(time.monotonic() - t_disp, 0.0))
+            flightrec.record(
+                "trace.reply", tid=tctx["tid"], node=self.post.node_id, verdict="ok",
+            )
         reply.task = dataclasses.replace(
             msg.task, payload={**msg.task.payload, VERSION_KEY: sver}
         )
@@ -547,6 +607,59 @@ class KVServer(Customer):
         return [h.numpy() for h in hosts]
 
     # -- request handling -----------------------------------------------------
+    @staticmethod
+    def _trace_tid_of(group: List[tuple]) -> Optional[str]:
+        """First sampled member's trace id of a batched push group — the one
+        the grouped apply's ledger entry is charged to (dict lookups only)."""
+        for _i, m, *_rest in group:
+            tctx = m.task.payload.get(TRACE_KEY)
+            if isinstance(tctx, dict) and tctx.get("tid") is not None:
+                return tctx["tid"]
+        return None
+
+    def _trace_hist(self, name: str) -> LatencyHistogram:
+        hist = self._trace_hists.get(name)
+        if hist is None:
+            hist = self._trace_hists[name] = LatencyHistogram()
+        return hist
+
+    def _trace_dispatch(self, msg: Message) -> None:
+        """Handler-entry attribution for a sampled request: the
+        ``trace.dispatch`` event, and the ``trace.wire`` / ``trace.sq``
+        digests from the context's origin and receive stamps (the ``rx``
+        stamp exists on socket vans only; the loopback records neither).
+        Gated on the request carrying a context: an unsampled request costs
+        one dict lookup (``tools/check_wrappers.py`` holds the gate)."""
+        payload = msg.task.payload
+        tctx = payload.get(TRACE_KEY) if isinstance(payload, dict) else None
+        if isinstance(tctx, dict) and tctx.get("tid") is not None:
+            now = time.monotonic()
+            tid = tctx["tid"]
+            t0 = tctx.get("t")
+            rx = tctx.get("rx")
+            if rx is not None:
+                if t0 is not None:
+                    self._trace_hist("trace.wire").record(max(rx - t0, 0.0))
+                self._trace_hist("trace.sq").record(max(now - rx, 0.0))
+            while len(self._trace_disp) >= 1024:
+                self._trace_disp.pop(next(iter(self._trace_disp)))
+            self._trace_disp[tid] = now
+            flightrec.record(
+                "trace.dispatch", tid=tid, node=self.post.node_id,
+                op=msg.task.kind.name.lower(), sender=msg.sender,
+            )
+
+    def _span_attrs(self, msg: Message, tname: str) -> dict:
+        """A handler span's attributes: the table, and a sampled request's
+        trace id and origin, so ``tools/merge_traces.py`` pairs both ends of
+        the request (host strings only, never a tensor's value)."""
+        tctx = msg.task.payload.get(TRACE_KEY) or {}
+        span_attrs = {"table": tname}
+        if tctx.get("tid"):
+            span_attrs["trace"] = tctx["tid"]
+            span_attrs["origin"] = tctx.get("origin")
+        return span_attrs
+
     def _validate_data_request(self, msg: Message):
         """Routing fence + localization for a PUSH/PULL: a fence-reject
         ``Message``, or ``(tname, ids_np, kn, segs)``.  A stamped epoch that
@@ -605,7 +718,13 @@ class KVServer(Customer):
         table = self.tables[tname]
         n = int(ids_np.shape[0])
         b = _bucket(n)
-        tok = self.ledger.begin(tname, 1, n) if self.ledger is not None else None
+        tctx = msg.task.payload.get(TRACE_KEY)
+        tok = (
+            self.ledger.begin(tname, 1, n,
+                              tid=tctx.get("tid") if isinstance(tctx, dict) else None)
+            if self.ledger is not None
+            else None
+        )
         ids_host = self._pad_ids(table, ids_np, b)
         if tok is not None:
             tok.mark_host()
@@ -613,7 +732,8 @@ class KVServer(Customer):
         vals = self._upload_values(msg.values[0], b, n, table.dim)
         if tok is not None:
             tok.mark_h2d()
-        table.push(ids, vals)
+        with self.tracer.span("kv.server.push", **self._span_attrs(msg, tname)):
+            table.push(ids, vals)
         if tok is not None:
             self._submit_apply(tok)
         return self._ack_push(msg, tname, kn, segs)
@@ -739,7 +859,9 @@ class KVServer(Customer):
         table = self.tables[tname]
         n = int(ids_np.shape[0])
         ids = self._upload_ids(self._pad_ids(table, ids_np, _bucket(n)))
-        rows = table.pull(ids)
+        span = "kv.server.pull_ro" if read_only else "kv.server.pull"
+        with self.tracer.span(span, **self._span_attrs(msg, tname)):
+            rows = table.pull(ids)
         if read_only:
             self.ro_pulls += 1
         else:
@@ -816,6 +938,7 @@ class KVServer(Customer):
     def handle_request(self, msg: Message) -> Message:
         if msg.task.kind == TaskKind.CONTROL:
             return self._handle_control(msg)
+        self._trace_dispatch(msg)
         v = self._validate_data_request(msg)
         if isinstance(v, Message):
             return v
@@ -835,9 +958,12 @@ class KVServer(Customer):
     # -- bundle-batched apply engine ------------------------------------------
     def _error_reply(self, msg: Message, exc: Exception) -> Message:
         reply = msg.reply()
-        reply.task = dataclasses.replace(
-            msg.task, payload={"__error__": f"{type(exc).__name__}: {exc}"}
-        )
+        payload = {"__error__": f"{type(exc).__name__}: {exc}"}
+        tctx = msg.task.payload.get(TRACE_KEY)
+        if isinstance(tctx, dict):
+            # keep the sampled span tree closable on a failed member too
+            payload[TRACE_KEY] = tctx
+        reply.task = dataclasses.replace(msg.task, payload=payload)
         return reply
 
     def handle_request_batch(self, msgs: List[Message]) -> List[Message]:
@@ -881,6 +1007,7 @@ class KVServer(Customer):
                     flush_group()
                     replies[i] = self._handle_control(msg)
                     continue
+                self._trace_dispatch(msg)
                 v = self._validate_data_request(msg)
                 if isinstance(v, Message):
                     flush_group()  # the fence observes prior writes too
@@ -945,24 +1072,26 @@ class KVServer(Customer):
         k = len(group)
         bm = _bucket(max(int(g[3].shape[0]) for g in group))
         tok = (
-            self.ledger.begin(tname, k, sum(int(g[3].shape[0]) for g in group))
+            self.ledger.begin(tname, k, sum(int(g[3].shape[0]) for g in group),
+                              tid=self._trace_tid_of(group))
             if self.ledger is not None
             else None
         )
-        stack = self._stack_planes(table, group, k, bm, tok)
-        # flat positions of every REAL id occurrence, in member order
-        ids_list = [g[3] for g in group]
-        all_ids = np.concatenate(ids_list).astype(np.int64)
-        flat_pos = np.concatenate(
-            [i * bm + np.arange(a.shape[0], dtype=np.int32) for i, a in enumerate(ids_list)]
-        ).astype(np.int32)
-        real = all_ids != table.rows
-        rid = all_ids[real]
-        rpos = flat_pos[real]
-        if self.apply_cfg.dup_policy == "combine":
-            self._push_group_combined(table, k, bm, rid, rpos, stack)
-        else:
-            self._push_group_rounds(table, k, bm, rid, rpos, stack)
+        with self.tracer.span("kv.server.push_batch", table=tname, members=k):
+            stack = self._stack_planes(table, group, k, bm, tok)
+            # flat positions of every REAL id occurrence, in member order
+            ids_list = [g[3] for g in group]
+            all_ids = np.concatenate(ids_list).astype(np.int64)
+            flat_pos = np.concatenate(
+                [i * bm + np.arange(a.shape[0], dtype=np.int32) for i, a in enumerate(ids_list)]
+            ).astype(np.int32)
+            real = all_ids != table.rows
+            rid = all_ids[real]
+            rpos = flat_pos[real]
+            if self.apply_cfg.dup_policy == "combine":
+                self._push_group_combined(table, k, bm, rid, rpos, stack)
+            else:
+                self._push_group_rounds(table, k, bm, rid, rpos, stack)
         if tok is not None:  # one ledger entry for the whole grouped apply
             self._submit_apply(tok)
         for i, m, tname_, _, kn, segs in group:
@@ -1059,12 +1188,16 @@ class KVServer(Customer):
     def latency_digests(self) -> Dict[str, dict]:
         """The ledger's cumulative per-table apply digests: ``apply.<t>``
         total and the ``apply_host`` / ``apply_h2d`` / ``apply_dev`` split;
-        plus the read-only pull latency ``ro_pull.<t>`` of tables that
-        served one."""
+        the read-only pull latency ``ro_pull.<t>`` of tables that served
+        one; and the tracing plane's ``trace.wire`` / ``trace.sq`` /
+        ``trace.apply`` (the ``trace-wire-p99`` SLO's series)."""
         out = self.ledger.latency_digests() if self.ledger is not None else {}
         for t, hist in self.ro_hist.items():
             if hist.count:
                 out[f"ro_pull.{t}"] = hist.to_dict()
+        for name, hist in self._trace_hists.items():
+            if hist.count:
+                out[name] = hist.to_dict()
         return out
 
     # -- shard transfer ---------------------------------------------------------

@@ -54,13 +54,25 @@ legacy uniform checkpoint ops and commit its manifest; :meth:`save_snapshot`
 drives a partitioned incremental snapshot (begin, one write per segment,
 commit, then the CRC-armored manifest) over any routing layout, and
 :meth:`load_snapshot` restores one onto the current fleet, whatever its
-shape.  Not ported yet: request tracing.
+shape.
+
+Sampled request tracing: with ``trace=TraceConfig(...)`` a PUSH/PULL whose
+hashed id falls in the 1-in-N sample stamps a trace context
+(``core/tracectx.py``) into the payload of every wire leg; the server
+echoes it back on each ack, and the last leg's ack closes the request's
+span tree (``trace_samples`` / ``trace_closed``, the ``trace.e2e`` digest
+of :meth:`latency_digests`, the ``trace.submit`` / ``trace.ack`` flight
+events ``tools/critpath.py`` stitches).  An unsampled request carries no
+``__trace__`` key at all.  ``tracer=`` records the host spans ``kv.push``,
+``kv.pull.wait`` and ``kv.pull_serve`` (host time: a push's span ends when
+its legs are submitted, not when the card applied them).
 """
 
 from __future__ import annotations
 
 import contextlib
 import functools
+import itertools
 import threading
 import time
 from typing import Dict, List, Optional, Tuple
@@ -69,12 +81,13 @@ import numpy as np
 import torch
 
 from parameter_server_tpu_torch import checkpoint
-from parameter_server_tpu_torch.config import GroupConfig, TableConfig
+from parameter_server_tpu_torch.config import GroupConfig, TableConfig, TraceConfig
 from parameter_server_tpu_torch.core import flightrec
 from parameter_server_tpu_torch.core.coalesce import GroupReducer
 from parameter_server_tpu_torch.core.filters import find_quantizers
 from parameter_server_tpu_torch.core.messages import Message, Task, TaskKind, server_id
 from parameter_server_tpu_torch.core.postoffice import Customer, Postoffice
+from parameter_server_tpu_torch.core.tracectx import TRACE_KEY, sampled
 from parameter_server_tpu_torch.kv.cache import HotRowCache
 from parameter_server_tpu_torch.kv.routing import (
     BUSY_KEY,
@@ -95,7 +108,7 @@ from parameter_server_tpu_torch.utils.keys import (
     localize_to_slots,
     localizer_meta,
 )
-from parameter_server_tpu_torch.utils.trace import LatencyHistogram
+from parameter_server_tpu_torch.utils.trace import NULL_TRACER, LatencyHistogram, Tracer
 
 
 class KVWorker(Customer):
@@ -108,6 +121,7 @@ class KVWorker(Customer):
         name: str = "kv",
         localizers: Optional[Dict[str, HashLocalizer]] = None,
         min_bucket: int = 256,
+        tracer: Tracer = NULL_TRACER,
         retry_on_timeout: bool = True,
         routing: Optional[RoutingTable] = None,
         max_fence_retries: int = 8,
@@ -115,10 +129,16 @@ class KVWorker(Customer):
         cache: Optional[HotRowCache] = None,
         group: Optional[WorkerGroup] = None,
         group_cfg: Optional[GroupConfig] = None,
+        trace: Optional[TraceConfig] = None,
         device: str | torch.device = "cuda",
     ) -> None:
         """``device`` is where the push pre-combine runs and where
         :meth:`pull_result_device` assembles rows.
+
+        ``tracer``: host span recorder (push / pull latency histograms).
+        ``trace``: the request-tracing sample policy (default
+        ``TraceConfig()``: 1 in 1024); unsampled requests carry no trace
+        context.
 
         ``retry_on_timeout``: a pull or sync push whose deadline expires is
         cancelled (remotely too) and re-issued once against the same server
@@ -138,6 +158,8 @@ class KVWorker(Customer):
         ``GroupConfig`` matched to the group's size and election)."""
         super().__init__(name, post)
         self.device = torch.device(device)
+        #: host-side span recorder (push / pull latency histograms)
+        self.tracer = tracer
         self.table_cfgs = table_cfgs
         self.num_servers = num_servers
         self.min_bucket = min_bucket
@@ -155,6 +177,22 @@ class KVWorker(Customer):
         self.pull_retries = 0
         self.push_retries = 0
         self.refresh_retries = 0
+        # -- sampled request tracing -------------------------------------------
+        #: cross-node trace ids (see :meth:`_trace_ctx`)
+        self._trace_seq = itertools.count()
+        #: sampling policy: requests whose hashed id misses the 1-in-N
+        #: sample carry NO trace context (zero wire bytes)
+        self.trace = trace or TraceConfig()
+        self._trace_lock = threading.Lock()
+        #: tid -> [t0_mono, legs outstanding]; the span tree closes (and the
+        #: e2e latency records) when the last leg's ack returns.  Bounded:
+        #: oldest entries are evicted so a lost ack never leaks memory.
+        self._trace_pending: Dict[str, list] = {}
+        #: submit -> last-ack latency across sampled requests (``trace.e2e``)
+        self._trace_e2e = LatencyHistogram()
+        #: sampled requests stamped / span trees closed
+        self.trace_samples = 0
+        self.trace_closed = 0
         # -- staleness observability -------------------------------------------
         #: highest server version this worker's own pushes were acked at, per
         #: (table, server): the baseline update lag is measured from
@@ -273,6 +311,8 @@ class KVWorker(Customer):
             "refresh_retries": self.refresh_retries,
             "staleness_samples": self.staleness_samples,
             "busy_hints": self.busy_hints,
+            "trace_samples": self.trace_samples,
+            "trace_closed": self.trace_closed,
         }
         if self._group is not None:
             out.update(
@@ -308,7 +348,9 @@ class KVWorker(Customer):
         """Tap every reply, on the receive thread, then complete the task
         (always: observability never loses a reply).
 
-        ``__busy__`` counts a backpressure hint.  ``__sver__`` raises the
+        An echoed ``__trace__`` context closes one leg of a sampled
+        request; the last leg records ``trace.e2e`` and the ``trace.ack``
+        event.  ``__busy__`` counts a backpressure hint.  ``__sver__`` raises the
         hot-row cache's watermark for (table, server) on every stamped reply,
         fence rejects included.  Besides, a PUSH ack advances this worker's
         last-pushed version for (table, server); a PULL reply records
@@ -316,6 +358,27 @@ class KVWorker(Customer):
         histogram; a fence's stamp does neither."""
         try:
             payload = msg.task.payload
+            tctx = payload.get(TRACE_KEY)
+            if tctx is not None and isinstance(tctx, dict):
+                tid = tctx.get("tid")
+                done = e2e = None
+                if tid is not None:
+                    with self._trace_lock:
+                        ent = self._trace_pending.get(tid)
+                        if ent is not None:
+                            ent[1] -= 1
+                            if ent[1] <= 0:
+                                self._trace_pending.pop(tid, None)
+                                e2e = time.monotonic() - ent[0]
+                                self._trace_e2e.record(max(e2e, 0.0))
+                                self.trace_closed += 1
+                                done = True
+                    if done:
+                        flightrec.record(
+                            "trace.ack", tid=tid, node=self.post.node_id,
+                            sender=msg.sender, fenced=bool(payload.get(FENCED_KEY)),
+                            e2e_ms=round(e2e * 1e3, 3),
+                        )
             if payload.get(BUSY_KEY):
                 with self._staleness_lock:
                     self.busy_hints += 1
@@ -361,12 +424,65 @@ class KVWorker(Customer):
         return out
 
     def latency_digests(self) -> Dict[str, dict]:
-        """``consist.gate_wait``: seconds parked on consistency gates (the
-        JAX worker's ``trace.e2e`` needs request tracing, not ported)."""
+        """``trace.e2e``: submit -> last-ack latency across sampled requests
+        (the denominator ``tools/critpath.py`` attributes into planes), and
+        ``consist.gate_wait``: seconds parked on consistency gates.
+        Cumulative and monotone, for the telemetry publisher."""
+        out = {}
+        with self._trace_lock:
+            if self._trace_e2e.count:
+                out["trace.e2e"] = self._trace_e2e.to_dict()
         with self._consist_lock:
             if self._gate_hist.count:
-                return {"consist.gate_wait": self._gate_hist.to_dict()}
-        return {}
+                out["consist.gate_wait"] = self._gate_hist.to_dict()
+        return out
+
+    # -- sampled request tracing ------------------------------------------------
+    def _trace_ctx(self) -> Optional[dict]:
+        """Fresh trace context for one logical request — or ``None``.
+
+        ``None`` means the request missed the deterministic hash sample
+        (``core/tracectx.py``): no context is stamped, no ``__trace__``
+        payload key exists and zero trace bytes ride the wire.  A sampled
+        request gets a dict stamped into the payload of every wire leg and
+        recorded as a ``trace`` attr on this worker's span; the receiving
+        van stamps ``rx``, the server echoes the context back on acks.  The
+        id is unique per (node, customer, request), and the sampling
+        decision is a pure function of ``(tid, seed)``: replays sample the
+        same requests, and the JAX worker samples the same ids.
+        """
+        tid = f"{self.post.node_id}/{self.name}/{next(self._trace_seq)}"
+        if not self.trace.enabled or not sampled(
+            tid, self.trace.seed, self.trace.sample_every
+        ):
+            return None
+        return {
+            "tid": tid,
+            "origin": self.post.node_id,
+            "customer": self.name,
+            "t": time.monotonic(),
+        }
+
+    def _trace_submitted(self, tctx: Optional[dict], op: str, legs: int) -> None:
+        """Bookkeep one sampled submit: ``legs`` acks close the span tree.
+
+        A ``None`` tctx (unsampled request) is a no-op — the whole body sits
+        behind the sampling gate (``tools/check_wrappers.py``'s
+        ``TRACE_GATED_FUNCS``).  The pending map is bounded: the oldest
+        entry is evicted when full, so a reply that never returns degrades
+        to a missing e2e sample (``trace.submit`` with no ``trace.ack``,
+        what ``tools/postmortem.py`` anchors on), never to leaked memory.
+        """
+        if tctx is not None:
+            with self._trace_lock:
+                self.trace_samples += 1
+                while len(self._trace_pending) >= 4096:
+                    self._trace_pending.pop(next(iter(self._trace_pending)))
+                self._trace_pending[tctx["tid"]] = [tctx["t"], int(legs)]
+            flightrec.record(
+                "trace.submit", tid=tctx["tid"], op=op, node=self.post.node_id,
+                legs=int(legs), t0_s=tctx["t"],
+            )
 
     # -- consistency gate -------------------------------------------------------
     def consist_step(self, table: str) -> int:
@@ -610,6 +726,9 @@ class KVWorker(Customer):
         are handled by :meth:`_group_wire_done` via the submit callback.
         """
         stamp = {"id": self._group.gid, "n": int(fanin), "step": int(step), "ef": self._group_ef}
+        # hierarchical hop: the LEADER stamps a fresh context for the reduced
+        # wire push — the member contributions that fed it stayed in the group
+        tctx = self._trace_ctx()
         routing = self.routing
         keys = np.asarray(keys)
         if positions is None:
@@ -619,6 +738,8 @@ class KVWorker(Customer):
             abs_pos = positions[rel]
             order[server_id(s)] = abs_pos
             payload = {"table": table, ROUTING_EPOCH_KEY: routing.epoch, GROUP_KEY: dict(stamp)}
+            if tctx is not None:
+                payload[TRACE_KEY] = tctx
             msgs.append(
                 Message(
                     task=Task(TaskKind.PUSH, self.name, payload=payload),
@@ -630,6 +751,8 @@ class KVWorker(Customer):
         cb = functools.partial(
             self._group_wire_done, table, step, keys, vals, fanin, attempt, order
         )
+        # registered before the submit: the acks race the submit call
+        self._trace_submitted(tctx, "group_push", len(msgs))
         with self.coalesce_window():
             ts = self.submit(msgs, callback=cb)
         with self._group_lock:
@@ -789,6 +912,7 @@ class KVWorker(Customer):
         positions: Optional[np.ndarray] = None,
         *,
         keep: bool = False,
+        tctx: Optional[dict] = None,
         ungated: bool = False,
     ) -> Tuple[int, Dict[str, np.ndarray]]:
         """Wire one push of ``combined[positions]`` rows at global ids
@@ -798,7 +922,9 @@ class KVWorker(Customer):
         them; retries pass only the rejected subset.  ``combined`` is numpy,
         or a device tensor sliced per server as device views (push_device).
         Gated tables stamp the committed step unless ``ungated`` (the
-        gate-deadline force-through)."""
+        gate-deadline force-through).  ``tctx``: the caller's trace context;
+        without one this submit draws its own sampling decision."""
+        tctx = tctx if tctx is not None else self._trace_ctx()
         routing = self.routing  # one consistent table per submit
         if positions is None:
             positions = np.arange(slots.shape[0], dtype=np.int64)
@@ -814,6 +940,8 @@ class KVWorker(Customer):
             payload = {"table": table, ROUTING_EPOCH_KEY: routing.epoch}
             if cstep is not None:
                 payload[CONSIST_STEP_KEY] = cstep
+            if tctx is not None:
+                payload[TRACE_KEY] = tctx
             msgs.append(
                 Message(
                     task=Task(TaskKind.PUSH, self.name, payload=payload),
@@ -822,6 +950,9 @@ class KVWorker(Customer):
                     values=[plane],
                 )
             )
+        # register the span tree BEFORE the wire submit: replies race the
+        # submit call, and a decrement that finds no entry would leak a tree
+        self._trace_submitted(tctx, "push", len(msgs))
         # under a CoalescingVan the burst flushes at window exit; nested in
         # push_many's window it coalesces across tables instead
         with self.coalesce_window():
@@ -852,26 +983,36 @@ class KVWorker(Customer):
         In a group the push routes through the pre-reduction (a dead leader
         degrades to a direct push via the submit callback).
         """
-        slots, combined = self._prepare_push(table, keys, values)
-        if self._group is not None:
-            return self._group_push(table, slots, combined, sync=False, timeout=None)
-        ts, _ = self._submit_push(table, slots, combined)
-        return ts
+        tctx = self._trace_ctx()
+        with self.tracer.span(
+            "kv.push", table=table, n=int(keys.size),
+            **({"trace": tctx["tid"]} if tctx is not None else {}),
+        ):
+            slots, combined = self._prepare_push(table, keys, values)
+            if self._group is not None:
+                return self._group_push(table, slots, combined, sync=False, timeout=None)
+            ts, _ = self._submit_push(table, slots, combined, tctx=tctx)
+            return ts
 
     def push_device(self, table: str, keys: np.ndarray, values: torch.Tensor) -> int:
         """Device-resident push: the gradient rows are combined on the device
         and sliced per server as device tensors, which reach in-process
         (Loopback) servers without a host round trip."""
-        cfg = self.table_cfgs[table]
-        vals = values.reshape(keys.size, cfg.dim)
-        slots, inverse, _n = localize_to_slots(
-            keys, self.localizers[table], min_bucket=self.min_bucket
-        )
-        combined = scatter.segment_combine(
-            vals, torch.tensor(inverse, device=vals.device), slots.shape[0]
-        )
-        ts, _ = self._submit_push(table, slots, combined)
-        return ts
+        tctx = self._trace_ctx()
+        with self.tracer.span(
+            "kv.push", table=table, n=int(keys.size),
+            **({"trace": tctx["tid"]} if tctx is not None else {}),
+        ):
+            cfg = self.table_cfgs[table]
+            vals = values.reshape(keys.size, cfg.dim)
+            slots, inverse, _n = localize_to_slots(
+                keys, self.localizers[table], min_bucket=self.min_bucket
+            )
+            combined = scatter.segment_combine(
+                vals, torch.tensor(inverse, device=vals.device), slots.shape[0]
+            )
+            ts, _ = self._submit_push(table, slots, combined, tctx=tctx)
+            return ts
 
     def coalesce_window(self):
         """Context manager batching this worker's sends per destination when
@@ -1008,6 +1149,7 @@ class KVWorker(Customer):
     def _submit_pull(self, table, slots, inverse, shape,
                      positions: Optional[np.ndarray] = None, *, read_only: bool = False,
                      ungated: bool = False) -> int:
+        tctx = self._trace_ctx()
         routing = self.routing
         if positions is None:
             positions = np.arange(slots.shape[0], dtype=np.int64)
@@ -1017,6 +1159,8 @@ class KVWorker(Customer):
         # deadline force-through (fresh data never violates a staleness bound)
         if not read_only and not ungated and self._gated(table):
             payload[CONSIST_STEP_KEY] = self.consist_step(table)
+        if tctx is not None:
+            payload[TRACE_KEY] = tctx
         if read_only:
             payload[READ_ONLY_KEY] = True
         msgs, order = [], {}
@@ -1030,6 +1174,8 @@ class KVWorker(Customer):
                     keys=ids.astype(np.int32),
                 )
             )
+        # registered before the submit: the replies race the submit call
+        self._trace_submitted(tctx, "pull", len(msgs))
         with self.coalesce_window():
             ts = self.submit(msgs, keep_responses=True)
         self._pull_plans[ts] = {
@@ -1040,6 +1186,7 @@ class KVWorker(Customer):
             "table": table,
             # retained so deadline/fence/gate retries can re-issue subsets
             "slots": slots,
+            "trace": tctx["tid"] if tctx is not None else None,
             "ro": read_only,
             "ungated": ungated,
         }
@@ -1049,7 +1196,9 @@ class KVWorker(Customer):
         """Wait for pull ``ts``; on deadline, cancel the stuck task and
         retry ONCE against the same server ids.  Returns ``(plan,
         responses, errs)`` with all kept state drained."""
-        completed = self.wait(ts, timeout)
+        tid = self._pull_plans[ts].get("trace")
+        with self.tracer.span("kv.pull.wait", ts=ts, trace=tid):
+            completed = self.wait(ts, timeout)
         if not completed and self.retry_on_timeout:
             plan = self._pull_plans.pop(ts)
             self.cancel(ts, "pull deadline", remote=True)
@@ -1060,7 +1209,9 @@ class KVWorker(Customer):
                 plan["table"], plan["slots"], plan["inverse"], plan["shape"],
                 positions=pos, read_only=plan["ro"], ungated=plan["ungated"],
             )
-            completed = self.wait(ts, timeout)
+            tid = self._pull_plans[ts].get("trace")
+            with self.tracer.span("kv.pull.wait", ts=ts, retry=1, trace=tid):
+                completed = self.wait(ts, timeout)
         plan = self._pull_plans.pop(ts)  # always reclaim, even on error paths
         errs = self.errors(ts)
         responses = self.take_responses(ts)
@@ -1282,6 +1433,13 @@ class KVWorker(Customer):
         cache = self.cache
         if cache is None:
             return self.pull_result(self.pull(table, keys, read_only=True), timeout)
+        with self.tracer.span("kv.pull_serve", table=table, n=int(keys.size)):
+            return self._serve_from_cache(table, keys, cache, timeout)
+
+    def _serve_from_cache(self, table: str, keys: np.ndarray, cache: HotRowCache,
+                          timeout: Optional[float]) -> np.ndarray:
+        """:meth:`pull_serve`'s cache path: hits answered locally, the misses
+        as one read-only pull whose rows are cached at their reply's version."""
         cfg = self.table_cfgs[table]
         # No dedup or sort on the hit path: ``assign`` is elementwise, so one
         # slot is probed PER POSITION and the inverse is the identity; only

@@ -5,7 +5,10 @@ config #2 (ResNet-50 under BSP/SSP):
 
 - :class:`SpmdDenseTrainer`: one train step on ``device`` (the JAX trainer's
   mesh collapses to one card): forward, backward, the optimizer.  BSP by
-  construction.
+  construction.  Its dashboard's MFU numerator is a flop count of the step
+  (forward, loss, backward) on ``meta`` copies at each new batch shape; the
+  denominator is the card's peak for the math mode most of those FLOPs run
+  in (a conv net's convolutions: TF32 under torch's defaults).
 - :class:`AsyncDenseLearner`: N worker threads, each with its own replica of
   the model; per iteration a worker pulls the flat parameter vector from the
   :class:`~parameter_server_tpu_torch.kv.dense.DenseKVServer`\\ s, computes
@@ -70,10 +73,28 @@ class SpmdDenseTrainer:
         self.loss_fn = loss_fn
         self.dashboard = dashboard or metrics_lib.Dashboard(print_every=0)
         self.step_count = 0
+        #: the batch shape of the last MFU count
+        self._flops_shape: Optional[tuple] = None
+
+    def _count_flops(self, x: torch.Tensor, y: torch.Tensor) -> None:
+        """Recount the step's FLOPs for a new batch shape (on ``meta``
+        copies of the model and batch: nothing runs on the live state)."""
+        loss_fn = self.loss_fn
+
+        def step(model, x, y):
+            loss_fn(model(x), y).backward()
+
+        metrics_lib.set_mfu(
+            self.dashboard, metrics_lib.counted_flops_by_kind(step, self.model, x, y),
+            x.shape[0], self.device,
+        )
+        self._flops_shape = tuple(x.shape)
 
     def step(self, images: np.ndarray, labels: np.ndarray) -> float:
         x, y = _batch_on(self.device, images, labels)
         self.model.train()
+        if tuple(x.shape) != self._flops_shape:
+            self._count_flops(x, y)
         loss = self.loss_fn(self.model(x), y)
         self.optimizer.zero_grad(set_to_none=True)
         loss.backward()

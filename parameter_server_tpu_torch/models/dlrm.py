@@ -18,6 +18,12 @@ per-step memory is O(batch), never O(table).
 
 On one card the JAX package's (data, model) mesh collapses: the trainer takes
 ``device`` where the JAX trainer takes ``mesh``.
+
+MFU: the step's numerator is :func:`dense_step_flops`, a flop count of the
+dense part (both MLPs, the interactions, the loss and their backward), which
+holds every matmul FLOP of a DLRM step.  The gathers and scatters of the
+table run through ctypes kernels on raw pointers and cannot run on the
+``meta`` device; they are data movement, which the count leaves out anyway.
 """
 
 from __future__ import annotations
@@ -150,6 +156,25 @@ def make_dlrm_step(table_cfg: TableConfig, model: DLRM, optimizer: ServerOptimiz
     return step
 
 
+def dense_step_flops(model: DLRM, batch: int, n_dense: int, n_sparse: int,
+                     dim: int) -> Dict[str, float]:
+    """Matmul FLOPs of one DLRM step's dense part at ``batch`` examples —
+    forward, loss and backward of the MLPs and the interactions, with the
+    gradient taken back into the embedding rows — by kind
+    (:func:`~parameter_server_tpu_torch.utils.metrics.counted_flops_by_kind`),
+    counted on ``meta`` copies: nothing runs on the live model."""
+
+    def step(m, dense_feats, emb, labels):
+        logloss(m(dense_feats, emb), labels).backward()
+
+    return metrics_lib.counted_flops_by_kind(
+        step, model,
+        torch.empty((batch, n_dense), device="meta"),
+        torch.empty((batch, n_sparse, dim), device="meta", requires_grad=True),
+        torch.empty((batch,), device="meta"),
+    )
+
+
 def init_sharded_table(
     table_cfg: TableConfig,
     optimizer: ServerOptimizer,
@@ -206,9 +231,13 @@ class SpmdDLRMTrainer:
         self.cfg = table_cfg
         self.device = torch.device(device)
         self.n_sparse = n_sparse
+        self.n_dense = n_dense
         self.min_bucket = min_bucket
         self.dashboard = dashboard or metrics_lib.Dashboard(print_every=0)
         self.step_count = 0
+        #: (bucketed slots, batch) of the last MFU count: recounted when
+        #: either changes shape, as the JAX trainer recounts its XLA cost
+        self._flops_shape: Optional[Tuple[int, int]] = None
         self.optimizer: ServerOptimizer = make_optimizer(table_cfg.optimizer)
         self.localizer = HashLocalizer(table_cfg.rows, seed=seed)
         # one device: the trash row is the only row past ``rows``
@@ -237,6 +266,15 @@ class SpmdDLRMTrainer:
 
     def step(self, keys: np.ndarray, dense_feats: np.ndarray, labels: np.ndarray) -> float:
         slots, inverse, _n = localize_to_slots(keys, self.localizer, min_bucket=self.min_bucket)
+        shape_key = (int(slots.shape[0]), int(labels.shape[0]))
+        if shape_key != self._flops_shape:
+            metrics_lib.set_mfu(
+                self.dashboard,
+                dense_step_flops(self.model, shape_key[1], self.n_dense, self.n_sparse,
+                                 self.cfg.dim),
+                shape_key[1], self.device,
+            )
+            self._flops_shape = shape_key
         loss_f = float(self.step_localized(slots, inverse, dense_feats, labels))
         self.step_count += 1
         self.dashboard.record(self.step_count, loss_f, examples=int(labels.shape[0]))

@@ -1,4 +1,4 @@
-"""Admission control for the serving plane.
+"""SLO-driven admission control for the serving plane.
 
 Counterpart of ``parameter_server_tpu/serve/admission.py``, same policies
 and events.  A serving worker that keeps pulling through an overloaded fleet
@@ -7,9 +7,10 @@ admission controller sits in front of
 :meth:`~parameter_server_tpu_torch.kv.worker.KVWorker.pull_serve` and sheds
 or defers read traffic when either overload signal fires:
 
-- the **health callable** says so: ``healthy()`` returns False (in the JAX
-  package an SLO engine's level-triggered verdict feeds it; here it is any
-  zero-argument callable);
+- the **SLO plane** says so: ``SloEngine.healthy()`` is level-triggered
+  over live telemetry (``utils/slo.py``, fed by ``core/telemetry.py``), so
+  a breach of any armed spec — serving p99, apply backlog — flips the gate
+  within one telemetry beat;
 - the **device plane** says so: the server's ApplyLedger stamped
   ``__busy__`` onto a recent ack, which this worker remembers per server
   (:meth:`KVWorker.server_busy`) — the fast local signal that needs no
@@ -26,7 +27,8 @@ config.ServeConfig`):
 - ``"queue"``: park the read up to ``queue_deadline_s`` waiting for
   health, then serve (adding the wait to latency) or shed.
 
-Every shed is a ``serve.shed`` flight-recorder event and a counter.
+Every shed is a ``serve.shed`` flight-recorder event and a counter the
+telemetry plane turns into pstop's SHED/S column.
 """
 
 from __future__ import annotations
@@ -53,8 +55,9 @@ class ShedError(RuntimeError):
 class AdmissionController:
     """Policy gate in front of a serving worker's read path.
 
-    ``healthy``: zero-arg callable, False = overloaded; None = no health
-    feed, gate on ``__busy__`` hints alone.
+    ``healthy``: zero-arg callable, False = overloaded (typically
+    ``lambda: eng.healthy(node)`` over the live ``SloEngine``); None = no
+    SLO feed, gate on ``__busy__`` hints alone.
     """
 
     def __init__(
@@ -69,7 +72,7 @@ class AdmissionController:
         self.healthy = healthy
         self.cfg = cfg or ServeConfig()
         self.node = node or worker.post.node_id
-        #: dashboard counters (telemetry-mergeable)
+        #: dashboard counters (telemetry-mergeable; SHED/S in pstop)
         self.serve_shed = 0
         self.serve_stale = 0
         self.serve_queue_waits = 0

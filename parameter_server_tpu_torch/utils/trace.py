@@ -1,18 +1,38 @@
-"""Host-side latency histograms and the process resource snapshot.
+"""Host-side tracing: spans, latency histograms, chrome-trace export, and
+the device profiler hook.
 
-The port's copies of ``LatencyHistogram`` and ``resource_usage`` from
-``parameter_server_tpu/utils/trace.py`` (stdlib only): the same buckets,
-percentiles and ``to_dict`` digest, so the apply ledger's digests
-(``kv/ledger.py``) read the same in both packages and merge with the JAX
-package's; ``resource_usage`` is the heartbeat's ``resource`` stat.  The
-span ``Tracer`` and the device-profiler hook are not ported yet.
+The port's copy of ``parameter_server_tpu/utils/trace.py`` (stdlib only,
+but for :func:`torch_profile`): the same :class:`LatencyHistogram` buckets
+and digests, the same :class:`Tracer` spans and exports — a Chrome trace or
+JSONL dump of the same recorded spans is laid out byte for byte as the JAX
+tracer's, so ``tools/merge_traces.py`` merges both packages' dumps — and
+:func:`resource_usage`, the heartbeat's ``resource`` stat.
+
+Spans time the host.  CUDA work is asynchronous, so a span around a launch
+measures its submit; the card's time for an apply is the apply ledger's
+``trace.apply`` child, read from its CUDA event (``kv/ledger.py``).  The
+device side of a window is :func:`torch_profile`, the counterpart of the
+JAX module's ``jax_profile``.
+
+Design: recording a span is two ``perf_counter`` calls and one deque append
+under a lock (~1 microsecond) so the tracer can stay on in production; the
+module-level :data:`NULL_TRACER` short-circuits to nothing for hot loops
+that want zero overhead.
 """
 
 from __future__ import annotations
 
+import collections
+import contextlib
+import json
 import math
 import os
+import threading
 import time
+from typing import Dict, Iterator, List, Optional, Tuple
+
+#: one recorded span: (name, start_s, duration_s, thread_id, attrs)
+Span = Tuple[str, float, float, int, Optional[dict]]
 
 
 class LatencyHistogram:
@@ -133,6 +153,212 @@ class LatencyHistogram:
         for i, c in (d.get("b") or {}).items():
             h.counts[int(i)] = int(c)
         return h
+
+
+class Tracer:
+    """Thread-safe span recorder: bounded timeline + unbounded histograms.
+
+    Two stores per span name, updated together under one lock:
+
+    - a bounded deque of full spans (timelines / chrome-trace export) —
+      oldest spans drop past ``capacity``;
+    - a :class:`LatencyHistogram` that never drops, so
+      :meth:`histogram` percentiles cover the whole run, not a silent
+      recent window (they used to be computed over the deque: after 100k
+      spans wrapped, "p99" quietly became "p99 of the last 100k").
+    """
+
+    def __init__(self, *, capacity: int = 100_000, enabled: bool = True) -> None:
+        self.enabled = enabled
+        self._spans: collections.deque[Span] = collections.deque(maxlen=capacity)
+        #: never-dropping per-name latency histograms (histogram/summary/
+        #: totals read these, so aggregates survive deque wraparound).
+        self._hists: Dict[str, LatencyHistogram] = {}
+        self._lock = threading.Lock()
+        self._t0 = time.perf_counter()
+
+    @contextlib.contextmanager
+    def span(self, name: str, **attrs) -> Iterator[None]:
+        if not self.enabled:
+            yield
+            return
+        start = time.perf_counter()
+        try:
+            yield
+        finally:
+            dur = time.perf_counter() - start
+            with self._lock:
+                self._spans.append(
+                    (name, start - self._t0, dur, threading.get_ident(),
+                     attrs or None)
+                )
+                h = self._hists.get(name)
+                if h is None:
+                    h = self._hists[name] = LatencyHistogram()
+                h.record(dur)
+
+    def record(self, name: str, duration_s: float,
+               start_s: Optional[float] = None, **attrs) -> None:
+        """Record an externally timed span (e.g. from a callback).
+
+        ``start_s``: the span's start as a ``time.perf_counter()`` value —
+        without it the span is placed ending "now", which misorders
+        retrospectively recorded phases on a timeline.
+        """
+        if not self.enabled:
+            return
+        if start_s is None:
+            start_s = time.perf_counter() - duration_s
+        with self._lock:
+            self._spans.append(
+                (name, start_s - self._t0, duration_s,
+                 threading.get_ident(), attrs or None)
+            )
+            h = self._hists.get(name)
+            if h is None:
+                h = self._hists[name] = LatencyHistogram()
+            h.record(duration_s)
+
+    def totals(self) -> Dict[str, float]:
+        """Cumulative seconds per span name (O(names), never drops spans)."""
+        with self._lock:
+            return {name: h.sum_s for name, h in self._hists.items()}
+
+    def spans(self, name: Optional[str] = None) -> List[Span]:
+        with self._lock:
+            out = list(self._spans)
+        return out if name is None else [s for s in out if s[0] == name]
+
+    def clear(self) -> None:
+        with self._lock:
+            self._spans.clear()
+            self._hists.clear()
+
+    # -- aggregation ---------------------------------------------------------
+    def histogram(self, name: str) -> dict:
+        """Latency stats for one span name (the Push/Pull histogram).
+
+        Backed by the never-dropping :class:`LatencyHistogram`, so the
+        percentiles cover every span ever recorded under ``name`` — not
+        just the ones still in the bounded deque.
+        """
+        with self._lock:
+            h = self._hists.get(name)
+            stats = h.stats() if h is not None else {"count": 0}
+        return {"name": name, **stats}
+
+    def summary(self) -> Dict[str, dict]:
+        """Histogram per distinct span name."""
+        with self._lock:
+            names = sorted(self._hists)
+        return {name: self.histogram(name) for name in names}
+
+    def digests(self) -> Dict[str, dict]:
+        """JSON-safe per-name histogram digests (heartbeat payload form)."""
+        with self._lock:
+            return {name: h.to_dict() for name, h in self._hists.items()}
+
+    # -- export --------------------------------------------------------------
+    def dump_chrome_trace(self, path: str,
+                          process_name: Optional[str] = None) -> None:
+        """Write the spans as a chrome://tracing / Perfetto JSON timeline.
+
+        ``process_name`` (e.g. the node id): embeds a top-level
+        ``metadata`` block — the node name plus this tracer's perf_counter
+        epoch — that ``tools/merge_traces.py`` uses to label the process
+        and align per-node clocks on one merged timeline.
+        """
+        events = [
+            {
+                "name": name,
+                "ph": "X",
+                "ts": start * 1e6,
+                "dur": dur * 1e6,
+                "pid": os.getpid(),
+                "tid": tid,
+                **({"args": attrs} if attrs else {}),
+            }
+            for name, start, dur, tid, attrs in self.spans()
+        ]
+        doc: dict = {"traceEvents": events}
+        if process_name is not None:
+            doc["metadata"] = {"node": process_name, "clock_t0_s": self._t0}
+        with open(path, "w") as f:
+            json.dump(doc, f)
+
+    def dump_jsonl(self, path: str) -> None:
+        with open(path, "w") as f:
+            for name, start, dur, tid, attrs in self.spans():
+                f.write(
+                    json.dumps(
+                        {"name": name, "start_s": start, "dur_s": dur,
+                         "tid": tid, "attrs": attrs}
+                    )
+                    + "\n"
+                )
+
+
+#: shared do-nothing tracer for hot paths with tracing off
+NULL_TRACER = Tracer(enabled=False)
+
+
+#: Chrome-trace categories of work that ran on the card (kernels, copies and
+#: memsets, as ``torch.profiler`` exports them)
+DEVICE_CATEGORIES = frozenset({"kernel", "gpu_memcpy", "gpu_memset"})
+
+
+class TorchProfile:
+    """What :func:`torch_profile` captured: the exported Chrome trace's
+    ``path``, the ``torch.profiler.profile`` object (``prof``), and the
+    trace's device events (``device_events``: name, start and duration in
+    microseconds, as the trace has them).  Filled in when the block exits."""
+
+    def __init__(self, path: str) -> None:
+        self.path = path
+        self.prof = None
+        self.device_events: List[dict] = []
+
+
+@contextlib.contextmanager
+def torch_profile(logdir: str, device="cuda") -> Iterator[TorchProfile]:
+    """Device-side profile of a window: wraps ``torch.profiler``.
+
+    The host :class:`Tracer` covers van and host latency; this captures the
+    timeline of the same window on the device.  It records CPU activity,
+    and CUDA activity when ``device`` is a card, and exports a Chrome trace
+    into ``logdir`` (``torch_trace_<pid>.json``, loadable in Perfetto).
+
+    On a card it never comes back quietly empty: when CUDA activity was
+    asked for and the trace holds no device event, it raises
+    ``RuntimeError`` — a profile without the device is not a device profile.
+    Run it outside any timed block: the profiler owns the card's tracing
+    session while it is on.
+    """
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    on_card = torch.device(device).type == "cuda"
+    activities = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if on_card else [])
+    os.makedirs(logdir, exist_ok=True)
+    out = TorchProfile(os.path.join(logdir, f"torch_trace_{os.getpid()}.json"))
+    with profile(activities=activities) as prof:
+        yield out
+        if on_card and torch.cuda.is_available():
+            torch.cuda.synchronize()
+    out.prof = prof
+    prof.export_chrome_trace(out.path)
+    with open(out.path) as f:
+        events = json.load(f).get("traceEvents", [])
+    out.device_events = [
+        {"name": e.get("name", ""), "ts": e.get("ts", 0.0), "dur": e.get("dur", 0.0)}
+        for e in events
+        if e.get("ph") == "X" and e.get("cat") in DEVICE_CATEGORIES
+    ]
+    if on_card and not out.device_events:
+        raise RuntimeError(
+            f"torch_profile: CUDA activity was asked for but the trace "
+            f"{out.path} holds no device event"
+        )
 
 
 def resource_usage() -> dict:

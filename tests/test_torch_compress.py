@@ -440,3 +440,60 @@ def test_quantizer_bundle_frame_is_bitwise_jax():
     je = ref.encode(bundle(jax_coalesce, jax_messages))
     assert bytes(frame.encode(pe)) == bytes(jax_frame.encode(je))
     assert port.counters() == ref.counters()
+
+
+# ------------------------------------------------------------- observability
+
+
+def _pstop():
+    import pathlib
+    import sys
+
+    sys.path.insert(0, str(pathlib.Path(__file__).resolve().parent.parent / "tools"))
+    import pstop
+
+    return pstop
+
+
+def test_cmpr_pct_rides_telemetry_into_pstop():
+    from parameter_server_tpu_torch.core.telemetry import (
+        TelemetryAggregator,
+        TelemetryPublisher,
+    )
+
+    class _Src:
+        def counters(self):
+            return {"wire_bytes": 300, "wire_raw_bytes": 1200}
+
+    rec = flightrec.FlightRecorder(capacity=16)
+    pub = TelemetryPublisher("W0", None, recorder=rec, sources=[_Src()])
+    agg = TelemetryAggregator()
+    assert agg.ingest("W0", pub.frame(now=1.0), now=1.0)
+    assert agg.latest()["W0"]["cmpr_pct"] == 25.0
+    out = "\n".join(_pstop().render(agg.latest()))
+    assert "CMPR%" in out and "25.0" in out
+
+
+def test_compression_slo_breaches_on_bad_ratio():
+    from parameter_server_tpu_torch.utils.slo import SloEngine, compression_plane_specs
+
+    specs = compression_plane_specs(max_ratio_pct=50.0)
+    assert [s.metric for s in specs] == ["compress_ratio_pct", "compress_residual_norm"]
+    eng = SloEngine(specs, recorder=flightrec.FlightRecorder(capacity=16))
+    eng.ingest_counters("W0", {"compress_ratio_pct": 80.0}, now=1.0)
+    verdicts = eng.evaluate(now=1.5)
+    assert not verdicts["W0"].healthy and "compress-ratio" in verdicts["W0"].breaches
+    eng.ingest_counters("W0", {"compress_ratio_pct": 26.0}, now=20.0)
+    assert eng.evaluate(now=20.5)["W0"].healthy
+
+
+def test_compress_events_registered_everywhere():
+    import pathlib
+    import sys
+
+    sys.path.insert(0, str(pathlib.Path(__file__).resolve().parent.parent / "tools"))
+    import check_wrappers
+
+    kinds = {"compress.encode", "compress.decode", "compress.residual_reset"}
+    assert kinds <= flightrec.EVENTS
+    assert kinds <= set(check_wrappers.REQUIRED_EVENTS)

@@ -44,6 +44,7 @@ from parameter_server_tpu.kv import worker as jax_worker
 from parameter_server_tpu_torch import config
 from parameter_server_tpu_torch.core import flightrec, netmon, postoffice, van
 from parameter_server_tpu_torch.kv import cache, consistency, routing, server, worker
+from parameter_server_tpu_torch.utils.trace import LatencyHistogram
 
 ROWS = 1 << 8
 DIM = 4
@@ -665,3 +666,130 @@ def test_ssp_bound_holds_under_chaos_migration_and_restart(seed):
     finally:
         stop.set()
         _close(v, servers)
+
+
+# ------------------------------------------------------------- observability
+
+
+def _tools(name):
+    import pathlib
+    import sys
+
+    sys.path.insert(0, str(pathlib.Path(__file__).resolve().parent.parent / "tools"))
+    return __import__(name)
+
+
+def test_consistency_plane_specs_evaluated_by_aggregator():
+    """The gate-wait p99 and shed-rate SLOs ride the port's telemetry
+    channel as every other plane: worker digests and counters in, windowed
+    verdicts out; the server's mode / bound gauges surface on its row."""
+    from parameter_server_tpu_torch.core.telemetry import (
+        TelemetryAggregator,
+        TelemetryPublisher,
+    )
+    from parameter_server_tpu_torch.utils.slo import SloEngine, consistency_plane_specs
+
+    v = van.LoopbackVan()
+    servers, (wa, wb) = _cluster(PORT, v, _table_cfgs(PORT, "ssp", 0, deadline=0.2))
+    try:
+        wa.consist_hello(table="w")
+        wb.consist_hello(table="w")
+        engine = SloEngine(consistency_plane_specs(gate_wait_p99_ms=1.0, shed_per_s=1e9),
+                           recorder=flightrec.FlightRecorder(capacity=64))
+        agg = TelemetryAggregator(slo=engine)
+        pub_w = TelemetryPublisher("W0", None, recorder=flightrec.FlightRecorder(capacity=64),
+                                   sources=[wa])
+        pub_s = TelemetryPublisher("S0", None, recorder=flightrec.FlightRecorder(capacity=64),
+                                   sources=[servers[0]])
+        _step(wa, KEYS, GRADS)
+        _step(wa, KEYS, GRADS)  # parks 0.2 s, then forces: a real gate wait
+        assert wa.consist_waits > 0
+        agg.ingest("W0", pub_w.frame())
+        agg.ingest("S0", pub_s.frame())
+        _step(wa, KEYS, GRADS)  # parks again (wb never advances)
+        agg.ingest("W0", pub_w.frame())
+        agg.ingest("S0", pub_s.frame())
+        verdict = engine.evaluate()["W0"]
+        assert verdict.observed["gate-wait-p99"] > 1.0
+        assert not verdict.healthy and "gate-wait-p99" in verdict.breaches
+        row = agg.latest()["S0"]
+        assert row["consist_mode"] == 2 and row["consist_bound"] == 0
+    finally:
+        _close(v, servers)
+
+
+def test_pstop_renders_mode_bound_and_gate_columns():
+    """Rows the port's aggregator derives render in pstop's MODE / BOUND /
+    GATEms columns."""
+    from parameter_server_tpu_torch.core.telemetry import TelemetryAggregator
+
+    pstop = _tools("pstop")
+    agg = TelemetryAggregator()
+    agg.ingest("S0", {"seq": 1, "t_mono_s": 1.0,
+                      "counters": {"consist_mode": 2, "consist_bound": 4}}, now=1.0)
+    agg.ingest("S1", {"seq": 1, "t_mono_s": 1.0,
+                      "counters": {"consist_mode": 3, "consist_bound": -1}}, now=1.0)
+    h = LatencyHistogram()
+    for x in (0.01, 0.02, 0.05, 0.05):
+        h.record(x)
+    agg.ingest("W0", {"seq": 1, "t_mono_s": 1.0,
+                      "digests": {"consist.gate_wait": h.to_dict()}}, now=1.0)
+    rows = agg.latest()
+    out = "\n".join(pstop.render(rows, now=1.0))
+    assert "MODE" in out and "BOUND" in out and "GATEms" in out
+    s0 = next(ln for ln in out.splitlines() if ln.startswith("S0"))
+    assert " ssp " in s0 and " 4 " in s0
+    s1 = next(ln for ln in out.splitlines() if ln.startswith("S1"))
+    assert " asp " in s1 and " inf " in s1
+    assert pstop._consist_columns(rows["W0"])[2] > 0
+
+
+def test_postmortem_anchors_on_gate_never_released(tmp_path):
+    """A port ``consist.gate`` with no later ``consist.release`` anchors the
+    merged postmortem report; a matching release clears it."""
+    postmortem = _tools("postmortem")
+    flightrec.configure(enabled=True, clear=True)
+    try:
+        flightrec.record("consist.gate", node="S0", sender="W1", table="w",
+                         step=9, fleet_min=2)
+        paths = flightrec.dump(str(tmp_path), reason="test")
+        merged = postmortem.merge_bundles(paths)
+        gates = postmortem.unreleased_gates(merged)
+        assert len(gates) == 1 and gates[0]["sender"] == "W1"
+        assert "consistency gate never released" in "\n".join(postmortem.report(merged))
+        flightrec.record("consist.release", node="S0", sender="W1", table="w")
+        paths = flightrec.dump(str(tmp_path / "b"), reason="test")
+        assert postmortem.unreleased_gates(postmortem.merge_bundles(paths)) == []
+        assert "consist.shed" in postmortem.ANOMALY_KINDS
+    finally:
+        flightrec.configure(enabled=True, clear=True)
+
+
+def test_scenario_phase_knob_compiles_and_applies():
+    from parameter_server_tpu_torch.scenario import dsl
+    from parameter_server_tpu_torch.scenario.runner import ScenarioRunner
+
+    sc = dsl.Scenario(
+        name="consist-drill", seed=7, nodes=4,
+        phases=(
+            dsl.Phase("warm", 10.0),
+            dsl.Phase("ssp", 10.0, consistency_mode="ssp", consistency_bound=4),
+            dsl.Phase("bsp", 10.0, consistency_mode="bsp"),
+        ),
+    )
+    evs = [e for e in dsl.compile_schedule(sc) if e["event"] == "phase"]
+    assert "consistency_mode" not in evs[0]
+    assert evs[1]["consistency_mode"] == "ssp" and evs[1]["consistency_bound"] == 4
+    assert "consistency_bound" not in evs[2]
+    with pytest.raises(ValueError):
+        dsl.Phase("bad", 5.0, consistency_mode="tso")
+    runner = ScenarioRunner(sc, autoscale=False)
+    try:
+        seen = []
+        runner.on_consistency_mode.append(lambda m, b: seen.append((m, b)))
+        for e in evs:
+            runner._apply_event(e)
+        assert seen == [("ssp", 4), ("bsp", None)]
+        assert runner.consistency_mode == "bsp"
+    finally:
+        runner.close()

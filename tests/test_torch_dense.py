@@ -437,3 +437,41 @@ def test_softmax_xent_matches_jax():
     np.testing.assert_allclose(
         float(softmax_xent(torch.from_numpy(logits), torch.from_numpy(labels))),
         float(jlearner.softmax_xent(jnp.asarray(logits), jnp.asarray(labels))), rtol=1e-6)
+
+
+def test_spmd_dense_trainer_mfu_counts_convs_and_executes_nothing(monkeypatch):
+    """The dense trainer's MFU numerator is the flop count of its step on
+    ``meta`` copies (convolutions and the head, forward and backward); the
+    count never runs on the live model, so the losses are bitwise those of a
+    trainer that does not count; the math mode is the convolutions' (TF32
+    under torch's defaults).  The ratio to the JAX trainer's XLA count is
+    reported, and held only to a broad band: the two count convolutions
+    differently (the flop counter charges every output position the full
+    kernel, padding included), and XLA counts the elementwise ops too."""
+    from parameter_server_tpu_torch.utils import metrics as metrics_lib
+
+    batch = _batch(np.random.default_rng(8), n=16)
+    _m, variables, ours = _init("basic_small")
+    _m2, _v2, twin = _init("basic_small")
+    # a fresh flax net, not the cached init: a JAX trainer donates the
+    # params it was handed, and an earlier test's may have been the cache's
+    jtr = jlearner.SpmdDenseTrainer(NETS["basic_small"][0](), optax.sgd(0.3, momentum=0.9),
+                                    mesh_lib.make_mesh((1, 1), devices=jax.devices()[:1]),
+                                    batch)
+    sgd = functools.partial(torch.optim.SGD, lr=0.3, momentum=0.9)
+    tr = SpmdDenseTrainer(ours, sgd, device="cpu")
+    quiet = SpmdDenseTrainer(twin, sgd, device="cpu")
+    got = [tr.step(*batch) for _ in range(3)]
+    monkeypatch.setattr(metrics_lib, "counted_flops_by_kind",
+                        lambda *a, **k: {"conv": 0.0, "matmul": 0.0})
+    want = [quiet.step(*batch) for _ in range(3)]
+    assert got == want  # bitwise
+    for a, b in zip(tr.model.state_dict().values(), quiet.model.state_dict().values()):
+        assert torch.equal(a, b)
+    per_example = tr.dashboard.flops_per_example
+    assert per_example > 0
+    assert tr.dashboard.precision == metrics_lib.float32_math_mode("conv")
+    ratio = per_example / jtr.dashboard.flops_per_example
+    print(f"ResNet basic_small flops/example: port {per_example:.0f}, "
+          f"JAX lowered {jtr.dashboard.flops_per_example:.0f}, ratio {ratio:.4f}")
+    assert 0.25 < ratio < 4.0

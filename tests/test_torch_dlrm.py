@@ -248,3 +248,58 @@ def test_dlrm_from_numpy_checks_shapes():
     with pytest.raises(ValueError):
         dlrm_from_numpy(tr, np.zeros((ROWS, DIM), np.float32),
                         {"sum_sq": np.zeros((ROWS, DIM), np.float32)}, {})
+
+
+# ----------------------------------------------------------------------- MFU
+
+
+def _closed_form_dense_flops(batch, n_dense, n_sparse, dim, bottom=(64, 32), top=(64, 32)):
+    """2·M·N·K of every matmul of the dense part's forward and backward."""
+    b_w = (n_dense,) + bottom + (dim,)
+    f = n_sparse + 1
+    t_w = (dim + f * (f - 1) // 2,) + top + (1,)
+    mm = lambda ws: [2 * batch * a * b for a, b in zip(ws[:-1], ws[1:])]  # noqa: E731
+    bottom_mm, top_mm = mm(b_w), mm(t_w)
+    inter = 2 * batch * f * f * dim
+    fwd = sum(bottom_mm) + sum(top_mm) + inter
+    # backward: every weight gradient; input gradients for all but the first
+    # bottom layer (the dense features need none); both operands of the bmm
+    return fwd + sum(bottom_mm) + sum(top_mm) + sum(bottom_mm[1:]) + sum(top_mm) + 2 * inter
+
+
+def test_mfu_counts_the_dense_part_exactly_and_executes_nothing(monkeypatch):
+    """The step's MFU numerator is the exact 2·M·N·K sum of the dense part,
+    counted at the first step and again when the slot bucket changes; the
+    count runs nothing on the live state, so the losses and the table are
+    bitwise those of a trainer that never counts.  The ratio to the JAX
+    trainer's XLA count (which also counts the gathers, the optimizer and
+    every elementwise op) is reported, and held only to a broad band."""
+    data = SyntheticDLRM(key_space=ROWS, batch_size=BATCH, seed=3)
+    batches = [data.next_batch() for _ in range(3)]
+    jtr, tr = _pair(data, seed=3)
+    _jtr2, quiet = _pair(data, seed=3)
+    from parameter_server_tpu_torch.utils import metrics as metrics_lib
+
+    counts = []
+    real = metrics_lib.counted_flops_by_kind
+    monkeypatch.setattr(metrics_lib, "counted_flops_by_kind",
+                        lambda *a, **k: counts.append(1) or real(*a, **k))
+    got = [tr.step(*b) for b in batches]
+    monkeypatch.setattr(metrics_lib, "counted_flops_by_kind",
+                        lambda *a, **k: {"conv": 0.0, "matmul": 0.0})
+    want = [quiet.step(*b) for b in batches]
+    assert got == want  # bitwise
+    assert torch.equal(tr.emb_value, quiet.emb_value)
+    assert torch.equal(tr.emb_state["sum_sq"], quiet.emb_state["sum_sq"])
+    for a, b in zip(tr.model.parameters(), quiet.model.parameters()):
+        assert torch.equal(a, b)
+    assert 1 <= len(counts) <= 3
+    per_example = _closed_form_dense_flops(BATCH, data.n_dense, data.n_sparse, DIM) / BATCH
+    assert tr.dashboard.flops_per_example == per_example
+    assert tr.dashboard.precision == "fp32" and tr.dashboard.peak_flops > 0
+    jtr.step(*batches[0])
+    jax_per_example = jtr.dashboard.flops_per_example
+    ratio = per_example / jax_per_example
+    print(f"DLRM flops/example: port {per_example:.0f}, JAX lowered {jax_per_example:.0f}, "
+          f"ratio {ratio:.4f}")
+    assert 0.25 < ratio < 4.0

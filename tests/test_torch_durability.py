@@ -498,6 +498,12 @@ def test_retention_preserves_incremental_chain_bases(tmp_path):
 
 
 def test_ckpt_counters_and_events_flow(tmp_path):
+    from parameter_server_tpu_torch.core.telemetry import (
+        TelemetryAggregator,
+        TelemetryPublisher,
+    )
+    from parameter_server_tpu_torch.utils.slo import SloEngine, durability_plane_specs
+
     flightrec.configure(enabled=True, clear=True)
     fleet = _Fleet("port", 2)
     try:
@@ -511,6 +517,17 @@ def test_ckpt_counters_and_events_flow(tmp_path):
         assert after["ckpt_age_s"] <= before["ckpt_age_s"] + 1.0
         kinds = {e["kind"] for e in flightrec.get().events() if e.get("node") == "S0"}
         assert {"ckpt.begin", "ckpt.segment", "ckpt.commit"} <= kinds
+        spec = durability_plane_specs(max_age_s=120.0)[0]
+        assert spec.metric == "ckpt_age_s" and spec.source == "gauge"
+        # the age gauge rides a telemetry frame into the row and the spec
+        agg = TelemetryAggregator(slo=SloEngine([spec],
+                                                recorder=flightrec.FlightRecorder(capacity=8)))
+        pub = TelemetryPublisher("S0", None, recorder=flightrec.FlightRecorder(capacity=8),
+                                 sources=[servers[0]])
+        agg.ingest("S0", pub.frame())
+        row = agg.latest()["S0"]
+        assert 0.0 <= row["ckpt_age_s"] <= after["ckpt_age_s"] + 60.0
+        assert row["healthy"] is True
         # routing churn aborts an open snapshot, journalled as an anomaly
         msgs = [Message(task=Task(TaskKind.CONTROL, worker.name,
                                   payload={"op": "snap_begin", "sid": "doomed"}), recver="S0")]

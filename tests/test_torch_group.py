@@ -315,8 +315,7 @@ def test_group_push_applies_sum_once_with_fewer_requests():
             assert p[k] == j[k], k
         keys_ = ("group_pushes", "group_reduced_fanin", "group_contribs", "group_fallbacks",
                  "group_done_recv", "group_handoffs", "push_retries", "refresh_retries")
-        assert sorted(p["worker_counters"][0]) == sorted(
-            k for k in j["worker_counters"][0] if not k.startswith("trace_"))
+        assert sorted(p["worker_counters"][0]) == sorted(j["worker_counters"][0])
         assert [{k: c.get(k) for k in keys_} for c in p["worker_counters"]] == \
             [{k: c.get(k) for k in keys_} for c in j["worker_counters"]]
 
@@ -545,3 +544,59 @@ def test_rotate_election_worker_stamps_bypass_ef():
             assert [w._group_ef for w in workers] == ["bypass", "bypass"]
         finally:
             _close(v, servers)
+
+
+# ------------------------------------------------------------ telemetry plane
+
+
+@pytest.mark.parametrize("pkg", ["port", "jax"])
+def test_aggregator_derives_grp_pct(pkg):
+    if pkg == "port":
+        from parameter_server_tpu_torch.core.telemetry import TelemetryAggregator
+    else:
+        from parameter_server_tpu.core.telemetry import TelemetryAggregator
+    agg = TelemetryAggregator()
+    assert agg.ingest("S0", {"seq": 1, "t_mono_s": 1.0,
+                             "counters": {"group_pushes": 5, "group_members": 20}}, now=1.0)
+    assert agg.latest()["S0"]["grp_pct"] == 25.0
+    # no group traffic -> no column (pstop renders '-')
+    assert agg.ingest("W0", {"seq": 1, "t_mono_s": 1.0}, now=1.0)
+    assert "grp_pct" not in agg.latest()["W0"]
+
+
+def test_group_push_counters_ride_telemetry_into_pstop():
+    """A grouped run's real server counters through the port's publisher
+    and aggregator: GRP% is the applies over the member pushes they stand
+    for, and pstop renders it."""
+    import pathlib
+    import sys
+
+    from parameter_server_tpu_torch.core.telemetry import (
+        TelemetryAggregator,
+        TelemetryPublisher,
+    )
+
+    sys.path.insert(0, str(pathlib.Path(__file__).resolve().parent.parent / "tools"))
+    import pstop
+
+    keys = np.array([1, 5, 9, ROWS + 7], dtype=np.int64)
+    grads = [np.full((keys.size, 2), 1.0, np.float32), np.full((keys.size, 2), 2.0, np.float32)]
+    res = _sum_once_run(PORT, True, keys, grads)
+    totals = {k: sum(c[k] for c in res["server_counters"])
+              for k in ("group_pushes", "group_members")}
+    agg = TelemetryAggregator()
+
+    class _Src:
+        def counters(self):
+            return totals
+
+    pub = TelemetryPublisher("S0", None, recorder=flightrec.FlightRecorder(capacity=8),
+                             sources=[_Src()])
+    assert agg.ingest("S0", pub.frame(now=1.0), now=1.0)
+    row = agg.latest()["S0"]
+    assert totals["group_pushes"] > 0
+    assert row["grp_pct"] == round(100.0 * totals["group_pushes"] / totals["group_members"], 2)
+    assert row["grp_pct"] == 50.0  # two members, one apply
+    lines = pstop.render(agg.latest())
+    assert "GRP%" in lines[0]
+    assert "50.0" in next(ln for ln in lines if ln.startswith("S0"))

@@ -3,8 +3,10 @@
 - ``parameter_server_tpu_torch/`` and ``chip_smoke.py`` import neither
   ``jax`` nor anything of the JAX package ``parameter_server_tpu``; the scan
   covers the serving plane (``kv/cache.py``, ``serve/``), the replica
-  chain (``kv/replica.py``) and the membership and elasticity plane
-  (``core/manager.py``, ``core/fleet.py``, ``learner/*.py``) by name.
+  chain (``kv/replica.py``), the membership and elasticity plane
+  (``core/manager.py``, ``core/fleet.py``, ``learner/*.py``) and the
+  observability plane (``core/telemetry.py``, ``utils/slo.py``,
+  ``scenario/``) by name.
 - The server's push-ack path — ``_ack_push`` and the grouped apply
   (``_apply_push_group``, ``_push_group_rounds``, ``_push_group_combined``),
   with every method of the server they call — never reads device state
@@ -45,6 +47,12 @@
   child roles' ``--device`` too.
 - The shm ring's and the socket van's per-frame fast paths are copy-free
   (``check_wrappers.check_copy_free``).
+- Every ``trace.*`` record in the hot-path functions of
+  ``check_wrappers.TRACE_GATED_FUNCS`` (the worker's ``_trace_submitted``
+  and ``_on_response``, the server's ``_trace_dispatch`` / reply sites, the
+  ledger's ``_retire``, the socket van, the coalescer and the resender)
+  sits behind the sampling gate, and none of those functions is missing
+  or records no ``trace.*`` kind (``check_wrappers.check_trace_gated``).
 - ``chip_smoke.py`` fails, and prints no result, where there is no card or
   no package beside it.
 """
@@ -114,11 +122,18 @@ MEMBERSHIP_AND_ELASTIC = ("core/manager.py", "core/fleet.py", "utils/metrics.py"
                           "learner/sgd.py", "learner/dense.py")
 
 
+#: the observability plane's modules, held by name too
+OBSERVABILITY = ("core/telemetry.py", "utils/slo.py", "utils/trace.py", "utils/metrics.py",
+                 "scenario/__init__.py", "scenario/dsl.py", "scenario/runner.py",
+                 "scenario/scorecard.py")
+
+
 def test_the_import_scan_sees_every_module():
     assert len(SOURCES) >= 25
     scanned = {str(p.relative_to(PORT)) for p in SOURCES if PORT in p.parents}
     assert set(SERVING_AND_REPLICA) <= scanned
     assert set(MEMBERSHIP_AND_ELASTIC) <= scanned
+    assert set(OBSERVABILITY) <= scanned
     assert {str(p.relative_to(PORT)) for p in (PORT / "learner").glob("*.py")} <= scanned
     assert _forbidden("jax.numpy") and _forbidden("parameter_server_tpu.kv.table")
     assert not _forbidden("parameter_server_tpu_torch.kv.table")
@@ -661,3 +676,36 @@ def test_the_wrapper_scans_catch_a_planted_violation(planted, tmp_path):
     else:
         problems = check_wrappers.check_file(bad)
         assert len(problems) == 1 and planted in problems[0]
+
+
+# ------------------------------------------------ the sampling gate of tracing
+
+
+def test_trace_records_sit_behind_the_sampling_gate():
+    """The JAX package's ``TRACE_GATED_FUNCS`` contract on the port: every
+    registered module and function exists here, records ``trace.*`` kinds,
+    and records them only under an ``if``."""
+    problems = []
+    for rel, funcs in sorted(check_wrappers.TRACE_GATED_FUNCS.items()):
+        assert (PORT / rel).is_file(), rel
+        problems += check_wrappers.check_trace_gated(PORT / rel, funcs, "TRACE_GATED_FUNCS")
+    assert problems == [], "\n".join(problems)
+
+
+@pytest.mark.parametrize("planted", ["ungated", "removed"])
+def test_the_trace_gate_scan_catches_a_planted_violation(planted, tmp_path):
+    src = (PORT / "kv/worker.py").read_text()
+    if planted == "ungated":
+        old = "        if tctx is not None:\n            with self._trace_lock:\n"
+        assert old in src
+        src = src.replace(old, "        if True:\n            pass\n        flightrec.record("
+                          "\"trace.submit\", tid=tctx)\n        if tctx is not None:\n"
+                          "            with self._trace_lock:\n", 1)
+    else:
+        src = src.replace("def _trace_submitted(", "def _trace_submitted_renamed(", 1)
+    bad = tmp_path / "worker.py"
+    bad.write_text(src)
+    problems = check_wrappers.check_trace_gated(
+        bad, check_wrappers.TRACE_GATED_FUNCS["kv/worker.py"], "TRACE_GATED_FUNCS")
+    assert len(problems) == 1
+    assert ("unconditionally" if planted == "ungated" else "missing") in problems[0]

@@ -449,3 +449,109 @@ def test_bounded_staleness_under_chaos_with_live_migration():
         assert not staler, f"cached reads staler than the watermark: {staler[:5]}"
     finally:
         _close(v, servers)
+
+
+# --------------------------------------- the SLO engine and the telemetry rows
+
+REPO = __import__("pathlib").Path(__file__).resolve().parent.parent
+
+
+def _pstop():
+    import sys
+
+    sys.path.insert(0, str(REPO / "tools"))
+    import pstop
+
+    return pstop
+
+
+def test_slo_breach_sheds_within_one_beat_and_recovers():
+    """An ``SloEngine``'s ``healthy`` as the admission controller's health
+    source: a backlog gauge above the armed serving spec shuts the gate one
+    evaluate beat later, the breach ages out and reads flow again."""
+    from parameter_server_tpu_torch.core import flightrec
+    from parameter_server_tpu_torch.utils.slo import SloEngine, serving_plane_specs
+
+    flightrec.configure(enabled=True, clear=True)
+    v = van.LoopbackVan()
+    servers, w = _cluster(PORT, v, cache_rows=1 << 11)
+    try:
+        keys = np.arange(32, dtype=np.int64)
+        w.push_sync("w", keys, np.ones((keys.size, DIM), np.float32), timeout=60)
+        eng = SloEngine(serving_plane_specs("w", backlog_bundles=2))
+        adm = AdmissionController(w, healthy=lambda: eng.healthy("S0"), node="W0")
+        t0 = 100.0
+        eng.observe("S0", "inflight_bundles", 0.0, now=t0)
+        eng.evaluate(now=t0)
+        assert adm.pull("w", keys, timeout=60).shape == (keys.size, DIM)
+        eng.observe("S0", "inflight_bundles", 16.0, now=t0 + 1.0)
+        eng.evaluate(now=t0 + 1.0)
+        with pytest.raises(ShedError) as ei:
+            adm.pull("w", keys, timeout=60)
+        assert ei.value.retry_after_s == adm.cfg.retry_after_s
+        assert adm.serve_shed == 1
+        kinds = [e["kind"] for e in flightrec.get().events()]
+        assert "slo.breach" in kinds and "serve.shed" in kinds
+        eng.observe("S0", "inflight_bundles", 0.0, now=t0 + 30.0)
+        eng.evaluate(now=t0 + 30.0)
+        assert adm.pull("w", keys, timeout=60).shape == (keys.size, DIM)
+        assert "slo.clear" in [e["kind"] for e in flightrec.get().events()]
+    finally:
+        _close(v, servers)
+        flightrec.configure(enabled=True, clear=True)
+
+
+def test_aggregator_derives_serving_rates_and_pstop_renders_them():
+    from parameter_server_tpu_torch.core.telemetry import TelemetryAggregator
+
+    pstop = _pstop()
+    agg = TelemetryAggregator()
+    agg.ingest("W0", {
+        "seq": 1, "t_mono_s": 100.0,
+        "counters": {"ro_pulls": 0, "serve_shed": 0, "cache_hits": 0, "cache_misses": 0},
+    }, now=100.0)
+    agg.ingest("W0", {
+        "seq": 2, "t_mono_s": 102.0,
+        "counters": {"ro_pulls": 120, "serve_shed": 6, "cache_hits": 90, "cache_misses": 30},
+    }, now=102.0)
+    row = agg.latest()["W0"]
+    assert row["ro_per_s"] == pytest.approx(60.0)
+    assert row["shed_per_s"] == pytest.approx(3.0)
+    assert row["cache_hit_pct"] == pytest.approx(75.0)
+    lines = pstop.render(agg.latest())
+    assert "RO/S" in lines[0] and "HIT%" in lines[0] and "SHED/S" in lines[0]
+    assert "60.0" in lines[1] and "75.0" in lines[1] and "3.0" in lines[1]
+    snap = pstop.snapshot(agg.latest())
+    assert snap["nodes"]["W0"]["ro_per_s"] == pytest.approx(60.0)
+    agg2 = TelemetryAggregator()
+    agg2.ingest("S0", {"seq": 1, "t_mono_s": 1.0}, now=1.0)
+    assert "ro_per_s" not in agg2.latest()["S0"]
+    assert pstop.render(agg2.latest())[1].count(" -") >= 3
+
+
+def test_serving_counters_ride_a_live_frame_into_the_row():
+    """A serving worker's real counters through the port's publisher and
+    aggregator: the row's hit ratio is the cache's own."""
+    from parameter_server_tpu_torch.core import flightrec
+    from parameter_server_tpu_torch.core.telemetry import (
+        TelemetryAggregator,
+        TelemetryPublisher,
+    )
+
+    v = van.LoopbackVan()
+    servers, w = _cluster(PORT, v, cache_rows=1 << 11)
+    try:
+        keys = np.arange(64, dtype=np.int64)
+        pub = TelemetryPublisher("W0", None, recorder=flightrec.FlightRecorder(capacity=64),
+                                 sources=[w])
+        agg = TelemetryAggregator()
+        agg.ingest("W0", pub.frame(now=1.0), now=1.0)
+        for _ in range(3):
+            w.pull_serve("w", keys, timeout=30)
+        agg.ingest("W0", pub.frame(now=2.0), now=2.0)
+        c = w.counters()
+        row = agg.latest()["W0"]
+        looked = c["cache_hits"] + c["cache_misses"]
+        assert looked and row["cache_hit_pct"] == round(100.0 * c["cache_hits"] / looked, 2)
+    finally:
+        _close(v, servers)
