@@ -10,7 +10,8 @@ Phases, each printing one JSON line (``"phase": ...``):
 
 1. build     nvcc-build ``parameter_server_tpu_torch/csrc/scatter_kernels.cu``.
 2. kernels   each of the four kernels against its plain version at dim 1, 3,
-             4, 128 and 1024 and on misaligned views (storage offset 1), ids
+             4, 128, 1024 and 4096 (config #5's embedding rows) and on
+             misaligned views (storage offset 1), ids
              with trash pads: gather and scatter-set of 1 to 4 planes in one
              launch, scatter-add, apply under all four optimizers (the trash
              row must keep its fill); the public ``scatter_add_rows`` with
@@ -303,6 +304,41 @@ Phases, each printing one JSON line (``"phase": ...``):
              report's postmortem and critpath sections present.  Every
              ``ps_gather`` held to ``index_select``, the first ``ps_apply``
              on each table to its plain version.
+   hybrid    BASELINE config #5 at Llama-3-8B width (d 4096, 32 / 8 KV
+             heads, d_ff 14336, vocab 128,256, rotary θ 5e5, untied), cut to
+             bench.py::run_hybrid's depth of 4 layers: ``HybridLMTrainer``
+             (AdamW 1e-3, max_delay 2) over 2 KVServers (``device_replies``,
+             AdaGrad 0.05 on the 128,256 x 4096 table) and 1 KVWorker on a
+             LoopbackVan, batches of 8 x 512 uniform tokens.  Run A: 2
+             warm-up and 8 timed prefetched steps: ms a step, tokens/s, MFU
+             (6 x body params x tokens over the fp32 peak), peak memory,
+             ``emb_plane_mb``; one ``ps_gather`` (value + ``sum_sq``) and
+             one ``ps_apply`` a step on each server, no scatter.  Run B from
+             the same seed with every ``ps_gather`` held to
+             ``index_select`` (exact) and the first ``ps_apply`` on each
+             shard to its plain version: losses, launches, body and both
+             tables bitwise equal to run A's; then 4 synchronous-pull steps
+             (the pull wait against the prefetched one), 4 steps on one
+             repeated batch, whose loss must fall (uniform tokens leave a
+             fresh batch nothing to learn beyond a flat output), and both
+             kernels timed at server 0's last request of run B (CUDA-graph
+             replay, the byte bound at 3.35 TB/s from its unique rows,
+             plain and library times).  Then ``tiny_config`` on the card and on the CPU
+             from the same body and shards: logits 1e-5, 4 losses 1e-4.
+   chunked   BASELINE config #4: BERT-base whole (12 layers, d 768, vocab
+             30,522, learned positions, LN, GELU, tied; a 436 MB flat
+             vector) trained by ``ChunkedAsyncDenseLearner`` over 2
+             ``DenseKVServer``s (AdaGrad 1e-3) under BSP, one worker, layer
+             segments of up to 2^22 elements, 6 MLM batches of 8 x 512
+             (``make_mlm_batch`` over a Zipf(1.1) unigram): the loss falls,
+             ``max_inflight`` >= 2, ``push_mb`` within 1% of the vector each
+             step, ms a step after the first, no scatter kernel launched
+             (the dense servers apply with plain torch); then
+             ``SpmdLMTrainer`` on the same weights and batches (ms a step,
+             MFU against the fp32 peak); then a tiny BERT on the card and
+             on the CPU from the same weights: logits 1e-5, 4 chunked
+             losses 1e-4 (not bitwise: the embedding gathers' backward adds
+             with atomics on the card).
 9. times     every kernel at the main path's shapes: device time per call
              (CUDA-graph replay), the byte bound at 3.35 TB/s, the plain
              version's time and one PyTorch library call's time; an empty
@@ -324,7 +360,10 @@ nonzero on a machine without a card.
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import functools
+import gc
+import io
 import itertools
 import json
 import subprocess
@@ -423,6 +462,20 @@ WIRE_SLOW_MS, WIRE_BEATS, WIRE_DEVICE_KEYS = 120.0, 5, 4096
 #: leg's breach and recovery polls, the war game's seed
 OBSERVE_ARMS = (("off", 0), ("1/1024", 1024), ("1/1", 1))
 OBSERVE_BEAT_S, OBSERVE_SLO_DEADLINE_S, OBSERVE_SCENARIO_SEED = 0.2, 15.0, 0
+#: BASELINE config #5 at Llama-3-8B width, cut to bench.py::run_hybrid's depth
+#: (4 of 32 layers): batches of 8 x 512 uniform tokens, 2 KVServers with
+#: device_replies, 1 worker, max_delay 2, the body's AdamW rate (the
+#: trainer's default); warm-up, prefetched (timed) and synchronous-pull
+#: steps, the seed; steps of the tiny card-vs-CPU legs
+HYBRID_LAYERS, HYBRID_BATCH, HYBRID_SEQ, HYBRID_SERVERS, HYBRID_DELAY = 4, 8, 512, 2, 2
+HYBRID_LR, HYBRID_WARM, HYBRID_TIMED, HYBRID_SYNC, HYBRID_SEED, REF_STEPS = 1e-3, 2, 8, 4, 0, 4
+#: steps on one repeated batch, whose loss must fall
+HYBRID_MEMO = 4
+#: BASELINE config #4: BERT-base whole, MLM batches of 8 x 512 over a
+#: Zipf(1.1) unigram, 2 DenseKVServers (AdaGrad), layer segments of up to
+#: 2^22 elements, BSP, 1 worker; steps (the first is the warm-up)
+CHUNKED_BATCH, CHUNKED_SEQ, CHUNKED_SERVERS, CHUNKED_SEGMENT = 8, 512, 2, 1 << 22
+CHUNKED_STEPS, CHUNKED_LR, CHUNKED_SEED, CHUNKED_ZIPF = 6, 1e-3, 0, 1.1
 DEVICE = "cuda"
 SOURCE = "parameter_server_tpu_torch/csrc/scatter_kernels.cu"
 REPLACES = {
@@ -466,7 +519,7 @@ def main() -> int:
          library=_build.library_path().name)
 
     # -- 2. kernels vs plain ---------------------------------------------------
-    for dim in (1, 3, 4, 128, 1024):
+    for dim in (1, 3, 4, 128, 1024, 4096):
         emit("kernels", dim=dim, **kernels_vs_plain(torch, scatter, dev, dim, errs))
     for dim in (1, 128):
         emit("kernels", dim=dim, storage_offset=1,
@@ -596,10 +649,26 @@ def main() -> int:
     del clean
     emit("observe", **{k: observe[k] for k in ("launches", "phase_s", "gather_check",
                                                 "apply_check", "wire_bytes_1_1024_vs_off")})
+    _free(torch)
+
+    # -- 8j. BASELINE config #5: the hybrid LM at Llama-3-8B width ---------------------
+    hybrid, hybrid_launches = hybrid_phase(torch, scatter, dev, errs)
+    emit("hybrid", **hybrid)
+    _free(torch)
+
+    # -- 8k. BASELINE config #4: BERT-base on the chunked dense plane -------------------
+    chunked, chunked_launches = chunked_phase(torch, scatter, dev, errs)
+    emit("chunked", **chunked)
+    _free(torch)
 
     # -- 9. times ----------------------------------------------------------------
     kernels = times_phase(torch, scatter, dev, errs, launches)
     for k in kernels:
+        k["hybrid_launches"] = hybrid_launches[k["name"]]
+        # scatter-set and scatter-add are not on the hybrid path; no scatter
+        # kernel is on the chunked dense path
+        k["hybrid"] = hybrid["kernel_times"].get(k["name"])
+        k["chunked_launches"] = chunked_launches[k["name"]]
         k["observe_launches"] = observe_launches[k["name"]]
         # scatter-set and scatter-add are not on the observability path
         k["observe"] = observe.get(f"{k['name']}_check")
@@ -2421,10 +2490,8 @@ def dlrm_kernel_times(torch, scatter, trainer, errs):
           "dlrm trash row not back at its fill after the kernel checks")
     errs["gather"] = max(errs["gather"], err_get)
     errs["scatter_set"] = max(errs["scatter_set"], err_set)
-    f, row_bytes, p = 4, 4 * DLRM_DIM, len(planes)
-    # each input read once, each output written once: ids, the touched table
-    # rows and the n list rows of every plane
-    nbytes = float(np.mean([f * n + p * (u + n) * row_bytes for u in uniq]))
+    p = len(planes)
+    nbytes = float(np.mean([gather_bytes(n, u, p, DLRM_DIM) for u in uniq]))
 
     def cycle(fn):
         it = itertools.cycle(range(DLRM_TIME_SETS))
@@ -2861,11 +2928,14 @@ class ApplyTap:
     gradients.  Everything stays on the launching stream, with no host
     synchronisation; :meth:`result` reads the errors once the run is over:
     the rows the kernel left against the plain ones (rtol 1e-5, atol 1e-6,
-    as in ``kernels_vs_plain``) and the trash row unchanged."""
+    as in ``kernels_vs_plain``) and the trash row unchanged.  With ``keep``
+    (a value plane), ``last`` holds the arguments of the last apply on that
+    table, for timing the kernel at the path's shape afterwards."""
 
-    def __init__(self, torch, scatter):
+    def __init__(self, torch, scatter, keep=None):
         self.torch, self.scatter, self.orig = torch, scatter, None
         self.seen, self.records = set(), []
+        self.keep, self.last = keep, None
 
     def __enter__(self):
         self.orig = self.scatter.cuda_apply
@@ -2877,6 +2947,8 @@ class ApplyTap:
 
     def _apply(self, value, state, ids, grads, optimizer):
         torch, key = self.torch, value.data_ptr()
+        if self.keep is not None and key == self.keep.data_ptr():
+            self.last = (value, dict(state), ids.clone(), grads.clone(), optimizer)
         if key in self.seen:
             return self.orig(value, state, ids, grads, optimizer)
         self.seen.add(key)
@@ -2936,20 +3008,8 @@ def serve_gather_check(torch, scatter, dev, table, errs):
     check(all(float(g[n_real:].abs().max()) == 0.0 for g in got[:1]),
           "serving gather: pads must read the trash row's zeros")
     errs["gather"] = max(errs["gather"], err)
-    idx64 = ids.long()
-    u = n_real + 1  # rows touched: the real ids and the trash row once
-    nbytes = 4 * SERVE_BUCKET + len(planes) * (u + SERVE_BUCKET) * SERVE_DIM * 4
-    return {
-        "n": SERVE_BUCKET, "real_ids": n_real, "planes": len(planes), "dim": SERVE_DIM,
-        "table_rows": rows + 1, "max_abs_err": err,
-        "ms": _graph_ms(torch, lambda: scatter.cuda_gather_planes(planes, ids)),
-        "plain_ms": _graph_ms(torch, lambda: [scatter.gather_rows_torch(p, ids)
-                                              for p in planes]),
-        "library_ms": _graph_ms(torch, lambda: [torch.index_select(p, 0, idx64)
-                                                for p in planes]),
-        "library": "index_select x2", "bytes": nbytes,
-        "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
-    }
+    return dict(spec_times(torch, gather_spec(torch, scatter, planes, ids)),
+                real_ids=n_real, max_abs_err=err, library="index_select x2")
 
 
 def _p50_us(samples):
@@ -3347,11 +3407,13 @@ class PlanesTap:
     wrapped: each launch runs as the path asked, then its result is compared
     on the launching stream with ``index_select`` of the same planes at the
     same ids (exact: both move rows).  The errors stay on the card until
-    :meth:`result`."""
+    :meth:`result`.  With ``keep`` (a table's first plane), ``last`` holds
+    the arguments of the last gather from that table."""
 
-    def __init__(self, torch, scatter):
+    def __init__(self, torch, scatter, keep=None):
         self.torch, self.scatter = torch, scatter
         self.records = {"gather": [], "scatter_set": []}
+        self.keep, self.last = keep, None
 
     def __enter__(self):
         self.orig = (self.scatter.cuda_gather_planes, self.scatter.cuda_scatter_set_planes)
@@ -3369,6 +3431,8 @@ class PlanesTap:
                                  for g, t in zip(got, tables)]).max()
 
     def _gather(self, tables, ids):
+        if self.keep is not None and tables[0].data_ptr() == self.keep.data_ptr():
+            self.last = (list(tables), ids.clone())
         outs = self.orig[0](tables, ids)
         self.records["gather"].append((int(ids.shape[0]), len(tables),
                                        self._err(outs, tables, ids)))
@@ -5532,6 +5596,399 @@ def observe_phase(torch, scatter, dev, errs, clean):
 
 
 # ---------------------------------------------------------------------------
+# phase 8j: BASELINE config #5, the hybrid LM at Llama-3-8B width
+# ---------------------------------------------------------------------------
+
+
+def hybrid_batches(cfg, n, seed):
+    """``n`` batches of HYBRID_BATCH x HYBRID_SEQ uniform tokens
+    (``bench.py::run_hybrid``'s traffic)."""
+    rng = np.random.default_rng(seed)
+    return [rng.integers(0, cfg.vocab_size, size=(HYBRID_BATCH, HYBRID_SEQ)).astype(np.int32)
+            for _ in range(n)]
+
+
+def hybrid_build(torch, dev, cfg, *, tracer=None):
+    """``HYBRID_SERVERS`` KVServers (``device_replies``) and one KVWorker on a
+    LoopbackVan, the embedding table on the servers, and a
+    ``HybridLMTrainer`` over them with the body seeded by ``HYBRID_SEED``.
+    Returns (van, servers, trainer)."""
+    from parameter_server_tpu_torch.core.postoffice import Postoffice
+    from parameter_server_tpu_torch.core.van import LoopbackVan
+    from parameter_server_tpu_torch.kv.server import KVServer
+    from parameter_server_tpu_torch.kv.worker import KVWorker
+    from parameter_server_tpu_torch.learner import hybrid
+
+    van = LoopbackVan()
+    cfgs = {"emb": hybrid.embedding_table_cfg(cfg)}
+    servers = [KVServer(Postoffice(f"S{s}", van), cfgs, s, HYBRID_SERVERS,
+                        device_replies=True, device=dev) for s in range(HYBRID_SERVERS)]
+    worker = KVWorker(Postoffice("W0", van), cfgs, HYBRID_SERVERS,
+                      localizers=hybrid.embedding_localizers(cfg), device=dev)
+    tr = hybrid.HybridLMTrainer(cfg, worker, learning_rate=HYBRID_LR, max_delay=HYBRID_DELAY,
+                                seed=HYBRID_SEED, tracer=tracer, device=dev)
+    return van, servers, tr
+
+
+def hybrid_steps(tr, batches, *, prefetch=True):
+    """One step a batch, each announcing the next when ``prefetch``."""
+    return [tr.step(b, next_tokens=batches[i + 1] if prefetch and i + 1 < len(batches)
+                    else None)
+            for i, b in enumerate(batches)]
+
+
+def _host_state(tr, servers):
+    """The run's state to hold a repeat against, on the card: body
+    parameters and every plane of every table shard."""
+    return ([p.detach() for p in tr.body.parameters()],
+            [[t.value, *(t.state[k] for k in sorted(t.state))]
+             for s in servers for t in s.tables.values()])
+
+
+def _release(van, servers, tr):
+    """Stop a cluster's threads and drop the trainer's optimizer state and
+    gradients (the parameters and tables stay while referenced)."""
+    tr.optimizer.state.clear()
+    tr.optimizer.zero_grad(set_to_none=True)
+    close_cluster(van, servers)
+
+
+def _free(torch):
+    """Collect the reference cycles a closed cluster leaves (server, post
+    office and van point at each other), then return the card memory they
+    held to the device allocator."""
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def hybrid_phase(torch, scatter, dev, errs):
+    """Config #5 at Llama-3-8B width with 4 layers.  Run A: warm-up and
+    prefetched timed steps, the launches counted.  Run B: the same seed and
+    batches with every ``ps_gather`` held to ``index_select`` and the first
+    ``ps_apply`` on each shard to its plain version: losses, body and tables
+    bitwise equal to run A's; then B's synchronous-pull leg, steps on one
+    repeated batch, whose loss must fall, and the two kernels timed at the
+    path's shape.  Then the tiny card-vs-CPU leg.
+    Returns (fields, launches of run A)."""
+    from parameter_server_tpu_torch.models import transformer as tfm
+    from parameter_server_tpu_torch.utils.trace import Tracer
+
+    t_phase = time.perf_counter()
+    cfg = dataclasses.replace(tfm.llama3_8b(), n_layers=HYBRID_LAYERS)
+    n_steps = HYBRID_WARM + HYBRID_TIMED
+    batches = hybrid_batches(cfg, n_steps + HYBRID_SYNC, HYBRID_SEED)
+    out = {"d_model": cfg.d_model, "n_layers": cfg.n_layers, "full_depth": 32,
+           "n_heads": cfg.n_heads, "n_kv_heads": cfg.kv_heads, "d_ff": cfg.d_ff,
+           "vocab": cfg.vocab_size, "batch": HYBRID_BATCH, "seq": HYBRID_SEQ,
+           "servers": HYBRID_SERVERS, "max_delay": HYBRID_DELAY}
+
+    # -- run A: the path, counted and timed ------------------------------------
+    tracer = Tracer()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    van, servers, tr = hybrid_build(torch, dev, cfg, tracer=tracer)
+    out["build_s"] = time.perf_counter() - t0
+    out["body_params"] = tr.n_body_params
+    out["unique_tokens_a_step"] = [int(np.unique(b).size) for b in batches[:n_steps]]
+    scatter.reset_launch_counts()
+    losses_a = []
+    for i in range(n_steps):
+        if i == HYBRID_WARM:  # the warm-up ends; its prefetch is in flight
+            torch.cuda.synchronize()
+            tracer.clear()
+            t0 = time.perf_counter()
+        nxt = batches[i + 1] if i + 1 < n_steps else None
+        losses_a.append(tr.step(batches[i], next_tokens=nxt))
+    tr.drain()
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    counts = scatter.launch_counts()
+    out["peak_memory_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    pre_waits = [s[2] for s in tracer.spans("hybrid.pull_wait")]
+    check(counts["gather"] == HYBRID_SERVERS * n_steps
+          and counts["apply"] == HYBRID_SERVERS * n_steps
+          and counts["scatter_set"] == 0 and counts["scatter_add"] == 0,
+          f"hybrid launches {counts} for {n_steps} steps on {HYBRID_SERVERS} servers")
+    check(all(np.isfinite(losses_a)), f"hybrid losses {losses_a}")
+    tokens = HYBRID_BATCH * HYBRID_SEQ * HYBRID_TIMED
+    out.update({
+        "losses": losses_a, "launches": counts, "timed_steps": HYBRID_TIMED,
+        "ms_a_step": dt / HYBRID_TIMED * 1e3, "tokens_per_s": tokens / dt,
+        "pull_wait_prefetched_ms": float(np.mean(pre_waits)) * 1e3,
+        "emb_plane_mb": HYBRID_BATCH * HYBRID_SEQ * cfg.d_model * 4 * 2 / 1e6,
+        "precision": tr.dashboard.precision, "peak_flops": tr.dashboard.peak_flops,
+    })
+    out["mfu"] = 6.0 * tr.n_body_params * out["tokens_per_s"] / tr.dashboard.peak_flops
+    check(0.0 < out["mfu"] < 1.0, f"hybrid mfu {out['mfu']}")
+    state_a = _host_state(tr, servers)
+    _release(van, servers, tr)
+    del tr, servers, van
+    _free(torch)
+
+    # -- run B: the same seed, every kernel held to its plain version -----------
+    tracer = Tracer()
+    van, servers, tr = hybrid_build(torch, dev, cfg, tracer=tracer)
+    scatter.reset_launch_counts()
+    emb0 = servers[0].tables["emb"].value
+    with PlanesTap(torch, scatter, keep=emb0) as planes, \
+            ApplyTap(torch, scatter, keep=emb0) as applies:
+        losses_b = hybrid_steps(tr, batches[:n_steps])
+        tr.drain()
+        out["gather_check"] = planes.result(errs, "gather")
+        out["apply_check"] = applies.result(errs, HYBRID_SERVERS)
+    counts_b = scatter.launch_counts()
+    state_b = _host_state(tr, servers)
+    same = (losses_b == losses_a and counts_b == counts
+            and all(torch.equal(a, b) for a, b in zip(state_a[0], state_b[0]))
+            and all(torch.equal(a, b) for pa, pb in zip(state_a[1], state_b[1])
+                    for a, b in zip(pa, pb)))
+    check(same, f"hybrid runs from one seed differ: losses {losses_a} vs {losses_b}, "
+          f"launches {counts} vs {counts_b}")
+    del state_a, state_b
+    out["repeat_bitwise_equal"] = True
+    # the synchronous-pull leg, continuing run B (its pulls read the same
+    # rows; only when they are sent differs)
+    tracer.clear()
+    hybrid_steps(tr, batches[n_steps:], prefetch=False)
+    tr.drain()
+    sync_waits = [s[2] for s in tracer.spans("hybrid.pull_wait")]
+    out["pull_wait_sync_ms"] = float(np.mean(sync_waits)) * 1e3
+    out["pull_latency_hidden_pct"] = max(
+        0.0, 1.0 - out["pull_wait_prefetched_ms"] / out["pull_wait_sync_ms"]) * 100.0
+    # uniform tokens leave nothing to learn beyond a flat output (log V), so
+    # a fresh batch's loss stays near its start; one batch taken again and
+    # again must be learnt
+    memo = hybrid_steps(tr, [batches[0]] * HYBRID_MEMO)
+    tr.drain()
+    check(all(np.isfinite(memo)) and memo[-1] < memo[0],
+          f"hybrid: the loss on one repeated batch did not fall: {memo}")
+    out["repeated_batch_losses"] = memo
+    # last: the two kernels at server 0's last request of run B (the timing
+    # loops apply to its rows again and again)
+    out["kernel_times"] = {
+        "gather": spec_times(torch, gather_spec(torch, scatter, *planes.last)),
+        "apply": spec_times(torch, apply_spec(torch, scatter, *applies.last)),
+    }
+    del planes, applies, emb0
+    _release(van, servers, tr)
+    del tr, servers, van
+    _free(torch)
+    out["reference"] = hybrid_reference(torch, dev)
+    _free(torch)
+    out["memory_left_gb"] = torch.cuda.memory_allocated() / 1e9
+    out["phase_s"] = time.perf_counter() - t_phase
+    return out, counts
+
+
+def hybrid_reference(torch, dev):
+    """``tiny_config`` (causal, untied) on the card and on the CPU from the
+    same body weights and table shards: logits before training within 1e-5,
+    the losses of 4 steps within 1e-4."""
+    from parameter_server_tpu_torch.convert import shard_from_numpy, transformer_from_numpy
+    from parameter_server_tpu_torch.models import transformer as tfm
+    from parameter_server_tpu_torch.models.layers import params_tree
+
+    cfg = tfm.tiny_config(causal=True, tie_embeddings=False)
+    rng = np.random.default_rng(HYBRID_SEED + 1)
+    batches = [rng.integers(0, cfg.vocab_size, size=(8, 16)).astype(np.int32)
+               for _ in range(REF_STEPS)]
+    clusters = {where: hybrid_build(torch, where, cfg) for where in ("cpu", dev)}
+    (_v, cpu_servers, cpu_tr), (_v, servers, tr) = clusters["cpu"], clusters[dev]
+    for cs, s in zip(cpu_servers, servers):
+        s.import_shard(shard_from_numpy(cs.export_shard(), dev))
+    transformer_from_numpy(tr.body, params_tree(cpu_tr.body))
+    runs = {}
+    for where, (van, servers, tr) in clusters.items():
+        try:
+            logits = tr.logits(batches[0])
+            losses = hybrid_steps(tr, batches)
+            tr.drain()
+        finally:
+            close_cluster(van, servers)
+        runs["cpu" if where == "cpu" else "card"] = (logits, losses)
+    (cl, closs), (gl, gloss) = runs["cpu"], runs["card"]
+    logits_err = float(np.abs(gl - cl).max())
+    loss_err = float(np.abs(np.array(gloss) - np.array(closs)).max())
+    check(logits_err <= 1e-5, f"hybrid tiny: card vs CPU logits {logits_err}")
+    check(loss_err <= 1e-4, f"hybrid tiny: card vs CPU losses {gloss} vs {closs}")
+    return {"steps": REF_STEPS, "logits_max_abs_err": logits_err, "logits_atol": 1e-5,
+            "loss_max_abs_err": loss_err, "loss_atol": 1e-4, "losses_card": gloss}
+
+
+# ---------------------------------------------------------------------------
+# phase 8k: BASELINE config #4, BERT-base on the chunked dense plane
+# ---------------------------------------------------------------------------
+
+
+def chunked_batches(cfg, n, seed, batch, seq):
+    """``n`` MLM triples (``make_mlm_batch``) over tokens drawn from a
+    Zipf(1.1) unigram on the vocabulary (a text-like skew: masked tokens
+    have a learnable marginal)."""
+    from parameter_server_tpu_torch.learner.lm import make_mlm_batch
+
+    rng = np.random.default_rng(seed)
+    out = []
+    for _ in range(n):
+        tokens = np.minimum(rng.zipf(CHUNKED_ZIPF, size=(batch, seq)), cfg.vocab_size - 1)
+        out.append(make_mlm_batch(tokens.astype(np.int64), cfg.vocab_size, rng))
+    return out
+
+
+def chunked_run(torch, dev, model, batches, segments, lr):
+    """``ChunkedAsyncDenseLearner`` over 2 ``DenseKVServer``s (AdaGrad at
+    ``lr``) on ``dev`` under BSP, one worker, one step a batch, the model's
+    weights as the servers' init vector.  Returns (losses, dashboard rows,
+    max_inflight, host times of each step's batch draw)."""
+    from torch.func import functional_call
+
+    from parameter_server_tpu_torch.config import (
+        ConsistencyConfig,
+        ConsistencyMode,
+        OptimizerConfig,
+    )
+    from parameter_server_tpu_torch.core.postoffice import Postoffice
+    from parameter_server_tpu_torch.core.van import LoopbackVan
+    from parameter_server_tpu_torch.kv.dense import DenseKVServer, DenseKVWorker, PytreeCodec
+    from parameter_server_tpu_torch.learner.dense import ChunkedAsyncDenseLearner
+    from parameter_server_tpu_torch.models import transformer as tfm
+    from parameter_server_tpu_torch.models.layers import flat_items, params_tree
+    from parameter_server_tpu_torch.utils import metrics as metrics_lib
+
+    params = params_tree(model)
+    codec = PytreeCodec(params)
+
+    def loss_fn(tree, inputs, targets, mask):
+        logits = functional_call(model, dict(flat_items(tree)), (inputs,))
+        return tfm.mlm_loss(logits, targets, mask)
+
+    van = LoopbackVan()
+    opt = OptimizerConfig(kind="adagrad", learning_rate=lr)
+    init = codec.flatten(params)
+    servers = [DenseKVServer(Postoffice(f"S{i}", van), {"model": (codec.total, opt)}, i,
+                             CHUNKED_SERVERS, init_vectors={"model": init}, device=dev)
+               for i in range(CHUNKED_SERVERS)]
+    worker = DenseKVWorker(Postoffice("W0", van), {"model": codec.total}, CHUNKED_SERVERS,
+                           device=dev)
+    sink = io.StringIO()
+    learner = ChunkedAsyncDenseLearner(
+        loss_fn, params, [worker], ConsistencyConfig(mode=ConsistencyMode.BSP),
+        segments=segments, dashboard=metrics_lib.Dashboard(jsonl=sink, print_every=0),
+        device=dev)
+    draws, it = [], iter(batches)
+
+    def batch_fn():
+        if torch.device(dev).type == "cuda":
+            torch.cuda.synchronize()
+        draws.append(time.perf_counter())
+        return next(it)
+
+    try:
+        losses = learner.run([batch_fn], len(batches), timeout=600.0)
+    finally:
+        van.close()
+    rows = [json.loads(line) for line in sink.getvalue().splitlines()]
+    return losses, rows, learner.max_inflight, draws
+
+
+def chunked_phase(torch, scatter, dev, errs):
+    """Config #4: BERT-base whole trained by ``ChunkedAsyncDenseLearner``
+    (layer segments of up to 2^22 elements), then ``SpmdLMTrainer`` on the
+    same weights and batches (the one-card baseline), then the tiny
+    card-vs-CPU leg.  Returns (fields, launches of the chunked run)."""
+    from parameter_server_tpu_torch.kv.dense import PytreeCodec, layer_segments
+    from parameter_server_tpu_torch.learner.lm import SpmdLMTrainer
+    from parameter_server_tpu_torch.models import transformer as tfm
+    from parameter_server_tpu_torch.models.layers import params_tree
+
+    t_phase = time.perf_counter()
+    cfg = tfm.bert_base()
+    model = tfm.Transformer(cfg, device=dev, generator=tfm.make_generator(dev, CHUNKED_SEED))
+    params = params_tree(model)
+    codec = PytreeCodec(params)
+    segments = layer_segments(params, CHUNKED_SEGMENT)
+    batches = chunked_batches(cfg, CHUNKED_STEPS, CHUNKED_SEED, CHUNKED_BATCH, CHUNKED_SEQ)
+    vector_mb = codec.total * 4 / 1e6
+    out = {"params": codec.total, "vector_mb": vector_mb, "segments": len(segments),
+           "batch": CHUNKED_BATCH, "seq": CHUNKED_SEQ, "servers": CHUNKED_SERVERS,
+           "lr": CHUNKED_LR, "steps": CHUNKED_STEPS}
+    scatter.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    losses, rows, inflight, draws = chunked_run(torch, dev, model, batches, segments,
+                                                 CHUNKED_LR)
+    counts = scatter.launch_counts()
+    torch.cuda.empty_cache()
+    check(all(np.isfinite(losses)), f"chunked losses {losses}")
+    check(np.mean(losses[-2:]) < np.mean(losses[:2]), f"chunked loss did not fall: {losses}")
+    check(inflight >= 2, f"chunked max_inflight {inflight}")
+    push_mb = [r["push_mb"] for r in rows]
+    check(all(abs(m - vector_mb) / vector_mb < 0.01 for m in push_mb),
+          f"chunked push_mb {push_mb} against the vector's {vector_mb} MB")
+    steps_s = np.diff(draws)  # one step between consecutive batch draws
+    out.update({
+        "losses": losses, "max_inflight": inflight, "push_mb": push_mb,
+        "pull_mb": [r["pull_mb"] for r in rows], "launches": counts,
+        # the first step is the warm-up (library and allocator set-up)
+        "ms_a_step": float(np.mean(steps_s[1:])) * 1e3, "step_ms": (steps_s * 1e3).tolist(),
+        "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+    })
+    # the one-card baseline: the same seed gives the same weights
+    spmd = SpmdLMTrainer(cfg, learning_rate=CHUNKED_LR, seed=CHUNKED_SEED, device=dev)
+    check(torch.equal(codec.flatten_tensor(params_tree(spmd.model)),
+                      codec.flatten_tensor(params)), "chunked: the baseline's weights differ")
+    del model, params
+    _free(torch)
+    spmd.step_mlm(*batches[0])  # warm-up
+    times, spmd_losses = [], []
+    for b in batches[1:]:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        spmd_losses.append(spmd.step_mlm(*b))
+        times.append(time.perf_counter() - t0)
+    check(all(np.isfinite(spmd_losses)), f"spmd losses {spmd_losses}")
+    ms = float(np.mean(times)) * 1e3
+    flops = 6.0 * spmd.n_matmul_params * CHUNKED_SEQ * CHUNKED_BATCH
+    out["spmd"] = {"ms_a_step": ms, "step_ms": [t * 1e3 for t in times],
+                   "losses": spmd_losses, "matmul_params": spmd.n_matmul_params,
+                   "precision": spmd.dashboard.precision,
+                   "peak_flops": spmd.dashboard.peak_flops,
+                   "mfu": flops / (ms / 1e3) / spmd.dashboard.peak_flops}
+    check(0.0 < out["spmd"]["mfu"] < 1.0, f"spmd mfu {out['spmd']['mfu']}")
+    del spmd
+    _free(torch)
+    out["reference"] = chunked_reference(torch, dev)
+    out["phase_s"] = time.perf_counter() - t_phase
+    return out, counts
+
+
+def chunked_reference(torch, dev):
+    """``tiny_config(causal=False)`` (a tiny BERT) on the card and on the CPU
+    from the same weights: logits within 1e-5, then 4 chunked BSP steps
+    (fixed 4,096-element segments) with losses within 1e-4.  Not bitwise:
+    the embedding gathers' backward adds on the card with atomics."""
+    from parameter_server_tpu_torch.convert import transformer_from_numpy
+    from parameter_server_tpu_torch.kv.dense import PytreeCodec, fixed_segments
+    from parameter_server_tpu_torch.models import transformer as tfm
+    from parameter_server_tpu_torch.models.layers import params_tree
+
+    cfg = tfm.tiny_config(causal=False)
+    cpu = tfm.Transformer(cfg, device="cpu", generator=tfm.make_generator("cpu", 5))
+    card = tfm.Transformer(cfg, device=dev)
+    transformer_from_numpy(card, params_tree(cpu))
+    batches = chunked_batches(cfg, REF_STEPS, CHUNKED_SEED + 1, 8, 16)
+    with torch.no_grad():
+        tokens = torch.as_tensor(batches[0][0])
+        logits_err = float((card(tokens.to(dev)).cpu() - cpu(tokens)).abs().max())
+    segments = fixed_segments(PytreeCodec(params_tree(cpu)).total, 4096)
+    cpu_losses = chunked_run(torch, "cpu", cpu, batches, segments, 0.1)[0]
+    card_losses = chunked_run(torch, dev, card, batches, segments, 0.1)[0]
+    loss_err = float(np.abs(np.array(card_losses) - np.array(cpu_losses)).max())
+    check(logits_err <= 1e-5, f"chunked tiny: card vs CPU logits {logits_err}")
+    check(loss_err <= 1e-4, f"chunked tiny: card vs CPU losses {card_losses} vs {cpu_losses}")
+    return {"steps": REF_STEPS, "logits_max_abs_err": logits_err, "logits_atol": 1e-5,
+            "loss_max_abs_err": loss_err, "loss_atol": 1e-4, "losses_card": card_losses}
+
+
+# ---------------------------------------------------------------------------
 # phase 9
 # ---------------------------------------------------------------------------
 
@@ -5574,6 +6031,68 @@ def _graph_ms(torch, fn, per_graph=20, replays=20):
     return start.elapsed_time(end) / (per_graph * replays)
 
 
+def gather_bytes(n, unique_rows, planes, dim):
+    """The bytes ``ps_gather`` must move: the n ids read once, and for each
+    plane its touched rows read once (the pads all read the trash row, which
+    counts once among them) and the n output rows written once."""
+    return 4 * n + planes * 4 * (unique_rows + n) * dim
+
+
+def apply_bytes(n, live, unique_live, state_planes, dim):
+    """The bytes ``ps_apply`` must move: the n ids read once; the gradient
+    rows of the ``live`` ids (those below the trash row; for a pad the kernel
+    reads nothing more) read once; and the value's and each state plane's
+    ``unique_live`` touched rows read and written once."""
+    return 4 * n + 4 * live * dim + 2 * (1 + state_planes) * 4 * unique_live * dim
+
+
+def gather_spec(torch, scatter, tables, ids):
+    """``ps_gather`` of ``tables`` at ``ids``: the kernel, its plain version
+    and ``index_select`` on each plane as closures, the bytes the function
+    must move, and the request's shape."""
+    n, d = int(ids.shape[0]), int(tables[0].shape[1])
+    u = int(torch.unique(ids).numel())
+    idx64 = ids.long()
+    return dict(
+        kernel=lambda: scatter.cuda_gather_planes(tables, ids),
+        plain=lambda: [scatter.gather_rows_torch(t, ids) for t in tables],
+        library=lambda: [torch.index_select(t, 0, idx64) for t in tables],
+        nbytes=gather_bytes(n, u, len(tables), d),
+        shape=dict(n=n, unique_rows=u, dim=d, planes=len(tables),
+                   table_rows=int(tables[0].shape[0])),
+    )
+
+
+def apply_spec(torch, scatter, value, state, ids, grads, opt):
+    """``ps_apply`` of ``grads`` at ``ids`` into ``value`` and ``state``: the
+    kernel and its plain version as closures (no single PyTorch call applies
+    a row-wise optimizer), the bytes the function must move, and the
+    request's shape.  The trash row is the table's last."""
+    n, d = int(ids.shape[0]), int(value.shape[1])
+    live = ids[ids < value.shape[0] - 1]
+    n_live, u_live = int(live.numel()), int(torch.unique(live).numel())
+    return dict(
+        kernel=lambda: scatter.cuda_apply(value, state, ids, grads, opt),
+        plain=lambda: scatter.apply_rows_torch(value, state, ids, grads, opt),
+        library=None,
+        nbytes=apply_bytes(n, n_live, u_live, len(state), d),
+        shape=dict(n=n, live_ids=n_live, unique_live_rows=u_live, dim=d,
+                   state_planes=len(state), optimizer=opt.name,
+                   table_rows=int(value.shape[0])),
+    )
+
+
+def spec_times(torch, spec):
+    """Device time per call (CUDA-graph replay) of a spec's kernel, plain
+    version and library call, beside the byte bound at HBM_BYTES_PER_S and
+    the share of it the kernel reaches."""
+    ms = _graph_ms(torch, spec["kernel"])
+    bound_ms = spec["nbytes"] / HBM_BYTES_PER_S * 1e3
+    return dict(spec["shape"], ms=ms, plain_ms=_graph_ms(torch, spec["plain"]),
+                library_ms=_graph_ms(torch, spec["library"]) if spec["library"] else None,
+                bytes=int(spec["nbytes"]), bound_ms=bound_ms, share_of_bound=bound_ms / ms)
+
+
 def times_phase(torch, scatter, dev, errs, launches):
     from parameter_server_tpu_torch.config import OptimizerConfig
     from parameter_server_tpu_torch.kv.optim import make_optimizer
@@ -5608,21 +6127,8 @@ def times_phase(torch, scatter, dev, errs, launches):
         return nbytes / HBM_BYTES_PER_S * 1e3
 
     specs = {
-        "apply": dict(
-            kernel=lambda: scatter.cuda_apply(table, {"sum_sq": sum_sq}, ids, rows, opt),
-            plain=lambda: scatter.apply_rows_torch(table, {"sum_sq": sum_sq}, ids, rows, opt),
-            library=None,
-            # ids + grads read once; value and sum_sq rows read and written once
-            nbytes=f * n + f * n * DIM + 2 * 2 * f * u * DIM,
-            shape=dict(n=n, dim=DIM, table_rows=shard_rows + 1, state_planes=1),
-        ),
-        "gather": dict(
-            kernel=lambda: scatter.cuda_gather(table, ids),
-            plain=lambda: scatter.gather_rows_torch(table, ids),
-            library=lambda: torch.index_select(table, 0, idx64),
-            nbytes=f * n + f * u * DIM + f * n * DIM,
-            shape=dict(n=n, dim=DIM, table_rows=shard_rows + 1),
-        ),
+        "apply": apply_spec(torch, scatter, table, {"sum_sq": sum_sq}, ids, rows, opt),
+        "gather": gather_spec(torch, scatter, [table], ids),
         "scatter_set": dict(
             kernel=lambda: scatter.cuda_scatter_set(table, ids, rows),
             plain=lambda: scatter.scatter_update_rows_torch(table, ids, rows),
@@ -5658,6 +6164,7 @@ def times_phase(torch, scatter, dev, errs, launches):
             add_table.copy_(base["add"])
             r = specs[name][which]()
             r = torch.cat([r[0], r[1]["sum_sq"]]) if name == "apply" else r
+            r = r[0] if name == "gather" else r
             outs.append(r[:-1].clone() if name in ("scatter_set", "scatter_add") else r.clone())
         err = float((outs[0] - outs[1]).abs().max())
         tol = 1e-5 * float(outs[1].abs().max()) + 1e-6 if name == "apply" else 0.0
@@ -5714,7 +6221,7 @@ def times_phase(torch, scatter, dev, errs, launches):
     emit("times", kernel="noop", ms=floor_ms)
     # one pull's gather at server 0's request: the value and sum_sq planes
     pull_ms = _graph_ms(torch, lambda: scatter.cuda_gather_planes([table, sum_sq], ids))
-    pull_bytes = f * n + 2 * (f * u * DIM + f * n * DIM)
+    pull_bytes = gather_bytes(n, u, 2, DIM)
     emit("times", kernel="gather", case="pull_value_sum_sq", ms=pull_ms,
          bound_ms=bound(pull_bytes), bytes=pull_bytes, planes=2, n=n, dim=DIM)
     # one three-pass push's write-back: ids read once, each plane's rows read

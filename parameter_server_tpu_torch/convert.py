@@ -5,8 +5,12 @@
 the port's ``LocalLRTrainer``.  ``dlrm_from_numpy`` installs a JAX
 ``SpmdDLRMTrainer``'s table planes and flax MLP params into the port's, and
 ``resnet_from_numpy`` a flax ResNet's ``params`` and ``batch_stats`` into the
-port's ``ResNet``.  The port's dense models keep flax's parameter names and
-layouts (``models/layers.py``), so those two copy by path.
+port's ``ResNet``, and ``transformer_from_numpy`` a flax transformer's
+``params`` (unrolled ``layer_{i}`` or ``scan_blocks``'s stacked
+``blocks.block``) into the port's ``Transformer`` / ``TransformerBody`` /
+``TransformerTrunk``.  The port's dense models keep flax's parameter names
+and layouts (``models/layers.py``, ``models/transformer.py``), so these copy
+by path.
 
 ``shard_from_numpy`` takes the dict that ``KVServer.export_shard()`` returns
 in either package — ``{table: {"value": ndarray, "state": {name: ndarray}}}``
@@ -119,3 +123,13 @@ def resnet_from_numpy(model, params, batch_stats) -> None:
     leaves) into the port's ``ResNet``, in place."""
     _copy_tree(dict(model.named_parameters()), params, "resnet params")
     _copy_tree(dict(model.named_buffers()), batch_stats, "resnet batch_stats")
+
+
+def transformer_from_numpy(module, params) -> None:
+    """Install a flax transformer's ``params`` tree (nested dicts of numpy
+    arrays or tensors) into the port's transformer ``module``, in place.
+    The two must hold the same paths (the same model class, the same layout
+    of the block stack) and shapes: ``DenseGeneral`` kernels ``[d, H, D]``
+    for q / k / v and ``[H, D, d]`` for ``o``, ``Dense`` kernels ``[in,
+    out]``, a LayerNorm's leaves under ``LayerNorm_0``."""
+    _copy_tree(dict(module.named_parameters()), params, "transformer params")

@@ -1,0 +1,284 @@
+"""Hybrid LM trainer: PS-served embeddings + a dense transformer body.
+
+Torch counterpart of ``parameter_server_tpu/learner/hybrid.py``, BASELINE
+config #5 (Llama-3-8B: PS embeddings, a synchronously trained body).  One
+step combines both planes:
+
+- **embedding rows ride the Van**: pulled from and pushed to
+  :class:`~parameter_server_tpu_torch.kv.server.KVServer`\\ s through a
+  :class:`~parameter_server_tpu_torch.kv.worker.KVWorker` with an
+  :class:`~parameter_server_tpu_torch.utils.keys.IdentityLocalizer`, so token
+  id == table row.  A pull answers with ``ps_gather`` on each server; a push
+  is merged per row on the worker (``segment_combine``) and applied with the
+  fused row-wise optimizer (``ps_apply``);
+- **the dense body trains on one card** (the JAX trainer's GSPMD mesh
+  collapses to ``device``): forward, causal loss, backward and AdamW, the
+  gradient with respect to the input embeddings flowing back to the table.
+
+Pushes are not waited one by one: ``max_delay`` of them may be in flight
+before a step blocks on the oldest ack (SSP's τ; 0 = BSP).  With
+``step(next_tokens=...)`` the next step's rows are pulled right behind this
+step's push, so the pull's latency hides behind the body; per-link FIFO
+makes those rows include this step's update.
+
+``save`` / ``restore`` cover both planes: the table through
+``KVWorker.save_model`` (the shard files both packages read), the body into
+``hybrid_body_{step:06d}.npz`` laid out as the JAX trainer lays it out:
+``p{i}`` the parameters in ``jax.tree`` order (flax paths sorted), ``o{i}``
+optax ``adamw``'s state leaves (``count`` as int32, then ``mu``, then
+``nu``, each in that order).  A JAX-written checkpoint resumes here and the
+other way round.
+
+Running one body across processes (the JAX trainer's multi-process branch)
+needs the port's ``parallel/distributed.py``: ROADMAP Queue 1 step 9; it
+raises here.
+"""
+
+from __future__ import annotations
+
+import collections
+import os
+from typing import Dict, Optional
+
+import numpy as np
+import torch
+
+from parameter_server_tpu_torch.config import OptimizerConfig, TableConfig
+from parameter_server_tpu_torch.learner.lm import adamw, lm_dashboard
+from parameter_server_tpu_torch.models import transformer as tfm
+from parameter_server_tpu_torch.models.layers import flat_items, params_tree
+from parameter_server_tpu_torch.utils import metrics as metrics_lib
+from parameter_server_tpu_torch.utils.keys import IdentityLocalizer
+from parameter_server_tpu_torch.utils.trace import NULL_TRACER
+
+
+def embedding_table_cfg(
+    cfg: tfm.TransformerConfig,
+    *,
+    learning_rate: float = 0.05,
+    optimizer: str = "adagrad",
+) -> TableConfig:
+    """KV table config for the PS-served embedding: row per token id."""
+    return TableConfig(
+        name="emb",
+        rows=cfg.vocab_size,
+        dim=cfg.d_model,
+        optimizer=OptimizerConfig(kind=optimizer, learning_rate=learning_rate),
+        init_scale=0.02,  # normal(0.02) rows, matching the dense init
+    )
+
+
+def embedding_localizers(cfg: tfm.TransformerConfig) -> Dict[str, object]:
+    """Localizer map for :class:`KVWorker`: identity (token id == row)."""
+    return {"emb": IdentityLocalizer(cfg.vocab_size)}
+
+
+def _multi_process() -> bool:
+    return (torch.distributed.is_available() and torch.distributed.is_initialized()
+            and torch.distributed.get_world_size() > 1)
+
+
+class HybridLMTrainer:
+    """One step = Van pull (rows) -> body forward / backward -> Van push
+    (per-position embedding gradients).
+
+    ``max_delay``: how many embedding pushes may be in flight before the
+    next step blocks on the oldest ack (τ of SSP; 0 = BSP, every push
+    waited before the next pull).
+    """
+
+    def __init__(
+        self,
+        cfg: tfm.TransformerConfig,
+        worker,
+        *,
+        table: str = "emb",
+        learning_rate: float = 1e-3,
+        max_delay: int = 0,
+        seed: int = 0,
+        dashboard: Optional[metrics_lib.Dashboard] = None,
+        push_timeout: float = 60.0,
+        tracer=None,
+        loss_chunk: int = 0,
+        device: str | torch.device = "cuda",
+    ) -> None:
+        """``loss_chunk > 0`` fuses the lm_head into the checkpointed
+        chunked loss (``chunked_causal_lm_loss``): the f32 [B, S, vocab]
+        logits never exist whole."""
+        if cfg.tie_embeddings:
+            raise ValueError(
+                "hybrid requires untied embeddings: the lm_head is dense, "
+                "the input table is PS-served"
+            )
+        self.cfg = cfg
+        self.device = torch.device(device)
+        self.worker = worker
+        self.table = table
+        self.max_delay = max_delay
+        self.push_timeout = push_timeout
+        self.loss_chunk = loss_chunk
+        self.dashboard = lm_dashboard(dashboard, self.device)
+        self.body = tfm.TransformerBody(cfg, device=self.device,
+                                        generator=tfm.make_generator(self.device, seed))
+        self.optimizer = adamw(self.body.parameters(), learning_rate)
+        self._inflight: collections.deque[int] = collections.deque()
+        #: (pull_ts, tokens) announced via ``step(next_tokens=...)``
+        self._prefetch: Optional[tuple] = None
+        self.tracer = tracer or NULL_TRACER
+        self.step_count = 0
+        #: body parameter count for the MFU column (6ND: train FLOPs ~ 6 x
+        #: params x tokens, set a step since the sequence rides the batch)
+        self.n_body_params = sum(int(p.numel()) for p in self.body.parameters())
+
+    def _loss(self, emb_in: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
+        if self.loss_chunk > 0:
+            return tfm.chunked_causal_lm_loss(self.body.trunk(emb_in),
+                                              self.body.lm_head.kernel, targets,
+                                              self.loss_chunk)
+        return tfm.causal_lm_loss(self.body(emb_in), targets)
+
+    def _body_step(self, emb: torch.Tensor, tok: torch.Tensor):
+        """Loss, AdamW on the body, and the gradient with respect to the
+        input embeddings (what flows back to the table)."""
+        self.body.train()
+        emb = emb.detach().to(torch.float32).requires_grad_(True)
+        loss = self._loss(emb, tok)
+        self.optimizer.zero_grad(set_to_none=True)
+        loss.backward()
+        self.optimizer.step()
+        return loss.detach(), emb.grad
+
+    # -- the hybrid hot path -------------------------------------------------
+    def step(
+        self,
+        tokens: np.ndarray,
+        *,
+        next_tokens: Optional[np.ndarray] = None,
+        pull_timeout: float = 60.0,
+    ) -> float:
+        """tokens [B, S] -> loss.  Van pull + body step + Van push.
+
+        Rows arrive on the card (``pull_result_device``) and gradients leave
+        as card tensors (``push_device``): the only host traffic is the token
+        ids.  Pass ``next_tokens`` to prefetch the following step's rows:
+        the pull is sent right after this step's push."""
+        if _multi_process():
+            raise NotImplementedError(
+                "a body across processes needs the port's parallel/distributed.py: "
+                "ROADMAP Queue 1 step 9"
+            )
+        tokens = np.asarray(tokens)
+        # 1) PS plane: this batch's rows — from the prefetch if step(t-1)
+        # announced them, else pulled now
+        ts = None
+        if self._prefetch is not None:
+            pts, ptok = self._prefetch
+            self._prefetch = None
+            if ptok.shape == tokens.shape and np.array_equal(ptok, tokens):
+                ts = pts
+            else:  # the caller deviated from the announced batch: drain + repull
+                self.worker.pull_result(pts, timeout=pull_timeout)
+        if ts is None:
+            ts = self.worker.pull(self.table, tokens)
+        with self.tracer.span("hybrid.pull_wait"):
+            emb_in = self.worker.pull_result_device(ts, timeout=pull_timeout)
+        tok = torch.as_tensor(tokens.astype(np.int64)).to(self.device)
+        # 2) dense plane: the body step, queued on the card (the host goes on
+        # to the push and prefetch while it runs)
+        with self.tracer.span("hybrid.body_dispatch"):
+            loss, g_emb = self._body_step(emb_in.to(self.device), tok)
+        # 3) PS plane: push the per-position embedding gradients as card
+        # tensors.  The push MUST precede the prefetch pull: both are async
+        # submits, and per-link FIFO then makes the prefetched rows include
+        # this step's update (pull-before-push would hand back rows one
+        # update stale even at max_delay=0)
+        ts = self.worker.push_device(self.table, tokens.reshape(-1),
+                                     g_emb.reshape(-1, self.cfg.d_model))
+        # 4) prefetch the next batch's rows
+        if next_tokens is not None:
+            next_tokens = np.asarray(next_tokens)
+            self._prefetch = (self.worker.pull(self.table, next_tokens), next_tokens)
+        self._inflight.append(ts)
+        while len(self._inflight) > self.max_delay:
+            old = self._inflight.popleft()
+            if not self.worker.wait(old, timeout=self.push_timeout):
+                raise TimeoutError(f"embedding push ts={old} not acked")
+        self.step_count += 1
+        with self.tracer.span("hybrid.loss_sync"):
+            loss_f = float(loss)
+        emb_mb = tokens.size * self.cfg.d_model * 4 * 2 / 1e6  # pull + push
+        # one example = one sequence: 6 x body params x seq tokens
+        self.dashboard.flops_per_example = 6.0 * self.n_body_params * tokens.shape[1]
+        self.dashboard.record(self.step_count, loss_f, examples=tokens.shape[0],
+                              extra={"emb_plane_mb": round(emb_mb, 3)})
+        return loss_f
+
+    def drain(self) -> None:
+        """Block until every in-flight embedding push is acked (epoch end),
+        and consume a dangling announced prefetch (its kept replies would
+        otherwise stay pinned in the worker)."""
+        while self._inflight:
+            old = self._inflight.popleft()
+            if not self.worker.wait(old, timeout=self.push_timeout):
+                raise TimeoutError(f"embedding push ts={old} not acked")
+        if self._prefetch is not None:
+            pts, _ptok = self._prefetch
+            self._prefetch = None
+            self.worker.pull_result(pts, timeout=self.push_timeout)
+
+    # -- checkpoint / resume of the whole config-#5 state ----------------------
+    def _param_leaves(self) -> list:
+        return [p for _, p in flat_items(params_tree(self.body))]
+
+    def _opt_leaves(self) -> list:
+        """optax adamw's state leaves: [count, *mu, *nu] (host arrays)."""
+        params = self._param_leaves()
+        states = [self.optimizer.state.get(p, {}) for p in params]
+        count = int(states[0]["step"]) if states and "step" in states[0] else 0
+        host = [np.asarray(count, np.int32)]
+        for key in ("exp_avg", "exp_avg_sq"):
+            host += [s[key].detach().cpu().numpy() if key in s
+                     else np.zeros(tuple(p.shape), np.float32)
+                     for p, s in zip(params, states)]
+        return host
+
+    def save(self, root: str, step: int, *, timeout: float = 600.0) -> None:
+        """Checkpoint the embedding table (PS shards) and the body's
+        parameters and AdamW state (npz), under one step."""
+        self.drain()  # every push applied before the server shards snapshot
+        self.worker.save_model(root, step, timeout=timeout)
+        flat = {f"p{i}": p.detach().cpu().numpy() for i, p in enumerate(self._param_leaves())}
+        flat.update({f"o{i}": leaf for i, leaf in enumerate(self._opt_leaves())})
+        path = os.path.join(root, f"hybrid_body_{step:06d}.npz")
+        tmp = path + ".tmp"
+        with open(tmp, "wb") as f:
+            np.savez(f, **flat)
+        os.replace(tmp, path)
+
+    def restore(self, root: str, step: int, *, timeout: float = 600.0) -> None:
+        """Restore both planes; the trainer continues mid-trajectory."""
+        self.worker.load_model(root, step, timeout=timeout)
+        params = self._param_leaves()
+        n = len(params)
+        path = os.path.join(root, f"hybrid_body_{step:06d}.npz")
+        with np.load(path) as z, torch.no_grad():
+            for i, p in enumerate(params):
+                p.copy_(torch.from_numpy(np.asarray(z[f"p{i}"], np.float32)))
+            count = int(z["o0"])
+            for i, p in enumerate(params):
+                # torch keeps the step count as a float scalar on the host
+                # (AdamW's non-capturable form); optax an int32
+                self.optimizer.state[p] = {
+                    "step": torch.tensor(float(count), dtype=torch.float32),
+                    "exp_avg": torch.from_numpy(np.asarray(z[f"o{1 + i}"], np.float32))
+                    .to(p.device).reshape(p.shape),
+                    "exp_avg_sq": torch.from_numpy(np.asarray(z[f"o{1 + n + i}"], np.float32))
+                    .to(p.device).reshape(p.shape),
+                }
+
+    @torch.no_grad()
+    def logits(self, tokens: np.ndarray, *, pull_timeout: float = 60.0) -> np.ndarray:
+        tokens = np.asarray(tokens)
+        emb_in = self.worker.pull_sync(self.table, tokens, timeout=pull_timeout)
+        x = torch.as_tensor(np.asarray(emb_in, np.float32)).to(self.device)
+        return self.body(x).cpu().numpy()

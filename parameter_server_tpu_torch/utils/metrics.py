@@ -277,14 +277,15 @@ def set_mfu(dashboard: "Dashboard", flops_by_kind: Dict[str, float], examples: i
         dashboard.peak_flops = _auto_peak_flops(dashboard.precision, device)
 
 
-def mesh_peak_flops(n_devices: int, precision: str = "bf16") -> float:
+def mesh_peak_flops(n_devices: int, precision: str = "bf16", device=None) -> float:
     """Aggregate peak FLOP/s of ``n_devices`` cards (MFU denominator).
 
     The numerator counts FLOPs executed across ALL the devices, so the
     denominator must be their aggregate peak — one card's peak would
-    report an 8-card run at up to 800% MFU.
+    report an 8-card run at up to 800% MFU.  ``device``: the kind the run
+    uses (default: the card when there is one).
     """
-    return _auto_peak_flops(precision) * n_devices
+    return _auto_peak_flops(precision, device) * n_devices
 
 
 def lm_matmul_params(state_dict, drop: frozenset) -> int:
@@ -303,16 +304,17 @@ def lm_matmul_params(state_dict, drop: frozenset) -> int:
     )
 
 
-def trainer_dashboard(dashboard, n_devices: int, precision: str = "bf16") -> "Dashboard":
+def trainer_dashboard(dashboard, n_devices: int, precision: str = "bf16",
+                      device=None) -> "Dashboard":
     """The trainer-ctor idiom in one place: default Dashboard + mesh peak.
 
     Every trainer calls this instead of repeating the
     default-then-set-peak_flops dance (a caller-provided non-zero
-    ``peak_flops`` wins).
+    ``peak_flops`` wins).  ``device``: as :func:`mesh_peak_flops`.
     """
     d = dashboard or Dashboard(print_every=0)
     if d.peak_flops <= 0.0:
-        d.peak_flops = mesh_peak_flops(n_devices, precision)
+        d.peak_flops = mesh_peak_flops(n_devices, precision, device)
         d.precision = precision
     return d
 

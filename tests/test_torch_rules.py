@@ -6,7 +6,8 @@
   chain (``kv/replica.py``), the membership and elasticity plane
   (``core/manager.py``, ``core/fleet.py``, ``learner/*.py``) and the
   observability plane (``core/telemetry.py``, ``utils/slo.py``,
-  ``scenario/``) by name.
+  ``scenario/``) and the transformer workloads (``models/transformer.py``,
+  ``learner/lm.py``, ``learner/hybrid.py``) by name.
 - The server's push-ack path — ``_ack_push`` and the grouped apply
   (``_apply_push_group``, ``_push_group_rounds``, ``_push_group_combined``),
   with every method of the server they call — never reads device state
@@ -77,11 +78,22 @@ from parameter_server_tpu_torch.kv.table import KVTable
 from parameter_server_tpu_torch.kv.worker import KVWorker
 from parameter_server_tpu_torch.kv.dense import DenseKVServer, DenseKVWorker
 from parameter_server_tpu_torch.kv.replica import make_replicated_servers, restart_same_id
-from parameter_server_tpu_torch.learner.dense import AsyncDenseLearner, SpmdDenseTrainer
+from parameter_server_tpu_torch.learner.dense import (
+    AsyncDenseLearner,
+    ChunkedAsyncDenseLearner,
+    SpmdDenseTrainer,
+)
+from parameter_server_tpu_torch.learner.hybrid import HybridLMTrainer
+from parameter_server_tpu_torch.learner.lm import SpmdLMTrainer
 from parameter_server_tpu_torch.learner.elastic import ElasticTrainer, restart_server, scale_up
 from parameter_server_tpu_torch.learner.sgd import AsyncLRLearner, LocalLRTrainer
 from parameter_server_tpu_torch.launch import launch
 from parameter_server_tpu_torch.models.dlrm import SpmdDLRMTrainer
+from parameter_server_tpu_torch.models.transformer import (
+    Transformer,
+    TransformerBody,
+    TransformerTrunk,
+)
 from parameter_server_tpu_torch.parallel import dlrm_scale
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
@@ -128,12 +140,18 @@ OBSERVABILITY = ("core/telemetry.py", "utils/slo.py", "utils/trace.py", "utils/m
                  "scenario/scorecard.py")
 
 
+#: the transformer workloads' modules (configs #4 and #5), held by name too
+TRANSFORMER_WORKLOADS = ("models/transformer.py", "models/layers.py", "convert.py",
+                         "learner/lm.py", "learner/hybrid.py", "learner/dense.py")
+
+
 def test_the_import_scan_sees_every_module():
     assert len(SOURCES) >= 25
     scanned = {str(p.relative_to(PORT)) for p in SOURCES if PORT in p.parents}
     assert set(SERVING_AND_REPLICA) <= scanned
     assert set(MEMBERSHIP_AND_ELASTIC) <= scanned
     assert set(OBSERVABILITY) <= scanned
+    assert set(TRANSFORMER_WORKLOADS) <= scanned
     assert {str(p.relative_to(PORT)) for p in (PORT / "learner").glob("*.py")} <= scanned
     assert _forbidden("jax.numpy") and _forbidden("parameter_server_tpu.kv.table")
     assert not _forbidden("parameter_server_tpu_torch.kv.table")
@@ -503,7 +521,9 @@ def test_the_dense_sync_scan_catches_a_readback(src, want):
                                    DenseKVServer, DenseKVWorker, SpmdDenseTrainer,
                                    AsyncDenseLearner, make_replicated_servers,
                                    restart_same_id, ElasticTrainer, scale_up,
-                                   restart_server, launch],
+                                   restart_server, launch, ChunkedAsyncDenseLearner,
+                                   SpmdLMTrainer, HybridLMTrainer, Transformer,
+                                   TransformerBody, TransformerTrunk],
                          ids=lambda c: c.__name__)
 def test_entry_points_default_to_the_card(entry):
     fn = entry.__init__ if inspect.isclass(entry) else entry
