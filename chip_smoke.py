@@ -10,7 +10,8 @@ Phases, each printing one JSON line (``"phase": ...``):
 
 1. build     nvcc-build ``parameter_server_tpu_torch/csrc/scatter_kernels.cu``.
 2. kernels   each of the four kernels against its plain version at dim 1, 3,
-             4, 128, 1024 and 4096 (config #5's embedding rows) and on
+             4, 17 (the FM table's rows), 128, 1024 and 4096 (config #5's
+             embedding rows) and on
              misaligned views (storage offset 1), ids
              with trash pads: gather and scatter-set of 1 to 4 planes in one
              launch, scatter-add, apply under all four optimizers (the trash
@@ -339,6 +340,37 @@ Phases, each printing one JSON line (``"phase": ...``):
              on the CPU from the same weights: logits 1e-5, 4 chunked
              losses 1e-4 (not bitwise: the embedding gathers' backward adds
              with atomics on the card).
+   fm        the factorization machine at config #1's data shape:
+             ``LocalFMTrainer`` on a 2^22 x 17 AdaGrad table (w_i and 16
+             factors a row, 570 MB with ``sum_sq``), SyntheticCTR batches of
+             16,384 x 39 keys over 2^26.  Run A: 2 warm-up and 8 timed
+             steps, examples/s, one ``ps_gather`` (value + ``sum_sq``) and
+             one ``ps_apply`` a step, no scatter.  Run B from the same seed
+             with every ``ps_gather`` held to ``index_select`` and the first
+             ``ps_apply`` to its plain version: losses and planes bitwise
+             equal to run A's; 4 steps on one repeated batch (the loss must
+             fall); both kernels timed at the step's request (dim 17).  Then
+             FM over the Van (1 KVWorker, 2 KVServers at dim 17, 4 steps of
+             pull / ``fm_grad_rows`` / push: one ``ps_gather`` a pull and one
+             ``ps_apply`` a push a server) and a 2^12 x 5 FM on the card and
+             on the CPU: logits 1e-5, 4 losses 1e-4.
+   bcd       DARLIN L1-LR (``learner/bcd.py``) over 2^22 features in 64
+             blocks, 2 workers of 2^19 examples x 39 binary features (20.4 M
+             nonzeros) and 2 servers, weights, margins and block lists on
+             the card: 2 epochs at τ = 2, then two runs of 2 epochs at
+             τ = 1 from one seed: the objective never rises at τ = 1, the
+             two runs bitwise equal (every sum in a fixed order), most
+             features inactive and some weights nonzero; no kernel (DARLIN
+             reaches no Pallas kernel in JAX).  Then ``tests/test_bcd.py``'s
+             shape on the card and on the CPU: weights 1e-5, margins 1e-4.
+   app       the entry points: a seeded Criteo TSV of 2^17 lines served by
+             ``FileServer``; the native parser's MB/s (never the Python
+             fallback); ``psx run --config`` (JSON) of ``sparse_lr`` at
+             config #1's table with the tail filter at 2 from the local path
+             and from ``psfs://`` (equal results, the loss falls), of ``fm``
+             from the same file, of ``async_lr`` (2 x 2, checkpoints), then
+             ``psx eval`` on its checkpoint and ``psx apps`` (the JAX
+             registry's names), all on the CLI's default device.
 9. times     every kernel at the main path's shapes: device time per call
              (CUDA-graph replay), the byte bound at 3.35 TB/s, the plain
              version's time and one PyTorch library call's time; an empty
@@ -349,7 +381,9 @@ Phases, each printing one JSON line (``"phase": ...``):
              general row kernel; gather, Adam apply, scatter-set of 1 and 4
              planes and scatter-add at a wide shape (dim 128, 2^20 + 1 rows,
              8 disjoint id sets so L2 holds no round); the worker
-             pre-combine's time.
+             pre-combine's time.  The ``kernels`` line carries each phase's
+             launches and, for gather and apply, their dim-17 times at the
+             FM step's request (phase ``fm``).
 
 Then the card's name and power limit (nvidia-smi), one JSON line of
 per-kernel results, and ``{"ok": true, "device": {...}}`` last.  Any failed
@@ -476,6 +510,26 @@ HYBRID_MEMO = 4
 #: 2^22 elements, BSP, 1 worker; steps (the first is the warm-up)
 CHUNKED_BATCH, CHUNKED_SEQ, CHUNKED_SERVERS, CHUNKED_SEGMENT = 8, 512, 2, 1 << 22
 CHUNKED_STEPS, CHUNKED_LR, CHUNKED_SEED, CHUNKED_ZIPF = 6, 1e-3, 0, 1.1
+#: the factorization machine at config #1's data shape: 2^22 rows x (1 + 16)
+#: floats (w_i and 16 factors), AdaGrad, SyntheticCTR batches; its init
+#: scale, warm-up, timed and repeated-batch steps, the Van leg's servers
+#: (build_cluster's 2) and steps, the tiny leg's rows, factors and steps
+FM_ROWS, FM_K, FM_LR, FM_INIT, FM_SEED = ROWS, 16, 0.005, 0.01, 5
+FM_WARM, FM_TIMED, FM_MEMO, FM_SERVERS, FM_VAN_STEPS = 2, 8, 4, 2, 4
+FM_REF_ROWS, FM_REF_K, FM_REF_STEPS = 1 << 12, 4, 4
+#: DARLIN L1-LR at Criteo scale: 2^22 localized features in 64 blocks; 2
+#: workers of 2^19 examples x 39 binary features, 30% of the positions from
+#: a head of 2^12 features, the hidden weights on 512 of them; 2 servers;
+#: the L1 weight (sum-loss units), epochs a run, the seed
+BCD_FEATURES, BCD_BLOCKS, BCD_WORKERS, BCD_SERVERS = 1 << 22, 64, 2, 2
+BCD_EXAMPLES, BCD_NNZ, BCD_HEAD, BCD_HEAD_SHARE, BCD_INFORMATIVE = 1 << 19, 39, 1 << 12, 0.3, 512
+BCD_L1, BCD_EPOCHS, BCD_SEED = 10.0, 2, 17
+#: the entry points: the Criteo TSV's lines, each categorical slot's
+#: vocabulary, ``psx run``'s steps and eval batches, async_lr's steps, the
+#: seed, and the JAX package's app registry
+APP_LINES, APP_VOCAB, APP_STEPS, APP_EVAL = 1 << 17, 1 << 12, 24, 2
+APP_ASYNC_STEPS, APP_SEED = 8, 23
+APP_REGISTRY = ("async_lr", "fm", "llama_hybrid", "sp_lm", "sparse_lr", "sptp_lm")
 DEVICE = "cuda"
 SOURCE = "parameter_server_tpu_torch/csrc/scatter_kernels.cu"
 REPLACES = {
@@ -519,7 +573,7 @@ def main() -> int:
          library=_build.library_path().name)
 
     # -- 2. kernels vs plain ---------------------------------------------------
-    for dim in (1, 3, 4, 128, 1024, 4096):
+    for dim in (1, 3, 4, 17, 128, 1024, 4096):
         emit("kernels", dim=dim, **kernels_vs_plain(torch, scatter, dev, dim, errs))
     for dim in (1, 128):
         emit("kernels", dim=dim, storage_offset=1,
@@ -661,9 +715,31 @@ def main() -> int:
     emit("chunked", **chunked)
     _free(torch)
 
+    # -- 8l. the factorization machine at config #1's data shape (dim 17) --------------
+    fm, fm_launches = fm_phase(torch, scatter, dev, errs)
+    emit("fm", **fm)
+    _free(torch)
+
+    # -- 8m. DARLIN block coordinate descent at Criteo scale ------------------------------
+    bcd, bcd_launches = bcd_phase(torch, scatter, dev, errs)
+    emit("bcd", **bcd)
+    _free(torch)
+
+    # -- 8n. the entry points: the text data layer and psx run / eval / apps ---------------
+    app, app_launches = app_phase(torch, scatter, dev, errs)
+    emit("app", **app)
+    _free(torch)
+
     # -- 9. times ----------------------------------------------------------------
     kernels = times_phase(torch, scatter, dev, errs, launches)
     for k in kernels:
+        k["fm_launches"] = fm_launches[k["name"]]
+        k["fm_van_launches"] = fm["van"]["launches"][k["name"]]
+        k["bcd_launches"] = bcd_launches[k["name"]]
+        k["app_launches"] = app_launches[k["name"]]
+        # scatter-set and scatter-add are not on the FM path: dim 17 rows
+        # at the FM step's request
+        k["fm"] = fm["kernel_times"].get(k["name"])
         k["hybrid_launches"] = hybrid_launches[k["name"]]
         # scatter-set and scatter-add are not on the hybrid path; no scatter
         # kernel is on the chunked dense path
@@ -5986,6 +6062,509 @@ def chunked_reference(torch, dev):
     check(loss_err <= 1e-4, f"chunked tiny: card vs CPU losses {card_losses} vs {cpu_losses}")
     return {"steps": REF_STEPS, "logits_max_abs_err": logits_err, "logits_atol": 1e-5,
             "loss_max_abs_err": loss_err, "loss_atol": 1e-4, "losses_card": card_losses}
+
+
+# ---------------------------------------------------------------------------
+# phase 8l: the factorization machine at config #1's data shape
+# ---------------------------------------------------------------------------
+
+
+def fm_batches(n, seed, *, batch=BATCH, key_space=KEY_SPACE):
+    """``n`` SyntheticCTR batches of ``batch`` x NNZ keys (config #1's data)."""
+    from parameter_server_tpu_torch.data.synthetic import SyntheticCTR
+
+    data = SyntheticCTR(key_space=key_space, nnz=NNZ, batch_size=batch, seed=seed)
+    return [data.next_batch() for _ in range(n)]
+
+
+def _fm_cfg(rows, k):
+    from parameter_server_tpu_torch.config import OptimizerConfig, TableConfig
+
+    return TableConfig(name="fm", rows=rows, dim=1 + k, init_scale=FM_INIT,
+                       optimizer=OptimizerConfig(kind="adagrad", learning_rate=FM_LR))
+
+
+def _fm_state(tr):
+    """The trainer's planes to hold a repeat against (on the card)."""
+    t = tr.table
+    return [t.value, *(t.state[k] for k in sorted(t.state)), tr.bias,
+            *(tr.bias_state[k] for k in sorted(tr.bias_state))]
+
+
+def fm_trainer(dev):
+    """``LocalFMTrainer`` at FM_ROWS x (1 + FM_K), seeded by FM_SEED."""
+    from parameter_server_tpu_torch.learner.fm import LocalFMTrainer
+
+    return LocalFMTrainer(_fm_cfg(FM_ROWS, FM_K), seed=FM_SEED, device=dev)
+
+
+def fm_phase(torch, scatter, dev, errs):
+    """The factorization machine at config #1's data shape: a 2^22 x 17
+    AdaGrad table (w_i and 16 factors a row), batches of 16,384 x 39 keys.
+    Run A: warm-up and timed steps of ``LocalFMTrainer``, one ``ps_gather``
+    (value + ``sum_sq``) and one ``ps_apply`` a step, no scatter.  Run B from
+    the same seed with every ``ps_gather`` held to ``index_select`` and the
+    first ``ps_apply`` to its plain version: losses and every plane bitwise
+    equal to run A's; then steps on one repeated batch, whose loss must
+    fall, and both kernels timed at the step's request (dim 17).  Then the
+    Van path (1 worker, 2 KVServers at dim 17) and the tiny card-vs-CPU leg.
+    Returns (fields, launches of run A)."""
+    t_phase = time.perf_counter()
+    n_steps = FM_WARM + FM_TIMED
+    batches = fm_batches(n_steps, FM_SEED)
+    out = {"rows": FM_ROWS, "dim": 1 + FM_K, "batch": BATCH, "nnz": NNZ,
+           "key_space": KEY_SPACE, "optimizer": "adagrad", "lr": FM_LR,
+           "table_mb": 2 * (FM_ROWS + 1) * (1 + FM_K) * 4 / 1e6}
+
+    # -- run A: counted and timed ----------------------------------------------
+    scatter.reset_launch_counts()
+    tr = fm_trainer(dev)
+    losses_a = [tr.step(*b) for b in batches[:FM_WARM]]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    losses_a += [tr.step(*b) for b in batches[FM_WARM:]]
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    counts = scatter.launch_counts()
+    check(counts["gather"] == n_steps and counts["apply"] == n_steps
+          and counts["scatter_set"] == 0 and counts["scatter_add"] == 0,
+          f"fm launches {counts} for {n_steps} steps")
+    check(all(np.isfinite(losses_a)), f"fm losses {losses_a}")
+    t = tr.table
+    check(float(t.value[-1].abs().max()) == 0.0 and float(t.state["sum_sq"][-1].abs().max()) == 0.0,
+          "fm: the trash row left its fill")
+    out.update({"losses": losses_a, "launches": counts, "timed_steps": FM_TIMED,
+                "ms_a_step": dt / FM_TIMED * 1e3, "examples_per_s": BATCH * FM_TIMED / dt,
+                "unique_slots_a_step": [int(np.unique(tr.localizer.assign(b[0])).size)
+                                        for b in batches[:2]]})
+    state_a = _fm_state(tr)
+    del tr
+    _free(torch)
+
+    # -- run B: the same seed, the kernels held to their plain versions ---------
+    scatter.reset_launch_counts()
+    tr = fm_trainer(dev)
+    value = tr.table.value
+    with PlanesTap(torch, scatter, keep=value) as planes, \
+            ApplyTap(torch, scatter, keep=value) as applies:
+        losses_b = [tr.step(*b) for b in batches]
+        out["gather_check"] = planes.result(errs, "gather")
+        out["apply_check"] = applies.result(errs, 1)
+    counts_b = scatter.launch_counts()
+    same = (losses_b == losses_a and counts_b == counts
+            and all(torch.equal(a, b) for a, b in zip(state_a, _fm_state(tr))))
+    check(same, f"fm runs from one seed differ: losses {losses_a} vs {losses_b}, "
+          f"launches {counts} vs {counts_b}")
+    out["repeat_bitwise_equal"] = True
+    del state_a
+    memo = [tr.step(*batches[0]) for _ in range(FM_MEMO)]
+    check(all(np.isfinite(memo)) and memo[-1] < memo[0],
+          f"fm: the loss on one repeated batch did not fall: {memo}")
+    out["repeated_batch_losses"] = memo
+    # last: both kernels at the step's request (the timing loops apply to
+    # the trainer's rows again and again)
+    out["kernel_times"] = {
+        "gather": spec_times(torch, gather_spec(torch, scatter, *planes.last)),
+        "apply": spec_times(torch, apply_spec(torch, scatter, *applies.last)),
+    }
+    for name, row in out["kernel_times"].items():
+        emit("times", kernel=name, case="fm_dim17", **row)
+    del planes, applies, value, tr
+    _free(torch)
+    out["van"] = fm_van_leg(torch, scatter, dev)
+    _free(torch)
+    out["reference"] = fm_reference(torch, dev)
+    out["phase_s"] = time.perf_counter() - t_phase
+    return out, counts
+
+
+def fm_van_leg(torch, scatter, dev):
+    """FM over the Van at full width: 1 KVWorker and FM_SERVERS KVServers
+    (2^21 + 1 rows x 17 each, AdaGrad) on a LoopbackVan; each step pulls
+    the batch's rows, computes ``fm_grad_rows`` on the card and pushes the
+    per-position gradients.  One ``ps_gather`` a pull and one ``ps_apply`` a
+    push on each server."""
+    from parameter_server_tpu_torch.models import fm
+
+    table = dataclasses.replace(_fm_cfg(FM_ROWS, FM_K), name="w")
+    van, servers, (worker,) = build_cluster(torch, dev, rows=FM_ROWS, fused=True,
+                                            n_workers=1, tables={"w": table})
+    try:
+        batches = fm_batches(FM_VAN_STEPS, FM_SEED + 1)
+        scatter.reset_launch_counts()
+        losses, step_ms = [], []
+        for keys, labels in batches:
+            t0 = time.perf_counter()
+            rows_pos = worker.pull_sync("w", keys, timeout=60)
+            g, _gb, loss = fm.fm_grad_rows(torch.as_tensor(rows_pos, device=dev),
+                                           torch.as_tensor(labels, device=dev))
+            check(worker.wait(worker.push("w", keys, g.cpu().numpy()), timeout=60),
+                  "fm van push timed out")
+            losses.append(float(loss))
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+        counts = scatter.launch_counts()
+        want = FM_SERVERS * FM_VAN_STEPS
+        check(counts["gather"] == want and counts["apply"] == want
+              and counts["scatter_set"] == 0 and counts["scatter_add"] == 0,
+              f"fm van launches {counts} for {FM_VAN_STEPS} steps on {FM_SERVERS} servers")
+        check(all(np.isfinite(losses)), f"fm van losses {losses}")
+        return {"servers": FM_SERVERS, "workers": 1, "steps": FM_VAN_STEPS, "dim": 1 + FM_K,
+                "losses": losses, "step_ms": step_ms, "launches": counts,
+                "tables_on": sorted({str(t.value.device) for s in servers
+                                     for t in s.tables.values()})}
+    finally:
+        close_cluster(van, servers)
+
+
+def _fm_logits(torch, tr, keys):
+    """Forward logits of the trainer's current table on its device."""
+    from parameter_server_tpu_torch.models import fm
+
+    slots = torch.as_tensor(np.minimum(tr.localizer.assign(keys), tr.cfg.rows - 1).astype(np.int64),
+                            device=tr.device)
+    bias = tr.optimizer.pull_weights(tr.bias, tr.bias_state)[0, 0]
+    return fm.fm_logits(tr.table.weights()[slots], bias)
+
+
+def fm_reference(torch, dev):
+    """A 2^12 x (1 + 4) FM on the card and on the CPU from one table: logits
+    before training within 1e-5, the losses of 4 steps within 1e-4."""
+    from parameter_server_tpu_torch.convert import trainer_from_numpy
+    from parameter_server_tpu_torch.learner.fm import LocalFMTrainer
+
+    cfg = _fm_cfg(FM_REF_ROWS, FM_REF_K)
+    cpu = LocalFMTrainer(cfg, min_bucket=256, seed=FM_SEED, device="cpu")
+    card = LocalFMTrainer(cfg, min_bucket=256, seed=FM_SEED + 1, device=dev)
+    trainer_from_numpy(card, cpu.table.value.numpy(),
+                       {k: v.numpy() for k, v in cpu.table.state.items()},
+                       cpu.bias.numpy(), {k: v.numpy() for k, v in cpu.bias_state.items()})
+    batches = fm_batches(FM_REF_STEPS, FM_SEED + 2, batch=256, key_space=1 << 14)
+    logits_err = float((_fm_logits(torch, card, batches[0][0]).cpu()
+                        - _fm_logits(torch, cpu, batches[0][0])).abs().max())
+    cpu_losses = [cpu.step(*b) for b in batches]
+    card_losses = [card.step(*b) for b in batches]
+    loss_err = float(np.abs(np.array(card_losses) - np.array(cpu_losses)).max())
+    check(logits_err <= 1e-5, f"fm tiny: card vs CPU logits {logits_err}")
+    check(loss_err <= 1e-4, f"fm tiny: card vs CPU losses {card_losses} vs {cpu_losses}")
+    return {"rows": FM_REF_ROWS, "dim": 1 + FM_REF_K, "steps": FM_REF_STEPS,
+            "logits_max_abs_err": logits_err, "logits_atol": 1e-5,
+            "loss_max_abs_err": loss_err, "loss_atol": 1e-4, "losses_card": card_losses}
+
+
+# ---------------------------------------------------------------------------
+# phase 8m: DARLIN block coordinate descent at Criteo scale
+# ---------------------------------------------------------------------------
+
+
+def bcd_shard(seed, *, n=BCD_EXAMPLES, features=BCD_FEATURES, nnz=BCD_NNZ, head=BCD_HEAD):
+    """One worker's shard: ``n`` examples x ``nnz`` binary features, a share
+    BCD_HEAD_SHARE of the positions drawn from a head of ``head`` features
+    (Criteo's hot categories, spread evenly over the feature space, so over
+    every block) and the rest uniform over all ``features`` (the long
+    tail); labels Bernoulli of the logistic of a hidden weight vector on
+    BCD_INFORMATIVE head features (all of a smaller head), the same for
+    every shard.  ``(indptr, indices, labels)``."""
+    head_ids = np.arange(head, dtype=np.int64) * (features // head)
+    n_inf = min(BCD_INFORMATIVE, head)
+    w_true = np.zeros(features, np.float32)
+    w_true[head_ids[:: head // n_inf][:n_inf]] = np.random.default_rng(BCD_SEED).normal(
+        0, 1.0, n_inf)
+    rng = np.random.default_rng(seed)
+    idx = rng.integers(0, features, size=(n, nnz), dtype=np.int64)
+    hot = rng.random((n, nnz)) < BCD_HEAD_SHARE
+    idx[hot] = head_ids[rng.integers(0, head, size=int(hot.sum()))]
+    margin = w_true[idx].sum(axis=1)
+    labels = (rng.random(n) < 1 / (1 + np.exp(-(margin - 1.0)))).astype(np.float32)
+    return np.arange(n + 1, dtype=np.int64) * nnz, idx.ravel(), labels
+
+
+def bcd_run(torch, dev, cfg, shards, *, seed=BCD_SEED, epochs=BCD_EPOCHS, servers=BCD_SERVERS):
+    """A DARLIN cluster (``servers`` DarlinServers, a DarlinWorker a shard) on
+    a LoopbackVan, ``epochs`` epochs from ``seed``.  Returns the objective
+    before and after each epoch, block tasks a second, the weights and the
+    workers' margins (on their device)."""
+    from parameter_server_tpu_torch.core.postoffice import Postoffice
+    from parameter_server_tpu_torch.core.van import LoopbackVan
+    from parameter_server_tpu_torch.learner import bcd
+
+    van = LoopbackVan()
+    try:
+        blocks = bcd.BlockPartition(cfg.num_features, cfg.num_blocks)
+        srvs = [bcd.DarlinServer(Postoffice(f"S{s}", van), cfg, blocks, s, servers,
+                                 len(shards), device=dev) for s in range(servers)]
+        t0 = time.perf_counter()
+        workers = [bcd.DarlinWorker(Postoffice(f"W{i}", van), cfg, blocks, servers, *shard,
+                                    device=dev) for i, shard in enumerate(shards)]
+        _sync(torch, torch.device(dev))
+        build_s = time.perf_counter() - t0
+        sched = bcd.DarlinScheduler(cfg, workers, srvs, seed=seed)
+        start = sched.objective()
+        t0 = time.perf_counter()
+        hist = sched.run(epochs)
+        _sync(torch, torch.device(dev))
+        dt = time.perf_counter() - t0
+        return {"objective_start": start["objective"], "history": hist,
+                "block_tasks_per_s": cfg.num_blocks * len(shards) * epochs / dt,
+                "run_s": dt, "build_s": build_s, "weights": sched.dense_weights(),
+                "margins": [w.margin for w in workers]}
+    finally:
+        van.close()
+
+
+def bcd_phase(torch, scatter, dev, errs):
+    """DARLIN L1-LR over 2^22 features in 64 blocks, 2 workers of 2^19 x 39
+    and 2 servers on the card: 2 epochs at τ = 2, then twice 2 epochs at
+    τ = 1 from one seed (the objective never rises; the runs bitwise
+    equal), then the tiny card-vs-CPU leg.  DARLIN reaches no kernel.
+    Returns (fields, launches)."""
+    from parameter_server_tpu_torch.learner.bcd import BCDConfig
+
+    t_phase = time.perf_counter()
+    shards = [bcd_shard(BCD_SEED + i) for i in range(BCD_WORKERS)]
+    nnz = sum(int(s[1].size) for s in shards)
+    out = {"features": BCD_FEATURES, "blocks": BCD_BLOCKS, "workers": BCD_WORKERS,
+           "servers": BCD_SERVERS, "examples_a_worker": BCD_EXAMPLES, "nnz_a_row": BCD_NNZ,
+           "nonzeros": nnz, "l1": BCD_L1, "epochs": BCD_EPOCHS,
+           "list_mb_a_worker": 8 * nnz / BCD_WORKERS / 1e6}
+    scatter.reset_launch_counts()
+    runs = {}
+    for name, tau in (("tau2", 2), ("tau1", 1), ("tau1_repeat", 1)):
+        cfg = BCDConfig(num_features=BCD_FEATURES, num_blocks=BCD_BLOCKS, l1=BCD_L1, tau=tau)
+        runs[name] = bcd_run(torch, dev, cfg, shards)
+        r = runs[name]
+        out[name] = {"tau": tau, "block_tasks_per_s": r["block_tasks_per_s"],
+                     "run_s": r["run_s"], "build_s": r["build_s"],
+                     "objective": [r["objective_start"]] + [h["objective"] for h in r["history"]],
+                     "nnz": [h["nnz"] for h in r["history"]],
+                     "active": [h["active"] for h in r["history"]],
+                     "total": r["history"][-1]["total"],
+                     "mean_loss": [h["mean_loss"] for h in r["history"]]}
+    counts = scatter.launch_counts()
+    for name in runs:
+        objs = out[name]["objective"]
+        check(all(np.isfinite(objs)) and objs[-1] < objs[0], f"bcd {name}: objective {objs}")
+    objs = out["tau1"]["objective"]
+    check(all(b <= a for a, b in zip(objs, objs[1:])), f"bcd: the objective rose at τ = 1: {objs}")
+    a, b = runs["tau1"], runs["tau1_repeat"]
+    same = (np.array_equal(a["weights"], b["weights"])
+            and all(torch.equal(x, y) for x, y in zip(a["margins"], b["margins"]))
+            and out["tau1"]["objective"] == out["tau1_repeat"]["objective"])
+    check(same, "bcd: two seeded τ = 1 runs differ")
+    out["tau1_repeat_bitwise_equal"] = True
+    last = runs["tau1"]["history"][-1]
+    check(last["active"] < last["total"] and 0 < last["nnz"],
+          f"bcd: active {last['active']} of {last['total']}, nnz {last['nnz']}")
+    check(all(m.device.type == torch.device(dev).type for r in runs.values()
+              for m in r["margins"]), "bcd: a margin left the card")
+    check(counts == dict.fromkeys(counts, 0), f"bcd launched kernels: {counts}")
+    out["launches"] = counts
+    del runs, shards
+    _free(torch)
+    out["reference"] = bcd_reference(torch, dev)
+    out["phase_s"] = time.perf_counter() - t_phase
+    return out, counts
+
+
+def bcd_reference(torch, dev):
+    """``tests/test_bcd.py``'s shape (64 features, 4 blocks, 512 x 8, 1
+    worker and server, l1 0.5) at τ = 1 for 3 epochs on the card and on the
+    CPU: weights within 1e-5, margins within 1e-4."""
+    from parameter_server_tpu_torch.learner.bcd import BCDConfig
+
+    cfg = BCDConfig(num_features=64, num_blocks=4, l1=0.5, tau=1)
+    shards = [bcd_shard(BCD_SEED + 9, n=512, features=64, nnz=8, head=16)]
+    runs = {where: bcd_run(torch, where, cfg, shards, seed=7, epochs=3, servers=1)
+            for where in ("cpu", dev)}
+    cpu, card = runs["cpu"], runs[dev]
+    w_err = float(np.abs(card["weights"] - cpu["weights"]).max())
+    m_err = float((card["margins"][0].cpu() - cpu["margins"][0]).abs().max())
+    check(w_err <= 1e-5, f"bcd tiny: card vs CPU weights {w_err}")
+    check(m_err <= 1e-4, f"bcd tiny: card vs CPU margins {m_err}")
+    return {"epochs": 3, "weights_max_abs_err": w_err, "weights_atol": 1e-5,
+            "margins_max_abs_err": m_err, "margins_atol": 1e-4,
+            "nnz_card": card["history"][-1]["nnz"]}
+
+
+# ---------------------------------------------------------------------------
+# phase 8n: the entry points: the text data layer, psx run / eval / apps
+# ---------------------------------------------------------------------------
+
+
+def _app_root():
+    import os
+
+    return os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        "parameter_server_tpu_torch", "build", "app")
+
+
+def app_criteo_bytes(lines, seed):
+    """``lines`` Criteo TSV lines from ``seed``: a label, 13 integer fields
+    (4 zero-padded digits) and 26 categorical fields of 8 hex digits (the
+    real dataset's width), each slot's values Zipf-drawn from its own
+    vocabulary of APP_VOCAB, with a 5% one-shot tail (the tail filter's
+    work); the label is Bernoulli of the logistic of a hidden weight per
+    (slot, value).  Built as one byte array, column by column."""
+    rng = np.random.default_rng(seed)
+    vocab = APP_VOCAB * 26
+    dense = rng.integers(0, 10_000, size=(lines, 13))
+    ranks = np.minimum(rng.zipf(1.2, size=(lines, 26)), APP_VOCAB) - 1
+    tail = rng.random((lines, 26)) < 0.05
+    raw = np.where(tail, rng.integers(vocab, 1 << 32, size=(lines, 26)),
+                   ranks * 26 + np.arange(26))
+    w = np.random.default_rng(seed + 1).normal(0, 1.0, size=vocab)
+    margin = np.where(tail, 0.0, w[np.minimum(raw, vocab - 1)]).sum(axis=1) / 3.0
+    labels = (rng.random(lines) < 1 / (1 + np.exp(-margin))).astype(np.int64)
+    chars = np.frombuffer(b"0123456789abcdef", np.uint8)
+
+    def columns(x, base, width):  # [lines, f] -> [lines, f * (1 + width)]: tab + digits
+        digits = chars[(x[..., None] // base ** np.arange(width - 1, -1, -1)) % base]
+        tabs = np.full(x.shape + (1,), ord("\t"), np.uint8)
+        return np.concatenate([tabs, digits], axis=2).reshape(lines, -1)
+
+    rows = np.concatenate([chars[labels][:, None], columns(dense, 10, 4), columns(raw, 16, 8),
+                           np.full((lines, 1), ord("\n"), np.uint8)], axis=1)
+    return rows.astype(np.uint8).tobytes()
+
+
+def _psx(*args):
+    """``cli.main(args)`` with its standard output captured: the JSON result
+    of ``run`` / ``eval``, or the lines of ``apps``."""
+    import contextlib
+
+    from parameter_server_tpu_torch import cli
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main(list(args))
+    check(rc == 0, f"psx {' '.join(args)} exited {rc}")
+    return buf.getvalue()
+
+
+def _psx_run(scatter, root, name, raw):
+    """``psx run --config <root>/<name>.json`` of ``raw``; returns its result
+    with the run's kernel launches."""
+    import os
+
+    path = os.path.join(root, f"{name}.json")
+    with open(path, "w") as f:
+        json.dump(raw, f)
+    scatter.reset_launch_counts()
+    t0 = time.perf_counter()
+    res = json.loads(_psx("run", "--config", path).strip().splitlines()[-1])
+    res["seconds"] = time.perf_counter() - t0
+    res["launches"] = scatter.launch_counts()
+    return res
+
+
+def app_phase(torch, scatter, dev, errs):
+    """The entry points on the card: a seeded Criteo TSV of APP_LINES lines
+    in a directory served by ``FileServer``; the native parser's rate; ``psx
+    run`` of ``sparse_lr`` (config #1's table, the tail filter at 2, eval
+    batches) from the local path and from ``psfs://``, equal results; ``fm``
+    from the same file; ``async_lr`` with checkpoints, then ``psx eval`` on
+    its checkpoint; ``psx apps``.  Every app on the CLI's default device.
+    Returns (fields, launches of all the runs)."""
+    import os
+    import shutil
+
+    from parameter_server_tpu_torch import native
+    from parameter_server_tpu_torch.data import fs
+    from parameter_server_tpu_torch.data import text as text_lib
+
+    t_phase = time.perf_counter()
+    root = _app_root()
+    shutil.rmtree(root, ignore_errors=True)
+    data_dir = os.path.join(root, "data")
+    os.makedirs(data_dir)
+    out = {"lines": APP_LINES}
+    try:
+        t0 = time.perf_counter()
+        blob = app_criteo_bytes(APP_LINES, APP_SEED)
+        out["write_s"] = time.perf_counter() - t0
+        with open(os.path.join(data_dir, "day_0.tsv"), "wb") as f:
+            f.write(blob)
+        out["file_mb"] = len(blob) / 1e6
+        # the native parser, never the Python fallback
+        lib = native.load("textparse", required=True)
+        check(text_lib._lib() is lib, "parse_criteo would not use the native parser")
+        text_lib.parse_criteo(blob[:1 << 20])  # warm-up
+        t0 = time.perf_counter()
+        labels, dense, keys = text_lib.parse_criteo(blob)
+        dt = time.perf_counter() - t0
+        check(labels.shape == (APP_LINES,) and dense.shape == (APP_LINES, 13)
+              and keys.shape == (APP_LINES, 26), f"parse_criteo shapes {keys.shape}")
+        out["parse_mb_per_s"] = len(blob) / dt / 1e6
+        out["parse_lines_per_s"] = APP_LINES / dt
+        del blob, labels, dense, keys
+
+        srv = fs.FileServer(data_dir, host="127.0.0.1").start()
+        try:
+            def lr_cfg(path):
+                return {"app": "sparse_lr", "steps": APP_STEPS, "eval_batches": APP_EVAL,
+                        "table": {"name": "w", "rows": ROWS,
+                                  "optimizer": {"kind": "adagrad", "learning_rate": 0.05}},
+                        "data": {"kind": "criteo", "path": path, "batch_size": BATCH,
+                                 "tail_threshold": 2}}
+
+            local = _psx_run(scatter, root, "lr_local", lr_cfg(os.path.join(data_dir, "day_*.tsv")))
+            remote = _psx_run(scatter, root, "lr_psfs", lr_cfg(f"{srv.url}/day_*.tsv"))
+        finally:
+            srv.stop()
+        for k in ("first_loss", "final_loss", "auc", "tail_masked_fraction", "steps"):
+            check(local[k] == remote[k], f"psx run local vs psfs: {k} {local[k]} vs {remote[k]}")
+        check(local["final_loss"] < local["first_loss"],
+              f"psx run sparse_lr: loss {local['first_loss']} -> {local['final_loss']}")
+        check(0.0 < local["tail_masked_fraction"] < 1.0, f"tail {local['tail_masked_fraction']}")
+        check(local["launches"]["gather"] >= APP_STEPS and local["launches"]["apply"] == APP_STEPS,
+              f"psx run sparse_lr launches {local['launches']}")
+        out["sparse_lr_local"], out["sparse_lr_psfs"] = local, remote
+
+        fm_res = _psx_run(scatter, root, "fm", {
+            "app": "fm", "steps": APP_STEPS, "eval_batches": APP_EVAL,
+            "table": {"name": "fm", "rows": FM_ROWS, "dim": 1 + FM_K, "init_scale": FM_INIT,
+                      "optimizer": {"kind": "adagrad", "learning_rate": FM_LR}},
+            "data": {"kind": "criteo", "path": os.path.join(data_dir, "day_0.tsv"),
+                     "batch_size": BATCH}})
+        check(fm_res["final_loss"] < fm_res["first_loss"],
+              f"psx run fm: loss {fm_res['first_loss']} -> {fm_res['final_loss']}")
+        fm_counts = fm_res["launches"]
+        check(fm_counts["gather"] == APP_STEPS and fm_counts["apply"] == APP_STEPS,
+              f"psx run fm launches {fm_counts}")
+        out["fm"] = fm_res
+
+        ckpt = os.path.join(root, "ckpt")
+        async_res = _psx_run(scatter, root, "async_lr", {
+            "app": "async_lr", "steps": APP_ASYNC_STEPS, "ckpt_root": ckpt, "ckpt_every": 1,
+            "table": {"name": "w", "rows": ROWS,
+                      "optimizer": {"kind": "adagrad", "learning_rate": 0.05}},
+            "data": {"kind": "synthetic", "key_space": KEY_SPACE, "nnz": NNZ,
+                     "batch_size": BATCH, "seed": APP_SEED},
+            "consistency": {"mode": "asp"}, "topology": {"num_workers": 2, "num_servers": 2}})
+        check(async_res["last_ckpt_step"] is not None, f"async_lr wrote no checkpoint: {async_res}")
+        check(async_res["launches"]["gather"] > 0 and async_res["launches"]["apply"] > 0,
+              f"psx run async_lr launches {async_res['launches']}")
+        async_res.pop("fleet", None)
+        out["async_lr"] = async_res
+        t0 = time.perf_counter()
+        report = json.loads(_psx("eval", ckpt, "--table", "w", "--key-space", str(KEY_SPACE),
+                                 "--nnz", str(NNZ), "--batch-size", str(BATCH),
+                                 "--seed", str(APP_SEED + 1), "--batches", str(APP_EVAL)))
+        report["seconds"] = time.perf_counter() - t0
+        check(report["examples"] == APP_EVAL * BATCH and 0.0 < report["auc"] < 1.0,
+              f"psx eval {report}")
+        out["eval"] = report
+
+        listed = _psx("apps").split()
+        check(tuple(listed) == APP_REGISTRY, f"psx apps {listed}")
+        out["apps"] = listed
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    counts = {k: sum(out[r]["launches"][k] for r in ("sparse_lr_local", "sparse_lr_psfs", "fm",
+                                                      "async_lr"))
+              for k in REPLACES}
+    out["launches"] = counts
+    out["phase_s"] = time.perf_counter() - t_phase
+    return out, counts
 
 
 # ---------------------------------------------------------------------------

@@ -1,14 +1,14 @@
 """Configuration dataclasses: the fields of the JAX package's ``config.py``
 that the sparse-LR push/pull loop, the server's apply ledger, the
 consistency gate, worker groups, the serving plane, the durability plane and
-the transport read, and the tracing and telemetry knobs, with the same
-names, defaults and validation."""
+the transport read, the tracing and telemetry knobs, and the app layer's
+topology, with the same names, defaults and validation."""
 
 from __future__ import annotations
 
 import dataclasses
 import enum
-from typing import Optional, Union
+from typing import Optional, Tuple, Union
 
 
 class ConsistencyMode(str, enum.Enum):
@@ -47,6 +47,22 @@ class ConsistencyConfig:
             raise ValueError(f"max_delay must be >= 0, got {self.max_delay!r}")
         if self.gate_retry_s <= 0:
             raise ValueError(f"gate_retry_s must be > 0, got {self.gate_retry_s!r}")
+
+
+@dataclasses.dataclass(frozen=True)
+class TopologyConfig:
+    """Process/device topology of an app — the reference's gflags layer:
+    ``num_workers`` workers and ``num_servers`` table shards.
+
+    ``mesh_shape`` / ``mesh_axis_names`` keep the JAX schema's mesh fields
+    (data, model) so one config file serves both packages; the port's apps
+    that would read them (the sequence-parallel LMs) are not ported yet.
+    """
+
+    num_workers: int = 1
+    num_servers: int = 1
+    mesh_shape: Optional[Tuple[int, ...]] = None
+    mesh_axis_names: Tuple[str, ...] = ("data", "model")
 
 
 @dataclasses.dataclass(frozen=True)

@@ -5,8 +5,9 @@ sources are copies of the JAX package's: ``src/keymap.cc``, the persistent
 key -> slot map behind :class:`~parameter_server_tpu_torch.utils.keys.
 Localizer`, and the socket van's two wire cores, ``src/epollvan.cc`` (one
 event-loop thread) and ``src/tcpvan.cc`` (a thread per connection), loaded
-by :mod:`~parameter_server_tpu_torch.core.tcp_van`.  The ABI is plain
-``extern "C"`` + ctypes.
+by :mod:`~parameter_server_tpu_torch.core.tcp_van`, and ``src/textparse.cc``,
+the libsvm / Criteo parsers behind :mod:`~parameter_server_tpu_torch.data.text`.
+The ABI is plain ``extern "C"`` + ctypes.
 
 :func:`load` compiles ``src/<name>.cc`` on first use — never at import —
 into ``parameter_server_tpu_torch/build/native/``; the library's file name

@@ -420,3 +420,43 @@ def test_legacy_shard_files_have_the_same_members(tmp_path):
     assert members["port_arrays"] == members["jax_arrays"]
     assert dataclasses.asdict(checkpoint.read_info(str(tmp_path / "port"), 1)) == (
         dataclasses.asdict(jax_checkpoint.read_info(str(tmp_path / "jax"), 1)))
+
+
+def test_eval_reconstructs_manifest_localizer(tmp_path):
+    """The port's twin of ``tests/test_checkpoint.py::
+    test_eval_reconstructs_manifest_localizer``: offline eval scores with the
+    TRAINING hash width recorded in the manifest, not a default; a 32-bit
+    hash table scored through the 64-bit default mis-assigns its rows.  The
+    JAX evaluation reads the port's checkpoint to the same report."""
+    from parameter_server_tpu import evaluation as jax_evaluation
+    from parameter_server_tpu_torch import evaluation
+    from parameter_server_tpu_torch.utils.keys import localizer_from_meta, localizer_meta
+
+    rows = 512
+    loc32 = HashLocalizer(rows, seed=7, hash_bits=32)
+    # meta roundtrip preserves the full construction
+    rebuilt = localizer_from_meta(localizer_meta(loc32))
+    keys = np.arange(1, 400, dtype=np.uint64) * 2654435761
+    np.testing.assert_array_equal(rebuilt.assign(keys), loc32.assign(keys))
+
+    fleet = _Fleet("port", 2, rows=rows, dim=1, localizers={"w": loc32})
+    try:
+        # teach the table a planted signal: weight +3 on half the keys
+        pos_keys, neg_keys = keys[: keys.size // 2], keys[keys.size // 2:]
+        for _ in range(30):
+            fleet.push(pos_keys, -np.ones((pos_keys.size, 1), np.float32))
+            fleet.push(neg_keys, np.ones((neg_keys.size, 1), np.float32))
+        fleet.worker.save_model(str(tmp_path), step=1)
+    finally:
+        fleet.close()
+
+    def batches():
+        lab = np.concatenate([np.ones(pos_keys.size), np.zeros(neg_keys.size)])
+        return [(np.concatenate([pos_keys, neg_keys]).reshape(-1, 1), lab)]
+
+    good = evaluation.evaluate_checkpoint(str(tmp_path), "w", batches())
+    assert good["auc"] > 0.9  # manifest localizer -> rows line up
+    # forcing the (wrong) 64-bit default must visibly degrade scoring
+    bad = evaluation.evaluate_checkpoint(str(tmp_path), "w", batches(), hash_bits=64)
+    assert bad["auc"] < good["auc"]
+    assert jax_evaluation.evaluate_checkpoint(str(tmp_path), "w", batches()) == good

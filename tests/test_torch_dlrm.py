@@ -303,3 +303,72 @@ def test_mfu_counts_the_dense_part_exactly_and_executes_nothing(monkeypatch):
     print(f"DLRM flops/example: port {per_example:.0f}, JAX lowered {jax_per_example:.0f}, "
           f"ratio {ratio:.4f}")
     assert 0.25 < ratio < 4.0
+
+
+def _zipf_dlrm_stream(seed=2):
+    """``SyntheticDLRM`` keys replaced by a narrow head (70%) and a long
+    one-shot tail, as ``tests/test_dlrm.py``'s tail-filter case draws them."""
+    data = SyntheticDLRM(key_space=1 << 20, batch_size=256, seed=seed)
+    rng = np.random.default_rng(seed + 1)
+
+    def batch_fn():
+        keys, dense, labels = data.next_batch()
+        head = rng.integers(0, 64, size=keys.shape, dtype=np.uint64)
+        tail = rng.integers(0, 1 << 40, size=keys.shape, dtype=np.uint64)
+        use_head = rng.random(keys.shape) < 0.7
+        return np.where(use_head, head, tail), dense, labels
+
+    return data, batch_fn
+
+
+def test_tail_filter_masks_rare_keys_and_trainer_still_learns():
+    """The port's twin of ``tests/test_dlrm.py::
+    test_tail_filter_masks_rare_keys_and_trainer_still_learns``: the count-min
+    tail filter on the input stream masks the one-shot tail to PAD, the head
+    survives, and DLRM still trains; the masked stream is the JAX filter's,
+    position for position."""
+    from parameter_server_tpu.data.tailfilter import TailFilteredStream as JaxTailFilteredStream
+    from parameter_server_tpu_torch.data.tailfilter import TailFilteredStream
+
+    data, batch_fn = _zipf_dlrm_stream()
+    _d, jax_batch_fn = _zipf_dlrm_stream()
+    stream = TailFilteredStream(batch_fn, threshold=3)
+    jstream = JaxTailFilteredStream(jax_batch_fn, threshold=3)
+    trainer = SpmdDLRMTrainer(_cfgs()[1], device="cpu", n_dense=data.n_dense,
+                              n_sparse=data.n_sparse, learning_rate=0.005, min_bucket=1024)
+    losses = []
+    for _ in range(20):
+        keys, dense, labels = stream()
+        jkeys, _jd, _jl = jstream()
+        np.testing.assert_array_equal(keys, jkeys)
+        losses.append(trainer.step(keys, dense, labels))
+    # the one-shot tail got masked; the head survived
+    assert 0.05 < stream.masked_fraction < 0.6, stream.masked_fraction
+    assert stream.masked_fraction == jstream.masked_fraction
+    assert np.isfinite(losses).all()
+    assert np.mean(losses[-5:]) < np.mean(losses[:5])
+
+
+def test_tail_filter_never_drops_frequent_keys():
+    """The port's twin of ``tests/test_dlrm.py::
+    test_tail_filter_never_drops_frequent_keys``."""
+    from parameter_server_tpu_torch.data.tailfilter import TailFilteredStream
+    from parameter_server_tpu_torch.utils.keys import PAD_KEY
+
+    frequent = np.arange(1, 9, dtype=np.uint64)
+    stream = TailFilteredStream(lambda: (np.tile(frequent, (4, 1)),), threshold=2)
+    stream()  # first sight: counts reach 4 per key (>= threshold)
+    (keys2,) = stream()
+    np.testing.assert_array_equal(keys2, np.tile(frequent, (4, 1)))
+
+    def batch_fn_pad():  # PAD positions pass through untouched and uncounted
+        k = np.tile(frequent, (4, 1))
+        k[:, -1] = PAD_KEY
+        return (k,)
+
+    stream2 = TailFilteredStream(batch_fn_pad, threshold=1)
+    (out,) = stream2()
+    assert (out[:, -1] == PAD_KEY).all()
+    assert stream2.seen == 4 * 7
+    with pytest.raises(ValueError, match="threshold"):
+        TailFilteredStream(batch_fn_pad, threshold=0)

@@ -6,8 +6,11 @@
   chain (``kv/replica.py``), the membership and elasticity plane
   (``core/manager.py``, ``core/fleet.py``, ``learner/*.py``) and the
   observability plane (``core/telemetry.py``, ``utils/slo.py``,
-  ``scenario/``) and the transformer workloads (``models/transformer.py``,
-  ``learner/lm.py``, ``learner/hybrid.py``) by name.
+  ``scenario/``), the transformer workloads (``models/transformer.py``,
+  ``learner/lm.py``, ``learner/hybrid.py``) and the factorization machine,
+  DARLIN, the text data layer and the app / CLI entry points
+  (``models/fm.py``, ``learner/bcd.py``, ``data/text.py``, ``app.py``,
+  ``cli.py``, ...) by name.
 - The server's push-ack path — ``_ack_push`` and the grouped apply
   (``_apply_push_group``, ``_push_group_rounds``, ``_push_group_combined``),
   with every method of the server they call — never reads device state
@@ -45,7 +48,7 @@
   inner van's, and the frame path (codec, resender, coalescer) imports no
   pickle; ``ml_dtypes`` is as forbidden as ``jax``.
 - Every entry point's ``device`` defaults to ``"cuda"``, the launcher's
-  child roles' ``--device`` too.
+  child roles' ``--device`` too, and ``app.create``'s.
 - The shm ring's and the socket van's per-frame fast paths are copy-free
   (``check_wrappers.check_copy_free``).
 - Every ``trace.*`` record in the hot-path functions of
@@ -69,6 +72,7 @@ import sys
 
 import pytest
 
+from parameter_server_tpu_torch.app import create
 from parameter_server_tpu_torch.config import LedgerConfig
 from parameter_server_tpu_torch.core.postoffice import Postoffice
 from parameter_server_tpu_torch.core.van import LoopbackVan
@@ -78,6 +82,7 @@ from parameter_server_tpu_torch.kv.table import KVTable
 from parameter_server_tpu_torch.kv.worker import KVWorker
 from parameter_server_tpu_torch.kv.dense import DenseKVServer, DenseKVWorker
 from parameter_server_tpu_torch.kv.replica import make_replicated_servers, restart_same_id
+from parameter_server_tpu_torch.learner.bcd import DarlinServer, DarlinWorker
 from parameter_server_tpu_torch.learner.dense import (
     AsyncDenseLearner,
     ChunkedAsyncDenseLearner,
@@ -86,6 +91,7 @@ from parameter_server_tpu_torch.learner.dense import (
 from parameter_server_tpu_torch.learner.hybrid import HybridLMTrainer
 from parameter_server_tpu_torch.learner.lm import SpmdLMTrainer
 from parameter_server_tpu_torch.learner.elastic import ElasticTrainer, restart_server, scale_up
+from parameter_server_tpu_torch.learner.fm import LocalFMTrainer
 from parameter_server_tpu_torch.learner.sgd import AsyncLRLearner, LocalLRTrainer
 from parameter_server_tpu_torch.launch import launch
 from parameter_server_tpu_torch.models.dlrm import SpmdDLRMTrainer
@@ -145,6 +151,13 @@ TRANSFORMER_WORKLOADS = ("models/transformer.py", "models/layers.py", "convert.p
                          "learner/lm.py", "learner/hybrid.py", "learner/dense.py")
 
 
+#: the factorization machine, DARLIN, the text data layer, offline
+#: evaluation and the app / CLI entry points, held by name too
+FM_BCD_DATA_APP = ("utils/countmin.py", "data/text.py", "data/fs.py", "data/reader.py",
+                   "data/tailfilter.py", "data/__init__.py", "models/fm.py", "learner/fm.py",
+                   "learner/bcd.py", "evaluation.py", "app.py", "cli.py")
+
+
 def test_the_import_scan_sees_every_module():
     assert len(SOURCES) >= 25
     scanned = {str(p.relative_to(PORT)) for p in SOURCES if PORT in p.parents}
@@ -152,6 +165,7 @@ def test_the_import_scan_sees_every_module():
     assert set(MEMBERSHIP_AND_ELASTIC) <= scanned
     assert set(OBSERVABILITY) <= scanned
     assert set(TRANSFORMER_WORKLOADS) <= scanned
+    assert set(FM_BCD_DATA_APP) <= scanned
     assert {str(p.relative_to(PORT)) for p in (PORT / "learner").glob("*.py")} <= scanned
     assert _forbidden("jax.numpy") and _forbidden("parameter_server_tpu.kv.table")
     assert not _forbidden("parameter_server_tpu_torch.kv.table")
@@ -505,6 +519,29 @@ def test_dense_block_path_is_sync_free():
     assert not bad, f"host syncs on the dense block path: {bad}"
 
 
+def test_fm_fused_step_is_sync_free():
+    """``models/fm.py::fused_train_step``, with every function of
+    ``models/fm.py``, ``models/linear.py`` and ``ops/scatter.py`` it reaches
+    (the gather and apply kernels' wrappers included), reads nothing back
+    from the card: the loss the trainer returns is the step's only sync."""
+    fns = {**_functions("ops/scatter.py"), **_functions("models/linear.py"),
+           **_functions("models/fm.py")}
+    bad, seen, todo = [], set(), [fns["fused_train_step"]]
+    while todo:
+        fn = todo.pop()
+        if fn in seen:
+            continue
+        seen.add(fn)
+        found, called = _dense_violations(fn)
+        bad += [(fn.name, b) for b in found]
+        todo += [fns[c] for c in called if c in fns]
+    names = {fn.name for fn in seen}
+    assert {"fused_train_step", "fm_logits", "_grad_pos", "logloss", "segment_combine",
+            "gather_rows_planes", "cuda_gather_planes", "apply_rows", "cuda_apply",
+            "_apply_bias"} <= names
+    assert not bad, f"host syncs in the FM step: {bad}"
+
+
 @pytest.mark.parametrize("src,want", [
     ("def f(x):\n    return float(x.sum())\n", ["float"]),
     ("def f(x):\n    return torch.unique(x)\n", ["unique"]),
@@ -523,7 +560,8 @@ def test_the_dense_sync_scan_catches_a_readback(src, want):
                                    restart_same_id, ElasticTrainer, scale_up,
                                    restart_server, launch, ChunkedAsyncDenseLearner,
                                    SpmdLMTrainer, HybridLMTrainer, Transformer,
-                                   TransformerBody, TransformerTrunk],
+                                   TransformerBody, TransformerTrunk, LocalFMTrainer,
+                                   DarlinServer, DarlinWorker, create],
                          ids=lambda c: c.__name__)
 def test_entry_points_default_to_the_card(entry):
     fn = entry.__init__ if inspect.isclass(entry) else entry

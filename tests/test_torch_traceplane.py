@@ -259,7 +259,9 @@ def test_bundle_carries_member_contexts_and_fans_out():
     the bundle frame carries the members' tids, the decode side journals
     ``trace.bundle``, and every member's span tree still closes."""
     flightrec.configure(enabled=True, clear=True)
-    van = CoalescingVan(LoopbackVan(), max_msgs=2, max_delay=0.2)
+    # bundles must close by count (max_msgs), not by the clock: a delay well
+    # above a loaded step, bounded here by the explicit flush below
+    van = CoalescingVan(LoopbackVan(), max_msgs=2, max_delay=5.0)
     try:
         cfgs = _table_cfgs()
         for s in range(2):
