@@ -530,6 +530,12 @@ BCD_L1, BCD_EPOCHS, BCD_SEED = 10.0, 2, 17
 APP_LINES, APP_VOCAB, APP_STEPS, APP_EVAL = 1 << 17, 1 << 12, 24, 2
 APP_ASYNC_STEPS, APP_SEED = 8, 23
 APP_REGISTRY = ("async_lr", "fm", "llama_hybrid", "sp_lm", "sparse_lr", "sptp_lm")
+#: the mesh layer on a world-1 NCCL group: SPMD LR at config #1's width (its
+#: AdaGrad rate, launch_spmd's, and steps); launch_spmd's steps, checkpoint
+#: interval and death step; the fsdp LM's BERT-base MLM batch, sequence and
+#: steps; the mesh ResNet-50's steps; the seed
+SPMD_LR_RATE, SPMD_LR_STEPS, SPMD_LAUNCH_STEPS, SPMD_CKPT_EVERY, SPMD_DIE_AFTER = 0.1, 8, 8, 2, 3
+SPMD_LM_BATCH, SPMD_LM_SEQ, SPMD_LM_STEPS, SPMD_DENSE_STEPS, SPMD_SEED = 8, 128, 2, 2, 0
 DEVICE = "cuda"
 SOURCE = "parameter_server_tpu_torch/csrc/scatter_kernels.cu"
 REPLACES = {
@@ -540,8 +546,17 @@ REPLACES = {
 }
 
 
+_last_emit = [time.perf_counter()]
+
+
 def emit(phase: str, **fields) -> None:
+    """One JSON line for ``phase``.  A line that does not time itself gets
+    ``phase_s``: the seconds since the previous line, which is the work that
+    produced it in ``main``'s order."""
+    now = time.perf_counter()
+    fields.setdefault("phase_s", now - _last_emit[0])
     print(json.dumps({"phase": phase, **fields}), flush=True)
+    _last_emit[0] = time.perf_counter()
 
 
 def check(ok: bool, what: str) -> None:
@@ -561,6 +576,7 @@ def main() -> int:
     from parameter_server_tpu_torch.ops import _build, scatter
 
     flightrec.configure(capacity=1 << 15, clear=True)  # no wrap in one run
+    _last_emit[0] = time.perf_counter()
 
     dev = torch.device(DEVICE)
     errs = {k: 0.0 for k in REPLACES}
@@ -730,9 +746,17 @@ def main() -> int:
     emit("app", **app)
     _free(torch)
 
+    # -- 8o. the mesh layer on a world-1 NCCL group ------------------------------------------
+    spmd, spmd_launches = spmd_phase(torch, scatter, dev, errs)
+    emit("spmd", **spmd)
+    _free(torch)
+
     # -- 9. times ----------------------------------------------------------------
     kernels = times_phase(torch, scatter, dev, errs, launches)
     for k in kernels:
+        k["spmd_launches"] = spmd_launches[k["name"]]
+        # apply and scatter-add are not on the mesh DLRM path
+        k["spmd"] = spmd["dlrm"].get(f"{k['name']}_check")
         k["fm_launches"] = fm_launches[k["name"]]
         k["fm_van_launches"] = fm["van"]["launches"][k["name"]]
         k["bcd_launches"] = bcd_launches[k["name"]]
@@ -6670,6 +6694,372 @@ def spec_times(torch, spec):
     return dict(spec["shape"], ms=ms, plain_ms=_graph_ms(torch, spec["plain"]),
                 library_ms=_graph_ms(torch, spec["library"]) if spec["library"] else None,
                 bytes=int(spec["nbytes"]), bound_ms=bound_ms, share_of_bound=bound_ms / ms)
+
+
+# ---------------------------------------------------------------------------
+# phase 8o: the mesh layer on a world-1 NCCL group
+# ---------------------------------------------------------------------------
+
+
+def _spmd_root():
+    import os
+
+    return os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        "parameter_server_tpu_torch", "build", "spmd")
+
+
+def _deterministic(torch):
+    """Deterministic kernels for the bitwise legs: cuDNN's deterministic
+    algorithms, and torch's deterministic index accumulations (an
+    embedding's backward, else float atomics); returns the restore."""
+    old = (torch.are_deterministic_algorithms_enabled(),
+           torch.is_deterministic_algorithms_warn_only_enabled(),
+           torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark)
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+
+    def restore():
+        torch.use_deterministic_algorithms(old[0], warn_only=old[1])
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = old[2], old[3]
+
+    return restore
+
+
+def _spmd_steps(torch, step, batches):
+    """Losses, and the wall ms of each step after the first (the first
+    warms the allocator, cuBLAS and cuDNN)."""
+    losses, ms = [], []
+    for b in batches:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        losses.append(step(*b))
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+    return losses, ms[1:]
+
+
+def _spmd_abba(torch, scatter, make, batches):
+    """The two sides of a comparison (``make``: side -> (trainer, its step
+    function)), each run twice in the order a, b, b, a on the same batches,
+    so that neither side alone pays the process's first-use costs.  Returns
+    {side: {"trainer": the first run's, "losses": its losses, "ms": both
+    runs' timed steps, "launches": the first run's kernel launches,
+    "repeat_launches", "repeat_bitwise": the second run's losses equal the
+    first's}}."""
+    a, b = list(make)
+    out = {}
+    for side in (a, b, b, a):
+        trainer, step = make[side]()
+        torch.cuda.synchronize()
+        scatter.reset_launch_counts()
+        losses, ms = _spmd_steps(torch, step, batches)
+        counts = scatter.launch_counts()
+        if side not in out:
+            out[side] = {"trainer": trainer, "losses": losses, "ms": ms, "launches": counts}
+        else:
+            first = out[side]
+            first.update(ms=first["ms"] + ms, repeat_launches=counts,
+                         repeat_bitwise=losses == first["losses"])
+        del trainer, step
+        _free(torch)
+    return out
+
+
+def spmd_lr_leg(torch, scatter, mesh):
+    """``SpmdLRTrainer`` on the (1, 1) mesh at config #1's width against
+    ``LocalLRTrainer(mode="dense")`` on the same batches, run a, b, b, a:
+    losses at rtol 2e-4 (whether bitwise is recorded), the tables, both
+    examples/s over both runs of a side."""
+    from parameter_server_tpu_torch.config import OptimizerConfig, TableConfig
+    from parameter_server_tpu_torch.data.synthetic import SyntheticCTR
+    from parameter_server_tpu_torch.learner.sgd import LocalLRTrainer
+    from parameter_server_tpu_torch.parallel.lr_spmd import SpmdLRTrainer
+
+    cfg = TableConfig(name="w", rows=ROWS, dim=DIM,
+                      optimizer=OptimizerConfig(kind="adagrad", learning_rate=SPMD_LR_RATE))
+    data = SyntheticCTR(key_space=KEY_SPACE, nnz=NNZ, batch_size=BATCH, seed=SPMD_SEED,
+                        informative=0.1)
+    batches = [data.next_batch() for _ in range(SPMD_LR_STEPS)]
+    def make(build):
+        def run():
+            tr = build()
+            return tr, tr.step
+        return run
+
+    runs = _spmd_abba(torch, scatter, {
+        "spmd": make(lambda: SpmdLRTrainer(cfg, mesh)),
+        "local": make(lambda: LocalLRTrainer(cfg, mode="dense", device=mesh.device))},
+        batches)
+    spmd, s_losses, s_ms = (runs["spmd"][k] for k in ("trainer", "losses", "ms"))
+    local, l_losses, l_ms = (runs["local"][k] for k in ("trainer", "losses", "ms"))
+    check(np.allclose(s_losses, l_losses, rtol=2e-4, atol=0.0),
+          f"spmd lr {s_losses} vs local {l_losses}")
+    check(s_losses[-1] < s_losses[0], f"spmd lr loss did not fall: {s_losses}")
+    st = spmd.state
+    check(spmd.total_rows == ROWS + 1 and st.value.device == local.table.value.device,
+          "spmd lr table is not one (rows + 1)-row block on the card")
+    return {"rows": ROWS, "batch": BATCH, "nnz": NNZ, "steps": SPMD_LR_STEPS,
+            "losses": s_losses, "local_losses": l_losses,
+            "loss_max_rel_err": float(np.max(np.abs(np.subtract(s_losses, l_losses))
+                                             / np.abs(l_losses))),
+            "bitwise_losses": s_losses == l_losses,
+            "bitwise_table": bool(torch.equal(st.value, local.table.value)
+                                  and torch.equal(st.state["sum_sq"],
+                                                  local.table.state["sum_sq"])),
+            "order": "spmd, local, local, spmd",
+            "repeat_bitwise": runs["spmd"]["repeat_bitwise"] and runs["local"]["repeat_bitwise"],
+            "step_ms": s_ms, "local_step_ms": l_ms,
+            "examples_per_s": BATCH / (float(np.median(s_ms)) / 1e3),
+            "local_examples_per_s": BATCH / (float(np.median(l_ms)) / 1e3)}
+
+
+def spmd_dlrm_leg(torch, scatter, mesh, errs):
+    """``SpmdDLRMTrainer`` on the (1, 1) mesh at the 2^22-row control (dim
+    16, AdaGrad, batch 8192, 1 + 4 steps) against the same trainer with
+    ``mesh=None``, run a, b, b, a: losses and table planes bitwise, one ``ps_gather`` and
+    one ``ps_scatter_set`` launch a mesh step; then both kernels against
+    their plain versions at dim 16 on the owned-row ids of a batch.
+    Returns (fields, the mesh run's launches)."""
+    from parameter_server_tpu_torch.config import OptimizerConfig, TableConfig
+    from parameter_server_tpu_torch.models.dlrm import SpmdDLRMTrainer
+    from parameter_server_tpu_torch.utils.keys import localize_to_slots
+
+    rows = 1 << DLRM_CONTROL_LOG2
+    cfg = TableConfig(name="emb", rows=rows, dim=DLRM_DIM, init_scale=0.01,
+                      optimizer=OptimizerConfig(kind="adagrad", learning_rate=0.05))
+    kw = dict(learning_rate=0.01, min_bucket=DLRM_MIN_BUCKET, seed=SPMD_SEED)
+    stream = _dlrm_stream(rows)
+    batches = [stream.next_batch() for _ in range(DLRM_STEPS + 1)]
+
+    def make(m):
+        def run():
+            tr = SpmdDLRMTrainer(cfg, m, device=mesh.device, **kw)
+            return tr, tr.step
+        return run
+
+    runs = _spmd_abba(torch, scatter, {"mesh": make(mesh), "one_card": make(None)}, batches)
+    mtr, m_losses, m_ms, counts = (runs["mesh"][k] for k in ("trainer", "losses", "ms",
+                                                             "launches"))
+    otr, o_losses, o_ms = (runs["one_card"][k] for k in ("trainer", "losses", "ms"))
+    n = len(batches)
+    want = {"apply": 0, "gather": n, "scatter_set": n, "scatter_add": 0}
+    check(counts == want and runs["mesh"]["repeat_launches"] == want,
+          f"spmd dlrm launches {counts}, {runs['mesh']['repeat_launches']} for {n} steps")
+    bitwise = (m_losses == o_losses and torch.equal(mtr.emb_value, otr.emb_value)
+               and torch.equal(mtr.emb_state["sum_sq"], otr.emb_state["sum_sq"])
+               and all(torch.equal(a, b) for a, b in zip(mtr.model.parameters(),
+                                                          otr.model.parameters())))
+    check(bitwise, f"spmd dlrm (1, 1) is not bitwise the one-card trainer: "
+                   f"{m_losses} vs {o_losses}")
+    check(float(mtr.emb_value[rows].abs().max()) == 0.0, "spmd dlrm trash row")
+    repeat_bitwise = runs["mesh"]["repeat_bitwise"] and runs["one_card"]["repeat_bitwise"]
+    # a mesh step's peak memory above what it starts with: O(batch), never
+    # O(table) — a dense apply's full-size gradient alone is a whole plane
+    del otr, runs
+    _free(torch)
+    table_bytes = mtr.emb_value.nbytes + mtr.emb_state["sum_sq"].nbytes
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated(mesh.device)
+    torch.cuda.reset_peak_memory_stats(mesh.device)
+    mtr.step(*stream.next_batch())
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated(mesh.device)
+    check(peak - base < mtr.emb_value.nbytes, f"spmd dlrm step peak {peak - base} bytes "
+                                               f"above {base}, a plane {mtr.emb_value.nbytes}")
+    # the kernels on the owned-row ids of the next batch (all of them on (1, 1))
+    keys = stream.next_batch()[0]
+    slots, _inv, _n = localize_to_slots(keys, mtr.localizer, min_bucket=mtr.min_bucket)
+    own = slots[(slots >= mtr.row_lo) & (slots < mtr.row_lo + mtr.emb_value.shape[0])]
+    ids = torch.from_numpy((own - mtr.row_lo).astype(np.int32)).to(mesh.device)
+    planes = [mtr.emb_value, mtr.emb_state["sum_sq"]]
+    got = scatter.cuda_gather_planes(planes, ids)
+    want = [scatter.gather_rows_torch(p, ids) for p in planes]
+    err_get = max(float((a - b).abs().max()) for a, b in zip(got, want))
+    gen = torch.Generator(device=mesh.device).manual_seed(SPMD_SEED)
+    new = [torch.randn((ids.numel(), DLRM_DIM), generator=gen, device=mesh.device)
+           for _ in planes]
+    pad = ids == rows
+    if bool(pad.any()):  # the pads carry one row, as the kernel requires
+        for r in new:
+            r[pad] = r[pad][:1]
+    k_planes = [p.clone() for p in planes]
+    p_planes = [p.clone() for p in planes]
+    scatter.cuda_scatter_set_planes(k_planes, ids, new)
+    for p, r in zip(p_planes, new):
+        scatter.scatter_update_rows_torch(p, ids, r)
+    err_set = max(float((a - b).abs().max()) for a, b in zip(k_planes, p_planes))
+    check(err_get == 0.0 and err_set == 0.0,
+          f"spmd dlrm kernels vs plain: gather {err_get}, scatter-set {err_set}")
+    errs["gather"] = max(errs["gather"], err_get)
+    errs["scatter_set"] = max(errs["scatter_set"], err_set)
+    del k_planes, p_planes
+    return {"rows": rows, "dim": DLRM_DIM, "batch": DLRM_BATCH, "steps": n,
+            "losses": m_losses, "bitwise_vs_one_card": True, "launches": counts,
+            "order": "mesh, one_card, one_card, mesh",
+            "repeat_bitwise": repeat_bitwise,
+            "step_ms": m_ms, "one_card_step_ms": o_ms, "table_bytes": table_bytes,
+            "step_peak_less_before_bytes": peak - base,
+            "gather_check": {"ids": int(ids.numel()), "planes": 2, "max_abs_err": err_get},
+            "scatter_set_check": {"ids": int(ids.numel()), "planes": 2,
+                                  "max_abs_err": err_set}}, counts
+
+
+def spmd_launch_leg():
+    """``launch_spmd(num_procs=1, device="cuda")`` at config #1's width, 8
+    steps, three jobs: uninterrupted; with a checkpoint every 2 steps and
+    every rank dying after step 3 (code 17); resumed from the step-2
+    checkpoint in a new world.  The resumed losses must be the uninterrupted
+    run's suffix, bit for bit."""
+    import shutil
+
+    from parameter_server_tpu_torch.launch_spmd import launch_spmd
+
+    root = _spmd_root()
+    shutil.rmtree(root, ignore_errors=True)
+    common = dict(num_procs=1, steps=SPMD_LAUNCH_STEPS, rows=ROWS, global_batch=BATCH,
+                  nnz=NNZ, mesh_data=1, seed=SPMD_SEED, timeout=240.0, device="cuda",
+                  group_timeout=120.0)
+    out = {}
+    try:
+        t0 = time.perf_counter()
+        base = launch_spmd(**common)
+        out["base_s"] = time.perf_counter() - t0
+        check(base["returncodes"] == [0], f"launch_spmd: {base}")
+        t0 = time.perf_counter()
+        broken = launch_spmd(**common, ckpt_root=root, ckpt_every=SPMD_CKPT_EVERY,
+                             die_after_step=SPMD_DIE_AFTER, die_proc=-1)
+        out["broken_s"] = time.perf_counter() - t0
+        check(broken["returncodes"] == [17], f"launch_spmd death: {broken}")
+        t0 = time.perf_counter()
+        resumed = launch_spmd(**common, ckpt_root=root, ckpt_every=SPMD_CKPT_EVERY,
+                              resume=True)
+        out["resumed_s"] = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    check(resumed["returncodes"] == [0] and resumed["start_steps"] == {0: SPMD_CKPT_EVERY},
+          f"launch_spmd resume: {resumed}")
+    suffix = base["losses"][0][SPMD_CKPT_EVERY:]
+    check(resumed["losses"][0] == suffix,
+          f"resumed {resumed['losses'][0]} != uninterrupted suffix {suffix}")
+    losses = base["losses"][0]
+    check(bool(np.isfinite(losses).all()) and losses[-1] < losses[0],
+          f"launch_spmd losses {losses}")
+    out.update(losses=losses, resumed_losses=resumed["losses"][0], resumed_bitwise=True,
+               digest=base["digests"][0], job_s=base["job_s"][0],
+               broken_returncodes=broken["returncodes"])
+    return out
+
+
+def spmd_lm_leg(torch, scatter, mesh):
+    """``SpmdLMTrainer`` at BERT-base width (MLM, 8 x 128) on the (1, 1)
+    mesh with ``fsdp=True`` against ``fsdp=False``, run a, b, b, a: 2
+    steps, losses and parameters bitwise (deterministic kernels)."""
+    from parameter_server_tpu_torch.learner.lm import SpmdLMTrainer, make_mlm_batch
+    from parameter_server_tpu_torch.models import transformer as tfm
+
+    cfg = tfm.bert_base()
+    rng = np.random.default_rng(SPMD_SEED)
+    batches = [make_mlm_batch(rng.integers(0, cfg.vocab_size, size=(SPMD_LM_BATCH,
+                                                                    SPMD_LM_SEQ)),
+                              cfg.vocab_size, rng) for _ in range(SPMD_LM_STEPS)]
+    def make(fsdp):
+        def run():
+            tr = SpmdLMTrainer(cfg, mesh, seed=SPMD_SEED, fsdp=fsdp)
+            return tr, tr.step_mlm
+        return run
+
+    restore = _deterministic(torch)
+    try:
+        runs = _spmd_abba(torch, scatter, {True: make(True), False: make(False)}, batches)
+    finally:
+        restore()
+    a, la, wa = (runs[True][k] for k in ("trainer", "losses", "ms"))
+    b, lb, wb = (runs[False][k] for k in ("trainer", "losses", "ms"))
+    same = la == lb and all(torch.equal(a.params[n].full_tensor(), b.params[n].full_tensor())
+                            for n in a.params)
+    check(same, f"spmd lm fsdp {la} vs plain {lb}")
+    check(bool(np.isfinite(la).all()), f"spmd lm losses {la}")
+    n_params = sum(p.numel() for p in a.params.values())
+    return {"model": "bert_base", "params": n_params, "batch": SPMD_LM_BATCH,
+            "seq": SPMD_LM_SEQ, "steps": SPMD_LM_STEPS, "losses": la,
+            "bitwise_fsdp_vs_plain": True, "order": "fsdp, plain, plain, fsdp",
+            "repeat_bitwise": runs[True]["repeat_bitwise"] and runs[False]["repeat_bitwise"],
+            "fsdp_step_ms": wa, "plain_step_ms": wb}
+
+
+def spmd_dense_leg(torch, scatter, mesh, batch):
+    """``SpmdDenseTrainer`` with ResNet-50 on the (1, 1) mesh against
+    ``mesh=None`` from one init, run a, b, b, a: 2 SGD steps on one batch,
+    losses and every parameter and statistic bitwise (deterministic
+    kernels)."""
+    import copy
+
+    from parameter_server_tpu_torch.learner.dense import SpmdDenseTrainer
+
+    base = _resnet50(torch)
+
+    def make(m):
+        def run():
+            tr = SpmdDenseTrainer(copy.deepcopy(base), functools.partial(
+                torch.optim.SGD, lr=DENSE_LR, momentum=0.9), m, device=mesh.device)
+            return tr, tr.step
+        return run
+
+    restore = _deterministic(torch)
+    try:
+        runs = _spmd_abba(torch, scatter, {"mesh": make(mesh), "one_card": make(None)},
+                          [batch] * SPMD_DENSE_STEPS)
+    finally:
+        restore()
+    a, la, wa = (runs["mesh"][k] for k in ("trainer", "losses", "ms"))
+    b, lb, wb = (runs["one_card"][k] for k in ("trainer", "losses", "ms"))
+    sa, sb = a.model.state_dict(), b.model.state_dict()
+    same = la == lb and all(torch.equal(sa[k], sb[k]) for k in sa)
+    check(same, f"spmd resnet-50 (1, 1) {la} vs one card {lb}")
+    return {"model": "resnet50", "batch": RESNET_BATCH, "steps": SPMD_DENSE_STEPS,
+            "losses": la, "bitwise_vs_one_card": True, "order": "mesh, one_card, one_card, mesh",
+            "repeat_bitwise": runs["mesh"]["repeat_bitwise"] and runs["one_card"]["repeat_bitwise"],
+            "step_ms": wa, "one_card_step_ms": wb}
+
+
+def spmd_phase(torch, scatter, dev, errs):
+    """The mesh layer on the card, on a world-1 NCCL group (the only world
+    one card forms): a (1, 1) ``make_mesh``; SPMD LR at config #1's width;
+    the mesh DLRM (its kernel launches counted); ``launch_spmd`` with a
+    kill and a resume; the fsdp LM at BERT-base width; ResNet-50 on the
+    mesh.  Returns (fields, the mesh DLRM run's launches)."""
+    import torch.distributed as dist
+
+    from parameter_server_tpu_torch.parallel import mesh as mesh_lib
+
+    t_phase = time.perf_counter()
+    mesh = mesh_lib.make_mesh((1, 1), device="cuda")
+    check(dist.get_backend() == "nccl" and dist.get_world_size() == 1
+          and mesh.device.type == "cuda", f"spmd mesh {mesh} on {dist.get_backend()}")
+    out = {"backend": dist.get_backend(), "mesh": mesh.shape}
+    t0 = time.perf_counter()
+    out["lr"] = spmd_lr_leg(torch, scatter, mesh)
+    out["lr"]["leg_s"] = time.perf_counter() - t0
+    _free(torch)
+    t0 = time.perf_counter()
+    out["dlrm"], launches = spmd_dlrm_leg(torch, scatter, mesh, errs)
+    out["dlrm"]["leg_s"] = time.perf_counter() - t0
+    _free(torch)
+    t0 = time.perf_counter()
+    out["launch_spmd"] = spmd_launch_leg()
+    out["launch_spmd"]["leg_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    out["lm"] = spmd_lm_leg(torch, scatter, mesh)
+    out["lm"]["leg_s"] = time.perf_counter() - t0
+    _free(torch)
+    t0 = time.perf_counter()
+    out["dense"] = spmd_dense_leg(torch, scatter, mesh, resnet_batches()[0])
+    out["dense"]["leg_s"] = time.perf_counter() - t0
+    _free(torch)
+    out["launches"] = launches
+    dist.destroy_process_group()
+    out["phase_s"] = time.perf_counter() - t_phase
+    return out, launches
 
 
 def times_phase(torch, scatter, dev, errs, launches):

@@ -11,11 +11,16 @@ subcommands.  Reference analogue: ``script/local.sh`` + the gflags
     python -m parameter_server_tpu_torch.cli apps
     python -m parameter_server_tpu_torch.cli launch --workers 2 --servers 2
 
-``run`` and ``launch`` take ``--device`` (default ``cuda``): the app or the
-launched cluster runs on the card unless ``--device cpu`` asks for the CPU.
-``eval`` and ``serve`` are host work.  ``launch-spmd`` and
-``launch-hybrid`` parse as in the JAX package and raise: the multi-process
-mesh launchers are not ported yet.
+    python -m parameter_server_tpu_torch.cli launch-spmd
+    python -m parameter_server_tpu_torch.cli launch-spmd --device cpu \
+        --num-procs 2 --cpu-devices 4
+
+``run``, ``launch`` and ``launch-spmd`` take ``--device`` (default ``cuda``):
+the app, the launched cluster or the SPMD job runs on the card unless
+``--device cpu`` asks for the CPU (for ``launch-spmd``, ``--cpu-devices k``
+gloo ranks a host).  ``eval`` and ``serve`` are host work.  ``launch-hybrid``
+parses as in the JAX package and raises: the dual-plane launcher is not
+ported yet.
 """
 
 from __future__ import annotations
@@ -187,16 +192,22 @@ def build_parser() -> argparse.ArgumentParser:
 
     sp = sub.add_parser(
         "launch-spmd",
-        help="multi-host SPMD job over a device mesh (not ported: raises)",
+        help="multi-host SPMD job: hosts of ranks joined in one process "
+        "group and one (data, model) mesh (CPU simulation with --device cpu)",
     )
-    sp.add_argument("--num-procs", type=int, default=2)
-    sp.add_argument("--cpu-devices", type=int, default=4,
-                    help="virtual CPU devices per process (0 = real chips)")
+    sp.add_argument("--num-procs", type=int, default=None,
+                    help="hosts (default 2 with --device cpu; on the card one "
+                    "host of every card, the only layout one machine forms)")
+    sp.add_argument("--cpu-devices", type=int, default=0,
+                    help="gloo ranks per host with --device cpu (0 = one); "
+                    "on the card a host has one rank per card")
     sp.add_argument("--steps", type=int, default=8)
     sp.add_argument("--rows", type=int, default=1 << 12)
     sp.add_argument("--global-batch", type=int, default=256)
-    sp.add_argument("--mesh-data", type=int, default=2)
-    sp.set_defaults(fn=_not_ported)
+    sp.add_argument("--mesh-data", type=int, default=None,
+                    help="the mesh's data axis (default: the hosts)")
+    _device_flag(sp)
+    sp.set_defaults(fn=_cmd_launch_spmd)
 
     hy = sub.add_parser(
         "launch-hybrid",
@@ -224,9 +235,31 @@ def build_parser() -> argparse.ArgumentParser:
 
 def _not_ported(args: argparse.Namespace) -> int:
     raise NotImplementedError(
-        f"psx {args.cmd}: the multi-process mesh launchers (launch_spmd.py, "
-        "launch_hybrid.py, parallel/*) are ROADMAP Queue 1 step 9, not ported yet"
+        f"psx {args.cmd}: the dual-plane launcher (launch_hybrid.py) is ROADMAP "
+        "Queue 1 step 9, not ported yet"
     )
+
+
+def _cmd_launch_spmd(args: argparse.Namespace) -> int:
+    from parameter_server_tpu_torch.launch_spmd import launch_spmd
+
+    num_procs = args.num_procs or (1 if args.device == "cuda" else 2)
+    result = launch_spmd(
+        num_procs=num_procs,
+        cpu_devices=args.cpu_devices,
+        steps=args.steps,
+        rows=args.rows,
+        global_batch=args.global_batch,
+        mesh_data=args.mesh_data or num_procs,
+        device=args.device,
+    )
+    losses = result["losses"].get(0, [])
+    print(json.dumps({
+        "returncodes": result["returncodes"],
+        "first_loss": losses[0] if losses else None,
+        "final_loss": losses[-1] if losses else None,
+    }))
+    return 0 if all(rc == 0 for rc in result["returncodes"]) else 1
 
 
 def _cmd_launch(args: argparse.Namespace) -> int:

@@ -63,7 +63,17 @@ def trainer_from_numpy(trainer, value, state: Dict[str, object], bias,
     """Install ``[rows + 1, 1]`` table planes and ``[1, 1]`` bias planes into
     the port's ``LocalLRTrainer`` on its device.  The table goes through
     ``KVTable.resize``, which puts the trash row at its fill, where a JAX
-    trainer's steps always leave it."""
+    trainer's steps always leave it.  An ``SpmdLRTrainer`` (which has a
+    ``mesh``) takes ``[total_rows, 1]`` planes, of which each rank copies its
+    own row block."""
+    if getattr(trainer, "mesh", None) is not None:
+        arrays = {"value": np.asarray(value), "bias": np.asarray(bias)}
+        arrays.update({f"state.{k}": np.asarray(v) for k, v in state.items()})
+        arrays.update({f"bias_state.{k}": np.asarray(v) for k, v in bias_state.items()})
+        if arrays["value"].shape != (trainer.total_rows, 1):
+            raise ValueError(f"value shape {arrays['value'].shape} != {(trainer.total_rows, 1)}")
+        trainer.load_full_state(arrays)
+        return
     dev = trainer.device
     value = _plane(value, dev)
     if tuple(value.shape) != (trainer.cfg.rows + 1, trainer.cfg.dim):
@@ -102,14 +112,17 @@ def _copy_tree(named: Dict[str, torch.Tensor], tree, what: str) -> None:
 
 def dlrm_from_numpy(trainer, emb_value, emb_state: Dict[str, object], mlp_params) -> None:
     """Install ``[total_rows, dim]`` table planes and a flax DLRM params tree
-    (numpy or tensor leaves) into the port's ``SpmdDLRMTrainer``.  The MLP's Adam state
+    (numpy or tensor leaves) into the port's ``SpmdDLRMTrainer``.  On a mesh
+    each rank keeps its own row block of the planes.  The MLP's Adam state
     starts at zero, as a fresh JAX trainer's does."""
     dev = trainer.device
     value = _plane(emb_value, dev)
     if tuple(value.shape) != (trainer.total_rows, trainer.cfg.dim):
         raise ValueError(f"value shape {tuple(value.shape)} != "
                          f"{(trainer.total_rows, trainer.cfg.dim)}")
-    state = {k: _plane(v, dev) for k, v in emb_state.items()}
+    block = slice(trainer.row_lo, trainer.row_lo + trainer.emb_value.shape[0])
+    value = value[block].contiguous()
+    state = {k: _plane(v, dev)[block].contiguous() for k, v in emb_state.items()}
     if set(state) != set(trainer.emb_state) or any(v.shape != value.shape
                                                     for v in state.values()):
         raise ValueError(f"state planes {sorted(state)} do not match {sorted(trainer.emb_state)}")

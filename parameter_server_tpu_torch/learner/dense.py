@@ -4,12 +4,16 @@ Torch counterpart of ``parameter_server_tpu/learner/dense.py`` for BASELINE
 configs #2 (ResNet-50 under BSP/SSP) and #4 (BERT-base, async push/pull of
 dense layers):
 
-- :class:`SpmdDenseTrainer`: one train step on ``device`` (the JAX trainer's
-  mesh collapses to one card): forward, backward, the optimizer.  BSP by
-  construction.  Its dashboard's MFU numerator is a flop count of the step
-  (forward, loss, backward) on ``meta`` copies at each new batch shape; the
-  denominator is the card's peak for the math mode most of those FLOPs run
-  in (a conv net's convolutions: TF32 under torch's defaults).
+- :class:`SpmdDenseTrainer`: one train step on ``device`` (``mesh=None``)
+  or data-parallel over a mesh's ``data`` axis: each rank runs its block of
+  the global batch, the gradients are summed over ``data`` (the global
+  mean's gradient) before the optimizer, and BatchNorm takes its statistics
+  over the global batch (``models/resnet.py``), as GSPMD makes the JAX
+  trainer's.  BSP by construction.  Its dashboard's MFU numerator is a flop
+  count of the step (forward, loss, backward) on ``meta`` copies at each new
+  batch shape; the denominator is the card's peak for the math mode most of
+  those FLOPs run in (a conv net's convolutions: TF32 under torch's
+  defaults).  A rank's dashboard counts its own examples.
 - :class:`AsyncDenseLearner`: N worker threads, each with its own replica of
   the model; per iteration a worker pulls the flat parameter vector from the
   :class:`~parameter_server_tpu_torch.kv.dense.DenseKVServer`\\ s, computes
@@ -62,19 +66,31 @@ def _batch_on(device: torch.device, images, labels):
 
 
 class SpmdDenseTrainer:
-    """Data-parallel trainer for a dense model on one card (BSP)."""
+    """Data-parallel trainer for a dense model on one card or a mesh (BSP)."""
 
     def __init__(
         self,
         model: torch.nn.Module,
         tx: Callable[..., torch.optim.Optimizer],
+        mesh=None,
         *,
         loss_fn=softmax_xent,
         dashboard: Optional[metrics_lib.Dashboard] = None,
         device: str | torch.device = "cuda",
     ) -> None:
-        self.device = torch.device(device)
+        self.mesh = mesh
+        self.device = torch.device(device) if mesh is None else mesh.device
         self.model = model.to(self.device)
+        self._n_data = 1
+        if mesh is not None:
+            from parameter_server_tpu_torch.models.resnet import BatchNorm
+            from parameter_server_tpu_torch.parallel import mesh as mesh_lib
+
+            self._n_data = mesh.shape[mesh_lib.DATA_AXIS]
+            if self._n_data > 1:
+                for m in self.model.modules():
+                    if isinstance(m, BatchNorm):
+                        m.sync = (mesh, mesh_lib.DATA_AXIS)
         self.optimizer = tx(self.model.parameters())
         self.loss_fn = loss_fn
         self.dashboard = dashboard or metrics_lib.Dashboard(print_every=0)
@@ -96,18 +112,43 @@ class SpmdDenseTrainer:
         )
         self._flops_shape = tuple(x.shape)
 
+    def _local_batch(self, images: np.ndarray, labels: np.ndarray):
+        """This rank's block of the global batch (all of it with no mesh)."""
+        if self.mesh is None:
+            return _batch_on(self.device, images, labels)
+        from parameter_server_tpu_torch.parallel import distributed
+        from parameter_server_tpu_torch.parallel import mesh as mesh_lib
+
+        images, labels = np.asarray(images, np.float32), np.asarray(labels)
+        return tuple(distributed.host_local_batch(mesh_lib.batch_sharding(self.mesh, a.ndim),
+                                                  a, a.shape)
+                     for a in (images, labels))
+
     def step(self, images: np.ndarray, labels: np.ndarray) -> float:
-        x, y = _batch_on(self.device, images, labels)
+        """One step on the global batch (every rank of a mesh passes all of
+        it); returns the global mean loss."""
+        x, y = self._local_batch(images, labels)
         self.model.train()
         if tuple(x.shape) != self._flops_shape:
             self._count_flops(x, y)
         loss = self.loss_fn(self.model(x), y)
         self.optimizer.zero_grad(set_to_none=True)
-        loss.backward()
+        if self._n_data > 1:
+            from parameter_server_tpu_torch.parallel import mesh as mesh_lib
+
+            (loss / self._n_data).backward()
+            grads = [p.grad for p in self.model.parameters() if p.grad is not None]
+            flat = self.mesh.all_reduce(torch.cat([g.reshape(-1) for g in grads]),
+                                        mesh_lib.DATA_AXIS)
+            for g, part in zip(grads, flat.split([g.numel() for g in grads])):
+                g.copy_(part.view_as(g))
+            loss = self.mesh.all_reduce(loss.detach() / self._n_data, mesh_lib.DATA_AXIS)
+        else:
+            loss.backward()
         self.optimizer.step()
         loss_f = float(loss.detach())
         self.step_count += 1
-        self.dashboard.record(self.step_count, loss_f, examples=int(len(labels)))
+        self.dashboard.record(self.step_count, loss_f, examples=int(x.shape[0]))
         return loss_f
 
     @torch.no_grad()

@@ -29,9 +29,9 @@ optax ``adamw``'s state leaves (``count`` as int32, then ``mu``, then
 ``nu``, each in that order).  A JAX-written checkpoint resumes here and the
 other way round.
 
-Running one body across processes (the JAX trainer's multi-process branch)
-needs the port's ``parallel/distributed.py``: ROADMAP Queue 1 step 9; it
-raises here.
+Running one body across processes (the JAX trainer's multi-process branch,
+which the dual-plane launcher ``launch_hybrid.py`` drives) is not ported:
+ROADMAP Queue 1 step 9; it raises here.
 """
 
 from __future__ import annotations
@@ -164,8 +164,8 @@ class HybridLMTrainer:
         the pull is sent right after this step's push."""
         if _multi_process():
             raise NotImplementedError(
-                "a body across processes needs the port's parallel/distributed.py: "
-                "ROADMAP Queue 1 step 9"
+                "a body across processes (the dual-plane launcher's branch) is not "
+                "ported: ROADMAP Queue 1 step 9"
             )
         tokens = np.asarray(tokens)
         # 1) PS plane: this batch's rows — from the prefetch if step(t-1)

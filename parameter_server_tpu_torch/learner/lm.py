@@ -1,9 +1,9 @@
-"""Language-model trainers: BERT MLM and causal LM (Llama) on one card.
+"""Language-model trainers: BERT MLM and causal LM (Llama) on one card or a
+``(data, model)`` mesh.
 
 Torch counterpart of ``parameter_server_tpu/learner/lm.py`` for BASELINE
-configs #4 / #5.  The JAX trainer's ``data x model`` mesh collapses to one
-card (``device=``): one step is the forward, the loss, the backward and
-AdamW.  ``torch.optim.AdamW`` runs with optax ``adamw``'s defaults
+configs #4 / #5.  With ``mesh=None`` the trainer runs on one card
+(``device=``): one step is the forward, the loss, the backward and AdamW.  ``torch.optim.AdamW`` runs with optax ``adamw``'s defaults
 (``betas=(0.9, 0.999)``, ``eps=1e-8``, ``weight_decay=1e-4``; torch's own
 default decay of 0.01 would leave the reference's trajectory at the first
 step).  Parameters start from :class:`~parameter_server_tpu_torch.models.
@@ -16,8 +16,20 @@ learned positions never) x the sequence, an example being one sequence,
 over the card's peak for the math mode the step's float32 matmuls run in
 (``metrics.float32_math_mode("matmul")``).
 
-``fsdp=True`` shards parameters and moments over a data axis: that needs the
-port's ``parallel/tp.py`` (ROADMAP Queue 1 step 9) and raises here.
+On a mesh the parameters are DTensors placed by ``parallel/tp.py``'s rules
+(``fsdp=True`` splits them over ``data`` too), and AdamW's moments take the
+parameters' placements.  A step materialises every parameter in full
+(``redistribute`` to ``Replicate``, which all-gathers the shards) and runs the
+one-card model on the rank's ``data`` block of the batch; the materialised
+tensors take their gradients back as partial sums over ``data``, so each
+parameter's gradient arrives summed (all-reduced, or reduce-scattered onto
+its shard).  The loss is the global batch's.  On a mesh the weights are
+``trainer.params``; ``trainer.model`` is only the structure they run in (its
+parameters are on the ``meta`` device, so a rank holds its shards and no
+full-size copy).  ``fsdp`` is a layout, not a
+change to the math; the ``model`` axis computes replicated, not as Megatron
+splits.  On one card ``fsdp`` has no data axis to split over and changes
+nothing.
 """
 
 from __future__ import annotations
@@ -62,12 +74,26 @@ def lm_dashboard(dashboard: Optional[metrics_lib.Dashboard], device) -> metrics_
                                          device)
 
 
+class _Objective(torch.nn.Module):
+    """The trainer's loss as a module over the model, so
+    ``torch.func.functional_call`` can run it on materialised parameters."""
+
+    def __init__(self, trainer: "SpmdLMTrainer") -> None:
+        super().__init__()
+        self.model = trainer.model
+        self._loss = trainer._loss
+
+    def forward(self, inputs, targets, mask):
+        return self._loss(inputs, targets, mask)
+
+
 class SpmdLMTrainer:
-    """Trainer for the transformer family on one card."""
+    """Trainer for the transformer family on one card or a mesh."""
 
     def __init__(
         self,
         cfg: tfm.TransformerConfig,
+        mesh=None,
         *,
         learning_rate: float = 1e-3,
         seed: int = 0,
@@ -76,25 +102,39 @@ class SpmdLMTrainer:
         loss_chunk: int = 0,
         device: str | torch.device = "cuda",
     ) -> None:
-        """``loss_chunk`` > 0 computes the causal loss with the head fused
-        into checkpointed chunks (``chunked_causal_lm_loss``); composable
-        with ``cfg.scan_blocks`` / ``cfg.remat``."""
-        if fsdp:
-            raise NotImplementedError(
-                "fsdp=True needs the port's parallel/tp.py "
-                "(transformer_param_shardings): ROADMAP Queue 1 step 9"
-            )
+        """``fsdp=True`` shards params AND optimizer moments over the data
+        axis besides the TP rules (see ``parallel/tp.py``); ``loss_chunk`` >
+        0 computes the causal loss with the head fused into checkpointed
+        chunks (``chunked_causal_lm_loss``); composable with
+        ``cfg.scan_blocks`` / ``cfg.remat``."""
         if loss_chunk > 0 and (not cfg.causal or cfg.tie_embeddings):
             raise ValueError(
                 "loss_chunk requires a causal model with untied embeddings "
                 "(the fused head reads params['lm_head'])"
             )
         self.cfg = cfg
-        self.device = torch.device(device)
+        self.mesh = mesh
+        self.device = torch.device(device) if mesh is None else mesh.device
         self.loss_chunk = loss_chunk
         self.model = tfm.Transformer(cfg, device=self.device,
                                      generator=tfm.make_generator(self.device, seed))
-        self.optimizer = adamw(self.model.parameters(), learning_rate)
+        if mesh is None:
+            self.params = None
+            self.optimizer = adamw(self.model.parameters(), learning_rate)
+        else:
+            from parameter_server_tpu_torch.parallel import mesh as mesh_lib
+            from parameter_server_tpu_torch.parallel import tp
+
+            self.shardings = tp.transformer_param_shardings(self.model, mesh, fsdp=fsdp)
+            #: dotted name -> DTensor parameter (the model's own tensors are
+            #: replaced at each step by their materialised copies)
+            self.params = tp.place_params(self.model, mesh, self.shardings)
+            # the module keeps only the structure the placed weights run in:
+            # its own full-size copies go to ``meta`` and hold no memory
+            self.model.to("meta")
+            self.optimizer = adamw(self.params.values(), learning_rate)
+            self._n_data = mesh.shape[mesh_lib.DATA_AXIS]
+            self._objective = _Objective(self)
         self.dashboard = lm_dashboard(dashboard, self.device)
         drop = frozenset({"pos_embedding"}) | (
             frozenset() if cfg.tie_embeddings else frozenset({"embedding"})
@@ -112,12 +152,40 @@ class SpmdLMTrainer:
             return tfm.causal_lm_loss(model(inputs), targets)
         return tfm.mlm_loss(model(inputs), targets, mask)
 
+    def _mesh_loss(self, inputs, targets, mask) -> torch.Tensor:
+        """This rank's share of the global loss (the shares sum to it over
+        ``data``), on materialised parameters."""
+        from torch.func import functional_call
+
+        from parameter_server_tpu_torch.parallel import tp
+
+        full = {f"model.{n}": t for n, t in tp.materialize(self.params, self.mesh).items()}
+        loss = functional_call(self._objective, full, (inputs, targets, mask))
+        if self._n_data == 1:
+            return loss
+        if mask is None:  # a causal loss: the data blocks hold equal counts
+            return loss / self._n_data
+        from parameter_server_tpu_torch.parallel import mesh as mesh_lib
+
+        # MLM: the global mean over every block's masked positions
+        local = torch.clamp(torch.sum(mask), min=1.0)
+        total = self.mesh.all_reduce(torch.sum(mask).detach().clone(), mesh_lib.DATA_AXIS)
+        return loss * (local / torch.clamp(total, min=1.0))
+
     def _step(self, inputs, targets, mask) -> float:
         self.model.train()
-        loss = self._loss(inputs, targets, mask)
+        if self.mesh is None:
+            loss = self._loss(inputs, targets, mask)
+        else:
+            inputs, targets, mask = self._local_rows(inputs, targets, mask)
+            loss = self._mesh_loss(inputs, targets, mask)
         self.optimizer.zero_grad(set_to_none=True)
         loss.backward()
         self.optimizer.step()
+        if self.mesh is not None and self._n_data > 1:
+            from parameter_server_tpu_torch.parallel import mesh as mesh_lib
+
+            loss = self.mesh.all_reduce(loss.detach().clone(), mesh_lib.DATA_AXIS)
         loss_f = float(loss.detach())
         self.step_count += 1
         # one example = one sequence: 6 x matmul params x seq tokens
@@ -127,6 +195,16 @@ class SpmdLMTrainer:
 
     def _tokens(self, x) -> torch.Tensor:
         return torch.as_tensor(np.asarray(x, np.int64)).to(self.device)
+
+    def _local_rows(self, *arrays):
+        """This rank's ``data`` block of each ``[B, S]`` tensor (None passes)."""
+        from parameter_server_tpu_torch.parallel import distributed
+        from parameter_server_tpu_torch.parallel import mesh as mesh_lib
+
+        b = next(a for a in arrays if a is not None).shape[0]
+        rows = distributed.local_batch_slice(self.mesh.index(mesh_lib.DATA_AXIS),
+                                             self._n_data, b)
+        return tuple(None if a is None else a[rows] for a in arrays)
 
     # -- steps --------------------------------------------------------------
     def step_causal(self, tokens: np.ndarray) -> float:
@@ -143,4 +221,9 @@ class SpmdLMTrainer:
 
     @torch.no_grad()
     def logits(self, tokens: np.ndarray) -> np.ndarray:
-        return self.model(self._tokens(tokens)).cpu().numpy()
+        if self.mesh is None:
+            return self.model(self._tokens(tokens)).cpu().numpy()
+        from torch.func import functional_call
+
+        full = {n: p.full_tensor() for n, p in self.params.items()}
+        return functional_call(self.model, full, (self._tokens(tokens),)).cpu().numpy()

@@ -20,7 +20,12 @@ What it keeps of flax, so one set of weights gives the same function:
   statistics move as ``ra = 0.9 * ra + 0.1 * batch`` with the *biased* batch
   variance (``F.batch_norm``'s own update would take the unbiased one), so
   they are updated here and ``F.batch_norm`` only normalises.  Evaluation
-  (``model.eval()``) uses the running statistics.
+  (``model.eval()``) uses the running statistics.  On a data-parallel mesh
+  (``BatchNorm.sync``, set by ``SpmdDenseTrainer``) the batch statistics
+  are those of the GLOBAL batch, as GSPMD makes them for the JAX model (a
+  mean over a sharded batch axis is a global reduction): each rank sums
+  ``x`` and ``x * x`` per channel and the sums are all-reduced over
+  ``data``, differentiably, before the normalisation.
 - **Initialisation.**  Conv and dense kernels ``lecun_normal``, BatchNorm
   scale 1 and bias 0, except the last BatchNorm of each block, whose scale
   starts at 0.
@@ -86,11 +91,15 @@ class BatchNorm(nn.Module):
         self.bias = nn.Parameter(torch.zeros(ch))
         self.register_buffer("mean", torch.zeros(ch))
         self.register_buffer("var", torch.ones(ch))
+        #: ``(mesh, axis)`` whose ranks share the batch statistics, or None
+        self.sync = None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if not self.training:
             return F.batch_norm(x, self.mean, self.var, self.scale, self.bias,
                                 training=False, eps=self.eps)
+        if self.sync is not None:
+            return self._synced(x)
         # one pass for the statistics: the normalising call, at momentum 1,
         # leaves the batch mean and the unbiased batch variance in fresh
         # buffers; flax's running update takes the biased one
@@ -102,6 +111,28 @@ class BatchNorm(nn.Module):
             m = self.momentum
             self.mean.mul_(m).add_(mean, alpha=1 - m)
             self.var.mul_(m).add_(var, alpha=(1 - m) * (n - 1) / n)
+        return y
+
+    def _synced(self, x: torch.Tensor) -> torch.Tensor:
+        """Training normalisation with the statistics of every rank's batch
+        along ``self.sync``'s axis: flax's mean and fast variance
+        ``E[x^2] - E[x]^2`` over the global batch."""
+        from torch.distributed.nn import functional as dist_fn
+
+        mesh, axis = self.sync
+        ch = x.shape[1]
+        sums = torch.cat([x.sum(dim=(0, 2, 3)), (x * x).sum(dim=(0, 2, 3))])
+        sums = dist_fn.all_reduce(sums, group=mesh.group(axis))
+        n = (x.numel() // ch) * mesh.shape[axis]
+        mean, mean2 = sums[:ch] / n, sums[ch:] / n
+        var = torch.clamp_min(mean2 - mean * mean, 0.0)
+        inv = torch.rsqrt(var + self.eps) * self.scale
+        y = (x - mean[None, :, None, None]) * inv[None, :, None, None] \
+            + self.bias[None, :, None, None]
+        with torch.no_grad():
+            m = self.momentum
+            self.mean.mul_(m).add_(mean.detach(), alpha=1 - m)
+            self.var.mul_(m).add_(var.detach(), alpha=1 - m)
         return y
 
 

@@ -270,9 +270,39 @@ def test_cli_subcommands_equal_the_jax_ones():
         got = {s for a in ours[name]._actions for s in a.option_strings}
         assert want <= got, (name, want - got)
     with pytest.raises(NotImplementedError, match="step 9"):
-        cli.main(["launch-spmd"])
-    with pytest.raises(NotImplementedError, match="step 9"):
         cli.main(["launch-hybrid", "--no-bsp"])
+
+
+def test_cli_launch_spmd_runs_two_hosts_on_the_cpu(capsys):
+    """``psx launch-spmd --device cpu``: 2 hosts of 2 gloo ranks on a (2, 2)
+    mesh, a few steps; rc 0 and the JAX command's result keys."""
+    rc = cli.main(["launch-spmd", "--device", "cpu", "--num-procs", "2", "--cpu-devices", "2",
+                   "--steps", "3", "--rows", "1024", "--global-batch", "64"])
+    out = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert rc == 0, out
+    assert sorted(out) == ["final_loss", "first_loss", "returncodes"]
+    assert out["returncodes"] == [0, 0]
+    assert np.isfinite(out["first_loss"]) and np.isfinite(out["final_loss"])
+
+
+def test_cli_launch_spmd_on_the_card_is_one_host(monkeypatch, capsys):
+    """On the card every host would start on this machine, so ``psx
+    launch-spmd`` defaults to one host of every card and a data axis of 1;
+    with ``--device cpu`` it keeps the JAX command's 2 hosts on data 2."""
+    from parameter_server_tpu_torch import launch_spmd as launch_lib
+
+    calls = []
+
+    def fake(**kw):
+        calls.append(kw)
+        return {"returncodes": [0] * kw["num_procs"], "losses": {0: [0.7, 0.6]}}
+
+    monkeypatch.setattr(launch_lib, "launch_spmd", fake)
+    assert cli.main(["launch-spmd"]) == 0
+    assert cli.main(["launch-spmd", "--device", "cpu"]) == 0
+    capsys.readouterr()
+    assert [(c["device"], c["num_procs"], c["mesh_data"]) for c in calls] == [
+        ("cuda", 1, 1), ("cpu", 2, 2)]
 
 
 def test_entry_points_default_to_the_card():
@@ -284,6 +314,6 @@ def test_entry_points_default_to_the_card():
                 and c.args and getattr(c.args[0], "value", None) == "--device"
                 for k in c.keywords if k.arg == "default"]
     assert defaults == ["cuda"]
-    for sub in ("run", "launch"):
+    for sub in ("run", "launch", "launch-spmd"):
         ns = cli.build_parser().parse_args([sub] + (["x.json"] if sub == "run" else []))
         assert ns.device == "cuda"

@@ -104,8 +104,30 @@ def test_spmd_lm_scan_blocks_trains():
 
 
 def test_fsdp_raises():
-    with pytest.raises(NotImplementedError, match="step 9"):
-        SpmdLMTrainer(_cfg(tfm), fsdp=True, device="cpu")
+    """``fsdp=True`` no longer raises: on a one-rank (1, 1) mesh (a gloo
+    world of this process) the DTensor-placed trainer equals the plain one
+    on one device bit for bit — losses, parameters and AdamW's moments,
+    which take the parameters' placements."""
+    from torch.distributed.tensor import DTensor
+
+    from parameter_server_tpu_torch.parallel import mesh as port_mesh
+
+    one = port_mesh.make_mesh((1, 1), device="cpu")
+    knobs = SpmdLMTrainer(_cfg(tfm), one, fsdp=True, learning_rate=1e-2, seed=1, device="cpu")
+    plain = SpmdLMTrainer(_cfg(tfm), learning_rate=1e-2, seed=1, device="cpu")
+    rng = np.random.default_rng(0)
+    for _ in range(3):
+        toks = _tokens(rng)
+        assert knobs.step_causal(toks) == plain.step_causal(toks)
+    params = dict(plain.model.named_parameters())
+    assert set(knobs.params) == set(params)
+    for name, p in knobs.params.items():
+        assert torch.equal(p.full_tensor(), params[name].detach()), name
+        moment = knobs.optimizer.state[p]["exp_avg"]
+        assert isinstance(moment, DTensor) and moment.placements == p.placements
+        assert torch.equal(moment.full_tensor(), plain.optimizer.state[params[name]]["exp_avg"])
+    toks = _tokens(rng)
+    assert np.array_equal(knobs.logits(toks), plain.logits(toks))
 
 
 @pytest.mark.parametrize("kw", [dict(causal=False), dict(tie_embeddings=True)])

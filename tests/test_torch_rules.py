@@ -94,6 +94,7 @@ from parameter_server_tpu_torch.learner.elastic import ElasticTrainer, restart_s
 from parameter_server_tpu_torch.learner.fm import LocalFMTrainer
 from parameter_server_tpu_torch.learner.sgd import AsyncLRLearner, LocalLRTrainer
 from parameter_server_tpu_torch.launch import launch
+from parameter_server_tpu_torch.launch_spmd import launch_spmd, run_job
 from parameter_server_tpu_torch.models.dlrm import SpmdDLRMTrainer
 from parameter_server_tpu_torch.models.transformer import (
     Transformer,
@@ -101,6 +102,8 @@ from parameter_server_tpu_torch.models.transformer import (
     TransformerTrunk,
 )
 from parameter_server_tpu_torch.parallel import dlrm_scale
+from parameter_server_tpu_torch.parallel.distributed import initialize
+from parameter_server_tpu_torch.parallel.mesh import make_mesh
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 PORT = ROOT / "parameter_server_tpu_torch"
@@ -158,6 +161,12 @@ FM_BCD_DATA_APP = ("utils/countmin.py", "data/text.py", "data/fs.py", "data/read
                    "learner/bcd.py", "evaluation.py", "app.py", "cli.py")
 
 
+#: the mesh layer: platform forcing, the mesh and process groups, the
+#: multi-host runtime, the TP rules, SPMD LR and its launcher, held by name too
+MESH_LAYER = ("utils/platform.py", "parallel/mesh.py", "parallel/distributed.py",
+              "parallel/tp.py", "parallel/lr_spmd.py", "launch_spmd.py")
+
+
 def test_the_import_scan_sees_every_module():
     assert len(SOURCES) >= 25
     scanned = {str(p.relative_to(PORT)) for p in SOURCES if PORT in p.parents}
@@ -166,6 +175,7 @@ def test_the_import_scan_sees_every_module():
     assert set(OBSERVABILITY) <= scanned
     assert set(TRANSFORMER_WORKLOADS) <= scanned
     assert set(FM_BCD_DATA_APP) <= scanned
+    assert set(MESH_LAYER) <= scanned
     assert {str(p.relative_to(PORT)) for p in (PORT / "learner").glob("*.py")} <= scanned
     assert _forbidden("jax.numpy") and _forbidden("parameter_server_tpu.kv.table")
     assert not _forbidden("parameter_server_tpu_torch.kv.table")
@@ -561,7 +571,8 @@ def test_the_dense_sync_scan_catches_a_readback(src, want):
                                    restart_server, launch, ChunkedAsyncDenseLearner,
                                    SpmdLMTrainer, HybridLMTrainer, Transformer,
                                    TransformerBody, TransformerTrunk, LocalFMTrainer,
-                                   DarlinServer, DarlinWorker, create],
+                                   DarlinServer, DarlinWorker, create, make_mesh,
+                                   initialize, launch_spmd, run_job],
                          ids=lambda c: c.__name__)
 def test_entry_points_default_to_the_card(entry):
     fn = entry.__init__ if inspect.isclass(entry) else entry
@@ -599,6 +610,28 @@ def test_dlrm_scale_defaults_to_the_card():
              and getattr(c.func, "attr", None) == "add_argument"}
     assert flags["--device"]["default"] == "cuda"
     assert flags["--mesh"]["default"] == "1,1"
+
+
+def test_chip_smoke_defines_each_top_level_name_once():
+    """A second top-level ``def`` of one name silently replaces the first
+    for every phase that calls it, and only a whole card run would show it."""
+    tree = ast.parse((ROOT / "chip_smoke.py").read_text())
+    names = [n.name for n in tree.body if isinstance(n, (ast.FunctionDef, ast.ClassDef))]
+    assert sorted(n for n in set(names) if names.count(n) > 1) == []
+
+
+def test_launch_spmd_ranks_default_to_the_card():
+    """``python -m parameter_server_tpu_torch.launch_spmd`` ranks run on the
+    card unless ``--device`` says otherwise, and ``launch_spmd()`` passes
+    its own."""
+    from parameter_server_tpu_torch import launch_spmd as mod
+
+    tree = ast.parse(inspect.getsource(mod.main))
+    flags = {c.args[0].value: {k.arg: getattr(k.value, "value", None) for k in c.keywords}
+             for c in ast.walk(tree) if isinstance(c, ast.Call)
+             and getattr(c.func, "attr", None) == "add_argument"}
+    assert flags["--device"]["default"] == "cuda"
+    assert '"--device", device' in inspect.getsource(mod.launch_spmd)
 
 
 def test_launch_children_default_to_the_card():
