@@ -371,6 +371,29 @@ Phases, each printing one JSON line (``"phase": ...``):
              from the same file, of ``async_lr`` (2 x 2, checkpoints), then
              ``psx eval`` on its checkpoint and ``psx apps`` (the JAX
              registry's names), all on the CLI's default device.
+   spmd      the mesh layer on a world-1 NCCL group (see ``spmd_phase``).
+   dualplane config #5 across processes: ``launch_hybrid(device="cuda")``
+             at Llama-3-8B width cut to 4 of 32 layers, 8 x 512 tokens, 2
+             server processes (tables on the card) behind ``TcpVan``, 1 body
+             host of one NCCL rank, every link on TCP (no shm rings: a
+             key-cached link drops frames larger than its 4 MB ring, and a
+             pull reply here is ~33 MB).  Run 1 (BSP, sgd rows, key_caching+zlib)
+             against an in-process ``HybridLMTrainer`` over a LoopbackVan on
+             the same seeds (rtol 1e-4); each server child launches one
+             ``ps_gather`` and one ``ps_apply`` a step.  Run 2 (SSP,
+             AdaGrad, max_delay 2, prefetch, the ``full`` filters) within
+             0.15 nats of its BSP twin's mean.
+   seqpar    sequence parallelism: a virtual ring of 8 blocks at
+             Llama-3-8B's attention widths (32 heads x 128) in one process
+             over the port's per-step functions (forward at S 8192 vs
+             ``reference_attention`` at 2e-5; dQ / dK / dV at S 4096 vs
+             autograd, rtol 1e-4 / atol 1e-5; one virtual rank's peak bytes
+             x 8 under the full score matrix); then ``SpLMTrainer`` (ring,
+             Ulysses) and ``SpTpLMTrainer(fsdp="state")`` on a world-1 NCCL
+             mesh at Llama-3-8B width cut to 2 of 32 layers, 1 x 4096
+             tokens, 2 steps, each within rtol 2e-4 of
+             ``SpmdLMTrainer(mesh=None)`` (a ring of one block here).  No
+             scatter kernel is on this path.
 9. times     every kernel at the main path's shapes: device time per call
              (CUDA-graph replay), the byte bound at 3.35 TB/s, the plain
              version's time and one PyTorch library call's time; an empty
@@ -536,6 +559,17 @@ APP_REGISTRY = ("async_lr", "fm", "llama_hybrid", "sp_lm", "sparse_lr", "sptp_lm
 #: steps; the mesh ResNet-50's steps; the seed
 SPMD_LR_RATE, SPMD_LR_STEPS, SPMD_LAUNCH_STEPS, SPMD_CKPT_EVERY, SPMD_DIE_AFTER = 0.1, 8, 8, 2, 3
 SPMD_LM_BATCH, SPMD_LM_SEQ, SPMD_LM_STEPS, SPMD_DENSE_STEPS, SPMD_SEED = 8, 128, 2, 2, 0
+#: config #5 across processes at the hybrid phase's shape (HYBRID_*): the
+#: parity run's BSP steps and sgd row rate, the SSP run's (and its BSP
+#: twin's) steps and max_delay, the bound on their mean losses' gap, a
+#: launch's time limit
+DUAL_BSP_STEPS, DUAL_SSP_STEPS, DUAL_DELAY, DUAL_EMB_LR, DUAL_GAP = 3, 4, 2, 0.05, 0.15
+DUAL_TIMEOUT_S = 300.0
+#: sequence parallelism: Llama-3-8B's attention widths (heads x head dim),
+#: the virtual ring's blocks, its forward and backward sequences; the SP
+#: trainers' depth, batch, sequence and steps; the seed
+SEQPAR_HEADS, SEQPAR_HEAD_DIM, SEQPAR_BLOCKS, SEQPAR_FWD_SEQ, SEQPAR_BWD_SEQ = 32, 128, 8, 8192, 4096
+SEQPAR_LAYERS, SEQPAR_BATCH, SEQPAR_SEQ, SEQPAR_STEPS, SEQPAR_SEED = 2, 1, 4096, 2, 0
 DEVICE = "cuda"
 SOURCE = "parameter_server_tpu_torch/csrc/scatter_kernels.cu"
 REPLACES = {
@@ -751,10 +785,24 @@ def main() -> int:
     emit("spmd", **spmd)
     _free(torch)
 
+    # -- 8p. config #5 across processes: launch_hybrid's dual plane --------------------------
+    dualplane, dualplane_launches = dualplane_phase(torch, scatter, dev, errs)
+    emit("dualplane", **dualplane)
+    _free(torch)
+
+    # -- 8q. sequence parallelism: the virtual ring and the SP trainers -----------------------
+    seqpar, seqpar_launches = seqpar_phase(torch, scatter, dev, errs)
+    emit("seqpar", **seqpar)
+    _free(torch)
+
     # -- 9. times ----------------------------------------------------------------
     kernels = times_phase(torch, scatter, dev, errs, launches)
     for k in kernels:
         k["spmd_launches"] = spmd_launches[k["name"]]
+        # the dual plane's kernels run in its server children (their counts)
+        k["dualplane_launches"] = dualplane_launches[k["name"]]
+        # no scatter kernel is on the sequence-parallel path (0, as in JAX)
+        k["seqpar_launches"] = seqpar_launches[k["name"]]
         # apply and scatter-add are not on the mesh DLRM path
         k["spmd"] = spmd["dlrm"].get(f"{k['name']}_check")
         k["fm_launches"] = fm_launches[k["name"]]
@@ -7058,6 +7106,330 @@ def spmd_phase(torch, scatter, dev, errs):
     _free(torch)
     out["launches"] = launches
     dist.destroy_process_group()
+    out["phase_s"] = time.perf_counter() - t_phase
+    return out, launches
+
+
+# ---------------------------------------------------------------------------
+# phase 8p: config #5 across processes, launch_hybrid's dual plane
+# ---------------------------------------------------------------------------
+
+
+def _dual_cfg():
+    """Config #5's body as ``launch_hybrid`` builds it: Llama-3-8B's widths
+    at ``HYBRID_LAYERS`` layers, ``max_seq`` the run's sequence."""
+    from parameter_server_tpu_torch.models import transformer as tfm
+
+    return dataclasses.replace(tfm.llama3_8b(), n_layers=HYBRID_LAYERS, max_seq=HYBRID_SEQ)
+
+
+def _dual_launch(cfg, steps, **kw):
+    """One ``launch_hybrid(device="cuda")`` job at config #5's shape: 1 body
+    host of one NCCL rank, ``HYBRID_SERVERS`` server processes."""
+    from parameter_server_tpu_torch.launch_hybrid import launch_hybrid
+
+    result = launch_hybrid(
+        num_body=1, num_servers=HYBRID_SERVERS, steps=steps, vocab=cfg.vocab_size,
+        layers=cfg.n_layers, heads=cfg.n_heads, kv_heads=cfg.kv_heads, d_model=cfg.d_model,
+        d_ff=cfg.d_ff, seq=HYBRID_SEQ, global_batch=HYBRID_BATCH, lr=HYBRID_LR,
+        emb_lr=DUAL_EMB_LR, seed=HYBRID_SEED, run_timeout=DUAL_TIMEOUT_S, device="cuda",
+        **kw)
+    check(result["returncodes"] == [0] * (2 + HYBRID_SERVERS) and 0 in result["losses"],
+          f"launch_hybrid {kw}: {result}")
+    losses = result["losses"][0]
+    check(len(losses) == steps and bool(np.isfinite(losses).all()),
+          f"launch_hybrid {kw} losses {losses}")
+    return result
+
+
+def _dual_fields(result, steps):
+    """A launch's numbers: losses, wire bytes and the filter chain's calls
+    of the body host, ms a step and tokens/s (the steps after the first),
+    the job's seconds, each server's kernel launches."""
+    step_s = result["step_s"][0]
+    ms = float(np.mean(step_s[1:])) * 1e3
+    return {"losses": result["losses"][0], "steps": steps,
+            "wire_sent": result["wire"][0]["sent"], "wire_recv": result["wire"][0]["recv"],
+            "encode_calls": result["filter_overhead"][0]["encode_calls"],
+            "filter_overhead": result["filter_overhead"][0],
+            "step_ms": [t * 1e3 for t in step_s], "ms_a_step": ms,
+            "tokens_per_s": HYBRID_BATCH * HYBRID_SEQ / (ms / 1e3),
+            "body_job_s": result["job_s"][0], "launch_s": result["seconds"],
+            "server_launches": {i: srv["launches"] for i, srv in result["servers"].items()},
+            "server_devices": sorted({srv["device"] for srv in result["servers"].values()})}
+
+
+def dualplane_reference(torch, dev, cfg, steps):
+    """The in-process config #5 on the card over a LoopbackVan, the launch's
+    seeds and batch stream, sgd rows at ``DUAL_EMB_LR``, BSP: its losses."""
+    from parameter_server_tpu_torch.core.postoffice import Postoffice
+    from parameter_server_tpu_torch.core.van import LoopbackVan
+    from parameter_server_tpu_torch.kv.server import KVServer
+    from parameter_server_tpu_torch.kv.worker import KVWorker
+    from parameter_server_tpu_torch.learner import hybrid
+
+    rng = np.random.default_rng(HYBRID_SEED + 1)  # launch_hybrid's body stream
+    batches = [rng.integers(0, cfg.vocab_size, size=(HYBRID_BATCH, HYBRID_SEQ)).astype(np.int32)
+               for _ in range(steps + 1)]
+    van = LoopbackVan()
+    cfgs = {"emb": hybrid.embedding_table_cfg(cfg, learning_rate=DUAL_EMB_LR, optimizer="sgd")}
+    servers = [KVServer(Postoffice(f"S{s}", van), cfgs, s, HYBRID_SERVERS, device=dev)
+               for s in range(HYBRID_SERVERS)]
+    worker = KVWorker(Postoffice("W0", van), cfgs, HYBRID_SERVERS,
+                      localizers=hybrid.embedding_localizers(cfg), device=dev)
+    tr = hybrid.HybridLMTrainer(cfg, worker, learning_rate=HYBRID_LR, max_delay=0,
+                                seed=HYBRID_SEED, device=dev)
+    try:
+        losses = [tr.step(b) for b in batches[:steps]]
+        tr.drain()
+    finally:
+        _release(van, servers, tr)
+    return losses
+
+
+def dualplane_phase(torch, scatter, dev, errs):
+    """Config #5 across processes on the card (``launch_hybrid``): run 1,
+    the main path, BSP with sgd rows over key_caching+zlib, held to the
+    in-process hybrid (run after the launch has freed the card); each
+    server child counts its own launches from 0 and must launch one
+    ``ps_gather`` and one ``ps_apply`` a step.  Run 2, SSP (AdaGrad,
+    ``max_delay`` 2, prefetch, the ``full`` filters), against its BSP twin.
+    Returns (fields, run 1's launches summed over the server children)."""
+    t_phase = time.perf_counter()
+    cfg = _dual_cfg()
+    out = {"d_model": cfg.d_model, "n_layers": cfg.n_layers, "full_depth": 32,
+           "n_heads": cfg.n_heads, "n_kv_heads": cfg.kv_heads, "d_ff": cfg.d_ff,
+           "vocab": cfg.vocab_size, "batch": HYBRID_BATCH, "seq": HYBRID_SEQ,
+           "servers": HYBRID_SERVERS, "body_hosts": 1, "ranks_a_host": 1}
+    r1 = _dual_launch(cfg, DUAL_BSP_STEPS, emb_optimizer="sgd", bsp=True,
+                      filters="key_caching+zlib")
+    run1 = _dual_fields(r1, DUAL_BSP_STEPS)
+    launches = {k: 0 for k in REPLACES}
+    for i, counts in run1["server_launches"].items():
+        check(counts["gather"] == DUAL_BSP_STEPS and counts["apply"] == DUAL_BSP_STEPS
+              and counts["scatter_set"] == 0 and counts["scatter_add"] == 0,
+              f"dualplane server {i} launches {counts} for {DUAL_BSP_STEPS} steps")
+        for k in launches:
+            launches[k] += counts[k]
+    check(run1["server_devices"] == ["cuda"] and run1["wire_sent"] > 1000
+          and run1["wire_recv"] > 1000 and run1["encode_calls"] > 0,
+          f"dualplane run 1 {run1}")
+    _free(torch)
+    ref = dualplane_reference(torch, dev, cfg, DUAL_BSP_STEPS)
+    _free(torch)
+    got, want = np.asarray(run1["losses"]), np.asarray(ref)
+    rel = float(np.max(np.abs(got - want) / np.abs(want)))
+    check(rel <= 1e-4, f"dualplane launch {run1['losses']} vs in-process {ref}")
+    run1.update(inprocess_losses=ref, max_rel_err=rel, rtol=1e-4,
+                bitwise_equal=run1["losses"] == ref, filters="key_caching+zlib",
+                emb_optimizer="sgd", consistency="bsp")
+    out["run1"] = run1
+    common = dict(emb_optimizer="adagrad", max_delay=DUAL_DELAY, filters="full")
+    ssp = _dual_fields(_dual_launch(cfg, DUAL_SSP_STEPS, bsp=False, **common), DUAL_SSP_STEPS)
+    _free(torch)
+    twin = _dual_fields(_dual_launch(cfg, DUAL_SSP_STEPS, bsp=True, **common), DUAL_SSP_STEPS)
+    gap = abs(float(np.mean(ssp["losses"])) - float(np.mean(twin["losses"])))
+    first = abs(ssp["losses"][0] - twin["losses"][0]) / abs(twin["losses"][0])
+    check(gap <= DUAL_GAP and first <= 1e-4,
+          f"dualplane SSP {ssp['losses']} vs BSP twin {twin['losses']}")
+    out["run2"] = {"ssp": ssp, "bsp_twin": twin, "mean_loss_gap": gap, "gap_bound": DUAL_GAP,
+                   "first_step_rel_err": first, "max_delay": DUAL_DELAY, **common}
+    out["launches"] = launches
+    out["phase_s"] = time.perf_counter() - t_phase
+    return out, launches
+
+
+# ---------------------------------------------------------------------------
+# phase 8q: sequence parallelism
+# ---------------------------------------------------------------------------
+
+
+def _close_to(got, want, rtol, atol):
+    """(every element within atol + rtol x |want|, the max abs error)."""
+    err = (got - want).abs()
+    return bool((err <= atol + rtol * want.abs()).all()), float(err.max())
+
+
+def _virtual_forward(ra, qb, kb, vb, i, causal=True):
+    """Virtual rank ``i``'s pass of the ring over the list of blocks, the
+    rotation replaced by indexing: (output block, logsumexp)."""
+    n, s = len(kb), qb[i].shape[1]
+    m, l, o = ra.init_carry(qb[i])  # noqa: E741
+    for r in range(n):
+        src = (i - r) % n  # ring step r holds the block of rank src
+        m, l, o = ra.forward_step(qb[i], kb[src], vb[src], i * s, src * s, m, l, o,  # noqa: E741
+                                  causal=causal)
+    return ra.finish(m, l, o)
+
+
+def seqpar_virtual_ring(torch, dev):
+    """The ring's per-step functions at Llama-3-8B's attention widths over
+    ``SEQPAR_BLOCKS`` virtual ranks in one process: the forward at
+    ``SEQPAR_FWD_SEQ`` against ``reference_attention`` (atol 2e-5), one
+    virtual rank's peak bytes against the full score matrix, and dQ / dK /
+    dV at ``SEQPAR_BWD_SEQ`` against autograd through the reference (rtol
+    1e-4 / atol 1e-5), causal."""
+    from parameter_server_tpu_torch.ops import ring_attention as ra
+
+    n, H, D = SEQPAR_BLOCKS, SEQPAR_HEADS, SEQPAR_HEAD_DIM
+    g = torch.Generator(device=dev).manual_seed(SEQPAR_SEED)
+    out = {"blocks": n, "heads": H, "head_dim": D, "batch": 1, "causal": True}
+
+    def qkv(S):
+        return [torch.randn(1, S, H, D, generator=g, device=dev) for _ in range(3)]
+
+    def blocks(x):
+        return list(x.split(x.shape[1] // n, dim=1))
+
+    # -- forward --------------------------------------------------------------
+    S = SEQPAR_FWD_SEQ
+    q, k, v = qkv(S)
+    qb, kb, vb = blocks(q), blocks(k), blocks(v)
+    _virtual_forward(ra, qb, kb, vb, n - 1)  # warm-up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ring = torch.cat([_virtual_forward(ra, qb, kb, vb, i)[0] for i in range(n)], dim=1)
+    torch.cuda.synchronize()
+    ring_ms = (time.perf_counter() - t0) * 1e3
+    ra.reference_attention(q, k, v, causal=True)  # warm-up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ref = ra.reference_attention(q, k, v, causal=True)
+    torch.cuda.synchronize()
+    ref_ms = (time.perf_counter() - t0) * 1e3
+    err = float((ring - ref).abs().max())
+    check(err <= 2e-5, f"virtual ring forward at S {S}: max abs err {err}")
+    del ring, ref
+    _free(torch)
+    # one virtual rank's temporaries: its 8 steps over resident blocks
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    o_last, lse_last = _virtual_forward(ra, qb, kb, vb, n - 1)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base
+    full = 1 * H * S * S * 4
+    check(peak * n <= full, f"one virtual rank's peak {peak} x {n} > full scores {full}")
+    del o_last, lse_last, q, k, v, qb, kb, vb
+    _free(torch)
+    out["forward"] = {"seq": S, "max_abs_err": err, "atol": 2e-5, "ring_ms": ring_ms,
+                      "reference_ms": ref_ms, "one_rank_peak_bytes": peak,
+                      "full_scores_bytes": full, "peak_x_blocks_over_full": peak * n / full,
+                      "peak_measure": "torch.cuda.max_memory_allocated less the resident "
+                                      "blocks"}
+
+    # -- backward -------------------------------------------------------------
+    S = SEQPAR_BWD_SEQ
+    q, k, v = (x.requires_grad_(True) for x in qkv(S))
+    w = torch.randn(1, S, H, D, generator=g, device=dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    (ra.reference_attention(q, k, v, causal=True) * w).sum().backward()
+    torch.cuda.synchronize()
+    ref_ms = (time.perf_counter() - t0) * 1e3
+    want = [q.grad, k.grad, v.grad]
+    with torch.no_grad():
+        qb, kb, vb, wb = blocks(q.detach()), blocks(k.detach()), blocks(v.detach()), blocks(w)
+        s = S // n
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        dq = [torch.zeros_like(x) for x in qb]
+        dk = [torch.zeros_like(x) for x in kb]
+        dv = [torch.zeros_like(x) for x in vb]
+        for i in range(n):
+            o_i, lse_i = _virtual_forward(ra, qb, kb, vb, i)
+            d_term = torch.einsum("bqhd,bqhd->bhq", wb[i], o_i)
+            for r in range(n):
+                src = (i - r) % n
+                dq[i], dk[src], dv[src] = ra.backward_step(
+                    qb[i], kb[src], vb[src], wb[i], lse_i, d_term, i * s, src * s,
+                    dq[i], dk[src], dv[src], causal=True)
+        torch.cuda.synchronize()
+        ring_ms = (time.perf_counter() - t0) * 1e3
+        got = [torch.cat(x, dim=1) for x in (dq, dk, dv)]
+    errs = {}
+    for name, a, b in zip(("dq", "dk", "dv"), got, want):
+        ok, e = _close_to(a, b, 1e-4, 1e-5)
+        check(ok, f"virtual ring {name} at S {S}: max abs err {e}")
+        errs[name] = e
+    out["backward"] = {"seq": S, "max_abs_err": errs, "rtol": 1e-4, "atol": 1e-5,
+                       "ring_fwd_bwd_ms": ring_ms, "reference_fwd_bwd_ms": ref_ms}
+    return out
+
+
+def seqpar_trainers(torch, dev):
+    """``SpLMTrainer`` (ring, Ulysses) and ``SpTpLMTrainer(fsdp="state")``
+    on world-1 NCCL meshes at Llama-3-8B width cut to ``SEQPAR_LAYERS``
+    layers, against ``SpmdLMTrainer(mesh=None)`` from the same seed on the
+    same batches: losses within rtol 2e-4; ms a step (the steps after the
+    first) and tokens/s.  At sp = 1 the ring is one block."""
+    import torch.distributed as dist
+
+    from parameter_server_tpu_torch.learner.lm import SpmdLMTrainer
+    from parameter_server_tpu_torch.models import transformer as tfm
+    from parameter_server_tpu_torch.parallel import mesh as mesh_lib
+    from parameter_server_tpu_torch.parallel.sp_fsdp import SpTpLMTrainer
+    from parameter_server_tpu_torch.parallel.sp_lm import SpLMTrainer
+
+    cfg = dataclasses.replace(tfm.llama3_8b(), n_layers=SEQPAR_LAYERS)
+    rng = np.random.default_rng(SEQPAR_SEED)
+    batches = [rng.integers(0, cfg.vocab_size, size=(SEQPAR_BATCH, SEQPAR_SEQ)).astype(np.int32)
+               for _ in range(SEQPAR_STEPS)]
+    sp = mesh_lib.make_mesh((1,), ("sp",), device="cuda")
+    sptp = mesh_lib.make_mesh((1, 1), ("sp", "model"), device="cuda")
+    check(dist.get_backend() == "nccl" and dist.get_world_size() == 1,
+          f"seqpar world {dist.get_backend()}")
+    makes = {
+        "dense": lambda: (lambda t: t.step_causal)(
+            SpmdLMTrainer(cfg, seed=SEQPAR_SEED, device=dev)),
+        "ring": lambda: SpLMTrainer(cfg, sp, seed=SEQPAR_SEED, attn="ring").step,
+        "ulysses": lambda: SpLMTrainer(cfg, sp, seed=SEQPAR_SEED, attn="ulysses").step,
+        "sptp_fsdp_state": lambda: SpTpLMTrainer(cfg, sptp, seed=SEQPAR_SEED,
+                                                 fsdp="state").step,
+    }
+    out = {"d_model": cfg.d_model, "n_layers": cfg.n_layers, "full_depth": 32,
+           "n_heads": cfg.n_heads, "n_kv_heads": cfg.kv_heads, "vocab": cfg.vocab_size,
+           "batch": SEQPAR_BATCH, "seq": SEQPAR_SEQ, "steps": SEQPAR_STEPS, "sp": 1,
+           "ring_blocks": 1, "backend": dist.get_backend()}
+    for name, make in makes.items():
+        torch.cuda.reset_peak_memory_stats()
+        step = make()
+        losses, ms = _spmd_steps(torch, lambda b: step(b), [(b,) for b in batches])
+        out[name] = {"losses": losses, "step_ms": ms, "ms_a_step": float(np.mean(ms)),
+                     "tokens_per_s": SEQPAR_BATCH * SEQPAR_SEQ / (float(np.mean(ms)) / 1e3),
+                     "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9}
+        del step
+        _free(torch)
+        check(bool(np.isfinite(losses).all()), f"seqpar {name} losses {losses}")
+    want = np.asarray(out["dense"]["losses"])
+    for name in ("ring", "ulysses", "sptp_fsdp_state"):
+        got = np.asarray(out[name]["losses"])
+        rel = float(np.max(np.abs(got - want) / np.abs(want)))
+        check(rel <= 2e-4, f"seqpar {name} {got} vs SpmdLMTrainer {want}")
+        out[name]["max_rel_err_vs_dense"] = rel
+    out["rtol"] = 2e-4
+    dist.destroy_process_group()
+    return out
+
+
+def seqpar_phase(torch, scatter, dev, errs):
+    """Sequence parallelism on the card: the virtual ring at n = 8, then the
+    SP trainers on world-1 NCCL meshes.  No scatter kernel is on this path:
+    its launches are counted (from 0) and must stay 0.  Returns (fields,
+    launches)."""
+    t_phase = time.perf_counter()
+    scatter.reset_launch_counts()
+    t0 = time.perf_counter()
+    out = {"virtual_ring": seqpar_virtual_ring(torch, dev)}
+    out["virtual_ring"]["leg_s"] = time.perf_counter() - t0
+    _free(torch)
+    t0 = time.perf_counter()
+    out["trainers"] = seqpar_trainers(torch, dev)
+    out["trainers"]["leg_s"] = time.perf_counter() - t0
+    launches = scatter.launch_counts()
+    check(all(v == 0 for v in launches.values()), f"seqpar launched {launches}")
+    out["launches"] = launches
+    out["scatter_kernels_on_path"] = "none: attention is tensor products and collectives"
     out["phase_s"] = time.perf_counter() - t_phase
     return out, launches
 

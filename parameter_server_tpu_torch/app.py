@@ -263,10 +263,12 @@ def _build_fm(cfg: AppConfig, device: torch.device) -> Callable[[], dict]:
 @register_app("llama_hybrid")
 def _build_llama_hybrid(cfg: AppConfig, device: torch.device) -> Callable[[], dict]:
     """BASELINE config #5: PS-served embedding table over the Van + the
-    transformer body on one card (``learner/hybrid.py``).  ``cfg.table.optimizer``
-    is the embedding optimizer; the vocab is ``data.key_space`` (kept tiny
-    by default so the app runs anywhere); ``consistency.max_delay`` bounds
-    in-flight embedding pushes (SSP).  Batches of 2 x 32 tokens."""
+    transformer body on a ``(world, 1)`` mesh over every rank of the world
+    (``learner/hybrid.py``; a plain process is a world of one).
+    ``cfg.table.optimizer`` is the embedding optimizer; the vocab is
+    ``data.key_space`` (kept tiny by default so the app runs anywhere);
+    ``consistency.max_delay`` bounds in-flight embedding pushes (SSP).
+    Batches of (2 x world) x 32 tokens."""
 
     def run() -> dict:
         import numpy as np
@@ -277,6 +279,7 @@ def _build_llama_hybrid(cfg: AppConfig, device: torch.device) -> Callable[[], di
         from parameter_server_tpu_torch.kv.worker import KVWorker
         from parameter_server_tpu_torch.learner import hybrid
         from parameter_server_tpu_torch.models import transformer as tfm
+        from parameter_server_tpu_torch.parallel import mesh as mesh_lib
 
         ns = cfg.topology.num_servers
         model_cfg = tfm.tiny_config(
@@ -299,12 +302,13 @@ def _build_llama_hybrid(cfg: AppConfig, device: torch.device) -> Callable[[], di
                 Postoffice("W0", van), tables, ns,
                 localizers=hybrid.embedding_localizers(model_cfg), device=device,
             )
+            world = _world_size()
             trainer = hybrid.HybridLMTrainer(
-                model_cfg, worker, max_delay=cfg.consistency.max_delay,
-                device=device,
+                model_cfg, worker, mesh=mesh_lib.make_mesh((world, 1), device=device),
+                max_delay=cfg.consistency.max_delay,
             )
             rng = np.random.default_rng(cfg.data.seed)
-            B, S = 2, 32
+            B, S = 2 * world, 32  # batch divisible by the data axis
             losses = []
             for _ in range(cfg.steps):
                 base = rng.integers(0, model_cfg.vocab_size, size=(B, 1))
@@ -318,24 +322,96 @@ def _build_llama_hybrid(cfg: AppConfig, device: torch.device) -> Callable[[], di
     return run
 
 
-def _not_ported(name: str):
-    def build(cfg: AppConfig, device: torch.device) -> Callable[[], dict]:
-        def run() -> dict:
-            raise NotImplementedError(
-                f"app {name!r} shards the sequence over a device mesh; the mesh "
-                "layer (parallel/*, ring / Ulysses attention) is ROADMAP Queue 1 "
-                "step 9, not ported yet"
-            )
+def _world_size() -> int:
+    """Ranks in the process group (1 in a process that has none)."""
+    import torch.distributed as dist
 
-        return run
-
-    return build
+    return dist.get_world_size() if dist.is_initialized() else 1
 
 
-#: the long-context LMs over a device mesh: registered, so the registry is
-#: the JAX package's, and raising when run until the mesh layer is ported
-register_app("sp_lm")(_not_ported("sp_lm"))
-register_app("sptp_lm")(_not_ported("sptp_lm"))
+def _sp_app_knobs(cfg: AppConfig, round_to: int):
+    """Shared knobs of the long-context apps (sp_lm / sptp_lm).
+
+    One source for the model config, sequence length (``data.nnz * 64``
+    rounded up to ``round_to``: nnz reused as a length knob so the app
+    config stays one schema), batch rows, and the synthetic token stream.
+    """
+    import numpy as np
+
+    from parameter_server_tpu_torch.models import transformer as tfm
+
+    model_cfg = tfm.tiny_config(
+        causal=True, tie_embeddings=False,
+        vocab_size=min(cfg.data.key_space, 1 << 16),
+        max_seq=1 << 16,
+    )
+    seq = max(cfg.data.nnz, 1) * 64
+    seq = ((seq + round_to - 1) // round_to) * round_to
+    B = max(cfg.data.batch_size // 256, 1)
+    rng = np.random.default_rng(cfg.data.seed)
+
+    def next_tokens() -> np.ndarray:
+        base = rng.integers(0, model_cfg.vocab_size, size=(B, 1))
+        return ((base + np.arange(seq)[None]) % model_cfg.vocab_size).astype(np.int32)
+
+    return model_cfg, seq, next_tokens
+
+
+@register_app("sp_lm")
+def _build_sp_lm(cfg: AppConfig, device: torch.device) -> Callable[[], dict]:
+    """Long-context causal LM: the sequence split over EVERY rank of the
+    world (``parallel/sp_lm.py``), ring attention inside the transformer.
+    The vocab is ``data.key_space`` (kept small by default); the batch is
+    ``data.batch_size // 256`` rows; sequence length per ``_sp_app_knobs``."""
+
+    def run() -> dict:
+        from parameter_server_tpu_torch.parallel import mesh as mesh_lib
+        from parameter_server_tpu_torch.parallel.sp_lm import SpLMTrainer
+
+        n = _world_size()
+        model_cfg, seq, next_tokens = _sp_app_knobs(cfg, n)
+        mesh = mesh_lib.make_mesh((n,), ("sp",), device=device)
+        trainer = SpLMTrainer(model_cfg, mesh, learning_rate=3e-3)
+        losses = [trainer.step(next_tokens()) for _ in range(cfg.steps)]
+        return {"losses": losses, "steps": cfg.steps, "seq": seq}
+
+    return run
+
+
+@register_app("sptp_lm")
+def _build_sptp_lm(cfg: AppConfig, device: torch.device) -> Callable[[], dict]:
+    """The COMPOSED long-context causal LM (``parallel/sp_fsdp.py``): ring
+    attention over an ``sp`` axis x tensor parallelism over ``model`` x
+    AdamW moments FSDP over ``sp``.  The mesh shape comes from
+    ``topology.mesh_shape`` (data, model) read as (sp, model) over every
+    rank of the world: ``None`` (unset) is every rank on sp x model 1, and
+    an explicit shape that does not factor the world raises.  Sequence
+    length as in the ``sp_lm`` app, rounded to a multiple of sp."""
+
+    def run() -> dict:
+        from parameter_server_tpu_torch.parallel import mesh as mesh_lib
+        from parameter_server_tpu_torch.parallel.sp_fsdp import SpTpLMTrainer
+
+        n = _world_size()
+        shape = None if cfg.topology.mesh_shape is None else tuple(cfg.topology.mesh_shape)
+        if shape is None:
+            sp_n, tp_n = n, 1
+        elif len(shape) == 2 and shape[0] * shape[1] == n:
+            sp_n, tp_n = shape
+        else:
+            # a silently substituted mesh would run the composed SP x TP app
+            # with no TP at all: fail the misconfiguration loudly
+            raise ValueError(f"topology.mesh_shape {shape} does not factor the {n} "
+                             "ranks of the world into (sp, model)")
+        model_cfg, seq, next_tokens = _sp_app_knobs(cfg, sp_n)
+        mesh = mesh_lib.make_mesh((sp_n, tp_n), ("sp", "model"), device=device)
+        trainer = SpTpLMTrainer(model_cfg, mesh, learning_rate=3e-3, fsdp="state",
+                                loss_chunk=max(seq // (4 * sp_n), 8))
+        losses = [trainer.step(next_tokens()) for _ in range(cfg.steps)]
+        return {"losses": losses, "steps": cfg.steps, "seq": seq,
+                "mesh": {"sp": sp_n, "model": tp_n}}
+
+    return run
 
 
 @register_app("async_lr")

@@ -15,12 +15,15 @@ subcommands.  Reference analogue: ``script/local.sh`` + the gflags
     python -m parameter_server_tpu_torch.cli launch-spmd --device cpu \
         --num-procs 2 --cpu-devices 4
 
-``run``, ``launch`` and ``launch-spmd`` take ``--device`` (default ``cuda``):
-the app, the launched cluster or the SPMD job runs on the card unless
-``--device cpu`` asks for the CPU (for ``launch-spmd``, ``--cpu-devices k``
-gloo ranks a host).  ``eval`` and ``serve`` are host work.  ``launch-hybrid``
-parses as in the JAX package and raises: the dual-plane launcher is not
-ported yet.
+    python -m parameter_server_tpu_torch.cli launch-hybrid
+    python -m parameter_server_tpu_torch.cli launch-hybrid --device cpu \
+        --num-body 2 --cpu-devices 4
+
+``run``, ``launch``, ``launch-spmd`` and ``launch-hybrid`` take ``--device``
+(default ``cuda``): the app, the launched cluster or the job runs on the
+card unless ``--device cpu`` asks for the CPU (for the two mesh launchers,
+``--cpu-devices k`` gloo ranks a host; on the card one host of every card).
+``eval`` and ``serve`` are host work.
 """
 
 from __future__ import annotations
@@ -211,11 +214,15 @@ def build_parser() -> argparse.ArgumentParser:
 
     hy = sub.add_parser(
         "launch-hybrid",
-        help="dual-plane config #5 over processes and a device mesh "
-        "(not ported: raises)",
+        help="dual-plane config #5: TcpVan embedding servers in their own "
+        "processes + a body on a (data, model) mesh across processes (CPU "
+        "simulation with --device cpu)",
     )
-    hy.add_argument("--num-body", type=int, default=2)
-    hy.add_argument("--cpu-devices", type=int, default=4)
+    hy.add_argument("--num-body", type=int, default=None,
+                    help="body hosts (default 2 with --device cpu; on the card one "
+                    "host of every card)")
+    hy.add_argument("--cpu-devices", type=int, default=4,
+                    help="gloo ranks a body host with --device cpu")
     hy.add_argument("--num-servers", type=int, default=2)
     hy.add_argument("--steps", type=int, default=4)
     hy.add_argument("--vocab", type=int, default=256)
@@ -229,15 +236,33 @@ def build_parser() -> argparse.ArgumentParser:
     hy.add_argument("--bsp", action=argparse.BooleanOptionalAction, default=True)
     hy.add_argument("--max-delay", type=int, default=2)
     hy.add_argument("--filters", default=DEFAULT_SPEC)
-    hy.set_defaults(fn=_not_ported)
+    _device_flag(hy)
+    hy.set_defaults(fn=_cmd_launch_hybrid)
     return p
 
 
-def _not_ported(args: argparse.Namespace) -> int:
-    raise NotImplementedError(
-        f"psx {args.cmd}: the dual-plane launcher (launch_hybrid.py) is ROADMAP "
-        "Queue 1 step 9, not ported yet"
+def _cmd_launch_hybrid(args: argparse.Namespace) -> int:
+    from parameter_server_tpu_torch.launch_hybrid import launch_hybrid
+
+    result = launch_hybrid(
+        num_body=args.num_body or (1 if args.device == "cuda" else 2),
+        cpu_devices=args.cpu_devices,
+        num_servers=args.num_servers,
+        steps=args.steps,
+        vocab=args.vocab, layers=args.layers, heads=args.heads,
+        d_model=args.d_model, d_ff=args.d_ff, seq=args.seq,
+        global_batch=args.global_batch,
+        emb_optimizer=args.emb_optimizer,
+        bsp=args.bsp, max_delay=args.max_delay,
+        filters=args.filters,
+        device=args.device,
     )
+    print(json.dumps({
+        "returncodes": result["returncodes"],
+        "losses": result["losses"].get(0, []),
+        "wire": result["wire"],
+    }))
+    return 0 if all(rc == 0 for rc in result["returncodes"]) else 1
 
 
 def _cmd_launch_spmd(args: argparse.Namespace) -> int:

@@ -55,8 +55,8 @@ class TopologyConfig:
     ``num_workers`` workers and ``num_servers`` table shards.
 
     ``mesh_shape`` / ``mesh_axis_names`` keep the JAX schema's mesh fields
-    (data, model) so one config file serves both packages; the port's apps
-    that would read them (the sequence-parallel LMs) are not ported yet.
+    (data, model) so one config file serves both packages; ``sptp_lm`` reads
+    ``mesh_shape`` as (sp, model) over every rank of the world.
     """
 
     num_workers: int = 1

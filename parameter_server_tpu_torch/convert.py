@@ -146,3 +146,24 @@ def transformer_from_numpy(module, params) -> None:
     for q / k / v and ``[H, D, d]`` for ``o``, ``Dense`` kernels ``[in,
     out]``, a LayerNorm's leaves under ``LayerNorm_0``."""
     _copy_tree(dict(module.named_parameters()), params, "transformer params")
+
+
+def placed_from_numpy(trainer, params) -> None:
+    """Install a flax transformer's ``params`` tree into a trainer that
+    holds its parameters placed on a mesh (``trainer.params``: dotted name
+    -> DTensor; ``SpmdLMTrainer`` / ``HybridLMTrainer`` on a mesh,
+    ``SpTpLMTrainer``).  Every rank gives the whole tree and keeps its own
+    shards; the optimizer's state starts again, as a fresh JAX trainer's."""
+    from torch.distributed.tensor import distribute_tensor
+
+    placed = trainer.params
+    full = {n: torch.empty(tuple(p.shape)) for n, p in placed.items()}
+    _copy_tree(full, params, "placed params")
+    with torch.no_grad():
+        for n, p in placed.items():
+            local = p.to_local()
+            p.copy_(distribute_tensor(full[n].to(local.device), p.device_mesh, p.placements))
+    trainer.optimizer.state.clear()
+    reslice = getattr(trainer, "reslice", None)
+    if reslice is not None:
+        reslice()

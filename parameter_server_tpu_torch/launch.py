@@ -63,6 +63,7 @@ def _build_cluster(args, role_port: int, setup=None):
     KVServer customer first, because the moment the table broadcast lands,
     workers may start sending Push/Pull at them.
     """
+    from parameter_server_tpu_torch.config import TransportConfig
     from parameter_server_tpu_torch.core.filters import make_chain
     from parameter_server_tpu_torch.core.manager import Manager
     from parameter_server_tpu_torch.core.postoffice import Postoffice
@@ -71,6 +72,8 @@ def _build_cluster(args, role_port: int, setup=None):
     van = TcpVan(
         port=role_port,
         filter_chain=make_chain(getattr(args, "filters", "none")),
+        # ``shm`` False keeps colocated links on TCP (launch_hybrid's wide rows)
+        transport=TransportConfig(shm=getattr(args, "shm", True)),
     )
     if args.node_id != "H":
         van.add_route("H", ("127.0.0.1", args.scheduler_port))

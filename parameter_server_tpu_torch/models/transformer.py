@@ -34,9 +34,14 @@ What it keeps of flax, so one set of weights gives the same function:
   (``torch.utils.checkpoint``); ``chunked_causal_lm_loss`` checkpoints each
   chunk, so only one ``[B, chunk, vocab]`` slab is live.
 
-The sequence-parallel attention modes (``attn_impl`` ``"ring"``,
-``"ulysses"``, ``"ring_spmd"``) are collective code the port does not have
-yet (ROADMAP Queue 1 step 9): they raise ``NotImplementedError``.
+- **Sequence parallelism.**  ``attn_impl`` ``"ring"`` and ``"ring_spmd"``
+  (``ops/ring_attention.py``; one op here, since every layer runs on local
+  blocks) and ``"ulysses"`` (``ops/ulysses.py``) run the
+  model on this rank's block of the sequence, the attention exchanging K/V
+  or heads over the ``sp_axis`` line of ``spmd_mesh`` (torch has no ambient
+  ``shard_map`` axis, so every mode reads its group from the config's mesh).
+  The caller passes the block's global ``positions`` to ``trunk``.  No
+  padding mask there.
 """
 
 from __future__ import annotations
@@ -52,7 +57,7 @@ from torch.utils.checkpoint import checkpoint
 
 from parameter_server_tpu_torch.models.layers import lecun_normal_
 
-#: attention modes that need the sequence-parallel collectives
+#: attention modes that split the sequence over ``spmd_mesh``'s ``sp_axis``
 SEQ_PARALLEL_IMPLS = ("ring", "ulysses", "ring_spmd")
 #: flax's LayerNorm and this file's RMS norm epsilon
 NORM_EPS = 1e-6
@@ -82,7 +87,8 @@ class TransformerConfig:
     #: keep the blocks as one stacked tree under ``blocks.block`` (leading
     #: layer axis), the layout of the JAX package's ``nn.scan``
     scan_blocks: bool = False
-    #: "dense", or a sequence-parallel mode (not ported: raises)
+    #: "dense", or a sequence-parallel mode (SEQ_PARALLEL_IMPLS) over
+    #: ``spmd_mesh``'s ``sp_axis``
     attn_impl: str = "dense"
     sp_axis: str = "sp"
     spmd_mesh: Any = None
@@ -189,12 +195,6 @@ def _norm(cfg: TransformerConfig, w: Dict[str, torch.Tensor], x: torch.Tensor) -
 
 def _attention(cfg: TransformerConfig, w: Dict[str, torch.Tensor], x: torch.Tensor,
                positions: torch.Tensor, attn_mask: Optional[torch.Tensor]) -> torch.Tensor:
-    if cfg.attn_impl in SEQ_PARALLEL_IMPLS:
-        raise NotImplementedError(
-            f"attn_impl={cfg.attn_impl!r} needs the sequence-parallel collectives "
-            "(ops/ring_attention.py, ops/ulysses.py), which the port has not ported "
-            "yet: ROADMAP Queue 1 step 9"
-        )
     B, S, _ = x.shape
     H, KV, D = cfg.n_heads, cfg.kv_heads, cfg.head_dim
     q = _dense(cfg, _sub(w, "q"), x, 1)  # [B, S, H, D]
@@ -207,6 +207,12 @@ def _attention(cfg: TransformerConfig, w: Dict[str, torch.Tensor], x: torch.Tens
         rep = H // KV
         k = k[:, :, :, None, :].expand(B, S, KV, rep, D).reshape(B, S, H, D)
         v = v[:, :, :, None, :].expand(B, S, KV, rep, D).reshape(B, S, H, D)
+    if cfg.attn_impl in SEQ_PARALLEL_IMPLS:
+        if attn_mask is not None:
+            raise ValueError("sequence-parallel attention does not support attn_mask "
+                             "(padding masks are a dense-impl feature)")
+        out = _seq_parallel_attention(cfg, q, k, v).to(cfg.dtype)
+        return _dense(cfg, _sub(w, "o"), out, 2)
     scores = torch.einsum("bshd,bthd->bhst", q, k).to(torch.float32) / math.sqrt(D)
     if cfg.causal:
         causal = torch.tril(torch.ones((S, S), dtype=torch.bool, device=x.device))
@@ -216,6 +222,22 @@ def _attention(cfg: TransformerConfig, w: Dict[str, torch.Tensor], x: torch.Tens
     probs = torch.softmax(scores, dim=-1).to(cfg.dtype)
     out = torch.einsum("bhst,bthd->bshd", probs, v.to(cfg.dtype)).to(cfg.dtype)
     return _dense(cfg, _sub(w, "o"), out, 2)
+
+
+def _seq_parallel_attention(cfg: TransformerConfig, q, k, v) -> torch.Tensor:
+    """Attention of this rank's sequence block over ``cfg.spmd_mesh``'s
+    ``sp_axis`` line."""
+    from parameter_server_tpu_torch.ops import ring_attention, ulysses
+
+    mesh = cfg.spmd_mesh
+    if mesh is None:
+        raise ValueError(f"attn_impl={cfg.attn_impl!r} needs cfg.spmd_mesh (the mesh "
+                         "whose sp_axis the sequence is split over)")
+    if cfg.attn_impl == "ulysses":
+        return ulysses.ulysses_attention(q, k, v, group=ring_attention.sp_group(
+            mesh, cfg.sp_axis), causal=cfg.causal)
+    return ring_attention.ring_attention_spmd(q, k, v, mesh=mesh, sp_axis=cfg.sp_axis,
+                                              causal=cfg.causal)
 
 
 def _mlp(cfg: TransformerConfig, w: Dict[str, torch.Tensor], x: torch.Tensor) -> torch.Tensor:

@@ -5,10 +5,12 @@ Twins of ``tests/test_app.py``: config loading (yaml and json), unknown
 apps and fields, duplicate registration, ``async_lr`` with checkpoints,
 ``psx run`` / ``apps`` / ``eval``, and file-driven training from a local
 glob and from ``psfs://`` (losses rtol 1e-6 between the two, as there).  The
-two long-context apps stay registered and raise naming ROADMAP step 9.  The
 registry and the CLI's subcommands are the JAX package's; ``sparse_lr``
 from a config gives the JAX app's losses on the same data (rtol 1e-5), and
-``fm`` and ``llama_hybrid`` run from configs.
+``fm`` and ``llama_hybrid`` run from configs.  The two long-context apps run
+from a config in this process (a world of one rank: sp 1) and give the JAX
+apps' losses (8 virtual devices on sp) at 1e-4 from the JAX trainers'
+initial weights; ``psx launch-hybrid --device cpu`` runs 2 hosts.
 """
 
 import argparse
@@ -225,19 +227,53 @@ def test_batch_fn_globs_and_literal_names(tmp_path):
 
 
 @pytest.mark.parametrize("name", ["sp_lm", "sptp_lm"])
-def test_long_context_apps_raise_naming_step_9(name):
-    """The sequence-parallel LMs are registered (the registry is the JAX
-    package's) and raise, naming ROADMAP step 9, when run."""
-    cfg = app_lib.AppConfig(
-        app=name,
-        table=TableConfig(name="emb", rows=256, dim=1, optimizer=OptimizerConfig(kind="adagrad")),
-        data=app_lib.DataConfig(kind="synthetic", key_space=256, nnz=2, batch_size=512),
-        topology=TopologyConfig(mesh_shape=(4, 2)) if name == "sptp_lm" else TopologyConfig(),
-        steps=2,
-    )
-    run = app_lib.create(cfg, device=CPU)
-    with pytest.raises(NotImplementedError, match="step 9"):
-        run()
+def test_long_context_apps_raise_naming_step_9(name, monkeypatch):
+    """The sequence-parallel LMs run from their config: the port's trainer,
+    started from the JAX app trainer's initial weights (seed 0, the dense
+    twin's init), gives the JAX app's losses at 1e-4 on the same stream;
+    the knobs (``seq``, the mesh) are the JAX app's where the world allows
+    (sp is the world's size: 1 here, 8 virtual devices there)."""
+    import dataclasses
+
+    import jax
+    import jax.numpy as jnp
+
+    from parameter_server_tpu.models import transformer as jtfm
+    from parameter_server_tpu_torch.convert import placed_from_numpy, transformer_from_numpy
+    from parameter_server_tpu_torch.parallel import sp_fsdp, sp_lm
+
+    def cfg_of(pkg):
+        return pkg.AppConfig(
+            app=name,
+            table=pkg.TableConfig(name="emb", rows=256, dim=1,
+                                  optimizer=pkg.OptimizerConfig(kind="adagrad")),
+            data=pkg.DataConfig(kind="synthetic", key_space=256, nnz=1, batch_size=512),
+            steps=2,
+        )
+
+    jcfg = cfg_of(japp)
+    model_cfg, seq, _ = japp._sp_app_knobs(jcfg, 8)
+    params = jax.tree.map(np.asarray, jtfm.Transformer(
+        dataclasses.replace(model_cfg, attn_impl="dense")).init(
+        jax.random.PRNGKey(0), jnp.zeros((1, 8), jnp.int32))["params"])
+    module, cls = (sp_lm, "SpLMTrainer") if name == "sp_lm" else (sp_fsdp, "SpTpLMTrainer")
+    base = getattr(module, cls)
+
+    class FromJax(base):
+        def __init__(self, *a, **kw):
+            super().__init__(*a, **kw)
+            if name == "sp_lm":
+                transformer_from_numpy(self.model, params)
+            else:
+                placed_from_numpy(self, params)
+
+    monkeypatch.setattr(module, cls, FromJax)
+    ours = app_lib.create(cfg_of(app_lib), device=CPU)()
+    theirs = japp.create(jcfg)()
+    assert ours["seq"] == theirs["seq"] == seq and ours["steps"] == 2
+    if name == "sptp_lm":
+        assert ours["mesh"] == {"sp": 1, "model": 1}
+    np.testing.assert_allclose(ours["losses"], theirs["losses"], rtol=1e-4)
 
 
 def test_llama_hybrid_app_runs_from_config():
@@ -269,8 +305,10 @@ def test_cli_subcommands_equal_the_jax_ones():
         want = {s for a in sub._actions for s in a.option_strings}
         got = {s for a in ours[name]._actions for s in a.option_strings}
         assert want <= got, (name, want - got)
-    with pytest.raises(NotImplementedError, match="step 9"):
-        cli.main(["launch-hybrid", "--no-bsp"])
+    # psx launch-hybrid runs: 2 hosts of 2 gloo ranks, SSP
+    rc = cli.main(["launch-hybrid", "--no-bsp", "--device", "cpu", "--num-body", "2",
+                   "--cpu-devices", "2", "--steps", "2"])
+    assert rc == 0
 
 
 def test_cli_launch_spmd_runs_two_hosts_on_the_cpu(capsys):
@@ -314,6 +352,6 @@ def test_entry_points_default_to_the_card():
                 and c.args and getattr(c.args[0], "value", None) == "--device"
                 for k in c.keywords if k.arg == "default"]
     assert defaults == ["cuda"]
-    for sub in ("run", "launch", "launch-spmd"):
+    for sub in ("run", "launch", "launch-spmd", "launch-hybrid"):
         ns = cli.build_parser().parse_args([sub] + (["x.json"] if sub == "run" else []))
         assert ns.device == "cuda"

@@ -2,14 +2,17 @@
 package's, on the CPU: PS-served embeddings over real KVWorker / KVServer
 traffic, a dense body trained on one device.
 
-Twins of ``tests/test_hybrid.py``'s cases that need no mesh of several
-devices (``test_hybrid_body_step_contains_allreduce`` and the dual-plane
-file wait for the port's ``parallel/``), the hybrid half of
+Twins of ``tests/test_hybrid.py``'s cases, the hybrid half of
 ``test_lm_scale_knobs.py``'s chunked-loss case, and the cross-package
 checks: 4 steps from the JAX trainer's body weights and the JAX servers'
 table rows (losses ``rtol=1e-4, atol=1e-4``, tables ``rtol=1e-5,
 atol=1e-5``), and a JAX-written checkpoint resumed by the port (losses
-``rtol=1e-4, atol=1e-4``).
+``rtol=1e-4, atol=1e-4``).  The mesh cases run the trainer on an 8-rank
+gloo world (``tests/torch_world.py``), each data line's Van rank over its
+own LoopbackVan cluster with the same seeded tables (the dual-plane file
+shares one cluster over sockets): the multi-process branch pushes once a
+data line, and the body's gradients are all-reduced over ``data`` in each
+step; the first step's loss equals one device's (rtol 1e-5).
 """
 
 import io
@@ -40,6 +43,8 @@ from parameter_server_tpu_torch.models.layers import flat_items, params_tree
 from parameter_server_tpu_torch.utils import metrics as metrics_lib
 from parameter_server_tpu_torch.utils.keys import PAD_KEY, IdentityLocalizer
 from parameter_server_tpu_torch.utils.trace import Tracer
+
+import torch_world
 
 NUM_SERVERS = 2
 TRAJ = dict(rtol=1e-4, atol=1e-4)
@@ -72,6 +77,13 @@ def _hybrid_cluster(van, cfg, *, device_replies=False, lr=0.1):
     worker = KVWorker(Postoffice("W0", van), table_cfgs, NUM_SERVERS,
                       localizers=hybrid.embedding_localizers(cfg), device="cpu")
     return servers, worker
+
+
+@pytest.fixture(scope="module")
+def world():
+    w = torch_world.World(8)
+    yield w
+    w.close()
 
 
 @pytest.fixture
@@ -365,12 +377,74 @@ def test_a_deviating_batch_drains_the_prefetch_and_repulls(cluster):
     assert worker.pending_count() == 0
 
 
-def test_multi_process_branch_raises(cluster, monkeypatch):
-    cfg, _van, _servers, worker = cluster
-    tr = _trainer(cfg, worker)
-    monkeypatch.setattr(hybrid, "_multi_process", lambda: True)
-    with pytest.raises(NotImplementedError, match="step 9"):
-        tr.step(_tokens(cfg, np.random.default_rng(0)))
+def _one_device_losses(cfg, batches, emb_optimizer):
+    van = LoopbackVan()
+    cfgs = {"emb": hybrid.embedding_table_cfg(cfg, optimizer=emb_optimizer)}
+    servers = [KVServer(Postoffice(f"S{s}", van), cfgs, s, NUM_SERVERS, device="cpu")
+               for s in range(NUM_SERVERS)]
+    worker = KVWorker(Postoffice("W0", van), cfgs, NUM_SERVERS,
+                      localizers=hybrid.embedding_localizers(cfg), device="cpu")
+    try:
+        tr = _trainer(cfg, worker, seed=1)
+        losses = [tr.step(b) for b in batches]
+        tr.drain()
+        return losses
+    finally:
+        _close(van, servers)
+
+
+def test_multi_process_branch_raises(world):
+    """The multi-process branch on a mesh pushes once a data line: on a
+    (1, 8) mesh only rank 0 holds a worker and each step sends one push
+    request a server, and the run equals one device's step for step (one
+    table); on a (2, 4) mesh ranks 0 and 4 push, once each a step."""
+    cfg_kw = dict(causal=True, tie_embeddings=False)
+    cfg = tfm.tiny_config(**cfg_kw)
+    rng = np.random.default_rng(0)
+    batches = [rng.integers(0, cfg.vocab_size, size=(8, 16)).astype(np.int32)
+               for _ in range(3)]
+    want = _one_device_losses(cfg, batches, "sgd")
+    res = world.run(torch_world.hybrid_mesh_run, (1, 8), cfg_kw, batches, "sgd", dict(seed=1))
+    assert [r[3] for r in res] == [True] + [False] * 7
+    assert [r[2] for r in res] == [NUM_SERVERS * len(batches)] + [None] * 7
+    for r in res:
+        np.testing.assert_allclose(r[0], want, rtol=1e-5, atol=1e-6)
+    res = world.run(torch_world.hybrid_mesh_run, (2, 4), cfg_kw, batches[:1], "sgd",
+                    dict(seed=1))
+    assert [r[2] for r in res] == [NUM_SERVERS, None, None, None] * 2
+
+
+def test_mesh_checkpoint_resume_continues_exactly(world, tmp_path):
+    """``save`` / ``restore`` on a (1, 8) mesh: every rank gathers the
+    placed parameters and moments, rank 0 writes the table shards and the
+    body npz between barriers, and a fresh trainer (another seed) restored
+    from them takes the next steps as the saving run did."""
+    cfg_kw = dict(causal=True, tie_embeddings=False)
+    cfg = tfm.tiny_config(**cfg_kw)
+    rng = np.random.default_rng(7)
+    batches = [_tokens(cfg, rng) for _ in range(5)]
+    res = world.run(torch_world.hybrid_mesh_ckpt, (1, 8), cfg_kw, batches,
+                    str(tmp_path / "ckpt"), 3)
+    for ref, tail in res:
+        np.testing.assert_allclose(tail, ref, rtol=1e-6)
+    assert (tmp_path / "ckpt" / "hybrid_body_000003.npz").exists()
+
+
+def test_hybrid_body_step_contains_allreduce(world):
+    """The dense half is synchronous data parallelism: on a (2, 4) mesh
+    each step all-reduces every body gradient (and the loss) over ``data``
+    with ``Mesh.all_reduce``, and the first step's global loss equals one
+    device's on the whole batch."""
+    cfg_kw = dict(causal=True, tie_embeddings=False)
+    cfg = tfm.tiny_config(**cfg_kw)
+    batch = np.random.default_rng(1).integers(0, cfg.vocab_size, size=(8, 16)).astype(np.int32)
+    want = _one_device_losses(cfg, [batch], "adagrad")
+    n_params = len(list(tfm.TransformerBody(cfg, device="cpu").parameters()))
+    res = world.run(torch_world.hybrid_mesh_run, (2, 4), cfg_kw, [batch], "adagrad",
+                    dict(seed=1))
+    for losses, per_step, _pushes, _van in res:
+        assert per_step[0].get("data") == n_params + 1, per_step
+        np.testing.assert_allclose(losses, want, rtol=1e-5, atol=1e-6)
 
 
 # -- against the JAX trainer ----------------------------------------------------------

@@ -94,6 +94,7 @@ from parameter_server_tpu_torch.learner.elastic import ElasticTrainer, restart_s
 from parameter_server_tpu_torch.learner.fm import LocalFMTrainer
 from parameter_server_tpu_torch.learner.sgd import AsyncLRLearner, LocalLRTrainer
 from parameter_server_tpu_torch.launch import launch
+from parameter_server_tpu_torch.launch_hybrid import launch_hybrid
 from parameter_server_tpu_torch.launch_spmd import launch_spmd, run_job
 from parameter_server_tpu_torch.models.dlrm import SpmdDLRMTrainer
 from parameter_server_tpu_torch.models.transformer import (
@@ -104,6 +105,8 @@ from parameter_server_tpu_torch.models.transformer import (
 from parameter_server_tpu_torch.parallel import dlrm_scale
 from parameter_server_tpu_torch.parallel.distributed import initialize
 from parameter_server_tpu_torch.parallel.mesh import make_mesh
+from parameter_server_tpu_torch.parallel.sp_fsdp import SpTpLMTrainer
+from parameter_server_tpu_torch.parallel.sp_lm import SpLMTrainer
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 PORT = ROOT / "parameter_server_tpu_torch"
@@ -167,6 +170,11 @@ MESH_LAYER = ("utils/platform.py", "parallel/mesh.py", "parallel/distributed.py"
               "parallel/tp.py", "parallel/lr_spmd.py", "launch_spmd.py")
 
 
+#: config #5 across processes and sequence parallelism, held by name too
+DUAL_PLANE_AND_SEQ_PARALLEL = ("launch_hybrid.py", "ops/ring_attention.py", "ops/ulysses.py",
+                               "parallel/sp_lm.py", "parallel/sp_fsdp.py")
+
+
 def test_the_import_scan_sees_every_module():
     assert len(SOURCES) >= 25
     scanned = {str(p.relative_to(PORT)) for p in SOURCES if PORT in p.parents}
@@ -176,6 +184,7 @@ def test_the_import_scan_sees_every_module():
     assert set(TRANSFORMER_WORKLOADS) <= scanned
     assert set(FM_BCD_DATA_APP) <= scanned
     assert set(MESH_LAYER) <= scanned
+    assert set(DUAL_PLANE_AND_SEQ_PARALLEL) <= scanned
     assert {str(p.relative_to(PORT)) for p in (PORT / "learner").glob("*.py")} <= scanned
     assert _forbidden("jax.numpy") and _forbidden("parameter_server_tpu.kv.table")
     assert not _forbidden("parameter_server_tpu_torch.kv.table")
@@ -572,7 +581,8 @@ def test_the_dense_sync_scan_catches_a_readback(src, want):
                                    SpmdLMTrainer, HybridLMTrainer, Transformer,
                                    TransformerBody, TransformerTrunk, LocalFMTrainer,
                                    DarlinServer, DarlinWorker, create, make_mesh,
-                                   initialize, launch_spmd, run_job],
+                                   initialize, launch_spmd, run_job, launch_hybrid,
+                                   SpLMTrainer, SpTpLMTrainer],
                          ids=lambda c: c.__name__)
 def test_entry_points_default_to_the_card(entry):
     fn = entry.__init__ if inspect.isclass(entry) else entry
@@ -634,17 +644,33 @@ def test_launch_spmd_ranks_default_to_the_card():
     assert '"--device", device' in inspect.getsource(mod.launch_spmd)
 
 
+def _device_flag_default(fn):
+    tree = ast.parse(inspect.getsource(fn))
+    flags = {c.args[0].value: {k.arg: getattr(k.value, "value", None) for k in c.keywords}
+             for c in ast.walk(tree) if isinstance(c, ast.Call)
+             and getattr(c.func, "attr", None) == "add_argument"}
+    return flags["--device"]["default"]
+
+
 def test_launch_children_default_to_the_card():
     """``python -m parameter_server_tpu_torch.launch`` roles run on the card
     unless ``--device`` says otherwise, and ``launch()`` passes its own."""
     from parameter_server_tpu_torch import launch as launch_mod
 
-    tree = ast.parse(inspect.getsource(launch_mod.main))
-    flags = {c.args[0].value: {k.arg: getattr(k.value, "value", None) for k in c.keywords}
-             for c in ast.walk(tree) if isinstance(c, ast.Call)
-             and getattr(c.func, "attr", None) == "add_argument"}
-    assert flags["--device"]["default"] == "cuda"
+    assert _device_flag_default(launch_mod.main) == "cuda"
     assert '"--device", device' in inspect.getsource(launch_mod.launch)
+
+
+def test_launch_hybrid_children_default_to_the_card():
+    """``launch_hybrid``'s servers and body ranks run on the card unless
+    ``--device`` says otherwise, ``launch_hybrid()`` passes its own, and the
+    servers build their tables on it."""
+    from parameter_server_tpu_torch import launch_hybrid as mod
+
+    assert _device_flag_default(mod.main) == "cuda"
+    assert '"--device", device' in inspect.getsource(mod.launch_hybrid)
+    assert "device=args.device" in inspect.getsource(mod.run_server)
+    assert "device=args.device" in inspect.getsource(mod.run_body)
 
 
 def test_server_builds_a_ledger_by_default():

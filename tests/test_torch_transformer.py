@@ -318,10 +318,31 @@ def test_make_mlm_batch_is_the_jax_draw():
 
 @pytest.mark.parametrize("impl", tfm.SEQ_PARALLEL_IMPLS)
 def test_sequence_parallel_attention_raises(impl):
-    cfg = tfm.tiny_config(causal=True, attn_impl=impl)
-    model = tfm.Transformer(cfg, device="cpu")
-    with pytest.raises(NotImplementedError, match="step 9"):
-        model(torch.zeros((1, 8), dtype=torch.long))
+    """Each sequence-parallel ``attn_impl`` on an ``("sp",)`` mesh of one
+    rank (a world-1 gloo group in this process) is a ring of one block: the
+    logits and the input embeddings' gradient equal the dense model's from
+    the same weights (1e-5); it needs the mesh and refuses a padding mask."""
+    from parameter_server_tpu_torch.parallel import mesh as mesh_lib
+
+    mesh = mesh_lib.make_mesh((1,), ("sp",), device="cpu")
+    dense = tfm.Transformer(tfm.tiny_config(causal=True), device="cpu")
+    sp = tfm.Transformer(tfm.tiny_config(causal=True, attn_impl=impl, spmd_mesh=mesh),
+                         device="cpu")
+    sp.load_state_dict(dense.state_dict())
+    tokens = torch.as_tensor(np.random.default_rng(9).integers(0, 256, size=(2, 16)))
+    outs = []
+    for model in (dense, sp):
+        x = model.embedding[tokens].detach().requires_grad_(True)
+        logits = tfm._lm_head(model.cfg, model.lm_head, model.trunk(x))
+        logits.square().mean().backward()
+        outs.append((logits.detach().numpy(), x.grad.numpy()))
+    np.testing.assert_allclose(outs[1][0], outs[0][0], atol=1e-5)
+    np.testing.assert_allclose(outs[1][1], outs[0][1], atol=1e-5)
+    with pytest.raises(ValueError, match="attn_mask"):
+        sp.trunk(torch.zeros((1, 8, 64)), attn_mask=torch.ones((1, 8), dtype=torch.bool))
+    no_mesh = tfm.Transformer(tfm.tiny_config(causal=True, attn_impl=impl), device="cpu")
+    with pytest.raises(ValueError, match="spmd_mesh"):
+        no_mesh(torch.zeros((1, 8), dtype=torch.long))
 
 
 def test_learned_positions_refuse_a_long_sequence():

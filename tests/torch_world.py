@@ -141,11 +141,12 @@ def m_lib():
 
 
 @functools.lru_cache(maxsize=None)
-def mesh(shape):
-    """One mesh per shape for the life of the rank (its groups are reused)."""
+def mesh(shape, axes=("data", "model")):
+    """One mesh per shape and axes for the life of the rank (its groups are
+    reused)."""
     from parameter_server_tpu_torch.parallel import mesh as mesh_lib
 
-    return mesh_lib.make_mesh(shape, device="cpu")
+    return mesh_lib.make_mesh(shape, axes, device="cpu")
 
 
 def mesh_shape(shape):
@@ -410,3 +411,316 @@ def lr_from_state(shape, rows, value, sum_sq, steps_batches):
     trainer_from_numpy(tr, value, {"sum_sq": sum_sq}, zero, {"sum_sq": zero})
     losses = [tr.step(k, y) for k, y in steps_batches]
     return losses, tr.full_state()["value"]
+
+
+# -- sequence parallelism ------------------------------------------------------
+
+
+def sp_attention(n, kind, causal, q, k, v, w):
+    """This rank's output block of ring (or Ulysses) attention over an
+    ``("sp",)`` mesh of ``n`` ranks (the whole ``q`` / ``k`` / ``v`` given to
+    every rank), and, for the ring, the gradients of ``sum(out * w)`` with
+    respect to the whole tensors (non-zero on this rank's share)."""
+    import torch
+
+    from parameter_server_tpu_torch.ops import ring_attention as ra
+    from parameter_server_tpu_torch.ops import ulysses
+
+    m = mesh((n,), ("sp",))
+    make = ra.make_ring_attention if kind == "ring" else ulysses.make_ulysses_attention
+    ts = [torch.from_numpy(x).requires_grad_(True) for x in (q, k, v)]
+    out = make(m, sp_axis="sp", causal=causal)(*ts)
+    if w is None:
+        return out.detach().numpy(), None
+    (out * ra.local_block(torch.from_numpy(w), m, "sp")).sum().backward()
+    return out.detach().numpy(), [t.grad.numpy() for t in ts]
+
+
+def _saved_bytes(fn):
+    """``fn()``'s result and the bytes of the distinct storages autograd
+    saved for the backward while it ran."""
+    import torch
+
+    seen = {}
+
+    def pack(t):
+        st = t.untyped_storage()
+        seen[(t.device, st.data_ptr())] = st.nbytes()
+        return t
+
+    with torch.autograd.graph.saved_tensors_hooks(pack, lambda t: t):
+        out = fn()
+    return out, sum(seen.values())
+
+
+def sp_ring_memory(n, shape, causal):
+    """Per-rank bytes of ring attention at ``shape`` ``[B, S, H, D]`` over
+    ``n`` ranks: what autograd saves for the backward (one call), the peak
+    of the forward's temporaries (``torch.profiler`` memory events), and the
+    peak of the backward's temporaries."""
+    import torch
+
+    from parameter_server_tpu_torch.ops import ring_attention as ra
+
+    m = mesh((n,), ("sp",))
+    B, S, H, D = shape
+    g = torch.Generator().manual_seed(m.index("sp"))
+    q, k, v = (torch.randn(B, S // n, H, D, generator=g).requires_grad_(True)
+               for _ in range(3))
+    out, saved = _saved_bytes(lambda: ra.ring_attention_spmd(q, k, v, mesh=m, sp_axis="sp",
+                                                             causal=causal))
+    fwd_peak = _peak_bytes(lambda: ra.ring_attention_spmd(q.detach(), k.detach(), v.detach(),
+                                                          mesh=m, sp_axis="sp", causal=causal))
+    bwd_peak = _peak_bytes(lambda: (out ** 2).sum().backward())
+    return saved, fwd_peak, bwd_peak
+
+
+def _peak_bytes(fn) -> int:
+    """The peak of the bytes that storages made by ``fn``'s operators held
+    alive at once (each storage weakly referenced, counted until freed)."""
+    import torch
+    from torch.multiprocessing.reductions import StorageWeakRef
+    from torch.utils._python_dispatch import TorchDispatchMode
+    from torch.utils._pytree import tree_leaves
+
+    live: dict = {}
+    peak = [0]
+
+    class Track(TorchDispatchMode):
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            out = func(*args, **(kwargs or {}))
+            for t in tree_leaves(out):
+                if isinstance(t, torch.Tensor) and t.device.type != "meta":
+                    st = t.untyped_storage()
+                    cur = live.get(st.data_ptr())
+                    if cur is None or cur[0].expired():  # a freed address reused
+                        live[st.data_ptr()] = (StorageWeakRef(st), st.nbytes())
+            for key in [k for k, (ref, _n) in live.items() if ref.expired()]:
+                del live[key]
+            peak[0] = max(peak[0], sum(n for _ref, n in live.values()))
+            return out
+
+    with Track():
+        fn()
+    return peak[0]
+
+
+def sp_lm_losses(shape, axes, cfg_kw, batches, kw):
+    """Losses of an ``SpLMTrainer`` on a mesh of ``shape`` over ``axes``."""
+    from parameter_server_tpu_torch.models import transformer as tfm
+    from parameter_server_tpu_torch.parallel.sp_lm import SpLMTrainer
+
+    tr = SpLMTrainer(tfm.tiny_config(**cfg_kw), mesh(tuple(shape), tuple(axes)), **kw)
+    return [tr.step(b) for b in batches]
+
+
+def sp_lm_from_params(shape, axes, cfg_kw, params, batches, kw):
+    """Losses of an ``SpLMTrainer`` started from a flax params tree."""
+    from parameter_server_tpu_torch.convert import transformer_from_numpy
+    from parameter_server_tpu_torch.models import transformer as tfm
+    from parameter_server_tpu_torch.parallel.sp_lm import SpLMTrainer
+
+    tr = SpLMTrainer(tfm.tiny_config(**cfg_kw), mesh(tuple(shape), tuple(axes)), **kw)
+    transformer_from_numpy(tr.model, params)
+    return [tr.step(b) for b in batches]
+
+
+def sp_lm_errors(n, cfg_kw, steps):
+    """The messages of an ``SpLMTrainer``'s refusals: each ``(cfg_kw,
+    tokens shape)`` of ``steps`` is built on an ``("sp",)`` mesh of ``n`` and
+    stepped once."""
+    import numpy as np_
+
+    from parameter_server_tpu_torch.models import transformer as tfm
+    from parameter_server_tpu_torch.parallel.sp_lm import SpLMTrainer
+
+    out = []
+    for kw, tok_shape in steps:
+        try:
+            tr = SpLMTrainer(tfm.tiny_config(**{**cfg_kw, **kw}), mesh((n,), ("sp",)),
+                             device="cpu")
+            tr.step(np_.zeros(tok_shape, np_.int32))
+            out.append("")
+        except ValueError as e:
+            out.append(str(e))
+    return out
+
+
+def sp_lm_step_bytes(n, cfg_kw, batch):
+    """Per-rank bytes an ``SpLMTrainer`` step allocates, forward and
+    backward (every new storage its operators make)."""
+    from parameter_server_tpu_torch.models import transformer as tfm
+    from parameter_server_tpu_torch.parallel.sp_lm import SpLMTrainer
+
+    tr = SpLMTrainer(tfm.tiny_config(**cfg_kw), mesh((n,), ("sp",)), device="cpu")
+    tok, tgt, msk = tr._place(batch)
+
+    def fwd_bwd():
+        loss_sum, count = tr._local(tok, tgt, msk)
+        (loss_sum / count).backward()
+
+    _, saved = _saved_bytes(fwd_bwd)
+    tr.optimizer.zero_grad(set_to_none=True)
+    return saved, _peak_bytes(fwd_bwd)
+
+
+def sptp_run(shape, cfg_kw, params, batches, kw):
+    """Losses of an ``SpTpLMTrainer`` on an ``(sp, model)`` mesh (from a
+    flax params tree when given), and the local shapes of its parameters
+    and AdamW moments after the steps, by dotted name."""
+    from parameter_server_tpu_torch.models import transformer as tfm
+    from parameter_server_tpu_torch.parallel.sp_fsdp import SpTpLMTrainer
+
+    tr = SpTpLMTrainer(tfm.tiny_config(**cfg_kw), mesh(tuple(shape), ("sp", "model")), **kw)
+    if params is not None:
+        from parameter_server_tpu_torch.convert import placed_from_numpy
+
+        placed_from_numpy(tr, params)
+    losses = [tr.step(b) for b in batches]
+    local = {n: tuple(p.to_local().shape) for n, p in tr.params.items()}
+    moments = {n: tuple(tr.optimizer.state[s]["exp_avg"].to_local().shape)
+               for n, s in tr._slices.items()}
+    placements = {n: tuple(str(p) for p in s.placements) for n, s in tr._slices.items()}
+    return losses, local, moments, placements
+
+
+def sptp_errors(shape, cfg_kw, tok_shape):
+    import numpy as np_
+
+    from parameter_server_tpu_torch.models import transformer as tfm
+    from parameter_server_tpu_torch.parallel.sp_fsdp import SpTpLMTrainer
+
+    tr = SpTpLMTrainer(tfm.tiny_config(**cfg_kw), mesh(tuple(shape), ("sp", "model")),
+                       device="cpu")
+    try:
+        tr.step(np_.zeros(tok_shape, np_.int32))
+    except ValueError as e:
+        return str(e)
+    return ""
+
+
+def sp_chunked_loss(n, hidden, head, tokens, chunk):
+    """``sp_chunked_causal_loss`` over an ``("sp",)`` mesh of ``n`` on the
+    shifted targets of ``tokens``: the value, and its gradient with respect
+    to this rank's ``hidden`` block."""
+    import torch
+
+    from parameter_server_tpu_torch.parallel.sp_fsdp import sp_chunked_causal_loss
+    from parameter_server_tpu_torch.parallel.sp_lm import shift_targets
+    from parameter_server_tpu_torch.models import transformer as tfm
+
+    m = mesh((n,), ("sp",))
+    cfg = tfm.tiny_config()
+    tok, tgt, msk = shift_targets(tokens, n, cfg)
+    s = tok.shape[1] // n
+    i = m.index("sp")
+    h = torch.from_numpy(np.ascontiguousarray(hidden[:, i * s:(i + 1) * s])).requires_grad_(True)
+    loss = sp_chunked_causal_loss(h, torch.from_numpy(head),
+                                  torch.from_numpy(tgt[:, i * s:(i + 1) * s]),
+                                  torch.from_numpy(msk[:, i * s:(i + 1) * s]),
+                                  mesh=m, chunk=chunk)
+    loss.backward()
+    return float(loss), h.grad.numpy()
+
+
+# -- config #5's body on a mesh ---------------------------------------------------
+
+
+def hybrid_mesh_run(shape, cfg_kw, batches, emb_optimizer, kw):
+    """``HybridLMTrainer`` on a ``(data, model)`` mesh of ``shape``.  Each
+    data line's Van rank (model index 0) holds a worker over its own
+    LoopbackVan cluster of 2 servers (the same seeded tables everywhere);
+    the other ranks hold none.  Returns (losses, the ``Mesh.all_reduce``
+    calls of each step by axis, the servers' push requests or None, whether
+    this rank talked to the Van)."""
+    import collections
+
+    from parameter_server_tpu_torch.core.postoffice import Postoffice
+    from parameter_server_tpu_torch.core.van import LoopbackVan
+    from parameter_server_tpu_torch.kv.server import KVServer
+    from parameter_server_tpu_torch.kv.worker import KVWorker
+    from parameter_server_tpu_torch.learner import hybrid
+    from parameter_server_tpu_torch.models import transformer as tfm
+
+    m = mesh(shape)
+    cfg = tfm.tiny_config(**cfg_kw)
+    van, servers, worker = None, [], None
+    if m.index("model") == 0:
+        van = LoopbackVan()
+        tables = {"emb": hybrid.embedding_table_cfg(cfg, optimizer=emb_optimizer)}
+        servers = [KVServer(Postoffice(f"S{s}", van), tables, s, 2, device="cpu")
+                   for s in range(2)]
+        worker = KVWorker(Postoffice("W0", van), tables, 2,
+                          localizers=hybrid.embedding_localizers(cfg), device="cpu")
+    calls = collections.Counter()
+    reduce = m.all_reduce
+
+    def counting(t, axis):
+        calls[axis] += 1
+        return reduce(t, axis)
+
+    m.all_reduce = counting
+    try:
+        tr = hybrid.HybridLMTrainer(cfg, worker, mesh=m, device="cpu", **kw)
+        losses, per_step = [], []
+        for b in batches:
+            calls.clear()
+            losses.append(tr.step(b))
+            per_step.append(dict(calls))
+        tr.drain()
+    finally:
+        del m.all_reduce
+        if van is not None:
+            van.close()
+            for s in servers:
+                if s.ledger is not None:
+                    s.ledger.close()
+    pushes = sum(s.pushes for s in servers) if servers else None
+    return losses, per_step, pushes, tr.van_rank
+
+
+def hybrid_mesh_ckpt(shape, cfg_kw, batches, root, split):
+    """A mesh ``HybridLMTrainer`` (rank 0 the only Van rank, over its own
+    LoopbackVan cluster) saves after ``split`` steps and goes on; a fresh
+    cluster and trainer (another seed) restore that checkpoint and take the
+    same remaining steps.  Returns (the first run's tail losses, the
+    restored run's)."""
+    from parameter_server_tpu_torch.core.postoffice import Postoffice
+    from parameter_server_tpu_torch.core.van import LoopbackVan
+    from parameter_server_tpu_torch.kv.server import KVServer
+    from parameter_server_tpu_torch.kv.worker import KVWorker
+    from parameter_server_tpu_torch.learner import hybrid
+    from parameter_server_tpu_torch.models import transformer as tfm
+
+    m = mesh(shape)
+    cfg = tfm.tiny_config(**cfg_kw)
+    tables = {"emb": hybrid.embedding_table_cfg(cfg)}
+
+    def run(seed, restore):
+        van, servers, worker = None, [], None
+        if m.index("model") == 0:
+            van = LoopbackVan()
+            servers = [KVServer(Postoffice(f"S{s}", van), tables, s, 2, device="cpu")
+                       for s in range(2)]
+            worker = KVWorker(Postoffice("W0", van), tables, 2,
+                              localizers=hybrid.embedding_localizers(cfg), device="cpu")
+        try:
+            tr = hybrid.HybridLMTrainer(cfg, worker, mesh=m, learning_rate=1e-2, seed=seed,
+                                        device="cpu")
+            if restore:
+                tr.restore(root, step=split)
+            else:
+                for b in batches[:split]:
+                    tr.step(b)
+                tr.save(root, step=split)
+            tail = [tr.step(b) for b in batches[split:]]
+            tr.drain()
+            return tail
+        finally:
+            if van is not None:
+                van.close()
+                for s in servers:
+                    if s.ledger is not None:
+                        s.ledger.close()
+
+    return run(1, False), run(99, True)
