@@ -394,6 +394,26 @@ Phases, each printing one JSON line (``"phase": ...``):
              tokens, 2 steps, each within rtol 2e-4 of
              ``SpmdLMTrainer(mesh=None)`` (a ring of one block here).  No
              scatter kernel is on this path.
+   pp        pipeline parallelism at Llama-3-8B width cut to 4 of 32
+             layers: a virtual pipeline of 4 stages (one layer each) in one
+             process, microbatch 1 x 512, M 8: GPipe's and 1F1B's first loss
+             against the sequential stack (the dense ``Transformer`` on the
+             same weights, rtol 1e-5), 3-step trajectories GPipe vs 1F1B
+             (rtol 2e-5), ms a step, tokens/s and MFU, and each schedule's
+             peak memory above the resident state over a pass (forward and
+             backward) at M 8 and M 32, less the gradients: 1F1B's must
+             not grow (ratio < 1.2), GPipe's must; then
+             ``PipelinedLMTrainer`` on a world-1 NCCL mesh (pp 1), both
+             schedules, within 1e-6 relative of the sequential stack.  No
+             scatter kernel is on this path.
+   feasible  the memory-feasibility presets through the CLI in subprocesses
+             (fake traces judged against this card's memory), and the body
+             step at Llama-3-8B width, 2 layers, a (1, 1) mesh, 1 x 4096,
+             traced and measured on the card (their ratio).
+   dryrun    ``dryrun_multichip(torch.cuda.device_count(), device="cuda")``
+             in a subprocess started with ``feasible``'s: every section n
+             allows, one NCCL rank a card; its hybrid section's servers
+             launch ``ps_gather`` and ``ps_apply``.
 9. times     every kernel at the main path's shapes: device time per call
              (CUDA-graph replay), the byte bound at 3.35 TB/s, the plain
              version's time and one PyTorch library call's time; an empty
@@ -570,6 +590,17 @@ DUAL_TIMEOUT_S = 300.0
 #: trainers' depth, batch, sequence and steps; the seed
 SEQPAR_HEADS, SEQPAR_HEAD_DIM, SEQPAR_BLOCKS, SEQPAR_FWD_SEQ, SEQPAR_BWD_SEQ = 32, 128, 8, 8192, 4096
 SEQPAR_LAYERS, SEQPAR_BATCH, SEQPAR_SEQ, SEQPAR_STEPS, SEQPAR_SEED = 2, 1, 4096, 2, 0
+#: pipeline parallelism at Llama-3-8B width: depth, virtual stages,
+#: microbatch rows and sequence, microbatches (and the memory leg's larger
+#: count), trajectory steps, seed
+PP_LAYERS, PP_STAGES, PP_MB, PP_SEQ, PP_MICRO, PP_MICRO_MEM = 4, 4, 1, 512, 8, 32
+PP_STEPS, PP_SEED = 3, 0
+#: the feasibility presets (CLI arguments) and the calibration shape's
+FEAS_PRESETS = ("llama3-8b", "llama3-8b-sp", "dlrm-1b", "pp-vs-dp", "pp-tp-26b")
+FEAS_CALIBRATION = ("--preset", "llama3-8b", "--layers", "2", "--mesh", "1,1", "--batch", "1",
+                    "--seq", "4096", "--loss-chunk", "0", "--fsdp", "none", "--no-remat",
+                    "--no-scan-blocks")
+FEAS_TIMEOUT_S, DRYRUN_TIMEOUT_S = 600.0, 600.0
 DEVICE = "cuda"
 SOURCE = "parameter_server_tpu_torch/csrc/scatter_kernels.cu"
 REPLACES = {
@@ -795,9 +826,30 @@ def main() -> int:
     emit("seqpar", **seqpar)
     _free(torch)
 
+    # -- 8r. pipeline parallelism: the virtual pipeline and the trainer ------------------------
+    pp, pp_launches = pp_phase(torch, scatter, dev, errs)
+    emit("pp", **pp)
+    _free(torch)
+
+    # -- 8s, 8t. memory feasibility and the multi-rank dry run, at once: the
+    # feasibility traces use the host's cores, the dry run mostly the card
+    dry = dryrun_start(torch)
+    try:
+        feasible, feasible_launches = feasible_phase(torch, scatter, dev, errs)
+        emit("feasible", **feasible)
+        dryrun, dryrun_launches = dryrun_phase(torch, scatter, dev, errs, dry)
+        emit("dryrun", **dryrun)
+    finally:
+        _stop([dry[0]])
+
     # -- 9. times ----------------------------------------------------------------
     kernels = times_phase(torch, scatter, dev, errs, launches)
     for k in kernels:
+        # no scatter kernel is on the pipeline or the feasibility path (0, as
+        # in JAX); the dry run's kernels run in its rank children
+        k["pp_launches"] = pp_launches[k["name"]]
+        k["feasible_launches"] = feasible_launches[k["name"]]
+        k["dryrun_launches"] = dryrun_launches[k["name"]]
         k["spmd_launches"] = spmd_launches[k["name"]]
         # the dual plane's kernels run in its server children (their counts)
         k["dualplane_launches"] = dualplane_launches[k["name"]]
@@ -7431,6 +7483,310 @@ def seqpar_phase(torch, scatter, dev, errs):
     out["launches"] = launches
     out["scatter_kernels_on_path"] = "none: attention is tensor products and collectives"
     out["phase_s"] = time.perf_counter() - t_phase
+    return out, launches
+
+
+def _pp_weights(vp):
+    """A virtual pipeline's parameters on the host, as the JAX trainer's
+    tree: ``stages`` nested by flax path with a leading ``[S]`` axis."""
+    from parameter_server_tpu_torch.convert import nest
+    from parameter_server_tpu_torch.models.layers import params_tree
+    from parameter_server_tpu_torch.parallel.pp import stack_stage_params
+
+    def host(t):  # a copy, never a view of the live parameter
+        return t.detach().cpu().numpy().copy()
+
+    stacked = stack_stage_params([dict(st.named_parameters()) for st in vp.stages])
+    stages = nest({name: host(t) for name, t in stacked.items()})
+    return {"stages": stages, "embed": host(vp.embed), "head": host(vp.head),
+            "norm": {k: host(v) for k, v in params_tree(vp.norm).items()}}
+
+
+def _restack(stages: dict, n_stages: int) -> dict:
+    """A stage-stacked tree (``Block_{j}.…`` leaves ``[S, ...]``) regrouped
+    into ``n_stages`` stages: the same layers in the same order."""
+    per = 1 + max(int(k.split(".", 1)[0].split("_")[1]) for k in stages)
+    S = next(iter(stages.values())).shape[0]
+    layers = S * per
+    if layers % n_stages:
+        raise ValueError(f"{layers} layers % {n_stages} stages != 0")
+    new_per = layers // n_stages
+    out = {}
+    for name in {k.split(".", 1)[1] for k in stages}:
+        flat = [np.asarray(stages[f"Block_{i % per}.{name}"][i // per]) for i in range(layers)]
+        for j in range(new_per):
+            out[f"Block_{j}.{name}"] = np.stack([flat[s * new_per + j]
+                                                 for s in range(n_stages)])
+    return out
+
+
+def pp_sequential_loss(torch, dev, cfg, weights, batch):
+    """The oracle: the dense ``Transformer`` (layer ``s`` = stage ``s``'s
+    one block) on the same weights, one microbatch at a time, the mean of
+    their ``causal_lm_loss``."""
+    from parameter_server_tpu_torch.convert import nest, transformer_from_numpy
+    from parameter_server_tpu_torch.models import transformer as tfm
+    from parameter_server_tpu_torch.models.layers import flat_items
+
+    stages = weights["stages"]
+    tree = {f"layer_{s}": nest({n: a[s] for n, a in flat_items(stages["Block_0"])})
+            for s in range(PP_STAGES)}
+    tree.update(final_norm=weights["norm"], embedding=weights["embed"],
+                lm_head={"kernel": weights["head"]})
+    model = tfm.Transformer(cfg, device=dev)
+    transformer_from_numpy(model, tree)
+    micro = torch.from_numpy(batch.astype(np.int64)).to(dev).reshape(PP_MICRO, PP_MB, PP_SEQ)
+    with torch.no_grad():
+        loss = float(torch.stack([tfm.causal_lm_loss(model(mb), mb) for mb in micro]).mean())
+    del model
+    _free(torch)
+    return loss
+
+
+def _pp_memory(torch, vp, batch):
+    """One pass of the schedule over ``batch`` (forward and backward, no
+    AdamW step, whose foreach temporaries of every parameter's size would
+    hide the schedule): its peak bytes above the resident state
+    (parameters and AdamW's moments), the gradients' bytes within that,
+    the rest (the held microbatches and the working set), and the pass's
+    ms."""
+    vp.optimizer.zero_grad(set_to_none=True)
+    _free(torch)
+    torch.cuda.synchronize()
+    resident = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    vp.loss_and_grads(batch)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    peak = torch.cuda.max_memory_allocated() - resident
+    grads = sum(p.grad.numel() * p.grad.element_size()
+                for g in vp.optimizer.param_groups for p in g["params"] if p.grad is not None)
+    vp.optimizer.zero_grad(set_to_none=True)
+    return {"peak_above_resident_bytes": peak, "grad_bytes": grads,
+            "activation_peak_bytes": peak - grads, "resident_bytes": resident,
+            "max_held_microbatches": vp.max_held, "pass_ms": ms}
+
+
+def pp_virtual(torch, dev, cfg, batches, mem_batch):
+    """The virtual pipeline, GPipe then 1F1B from the same seed: the first
+    loss against the sequential stack, 3-step trajectories, ms a step,
+    tokens/s, MFU, and peak memory at M 8 and 32.  Returns (fields, the
+    starting weights on the host, the oracle's loss)."""
+    from parameter_server_tpu_torch.parallel.pp import VirtualPipeline
+
+    out = {"stages": PP_STAGES, "layers_per_stage": PP_LAYERS // PP_STAGES,
+           "microbatch": [PP_MB, PP_SEQ], "n_micro": PP_MICRO}
+    weights = want = None
+    tokens = PP_MICRO * PP_MB * PP_SEQ
+    for schedule in ("gpipe", "1f1b"):
+        vp = VirtualPipeline(cfg, PP_STAGES, n_micro=PP_MICRO, seed=PP_SEED,
+                             schedule=schedule, device=dev)
+        if weights is None:
+            weights = _pp_weights(vp)
+            want = pp_sequential_loss(torch, dev, cfg, weights, batches[0])
+        losses, ms = [], []
+        for b in batches:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            losses.append(vp.step(b))
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+        rel = abs(losses[0] - want) / abs(want)
+        check(rel <= 1e-5, f"pp virtual {schedule} first loss {losses[0]} vs sequential {want}")
+        step_ms = float(np.mean(ms[1:]))
+        tokens_per_s = tokens / (step_ms / 1e3)
+        mem8 = _pp_memory(torch, vp, batches[0])
+        vp.n_micro = PP_MICRO_MEM
+        mem32 = _pp_memory(torch, vp, mem_batch)
+        out[schedule] = {"losses": losses, "step_ms": ms, "ms_a_step": step_ms,
+                         "tokens_per_s": tokens_per_s,
+                         "mfu": _mfu(vp.dashboard, tokens_per_s / PP_SEQ, f"pp {schedule}"),
+                         "first_loss_rel_err_vs_sequential": rel,
+                         f"memory_m{PP_MICRO}": mem8, f"memory_m{PP_MICRO_MEM}": mem32,
+                         "activation_ratio_m32_over_m8": mem32["activation_peak_bytes"]
+                         / mem8["activation_peak_bytes"]}
+        del vp
+        _free(torch)
+    g, f = out["gpipe"]["losses"], out["1f1b"]["losses"]
+    check(bool(np.allclose(f, g, rtol=2e-5, atol=0.0)), f"pp 1f1b {f} vs gpipe {g}")
+    # 1F1B's point: its held microbatches do not grow with M; GPipe's do
+    f_ratio = out["1f1b"]["activation_ratio_m32_over_m8"]
+    g_ratio = out["gpipe"]["activation_ratio_m32_over_m8"]
+    check(f_ratio < 1.2 < g_ratio, f"pp activation ratios M32 / M8: 1f1b {f_ratio}, "
+                                   f"gpipe {g_ratio}")
+    out["sequential_loss"] = want
+    out["trajectory_max_rel_err_1f1b_vs_gpipe"] = float(
+        np.max(np.abs(np.asarray(f) - np.asarray(g)) / np.abs(np.asarray(g))))
+    out["memory_measure"] = ("torch.cuda.max_memory_allocated over one pass (no AdamW "
+                             "step) less the parameters and AdamW moments held before it")
+    return out, weights, want
+
+
+def pp_trainer_leg(torch, dev, cfg, weights, want, batch):
+    """``PipelinedLMTrainer`` on a world-1 NCCL mesh (pp 1: one stage of
+    every layer, no hop), both schedules, from the virtual pipeline's
+    weights: each first step's loss within 1e-6 relative of the sequential
+    stack's."""
+    import torch.distributed as dist
+
+    from parameter_server_tpu_torch.convert import nest, pipelined_from_numpy
+    from parameter_server_tpu_torch.models.layers import flat_items
+    from parameter_server_tpu_torch.parallel import mesh as mesh_lib
+    from parameter_server_tpu_torch.parallel.pp import PipelinedLMTrainer
+
+    mesh = mesh_lib.make_mesh((1,), ("pp",), device="cuda")
+    check(dist.get_backend() == "nccl" and dist.get_world_size() == 1,
+          f"pp world {dist.get_backend()}")
+    one = dict(weights, stages=nest(_restack(dict(flat_items(weights["stages"])), 1)))
+    out = {"backend": dist.get_backend(), "pp": 1, "n_micro": PP_MICRO}
+    for schedule in ("gpipe", "1f1b"):
+        tr = PipelinedLMTrainer(cfg, mesh, n_micro=PP_MICRO, seed=PP_SEED, schedule=schedule)
+        pipelined_from_numpy(tr, one)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss = tr.step(batch)
+        torch.cuda.synchronize()
+        rel = abs(loss - want) / abs(want)
+        check(rel <= 1e-6, f"pp trainer {schedule} loss {loss} vs sequential {want}")
+        out[schedule] = {"loss": loss, "rel_err_vs_sequential": rel,
+                         "first_step_ms": (time.perf_counter() - t0) * 1e3}
+        del tr
+        _free(torch)
+    out["rtol"] = 1e-6
+    dist.destroy_process_group()
+    return out
+
+
+def pp_phase(torch, scatter, dev, errs):
+    """Pipeline parallelism on the card: the virtual pipeline of 4 stages,
+    then the trainer on a world-1 NCCL mesh.  No scatter kernel is on this
+    path: its launches are counted (from 0) and must stay 0.  Returns
+    (fields, launches)."""
+    from parameter_server_tpu_torch.models import transformer as tfm
+
+    t_phase = time.perf_counter()
+    cfg = dataclasses.replace(tfm.llama3_8b(), n_layers=PP_LAYERS)
+    rng = np.random.default_rng(PP_SEED)
+    draw = lambda m: rng.integers(0, cfg.vocab_size,  # noqa: E731
+                                  size=(m * PP_MB, PP_SEQ)).astype(np.int32)
+    batches = [draw(PP_MICRO) for _ in range(PP_STEPS)]
+    mem_batch = draw(PP_MICRO_MEM)
+    scatter.reset_launch_counts()
+    out = {"d_model": cfg.d_model, "n_layers": cfg.n_layers, "full_depth": 32,
+           "n_heads": cfg.n_heads, "n_kv_heads": cfg.kv_heads, "d_ff": cfg.d_ff,
+           "vocab": cfg.vocab_size}
+    t0 = time.perf_counter()
+    out["virtual"], weights, want = pp_virtual(torch, dev, cfg, batches, mem_batch)
+    out["virtual"]["leg_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    out["trainer"] = pp_trainer_leg(torch, dev, cfg, weights, want, batches[0])
+    out["trainer"]["leg_s"] = time.perf_counter() - t0
+    launches = scatter.launch_counts()
+    check(all(v == 0 for v in launches.values()), f"pp launched {launches}")
+    out["launches"] = launches
+    out["scatter_kernels_on_path"] = "none: the stages are tensor products and P2P hops"
+    out["phase_s"] = time.perf_counter() - t_phase
+    return out, launches
+
+
+def _start(args):
+    """``python -m <args>`` started from the checkout, its output piped; and
+    when it started."""
+    return (subprocess.Popen([sys.executable, "-m", *args], stdout=subprocess.PIPE,
+                             stderr=subprocess.PIPE, text=True), time.perf_counter())
+
+
+def _finish(started, what, timeout):
+    """The started process's last stdout line as JSON, and its seconds; it
+    must exit 0 within ``timeout``."""
+    proc, t0 = started
+    try:
+        stdout, stderr = proc.communicate(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        raise
+    check(proc.returncode == 0, f"{what} exited {proc.returncode}: {stderr[-3000:]}")
+    return json.loads(stdout.strip().splitlines()[-1]), time.perf_counter() - t0
+
+
+def _stop(procs):
+    for proc in procs:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait(timeout=30)
+
+
+def feasible_phase(torch, scatter, dev, errs):
+    """The feasibility presets, each a fake trace in its own process, and the
+    calibration shape traced and measured on the card, all at once (the
+    traces use the host's cores, not the card), judged against this card's
+    memory.  Returns (fields, launches: the children's, summed)."""
+    t_phase = time.perf_counter()
+    mod = "parameter_server_tpu_torch.parallel.feasibility"
+    total = int(torch.cuda.get_device_properties(0).total_memory)
+    out = {"card_total_memory_bytes": total, "presets": {}}
+    _free(torch)
+    runs = {p: _start((mod, "--preset", p)) for p in FEAS_PRESETS}
+    runs["calibration_fake"] = _start((mod, *FEAS_CALIBRATION))
+    runs["calibration_measured"] = _start((mod, *FEAS_CALIBRATION, "--method", "measured"))
+    try:
+        done = {name: _finish(run, f"feasibility {name}", FEAS_TIMEOUT_S)
+                for name, run in runs.items()}
+    finally:
+        _stop([proc for proc, _t0 in runs.values()])
+    for name in FEAS_PRESETS:
+        r, seconds = done[name]
+        check(r["budget_bytes"] == total, f"feasibility {name} budget {r['budget_bytes']}")
+        out["presets"][name] = dict(r, seconds=seconds)
+    out["verdicts"] = {
+        name: {"peak_bytes": r["peak_bytes"] if "peak_bytes" in r
+               else {"dp": r["dp"]["peak_bytes"], "pp": r["pp"]["peak_bytes"]},
+               "fits_card": r["fits_card"] if "fits_card" in r
+               else {"dp": r["dp"]["fits_card"], "pp": r["pp"]["fits_card"],
+                     "pp_beats_dp": r["pp_beats_dp"]}}
+        for name, r in out["presets"].items()}
+    (fake, fake_s), (measured, measured_s) = (done["calibration_fake"],
+                                              done["calibration_measured"])
+    check(fake["method"] == "fake_trace" and measured["method"] == "measured",
+          f"calibration methods {fake['method']} / {measured['method']}")
+    out["calibration"] = {"shape": "Llama-3-8B width, 2 layers, (1, 1), 1 x 4096",
+                          "fake_trace": fake, "measured": measured,
+                          "fake_over_measured_peak": fake["peak_bytes"] / measured["peak_bytes"],
+                          "fake_s": fake_s, "measured_s": measured_s}
+    # every trace and the measured step run in the children: their counts
+    launches = {k: sum(r["launches"][k] for r, _s in done.values())
+                for k in scatter.launch_counts()}
+    check(all(v == 0 for v in launches.values()), f"feasible launched {launches}")
+    out["launches"] = launches
+    out["phase_s"] = time.perf_counter() - t_phase
+    return out, launches
+
+
+def dryrun_start(torch):
+    """Start ``dryrun_multichip`` over every card in a subprocess (its ranks
+    form their own NCCL world)."""
+    return _start(("parameter_server_tpu_torch.dryrun", "--device", "cuda", "--ranks",
+                   str(torch.cuda.device_count())))
+
+
+def dryrun_phase(torch, scatter, dev, errs, started):
+    """The dry run ``dryrun_start`` began.  Its hybrid section's servers run
+    ``ps_gather`` for each pull and ``ps_apply`` for each push on the card:
+    the rank children's counts.  Returns (fields, launches)."""
+    t_phase = time.perf_counter()
+    r, seconds = _finish(started, "dryrun", DRYRUN_TIMEOUT_S)
+    check(r["backend"] == "nccl" and all(d.startswith("cuda") for d in r["rank_devices"]),
+          f"dryrun ran on {r['backend']} {r['rank_devices']}")
+    # sections 8 and 9 run on the CPU by design (two hosts on one machine);
+    # every section of the ranks ran on the card
+    on_card = {k: d for k, d in r["section_devices"].items()
+               if k not in ("multihost", "dual_plane")}
+    check(on_card and all(d.startswith("cuda") for d in on_card.values()),
+          f"dryrun sections on {r['section_devices']}")
+    launches = r["launches"]
+    check(launches["gather"] > 0 and launches["apply"] > 0, f"dryrun launches {launches}")
+    out = dict(r, seconds=seconds, phase_s=time.perf_counter() - t_phase)
     return out, launches
 
 

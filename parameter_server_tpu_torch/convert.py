@@ -8,7 +8,9 @@ the port's ``LocalLRTrainer``.  ``dlrm_from_numpy`` installs a JAX
 port's ``ResNet``, and ``transformer_from_numpy`` a flax transformer's
 ``params`` (unrolled ``layer_{i}`` or ``scan_blocks``'s stacked
 ``blocks.block``) into the port's ``Transformer`` / ``TransformerBody`` /
-``TransformerTrunk``.  The port's dense models keep flax's parameter names
+``TransformerTrunk``, and ``pipelined_from_numpy`` a JAX
+``PipelinedLMTrainer``'s stage-stacked tree into the port's pipeline.  The
+port's dense models keep flax's parameter names
 and layouts (``models/layers.py``, ``models/transformer.py``), so these copy
 by path.
 
@@ -167,3 +169,56 @@ def placed_from_numpy(trainer, params) -> None:
     reslice = getattr(trainer, "reslice", None)
     if reslice is not None:
         reslice()
+
+
+def pipelined_from_numpy(trainer, params) -> None:
+    """Install a JAX ``PipelinedLMTrainer``'s parameters — ``{"stages": the
+    flax ``Stage`` tree stacked on a leading ``[S]`` axis, "embed": [vocab,
+    d], "head": [d, vocab], "norm": the final norm's tree}`` as numpy or
+    tensors — into the port's ``PipelinedLMTrainer`` (each rank loads its own
+    stage slice; under ``tp`` its shards of it) or ``VirtualPipeline`` (every
+    slice).  The names are the flax ones, as in
+    :func:`transformer_from_numpy`; AdamW starts again, as a fresh JAX
+    trainer's does."""
+    from torch.distributed.tensor import distribute_tensor
+
+    stacked = dict(flat_items(params["stages"]))
+    stages = getattr(trainer, "stages", None)
+    if stages is not None:  # the virtual pipeline: every stage here
+        slices = [(st, dict(st.named_parameters()), s) for s, st in enumerate(stages)]
+        embed, head, norm, opt = trainer.embed, trainer.head, trainer.norm, trainer.optimizer
+    else:
+        pp = trainer.pp
+        slices = [(None, pp.stage_params, pp.stage_index)]
+        embed, head, norm, opt = pp.embed, pp.head, pp.norm, pp.optimizer
+    for _module, named, s in slices:
+        if any(np.shape(a)[0] <= s for a in stacked.values()):
+            raise ValueError(f"the stage tree has fewer than {s + 1} stages")
+        tree = {k: np.asarray(v[s]) if not isinstance(v, torch.Tensor) else v[s]
+                for k, v in stacked.items()}
+        placed = {k: p for k, p in named.items() if hasattr(p, "placements")}
+        if placed:
+            full = {k: torch.empty(tuple(p.shape)) for k, p in named.items()}
+            _copy_tree(full, nest(tree), "pipelined stage")
+            with torch.no_grad():
+                for k, p in named.items():
+                    p.copy_(distribute_tensor(full[k].to(p.to_local().device), p.device_mesh,
+                                              p.placements))
+        else:
+            _copy_tree(named, nest(tree), "pipelined stage")
+    _copy_tree({"embed": embed, "head": head}, {"embed": params["embed"],
+                                                "head": params["head"]}, "pipelined tail")
+    _copy_tree(dict(norm.named_parameters()), params["norm"], "pipelined norm")
+    opt.state.clear()
+
+
+def nest(flat: Dict[str, object]) -> Dict[str, object]:
+    """``{dotted path: leaf}`` as the nested dict :func:`_copy_tree` reads."""
+    tree: Dict[str, object] = {}
+    for path, leaf in flat.items():
+        *parts, last = path.split(".")
+        node = tree
+        for part in parts:
+            node = node.setdefault(part, {})
+        node[last] = leaf
+    return tree

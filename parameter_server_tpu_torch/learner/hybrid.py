@@ -156,7 +156,7 @@ class HybridLMTrainer:
             #: dotted name -> DTensor parameter; the module keeps only the
             #: structure they run in (on ``meta``)
             self.params = tp.place_params(self.body, mesh, self.shardings)
-            self.body.to("meta")
+            tfm.release_to_meta(self.body)
             self.optimizer = adamw(self.params.values(), learning_rate)
             self._objective = _Objective(self)
             self._n_data = mesh.shape[mesh_lib.DATA_AXIS]

@@ -131,7 +131,7 @@ class SpmdLMTrainer:
             self.params = tp.place_params(self.model, mesh, self.shardings)
             # the module keeps only the structure the placed weights run in:
             # its own full-size copies go to ``meta`` and hold no memory
-            self.model.to("meta")
+            tfm.release_to_meta(self.model)
             self.optimizer = adamw(self.params.values(), learning_rate)
             self._n_data = mesh.shape[mesh_lib.DATA_AXIS]
             self._objective = _Objective(self)
@@ -172,7 +172,9 @@ class SpmdLMTrainer:
         total = self.mesh.all_reduce(torch.sum(mask).detach().clone(), mesh_lib.DATA_AXIS)
         return loss * (local / torch.clamp(total, min=1.0))
 
-    def _step(self, inputs, targets, mask) -> float:
+    def _update(self, inputs, targets, mask) -> torch.Tensor:
+        """The loss, its backward and AdamW: the step with the loss left on
+        the device (``parallel/feasibility.py`` traces it on fake tensors)."""
         self.model.train()
         if self.mesh is None:
             loss = self._loss(inputs, targets, mask)
@@ -186,7 +188,10 @@ class SpmdLMTrainer:
             from parameter_server_tpu_torch.parallel import mesh as mesh_lib
 
             loss = self.mesh.all_reduce(loss.detach().clone(), mesh_lib.DATA_AXIS)
-        loss_f = float(loss.detach())
+        return loss.detach()
+
+    def _step(self, inputs, targets, mask) -> float:
+        loss_f = float(self._update(inputs, targets, mask))
         self.step_count += 1
         # one example = one sequence: 6 x matmul params x seq tokens
         self.dashboard.flops_per_example = 6.0 * self.n_matmul_params * inputs.shape[1]

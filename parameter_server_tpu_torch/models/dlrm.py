@@ -313,8 +313,11 @@ class SpmdDLRMTrainer:
             kind=table_init, device=self.device, rows=(self.row_lo, hi),
         )
         # the MLP is drawn on the host, so every device starts from the same one
+        # (a host model stays as made: fake tensors cannot take .to's swap)
         self.model = DLRM(n_dense, n_sparse, bottom_mlp, top_mlp, table_cfg.dim,
-                          generator=torch.Generator().manual_seed(seed)).to(self.device)
+                          generator=torch.Generator().manual_seed(seed))
+        if self.device.type != "cpu":
+            self.model = self.model.to(self.device)
         self.tx = torch.optim.Adam(self.model.parameters(), lr=learning_rate,
                                    betas=(0.9, 0.999), eps=1e-8)
         self._step = make_dlrm_step(

@@ -138,6 +138,19 @@ def make_generator(device, seed: int) -> torch.Generator:
     return torch.Generator(device=torch.device(device)).manual_seed(int(seed))
 
 
+def release_to_meta(module: nn.Module) -> nn.Module:
+    """Put every parameter of ``module`` on ``meta`` (its shape, no memory):
+    the module keeps only the structure that placed weights run in.  Unlike
+    ``module.to("meta")``, which swaps each tensor in place, this also holds
+    for fake tensors (``parallel/feasibility.py`` runs trainers on them)."""
+    for mod in module.modules():
+        for name, p in list(mod._parameters.items()):
+            if p is not None:
+                mod._parameters[name] = nn.Parameter(torch.empty_like(p, device="meta"),
+                                                     requires_grad=p.requires_grad)
+    return module
+
+
 # -- the functions of one block, over a dict of its parameters ------------------
 
 

@@ -126,7 +126,9 @@ def make_mesh(
     if not dist.is_initialized():
         init_local_world(device)
     backend = dist.get_backend()
-    if backend != _backend_for(device):
+    # "fake": a memory-feasibility trace's world (parallel/feasibility.py),
+    # whose collectives move nothing
+    if backend != _backend_for(device) and backend != "fake":
         raise ValueError(f"a {device.type} mesh needs a {_backend_for(device)} world, "
                          f"this one is {backend}")
     world = dist.get_world_size()

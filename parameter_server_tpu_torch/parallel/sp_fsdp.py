@@ -209,6 +209,15 @@ class SpTpLMTrainer:
         return tp.materialize(self.params, self.mesh, partial_over=(SP_AXIS,))
 
     def step(self, tokens: np.ndarray) -> float:
+        loss_f = float(self._update(tokens))
+        self.step_count += 1
+        self.dashboard.flops_per_example = 6.0 * self.n_matmul_params * tokens.shape[1]
+        self.dashboard.record(self.step_count, loss_f, examples=int(tokens.shape[0]))
+        return loss_f
+
+    def _update(self, tokens: np.ndarray) -> torch.Tensor:
+        """The step with the loss left on the device (``parallel/
+        feasibility.py`` traces it on fake tensors)."""
         tok, tgt, msk = self._place(tokens)
         self.model.train()
         loss = self._loss_fn(self._full(), tok, tgt, msk)
@@ -228,11 +237,7 @@ class SpTpLMTrainer:
                                                          self.shardings[n].placements))
         else:
             self.optimizer.step()
-        loss_f = float(loss.detach())
-        self.step_count += 1
-        self.dashboard.flops_per_example = 6.0 * self.n_matmul_params * tokens.shape[1]
-        self.dashboard.record(self.step_count, loss_f, examples=int(tokens.shape[0]))
-        return loss_f
+        return loss.detach()
 
     @torch.no_grad()
     def loss(self, tokens: np.ndarray) -> float:

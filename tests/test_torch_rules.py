@@ -74,6 +74,7 @@ import pytest
 
 from parameter_server_tpu_torch.app import create
 from parameter_server_tpu_torch.config import LedgerConfig
+from parameter_server_tpu_torch.dryrun import dryrun_multichip
 from parameter_server_tpu_torch.core.postoffice import Postoffice
 from parameter_server_tpu_torch.core.van import LoopbackVan
 from parameter_server_tpu_torch.data.prefetch import PrefetchPipeline
@@ -105,6 +106,7 @@ from parameter_server_tpu_torch.models.transformer import (
 from parameter_server_tpu_torch.parallel import dlrm_scale
 from parameter_server_tpu_torch.parallel.distributed import initialize
 from parameter_server_tpu_torch.parallel.mesh import make_mesh
+from parameter_server_tpu_torch.parallel.pp import PipelinedLMTrainer, VirtualPipeline
 from parameter_server_tpu_torch.parallel.sp_fsdp import SpTpLMTrainer
 from parameter_server_tpu_torch.parallel.sp_lm import SpLMTrainer
 
@@ -173,6 +175,7 @@ MESH_LAYER = ("utils/platform.py", "parallel/mesh.py", "parallel/distributed.py"
 #: config #5 across processes and sequence parallelism, held by name too
 DUAL_PLANE_AND_SEQ_PARALLEL = ("launch_hybrid.py", "ops/ring_attention.py", "ops/ulysses.py",
                                "parallel/sp_lm.py", "parallel/sp_fsdp.py")
+PIPELINE_FEASIBILITY_DRYRUN = ("parallel/pp.py", "parallel/feasibility.py", "dryrun.py")
 
 
 def test_the_import_scan_sees_every_module():
@@ -185,6 +188,7 @@ def test_the_import_scan_sees_every_module():
     assert set(FM_BCD_DATA_APP) <= scanned
     assert set(MESH_LAYER) <= scanned
     assert set(DUAL_PLANE_AND_SEQ_PARALLEL) <= scanned
+    assert set(PIPELINE_FEASIBILITY_DRYRUN) <= scanned
     assert {str(p.relative_to(PORT)) for p in (PORT / "learner").glob("*.py")} <= scanned
     assert _forbidden("jax.numpy") and _forbidden("parameter_server_tpu.kv.table")
     assert not _forbidden("parameter_server_tpu_torch.kv.table")
@@ -582,7 +586,8 @@ def test_the_dense_sync_scan_catches_a_readback(src, want):
                                    TransformerBody, TransformerTrunk, LocalFMTrainer,
                                    DarlinServer, DarlinWorker, create, make_mesh,
                                    initialize, launch_spmd, run_job, launch_hybrid,
-                                   SpLMTrainer, SpTpLMTrainer],
+                                   SpLMTrainer, SpTpLMTrainer, PipelinedLMTrainer,
+                                   VirtualPipeline, dryrun_multichip],
                          ids=lambda c: c.__name__)
 def test_entry_points_default_to_the_card(entry):
     fn = entry.__init__ if inspect.isclass(entry) else entry

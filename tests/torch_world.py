@@ -345,37 +345,11 @@ def body_losses(shape, cfg_kw, params, emb, tokens, fsdp, steps):
 
 
 def _held_bytes(root) -> int:
-    """Bytes of every tensor reachable from ``root`` through dicts, lists,
-    modules (parameters and buffers), optimizers (their state) and DTensors
-    (this rank's local shard), each storage once; ``meta`` tensors hold
-    none."""
-    import torch
-    from torch.distributed.tensor import DTensor
+    """Bytes of every tensor reachable from ``root`` (the package's
+    ``feasibility.held_bytes``)."""
+    from parameter_server_tpu_torch.parallel.feasibility import held_bytes
 
-    seen, storages = {}, {}  # seen keeps what it met alive, so no id is reused
-    todo = [root]
-    while todo:
-        x = todo.pop()
-        if id(x) in seen:
-            continue
-        seen[id(x)] = x
-        if isinstance(x, DTensor):
-            todo.append(x.to_local())
-        elif isinstance(x, torch.Tensor):
-            if x.device.type != "meta":
-                st = x.untyped_storage()
-                storages[(x.device, st.data_ptr())] = st.nbytes()
-        elif isinstance(x, torch.nn.Module):
-            todo += list(x.parameters()) + list(x.buffers())
-        elif isinstance(x, torch.optim.Optimizer):
-            todo += list(x.state.values())
-        elif isinstance(x, dict):
-            todo += list(x.values())
-        elif isinstance(x, (list, tuple)):
-            todo += list(x)
-        elif hasattr(x, "__dict__") and not isinstance(x, type):
-            todo += [v for k, v in vars(x).items() if k != "mesh"]
-    return sum(storages.values())
+    return held_bytes(root)
 
 
 def lm_held_bytes(shape, cfg_kw, batch, fsdp):
@@ -477,32 +451,10 @@ def sp_ring_memory(n, shape, causal):
 
 def _peak_bytes(fn) -> int:
     """The peak of the bytes that storages made by ``fn``'s operators held
-    alive at once (each storage weakly referenced, counted until freed)."""
-    import torch
-    from torch.multiprocessing.reductions import StorageWeakRef
-    from torch.utils._python_dispatch import TorchDispatchMode
-    from torch.utils._pytree import tree_leaves
+    alive at once (the package's tracker, ``feasibility.peak_live_bytes``)."""
+    from parameter_server_tpu_torch.parallel.feasibility import peak_live_bytes
 
-    live: dict = {}
-    peak = [0]
-
-    class Track(TorchDispatchMode):
-        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
-            out = func(*args, **(kwargs or {}))
-            for t in tree_leaves(out):
-                if isinstance(t, torch.Tensor) and t.device.type != "meta":
-                    st = t.untyped_storage()
-                    cur = live.get(st.data_ptr())
-                    if cur is None or cur[0].expired():  # a freed address reused
-                        live[st.data_ptr()] = (StorageWeakRef(st), st.nbytes())
-            for key in [k for k, (ref, _n) in live.items() if ref.expired()]:
-                del live[key]
-            peak[0] = max(peak[0], sum(n for _ref, n in live.values()))
-            return out
-
-    with Track():
-        fn()
-    return peak[0]
+    return peak_live_bytes(fn)[1]
 
 
 def sp_lm_losses(shape, axes, cfg_kw, batches, kw):
@@ -724,3 +676,140 @@ def hybrid_mesh_ckpt(shape, cfg_kw, batches, root, split):
                         s.ledger.close()
 
     return run(1, False), run(99, True)
+
+
+# -- pipeline parallelism -----------------------------------------------------------
+
+
+def pp_trainer(shape, axes, cfg_kw, kw, params=None):
+    """A ``PipelinedLMTrainer`` on a mesh of ``shape`` over ``axes`` (from a
+    JAX ``PipelinedLMTrainer``'s parameters when given)."""
+    from parameter_server_tpu_torch.convert import pipelined_from_numpy
+    from parameter_server_tpu_torch.models import transformer as tfm
+    from parameter_server_tpu_torch.parallel.pp import PipelinedLMTrainer
+
+    tr = PipelinedLMTrainer(tfm.tiny_config(**cfg_kw), mesh(tuple(shape), tuple(axes)),
+                            device="cpu", **kw)
+    if params is not None:
+        pipelined_from_numpy(tr, params)
+    return tr
+
+
+def pp_params(tr):
+    """The trainer's parameters as the JAX trainer's numpy tree."""
+    from parameter_server_tpu_torch.models.layers import params_tree
+
+    stages = {}
+    for name, arr in tr.gather_stage_params().items():
+        *path, leaf = name.split(".")
+        node = stages
+        for part in path:
+            node = node.setdefault(part, {})
+        node[leaf] = arr
+    return {"stages": stages, "embed": tr.embed.detach().numpy().copy(),
+            "head": tr.head.detach().numpy().copy(),
+            "norm": {k: v.detach().numpy().copy() for k, v in params_tree(tr.norm).items()}}
+
+
+def pp_run(shape, axes, cfg_kw, kw, params, loss_batches, step_batches):
+    """Losses of ``loss_batches`` before any step, then the losses of steps on
+    ``step_batches``, and the parameters at the start."""
+    tr = pp_trainer(shape, axes, cfg_kw, kw, params)
+    start = pp_params(tr)
+    losses = [tr.loss(b) for b in loss_batches]
+    return losses, [tr.step(b) for b in step_batches], start
+
+
+def pp_grads(shape, axes, cfg_kw, kw, tokens):
+    """The loss and every gradient of one pass (no update), gathered as the
+    parameters are, and the parameters."""
+    import torch
+
+    tr = pp_trainer(shape, axes, cfg_kw, kw)
+    loss = float(tr.pp.loss_and_grads(tr._micro(tokens)))
+    params = pp_params(tr)
+    with torch.no_grad():
+        for name, p in tr.stage_params.items():
+            p.copy_(p.grad)
+        tr.embed.copy_(tr.embed.grad)
+        tr.head.copy_(tr.head.grad)
+        for p in tr.norm.parameters():
+            p.copy_(p.grad)
+    return loss, pp_params(tr), params
+
+
+def pp_layout(shape, axes, cfg_kw, kw, tokens):
+    """After one step: this rank's stage parameter shapes, their AdamW
+    moments' shapes, the stack's total size and the stage count."""
+    from parameter_server_tpu_torch.parallel.pp import stage_sharding
+
+    tr = pp_trainer(shape, axes, cfg_kw, kw)
+    tr.step(tokens)
+    local = {n: tuple(p.to_local().shape) if hasattr(p, "to_local") else tuple(p.shape)
+             for n, p in tr.stage_params.items()}
+    opt = tr.optimizer.state
+    moments = {}
+    for n, p in tr.stage_params.items():
+        m = opt[p]["exp_avg"]
+        moments[n] = tuple(m.to_local().shape) if hasattr(m, "to_local") else tuple(m.shape)
+    stacked = tr.gather_stage_params()
+    specs = {n: s.spec for n, s in stage_sharding(tr.mesh, stacked, tp=tr.pp.tp).items()}
+    return local, moments, {n: a.shape for n, a in stacked.items()}, specs
+
+
+def pp_peaks(shape, axes, cfg_kw, runs, batch_of):
+    """This rank's peak of live bytes for each ``(kw, n_micro, what)`` of
+    ``runs``: ``what`` "loss" (the forward alone) or "step" (the second
+    step, after AdamW's state exists)."""
+    from parameter_server_tpu_torch.parallel.feasibility import peak_live_bytes
+
+    out = []
+    for kw, n_micro, what in runs:
+        tr = pp_trainer(shape, axes, cfg_kw, dict(kw, n_micro=n_micro))
+        tokens = np.zeros((n_micro * batch_of[0], batch_of[1]), np.int32)
+        if what == "loss":
+            out.append(peak_live_bytes(lambda: tr.loss(tokens))[1])
+        else:
+            tr.step(tokens)
+            out.append(peak_live_bytes(lambda: tr.step(tokens))[1])
+    return out
+
+
+def pp_errors(shape, axes, cfg_kw, kw, tokens):
+    tr = pp_trainer(shape, axes, cfg_kw, kw)
+    try:
+        tr.step(tokens)
+    except ValueError as e:
+        return str(e)
+    return ""
+
+
+# -- memory feasibility (run in a process of its own: a fake world) ---------------
+
+
+def feasibility_cases(budget):
+    """The feasibility twins' results at test sizes, in one process: the body
+    step under each ``fsdp`` knob, DLRM on a ``(1, 8)`` fake world, pp-vs-dp
+    and pp-x-tp, and a tiny body step's fake trace beside the same step on
+    real CPU tensors (the same tracker)."""
+    from parameter_server_tpu_torch.models import transformer as tfm
+    from parameter_server_tpu_torch.parallel import feasibility as feas
+    from parameter_server_tpu_torch.parallel import mesh as mesh_lib
+
+    cfg = tfm.tiny_config(causal=True, tie_embeddings=False, d_model=64, n_layers=2,
+                          n_heads=4, n_kv_heads=4, remat=True)
+    out = {"body": {f: feas.body_train_step_memory(cfg, (2, 4), 8, 32, loss_chunk=8, fsdp=f,
+                                                   budget_bytes=budget)
+                    for f in ("none", "state", "full")}}
+    out["dlrm"] = feas.dlrm_feasibility(rows_log2=18, dim=16, mesh_shape=(1, 8), batch=256,
+                                        slots_log2=10, budget_bytes=budget)
+    small = dict(vocab=512, d_model=64, d_ff=128, n_heads=4, n_kv_heads=2)
+    out["pp_vs_dp"] = feas.pp_vs_dp_feasibility(n_stages=4, n_micro=4, seq=32, n_layers=4,
+                                                budget_bytes=budget, **small)
+    out["pp_tp"] = feas.pp_tp_feasibility(n_stages=2, tp=2, n_micro=2, seq=32, n_layers=4,
+                                          budget_bytes=budget, **small)
+    fake = feas.body_train_step_memory(cfg, (1, 1), 2, 32, budget_bytes=budget)
+    m = mesh_lib.make_mesh((1, 1), device="cpu")  # a real world of one, after the fake
+    step, inputs, state, _n = feas.make_body_step(cfg, m, 2, 32)
+    out["calibration"] = {"fake": fake, "real": feas.traced_step(state, step, *inputs)}
+    return out
