@@ -407,9 +407,13 @@ Phases, each printing one JSON line (``"phase": ...``):
              schedules, within 1e-6 relative of the sequential stack.  No
              scatter kernel is on this path.
    feasible  the memory-feasibility presets through the CLI in subprocesses
-             (fake traces judged against this card's memory), and the body
-             step at Llama-3-8B width, 2 layers, a (1, 1) mesh, 1 x 4096,
-             traced and measured on the card (their ratio).
+             (fake traces judged against this card's memory; the model axis
+             computes as Megatron splits, so the 8B presets, DLRM and the
+             26B pipeline must fit), the body step at Llama-3-8B width, 2
+             layers, a (1, 1) mesh, 1 x 4096, traced and measured on the card
+             (their ratio), and the llama3-8b preset's rank (the whole body
+             on (data 2, model 8), 8 x 2048) measured on the card as rank 0 of
+             a fake world: within 5% of its fake trace.
    dryrun    ``dryrun_multichip(torch.cuda.device_count(), device="cuda")``
              in a subprocess started with ``feasible``'s: every section n
              allows, one NCCL rank a card; its hybrid section's servers
@@ -600,6 +604,13 @@ FEAS_PRESETS = ("llama3-8b", "llama3-8b-sp", "dlrm-1b", "pp-vs-dp", "pp-tp-26b")
 FEAS_CALIBRATION = ("--preset", "llama3-8b", "--layers", "2", "--mesh", "1,1", "--batch", "1",
                     "--seq", "4096", "--loss-chunk", "0", "--fsdp", "none", "--no-remat",
                     "--no-scan-blocks")
+#: the llama3-8b preset (the whole 32-layer body on (data 2, model 8), 8 x
+#: 2048) measured on the card as rank 0 of a fake world; its peak must be
+#: within this band of the preset's fake trace
+FEAS_RANK_MEASURED = ("--preset", "llama3-8b", "--method", "measured")
+FEAS_RANK_BAND = (0.95, 1.05)
+#: the presets whose rank must fit the card now that the model axis splits
+FEAS_MUST_FIT = ("llama3-8b", "llama3-8b-sp", "dlrm-1b", "pp-tp-26b")
 FEAS_TIMEOUT_S, DRYRUN_TIMEOUT_S = 600.0, 600.0
 DEVICE = "cuda"
 SOURCE = "parameter_server_tpu_torch/csrc/scatter_kernels.cu"
@@ -7718,10 +7729,12 @@ def _stop(procs):
 
 
 def feasible_phase(torch, scatter, dev, errs):
-    """The feasibility presets, each a fake trace in its own process, and the
-    calibration shape traced and measured on the card, all at once (the
-    traces use the host's cores, not the card), judged against this card's
-    memory.  Returns (fields, launches: the children's, summed)."""
+    """The feasibility presets, each a fake trace in its own process, the
+    calibration shape traced and measured on the card, and the llama3-8b
+    preset's rank measured on the card (rank 0 of a fake ``(2, 8)`` world on
+    real card tensors), all at once (the traces use the host's cores, not
+    the card), judged against this card's memory.  Returns (fields,
+    launches: the children's, summed)."""
     t_phase = time.perf_counter()
     mod = "parameter_server_tpu_torch.parallel.feasibility"
     total = int(torch.cuda.get_device_properties(0).total_memory)
@@ -7730,6 +7743,7 @@ def feasible_phase(torch, scatter, dev, errs):
     runs = {p: _start((mod, "--preset", p)) for p in FEAS_PRESETS}
     runs["calibration_fake"] = _start((mod, *FEAS_CALIBRATION))
     runs["calibration_measured"] = _start((mod, *FEAS_CALIBRATION, "--method", "measured"))
+    runs["rank_measured"] = _start((mod, *FEAS_RANK_MEASURED))
     try:
         done = {name: _finish(run, f"feasibility {name}", FEAS_TIMEOUT_S)
                 for name, run in runs.items()}
@@ -7754,6 +7768,22 @@ def feasible_phase(torch, scatter, dev, errs):
                           "fake_trace": fake, "measured": measured,
                           "fake_over_measured_peak": fake["peak_bytes"] / measured["peak_bytes"],
                           "fake_s": fake_s, "measured_s": measured_s}
+    # a (2, 8) rank of the whole 8B body: the model axis's split, measured
+    rank, rank_s = done["rank_measured"]
+    rank_fake = out["presets"]["llama3-8b"]
+    check(rank["method"] == "measured" and rank["mesh"] == rank_fake["mesh"]
+          and rank["n_layers"] == rank_fake["n_layers"] == 32,
+          f"rank measured {rank['method']} {rank['mesh']} {rank['n_layers']}")
+    ratio = rank["peak_bytes"] / rank_fake["peak_bytes"]
+    out["rank_measured"] = {"shape": "Llama-3-8B body, 32 layers, rank 0 of (data 2, model 8), "
+                                     "8 x 2048, remat, scan, loss chunk 512, moments over data",
+                            "measured": rank, "fake_trace_peak_bytes": rank_fake["peak_bytes"],
+                            "measured_over_fake_peak": ratio, "measured_s": rank_s}
+    check(FEAS_RANK_BAND[0] <= ratio <= FEAS_RANK_BAND[1],
+          f"measured (2, 8) rank peak {rank['peak_bytes']} vs fake {rank_fake['peak_bytes']}")
+    for name in FEAS_MUST_FIT:
+        check(out["verdicts"][name]["fits_card"] is True,
+              f"feasibility {name}: {out['verdicts'][name]}")
     # every trace and the measured step run in the children: their counts
     launches = {k: sum(r["launches"][k] for r, _s in done.values())
                 for k in scatter.launch_counts()}

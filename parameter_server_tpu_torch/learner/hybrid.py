@@ -36,10 +36,13 @@ multi-process branch, since a torch rank is a process of its own: each
 ``model``-index-0 rank of each ``data`` line is the one that talks to the
 Van: it pulls only its slice's rows (host arrays: a socket Van carries no
 card tensors), broadcasts them over its ``model`` group, and after the body
-step pushes only its slice's gradients, once (every rank of the line holds
-the same rows: the ``model`` axis computes replicated).  Each data block's
-parameter gradients are summed over ``data`` with ``Mesh.all_reduce``; the
-loss is the global batch's.  A prefetch pulls the next batch's slice.
+step pushes only its slice's gradients, once.  The body computes as Megatron
+splits over ``model`` (``parallel/tp.py``: each rank its heads, its slice of
+``d_ff`` and of the vocabulary, the loss vocab-parallel); the input
+embeddings are replicated over ``model`` and ``tp.copy_to_model`` sums their
+gradient there, so every rank of the line holds the same rows' gradient.
+Each data block's parameter gradients are summed over ``data`` with
+``Mesh.all_reduce``; the loss is the global batch's.  A prefetch pulls the next batch's slice.
 ``launch_hybrid.py`` runs this across processes with the embedding servers
 behind ``TcpVan``.
 """
@@ -85,7 +88,7 @@ def embedding_localizers(cfg: tfm.TransformerConfig) -> Dict[str, object]:
 
 class _Objective(torch.nn.Module):
     """The trainer's loss as a module over its body, so
-    ``torch.func.functional_call`` runs it on materialised parameters."""
+    ``torch.func.functional_call`` runs it on the rank's shards."""
 
     def __init__(self, trainer: "HybridLMTrainer") -> None:
         super().__init__()
@@ -140,7 +143,10 @@ class HybridLMTrainer:
         self.push_timeout = push_timeout
         self.loss_chunk = loss_chunk
         self.dashboard = lm_dashboard(dashboard, self.device)
-        self.body = tfm.TransformerBody(cfg, device=self.device,
+        from parameter_server_tpu_torch.parallel import tp
+
+        # the blocks' config: the mesh's model axis is the split they compute
+        self.body = tfm.TransformerBody(tp.split_config(cfg, mesh), device=self.device,
                                         generator=tfm.make_generator(self.device, seed))
         #: body parameter count for the MFU column (6ND: train FLOPs ~ 6 x
         #: params x tokens, set a step since the sequence rides the batch)
@@ -150,7 +156,6 @@ class HybridLMTrainer:
             self.optimizer = adamw(self.body.parameters(), learning_rate)
         else:
             from parameter_server_tpu_torch.parallel import mesh as mesh_lib
-            from parameter_server_tpu_torch.parallel import tp
 
             self.shardings = tp.transformer_param_shardings(self.body, mesh)
             #: dotted name -> DTensor parameter; the module keeps only the
@@ -172,18 +177,19 @@ class HybridLMTrainer:
         self.step_count = 0
 
     def _loss(self, emb_in: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
+        cfg = self.body.cfg
         if self.loss_chunk > 0:
             return tfm.chunked_causal_lm_loss(self.body.trunk(emb_in),
                                               self.body.lm_head.kernel, targets,
-                                              self.loss_chunk)
-        return tfm.causal_lm_loss(self.body(emb_in), targets)
+                                              self.loss_chunk, cfg)
+        return tfm.causal_lm_loss(self.body(emb_in), targets, cfg)
 
     def _body_step(self, emb: torch.Tensor, tok: torch.Tensor):
         """Loss, AdamW on the body, and the gradient with respect to the
         input embeddings (what flows back to the table).  On a mesh: this
         rank's data block's share of the global loss (the shares sum to it),
-        on materialised parameters, the parameter gradients summed over
-        ``data`` before AdamW; the returned loss is the global one."""
+        on its ``model`` shards, the parameter gradients summed over ``data``
+        before AdamW; the returned loss is the global one."""
         self.body.train()
         emb = emb.detach().to(torch.float32).requires_grad_(True)
         if self.mesh is None:
@@ -193,11 +199,11 @@ class HybridLMTrainer:
 
             from parameter_server_tpu_torch.parallel import tp
 
-            # the gradients arrive unsummed over data (and sliced onto their
-            # model shards); the all-reduce over data follows
-            full = {f"body.{n}": t for n, t in
-                    tp.materialize(self.params, self.mesh, partial_over=()).items()}
-            loss = functional_call(self._objective, full, (emb, tok)) / self._n_data
+            # the gradients arrive on the model shards unsummed over data;
+            # the all-reduce over data follows
+            local = {f"body.{n}": t for n, t in
+                     tp.materialize(self.params, self.mesh, partial_over=()).items()}
+            loss = functional_call(self._objective, local, (emb, tok)) / self._n_data
         self.optimizer.zero_grad(set_to_none=True)
         loss.backward()
         if self.mesh is not None:
@@ -440,7 +446,8 @@ class HybridLMTrainer:
     @torch.no_grad()
     def logits(self, tokens: np.ndarray, *, pull_timeout: float = 60.0) -> np.ndarray:
         """Logits of the whole batch.  On a mesh every rank calls it, each
-        with a worker (the full parameters are gathered: a collective)."""
+        with a worker (the vocabulary is gathered over ``model``: a
+        collective)."""
         tokens = np.asarray(tokens)
         emb_in = self.worker.pull_sync(self.table, tokens, timeout=pull_timeout)
         x = torch.as_tensor(np.asarray(emb_in, np.float32)).to(self.device)
@@ -448,5 +455,7 @@ class HybridLMTrainer:
             return self.body(x).cpu().numpy()
         from torch.func import functional_call
 
-        full = {n: p.full_tensor() for n, p in self.params.items()}
-        return functional_call(self.body, full, (x,)).cpu().numpy()
+        from parameter_server_tpu_torch.parallel import tp
+
+        local = functional_call(self.body, tp.materialize(self.params, self.mesh), (x,))
+        return tp.gather_vocab(local, self.mesh, self.cfg.vocab_size).cpu().numpy()

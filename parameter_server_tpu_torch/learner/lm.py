@@ -18,18 +18,18 @@ over the card's peak for the math mode the step's float32 matmuls run in
 
 On a mesh the parameters are DTensors placed by ``parallel/tp.py``'s rules
 (``fsdp=True`` splits them over ``data`` too), and AdamW's moments take the
-parameters' placements.  A step materialises every parameter in full
-(``redistribute`` to ``Replicate``, which all-gathers the shards) and runs the
-one-card model on the rank's ``data`` block of the batch; the materialised
-tensors take their gradients back as partial sums over ``data``, so each
-parameter's gradient arrives summed (all-reduced, or reduce-scattered onto
-its shard).  The loss is the global batch's.  On a mesh the weights are
-``trainer.params``; ``trainer.model`` is only the structure they run in (its
-parameters are on the ``meta`` device, so a rank holds its shards and no
-full-size copy).  ``fsdp`` is a layout, not a
-change to the math; the ``model`` axis computes replicated, not as Megatron
-splits.  On one card ``fsdp`` has no data axis to split over and changes
-nothing.
+parameters' placements.  A step gathers each parameter over ``data`` only
+(``tp.materialize``; a no-op without fsdp) and runs the model on the rank's
+``model`` shards and its ``data`` block of the batch: the ``model`` axis
+computes as Megatron splits (column- and row-parallel attention and MLP, a
+vocab-parallel embedding and loss; ``models/transformer.py``), so no rank
+holds a ``model``-split parameter, or the logits, whole.  The gradients come
+back as partial sums over ``data``, so each parameter's gradient arrives
+summed (all-reduced, or reduce-scattered onto its shard).  The loss is the
+global batch's.  On a mesh the weights are ``trainer.params``;
+``trainer.model`` is only the structure they run in (its parameters are on
+the ``meta`` device).  ``fsdp`` is a layout, not a change to the math.  On
+one card, or a ``model`` axis of one, the model is the one-card math.
 """
 
 from __future__ import annotations
@@ -76,7 +76,7 @@ def lm_dashboard(dashboard: Optional[metrics_lib.Dashboard], device) -> metrics_
 
 class _Objective(torch.nn.Module):
     """The trainer's loss as a module over the model, so
-    ``torch.func.functional_call`` can run it on materialised parameters."""
+    ``torch.func.functional_call`` can run it on the rank's shards."""
 
     def __init__(self, trainer: "SpmdLMTrainer") -> None:
         super().__init__()
@@ -116,18 +116,20 @@ class SpmdLMTrainer:
         self.mesh = mesh
         self.device = torch.device(device) if mesh is None else mesh.device
         self.loss_chunk = loss_chunk
-        self.model = tfm.Transformer(cfg, device=self.device,
+        from parameter_server_tpu_torch.parallel import tp
+
+        # the blocks' config: the mesh's model axis is the split they compute
+        self.model = tfm.Transformer(tp.split_config(cfg, mesh), device=self.device,
                                      generator=tfm.make_generator(self.device, seed))
         if mesh is None:
             self.params = None
             self.optimizer = adamw(self.model.parameters(), learning_rate)
         else:
             from parameter_server_tpu_torch.parallel import mesh as mesh_lib
-            from parameter_server_tpu_torch.parallel import tp
 
             self.shardings = tp.transformer_param_shardings(self.model, mesh, fsdp=fsdp)
-            #: dotted name -> DTensor parameter (the model's own tensors are
-            #: replaced at each step by their materialised copies)
+            #: dotted name -> DTensor parameter (the model runs on each
+            #: step's local shards of them)
             self.params = tp.place_params(self.model, mesh, self.shardings)
             # the module keeps only the structure the placed weights run in:
             # its own full-size copies go to ``meta`` and hold no memory
@@ -143,18 +145,19 @@ class SpmdLMTrainer:
         self.step_count = 0
 
     def _loss(self, inputs, targets, mask) -> torch.Tensor:
-        cfg, model = self.cfg, self.model
+        model = self.model
+        cfg = model.cfg
         if cfg.causal and self.loss_chunk > 0:
-            hidden = model.trunk(model.embedding[inputs])
+            hidden = model.trunk(model.embed(inputs))
             return tfm.chunked_causal_lm_loss(hidden, model.lm_head.kernel, targets,
-                                              self.loss_chunk)
+                                              self.loss_chunk, cfg)
         if cfg.causal:
-            return tfm.causal_lm_loss(model(inputs), targets)
-        return tfm.mlm_loss(model(inputs), targets, mask)
+            return tfm.causal_lm_loss(model(inputs), targets, cfg)
+        return tfm.mlm_loss(model(inputs), targets, mask, cfg)
 
     def _mesh_loss(self, inputs, targets, mask) -> torch.Tensor:
         """This rank's share of the global loss (the shares sum to it over
-        ``data``), on materialised parameters."""
+        ``data``), on its ``model`` shards."""
         from torch.func import functional_call
 
         from parameter_server_tpu_torch.parallel import tp
@@ -230,5 +233,9 @@ class SpmdLMTrainer:
             return self.model(self._tokens(tokens)).cpu().numpy()
         from torch.func import functional_call
 
-        full = {n: p.full_tensor() for n, p in self.params.items()}
-        return functional_call(self.model, full, (self._tokens(tokens),)).cpu().numpy()
+        from parameter_server_tpu_torch.parallel import tp
+
+        # the step's math on the rank's shards; the vocabulary gathered once
+        local = functional_call(self.model, tp.materialize(self.params, self.mesh),
+                                (self._tokens(tokens),))
+        return tp.gather_vocab(local, self.mesh, self.cfg.vocab_size).cpu().numpy()

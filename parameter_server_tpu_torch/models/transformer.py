@@ -42,6 +42,16 @@ What it keeps of flax, so one set of weights gives the same function:
   ``shard_map`` axis, so every mode reads its group from the config's mesh).
   The caller passes the block's global ``positions`` to ``trunk``.  No
   padding mask there.
+- **Tensor parallelism.**  Where ``spmd_mesh`` has a ``model`` axis of more
+  than one, the parameters are that rank's shards (``parallel/tp.py``'s
+  rules) and the blocks compute as Megatron splits: q / k / v, gate and up
+  are column-parallel on the rank's heads and ``d_ff`` slice behind
+  ``tp.copy_to_model``; ``o`` and ``down`` are row-parallel, summed by
+  ``tp.reduce_from_model`` before their replicated bias.  The embedding and
+  the loss are vocab-parallel (``tp.vocab_parallel_embed``,
+  ``tp.vocab_parallel_nll``): a model's logits are the rank's block of the
+  vocabulary, and the losses take the config to find the split.  A
+  ``model`` axis of one is the one-card math.
 """
 
 from __future__ import annotations
@@ -56,6 +66,7 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from parameter_server_tpu_torch.models.layers import lecun_normal_
+from parameter_server_tpu_torch.parallel import tp as tp_lib
 
 #: attention modes that split the sequence over ``spmd_mesh``'s ``sp_axis``
 SEQ_PARALLEL_IMPLS = ("ring", "ulysses", "ring_spmd")
@@ -88,7 +99,8 @@ class TransformerConfig:
     #: layer axis), the layout of the JAX package's ``nn.scan``
     scan_blocks: bool = False
     #: "dense", or a sequence-parallel mode (SEQ_PARALLEL_IMPLS) over
-    #: ``spmd_mesh``'s ``sp_axis``
+    #: ``spmd_mesh``'s ``sp_axis``; a ``model`` axis of ``spmd_mesh`` is the
+    #: tensor-parallel split the parameters are shards of
     attn_impl: str = "dense"
     sp_axis: str = "sp"
     spmd_mesh: Any = None
@@ -160,6 +172,13 @@ def _sub(w: Dict[str, torch.Tensor], name: str) -> Dict[str, torch.Tensor]:
     return {k[len(pre):]: v for k, v in w.items() if k.startswith(pre)}
 
 
+def _tp_mesh(cfg: Optional[TransformerConfig]):
+    """The mesh whose ``model`` axis splits the blocks, or None (no such
+    axis, or an axis of one: the one-card math)."""
+    mesh = None if cfg is None else cfg.spmd_mesh
+    return mesh if tp_lib.model_split(mesh) > 1 else None
+
+
 def _rotary(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor:
     """Rotary embedding over the last (head_dim) axis of ``x`` [B, S, H, D],
     interleaved pairs ``(x[..., 0::2], x[..., 1::2])``, in f32."""
@@ -183,7 +202,8 @@ def _dense(cfg: TransformerConfig, w: Dict[str, torch.Tensor], x: torch.Tensor,
     kernel = w["kernel"].to(cfg.dtype)
     in_shape, out_shape = kernel.shape[:n_in], kernel.shape[n_in:]
     lead = x.shape[: x.dim() - n_in]
-    y = x.to(cfg.dtype).reshape(-1, math.prod(in_shape)) @ kernel.reshape(
+    # explicit sizes: a rank may hold no heads of a split (more ranks than heads)
+    y = x.to(cfg.dtype).reshape(math.prod(lead), math.prod(in_shape)) @ kernel.reshape(
         math.prod(in_shape), math.prod(out_shape))
     y = y.reshape(*lead, *out_shape)
     if "bias" in w:
@@ -206,26 +226,53 @@ def _norm(cfg: TransformerConfig, w: Dict[str, torch.Tensor], x: torch.Tensor) -
     return y.to(cfg.dtype)
 
 
+def _row_parallel(cfg: TransformerConfig, w: Dict[str, torch.Tensor], x: torch.Tensor,
+                  n_in: int, mesh) -> torch.Tensor:
+    """A row-parallel ``_dense``: the rank's partial product summed over
+    ``model``, then the replicated bias."""
+    if mesh is None:
+        return _dense(cfg, w, x, n_in)
+    y = tp_lib.reduce_from_model(_dense(cfg, {"kernel": w["kernel"]}, x, n_in), mesh)
+    if "bias" in w:
+        y = y + w["bias"].to(cfg.dtype)
+    return y
+
+
+def _repeat_kv(t: torch.Tensor, heads: int) -> torch.Tensor:
+    """``jnp.repeat(t, heads // KV, axis=2)``: each KV head of ``t`` [B, S,
+    KV, D] repeated in place, by ``expand`` (its backward is a sum)."""
+    B, S, KV, D = t.shape
+    rep = heads // KV
+    return t[:, :, :, None, :].expand(B, S, KV, rep, D).reshape(B, S, heads, D)
+
+
 def _attention(cfg: TransformerConfig, w: Dict[str, torch.Tensor], x: torch.Tensor,
                positions: torch.Tensor, attn_mask: Optional[torch.Tensor]) -> torch.Tensor:
     B, S, _ = x.shape
-    H, KV, D = cfg.n_heads, cfg.kv_heads, cfg.head_dim
-    q = _dense(cfg, _sub(w, "q"), x, 1)  # [B, S, H, D]
+    D = cfg.head_dim
+    mesh = _tp_mesh(cfg)
+    x = tp_lib.copy_to_model(x, mesh)
+    q = _dense(cfg, _sub(w, "q"), x, 1)  # [B, S, H (this rank's), D]
     k = _dense(cfg, _sub(w, "k"), x, 1)
     v = _dense(cfg, _sub(w, "v"), x, 1)
     if cfg.positional == "rotary":
         q = _rotary(q, positions, cfg.rope_theta)
         k = _rotary(k, positions, cfg.rope_theta)
-    if KV != H:  # jnp.repeat(k, rep, axis=2): each KV head rep times in place
-        rep = H // KV
-        k = k[:, :, :, None, :].expand(B, S, KV, rep, D).reshape(B, S, H, D)
-        v = v[:, :, :, None, :].expand(B, S, KV, rep, D).reshape(B, S, H, D)
+    H, KV = q.shape[2], k.shape[2]
+    if mesh is not None and tp_lib.kv_full(cfg.n_heads, cfg.kv_heads,
+                                           tp_lib.model_split(mesh)):
+        # k / v came whole: every query head's, then this rank's heads
+        lo, hi = tp_lib.shard_range(mesh, cfg.n_heads)
+        k = _repeat_kv(k, cfg.n_heads)[:, :, lo:hi]
+        v = _repeat_kv(v, cfg.n_heads)[:, :, lo:hi]
+    elif KV != H:
+        k, v = _repeat_kv(k, H), _repeat_kv(v, H)
     if cfg.attn_impl in SEQ_PARALLEL_IMPLS:
         if attn_mask is not None:
             raise ValueError("sequence-parallel attention does not support attn_mask "
                              "(padding masks are a dense-impl feature)")
         out = _seq_parallel_attention(cfg, q, k, v).to(cfg.dtype)
-        return _dense(cfg, _sub(w, "o"), out, 2)
+        return _row_parallel(cfg, _sub(w, "o"), out, 2, mesh)
     scores = torch.einsum("bshd,bthd->bhst", q, k).to(torch.float32) / math.sqrt(D)
     if cfg.causal:
         causal = torch.tril(torch.ones((S, S), dtype=torch.bool, device=x.device))
@@ -234,7 +281,7 @@ def _attention(cfg: TransformerConfig, w: Dict[str, torch.Tensor], x: torch.Tens
         scores = torch.where(attn_mask[:, None, None, :].to(torch.bool), scores, MASK_VALUE)
     probs = torch.softmax(scores, dim=-1).to(cfg.dtype)
     out = torch.einsum("bhst,bthd->bshd", probs, v.to(cfg.dtype)).to(cfg.dtype)
-    return _dense(cfg, _sub(w, "o"), out, 2)
+    return _row_parallel(cfg, _sub(w, "o"), out, 2, mesh)
 
 
 def _seq_parallel_attention(cfg: TransformerConfig, q, k, v) -> torch.Tensor:
@@ -254,11 +301,13 @@ def _seq_parallel_attention(cfg: TransformerConfig, q, k, v) -> torch.Tensor:
 
 
 def _mlp(cfg: TransformerConfig, w: Dict[str, torch.Tensor], x: torch.Tensor) -> torch.Tensor:
+    mesh = _tp_mesh(cfg)
+    x = tp_lib.copy_to_model(x, mesh)
     if cfg.activation == "swiglu":
         h = F.silu(_dense(cfg, _sub(w, "gate"), x, 1)) * _dense(cfg, _sub(w, "up"), x, 1)
     else:
         h = F.gelu(_dense(cfg, _sub(w, "up"), x, 1), approximate="tanh")
-    return _dense(cfg, _sub(w, "down"), h, 1)
+    return _row_parallel(cfg, _sub(w, "down"), h, 1, mesh)
 
 
 def _block(cfg: TransformerConfig, w: Dict[str, torch.Tensor], x: torch.Tensor,
@@ -426,11 +475,14 @@ def _apply_body(mod: _BodyModule, cfg: TransformerConfig, x: torch.Tensor,
 
 
 def _lm_head(cfg: TransformerConfig, module: _DenseGeneral, x: torch.Tensor) -> torch.Tensor:
+    """Logits in f32: the rank's block of the vocabulary under TP."""
+    x = tp_lib.copy_to_model(x, _tp_mesh(cfg))
     return _dense(cfg, {"kernel": module.kernel}, x, 1).to(torch.float32)
 
 
 class Transformer(_BodyModule):
-    """tokens [B, S] -> logits [B, S, vocab] (f32)."""
+    """tokens [B, S] -> logits [B, S, vocab] (f32; under TP the rank's block
+    of the vocabulary)."""
 
     def __init__(self, cfg: TransformerConfig, *, device="cuda",
                  generator: Optional[torch.Generator] = None) -> None:
@@ -443,10 +495,16 @@ class Transformer(_BodyModule):
             self.lm_head = _DenseGeneral((cfg.d_model,), (cfg.vocab_size,), False, stack=0,
                                          device=device, generator=generator)
 
+    def embed(self, tokens: torch.Tensor) -> torch.Tensor:
+        """The input embeddings of ``tokens`` (vocab-parallel under TP)."""
+        return tp_lib.vocab_parallel_embed(self.embedding, tokens, _tp_mesh(self.cfg),
+                                           self.cfg.vocab_size)
+
     def forward(self, tokens: torch.Tensor, attn_mask: Optional[torch.Tensor] = None):
         cfg = self.cfg
-        x = self.trunk(self.embedding[tokens], attn_mask)
+        x = self.trunk(self.embed(tokens), attn_mask)
         if cfg.tie_embeddings:
+            x = tp_lib.copy_to_model(x, _tp_mesh(cfg))
             dt = torch.promote_types(x.dtype, cfg.dtype)
             return torch.einsum("bsd,vd->bsv", x.to(dt),
                                 self.embedding.to(cfg.dtype).to(dt)).to(torch.float32)
@@ -484,32 +542,44 @@ class TransformerBody(_BodyModule):
 
 
 # -- losses ----------------------------------------------------------------------
+#
+# ``cfg``: the model's config.  Where its ``spmd_mesh`` splits ``model``, the
+# logits (or the head kernel) are the rank's block of the vocabulary and the
+# loss is vocab-parallel; without one, the plain log-softmax.
 
 
-def _nll(logits: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
+def _nll(logits: torch.Tensor, targets: torch.Tensor,
+         cfg: Optional[TransformerConfig] = None) -> torch.Tensor:
+    mesh = _tp_mesh(cfg)
+    if mesh is not None:
+        return tp_lib.vocab_parallel_nll(logits, targets.long(), mesh, cfg.vocab_size)
     logp = torch.log_softmax(logits, dim=-1)
     return -torch.gather(logp, -1, targets.long()[..., None])[..., 0]
 
 
-def causal_lm_loss(logits: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
+def causal_lm_loss(logits: torch.Tensor, tokens: torch.Tensor,
+                   cfg: Optional[TransformerConfig] = None) -> torch.Tensor:
     """Next-token CE: predict tokens[:, 1:] from logits[:, :-1]."""
-    return torch.mean(_nll(logits[:, :-1], tokens[:, 1:]))
+    return torch.mean(_nll(logits[:, :-1], tokens[:, 1:], cfg))
 
 
-def _chunk_nll(xc, head_kernel, tc, mc):
+def _chunk_nll(xc, head_kernel, tc, mc, cfg=None):
     logits = torch.einsum("bcd,dv->bcv", xc, head_kernel).to(torch.float32)
-    return torch.sum(_nll(logits, tc) * mc)
+    return torch.sum(_nll(logits, tc, cfg) * mc)
 
 
 def chunked_causal_lm_loss(hidden: torch.Tensor, head_kernel: torch.Tensor,
-                           tokens: torch.Tensor, chunk: int = 1024) -> torch.Tensor:
+                           tokens: torch.Tensor, chunk: int = 1024,
+                           cfg: Optional[TransformerConfig] = None) -> torch.Tensor:
     """Next-token CE with the head matmul fused into the loss, by chunks of
     the sequence, each checkpointed: only one ``[B, chunk, vocab]`` slab is
     live and backward recomputes it.  Pads to whole chunks, masks the pad and
     divides by ``B * (S - 1)``; the chunk sums add up in order, as the JAX
-    ``lax.scan`` adds them."""
+    ``lax.scan`` adds them.  Under TP ``head_kernel`` is the rank's column
+    block and a slab its block of the vocabulary."""
     B, S, _d = hidden.shape
     n = S - 1
+    hidden = tp_lib.copy_to_model(hidden, _tp_mesh(cfg))
     xs, tg = hidden[:, :-1], tokens[:, 1:]
     chunk = min(chunk, n)
     pad = (-n) % chunk
@@ -519,7 +589,7 @@ def chunked_causal_lm_loss(hidden: torch.Tensor, head_kernel: torch.Tensor,
     valid = (torch.arange(n + pad, device=hidden.device) < n).to(torch.float32)
     total = torch.zeros((), dtype=torch.float32, device=hidden.device)
     for c in range(0, n + pad, chunk):
-        args = (xs[:, c:c + chunk], head_kernel, tg[:, c:c + chunk], valid[c:c + chunk])
+        args = (xs[:, c:c + chunk], head_kernel, tg[:, c:c + chunk], valid[c:c + chunk], cfg)
         if torch.is_grad_enabled():
             total = total + checkpoint(_chunk_nll, *args, use_reentrant=False)
         else:
@@ -527,9 +597,10 @@ def chunked_causal_lm_loss(hidden: torch.Tensor, head_kernel: torch.Tensor,
     return total / (B * n)
 
 
-def mlm_loss(logits: torch.Tensor, targets: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+def mlm_loss(logits: torch.Tensor, targets: torch.Tensor, mask: torch.Tensor,
+             cfg: Optional[TransformerConfig] = None) -> torch.Tensor:
     """Masked-LM CE over masked positions only (mask 1 = predict)."""
-    nll = _nll(logits, targets)
+    nll = _nll(logits, targets, cfg)
     mask = mask.to(torch.float32)
     denom = torch.clamp(torch.sum(mask), min=1.0)
     return torch.sum(nll * mask) / denom

@@ -63,7 +63,10 @@ def peak_live_bytes(fn: Callable, *, resident: int = 0,
     identity through a weak reference, never by address: fake storages have
     none, and a freed address is reused.  ``meta`` tensors hold nothing.
     ``record``: a dict that gets ``real_bytes_max``, the largest storage made
-    that is not a fake tensor's."""
+    that is not a fake tensor's.  A DTensor operator reaches the tracker as
+    one operator on DTensors (its work on the rank's tensors runs beneath
+    the mode): a DTensor counts as its local tensor, whose storage is what
+    the rank holds (the wrapper's reports the global size)."""
     from torch._subclasses.fake_tensor import FakeTensor
     from torch.multiprocessing.reductions import StorageWeakRef
     from torch.utils._python_dispatch import TorchDispatchMode
@@ -75,22 +78,27 @@ def peak_live_bytes(fn: Callable, *, resident: int = 0,
     def key(t):
         return StorageWeakRef(t.untyped_storage())
 
+    def tensors(tree):
+        for t in tree_leaves(tree):
+            if isinstance(t, torch.Tensor):
+                t = getattr(t, "_local_tensor", t)  # a DTensor: the rank's tensor
+                if t.device.type != "meta":
+                    yield t
+
     class Track(TorchDispatchMode):
         def __torch_dispatch__(self, func, types, args=(), kwargs=None):
-            ins = {key(t).cdata for t in tree_leaves((args, kwargs))
-                   if isinstance(t, torch.Tensor) and t.device.type != "meta"}
+            ins = {key(t).cdata for t in tensors((args, kwargs))}
             out = func(*args, **(kwargs or {}))
-            for t in tree_leaves(out):
-                if isinstance(t, torch.Tensor) and t.device.type != "meta":
-                    ref = key(t)
-                    # an input's storage (an in-place op, a view) is not new;
-                    # a weak ref pins the identity while the entry lives
-                    if ref.cdata not in live and ref.cdata not in ins:
-                        n = t.untyped_storage().nbytes()
-                        live[ref.cdata] = (ref, n)
-                        state["now"] += n
-                        if record is not None and not isinstance(t, FakeTensor):
-                            record["real_bytes_max"] = max(record.get("real_bytes_max", 0), n)
+            for t in tensors(out):
+                ref = key(t)
+                # an input's storage (an in-place op, a view) is not new; a
+                # weak ref pins the identity while the entry lives
+                if ref.cdata not in live and ref.cdata not in ins:
+                    n = t.untyped_storage().nbytes()
+                    live[ref.cdata] = (ref, n)
+                    state["now"] += n
+                    if record is not None and not isinstance(t, FakeTensor):
+                        record["real_bytes_max"] = max(record.get("real_bytes_max", 0), n)
             for gone in [k for k, (ref, _n) in live.items() if ref.expired()]:
                 state["now"] -= live.pop(gone)[1]
             state["peak"] = max(state["peak"], state["now"])
@@ -212,7 +220,7 @@ def traced_step(state, step: Callable, *args, record: Optional[dict] = None) -> 
 
 class _BodyObjective(torch.nn.Module):
     """``HybridLMTrainer._loss`` over a body's structure, as a module that
-    ``functional_call`` runs on materialised parameters."""
+    ``functional_call`` runs on the rank's shards."""
 
     def __init__(self, body, loss_chunk: int) -> None:
         super().__init__()
@@ -221,10 +229,11 @@ class _BodyObjective(torch.nn.Module):
     def forward(self, emb, tok):
         from parameter_server_tpu_torch.models import transformer as tfm
 
+        cfg = self.body.cfg
         if self.loss_chunk > 0:
             return tfm.chunked_causal_lm_loss(self.body.trunk(emb), self.body.lm_head.kernel,
-                                              tok, self.loss_chunk)
-        return tfm.causal_lm_loss(self.body(emb), tok)
+                                              tok, self.loss_chunk, cfg)
+        return tfm.causal_lm_loss(self.body(emb), tok, cfg)
 
 
 def make_body_step(cfg, mesh, batch: int, seq: int, *, learning_rate: float = 1e-3,
@@ -232,8 +241,9 @@ def make_body_step(cfg, mesh, batch: int, seq: int, *, learning_rate: float = 1e
     """One hybrid-body train step on this rank (the JAX ``compile_body_step``):
     loss and gradients with respect to the parameters and the input
     embeddings, AdamW, the batch split over ``data``, the parameters placed
-    by ``parallel/tp.py``'s rules over ``model`` (materialised for the math,
-    as ``HybridLMTrainer`` on a mesh does).  ``fsdp``: ``"none"``; ``"full"``
+    by ``parallel/tp.py``'s rules over ``model`` and computed with as its
+    Megatron splits on the rank's shards, as ``HybridLMTrainer`` on a mesh
+    does.  ``fsdp``: ``"none"``; ``"full"``
     (parameters and moments split over ``data`` too); ``"state"`` (the
     moments alone, as ``SpTpLMTrainer`` splits them over ``sp``).
 
@@ -253,7 +263,8 @@ def make_body_step(cfg, mesh, batch: int, seq: int, *, learning_rate: float = 1e
     n_data = mesh.shape[mesh_lib.DATA_AXIS]
     if batch % n_data:
         raise ValueError(f"batch {batch} % data {n_data} != 0")
-    body = tfm.TransformerBody(cfg, device=dev, generator=tfm.make_generator(dev, seed))
+    body = tfm.TransformerBody(tp.split_config(cfg, mesh), device=dev,
+                               generator=tfm.make_generator(dev, seed))
     n_params = sum(int(p.numel()) for p in body.parameters())
     shardings = tp.transformer_param_shardings(body, mesh, fsdp=fsdp == "full")
     params = tp.place_params(body, mesh, shardings)
@@ -272,9 +283,10 @@ def make_body_step(cfg, mesh, batch: int, seq: int, *, learning_rate: float = 1e
 
     def step(emb, tokens):
         emb = emb.detach().requires_grad_(True)
-        # each rank's share of the global mean; the gradients sum over data
-        full = {f"body.{n}": t for n, t in tp.materialize(params, mesh).items()}
-        loss = functional_call(objective, full, (emb, tokens)) / n_data
+        # each rank's share of the global mean, on its model shards; the
+        # gradients sum over data
+        local = {f"body.{n}": t for n, t in tp.materialize(params, mesh).items()}
+        loss = functional_call(objective, local, (emb, tokens)) / n_data
         optimizer.zero_grad(set_to_none=True)
         for p in params.values():
             p.grad = None
@@ -301,9 +313,11 @@ def body_train_step_memory(cfg, mesh: Sequence[int], batch: int, seq: int, *,
                            budget_bytes: Optional[int] = None) -> dict:
     """One rank's memory for the hybrid body step (:func:`make_body_step`) on
     a ``(data, model)`` mesh of shape ``mesh``.  ``method="fake_trace"``:
-    rank 0 of a fake world; ``"measured"``: a real step on the card (a mesh
-    of one), ``torch.cuda.max_memory_allocated`` after
-    ``reset_peak_memory_stats``."""
+    rank 0 of a fake world; ``"measured"``: a real step on the card,
+    ``torch.cuda.max_memory_allocated`` after ``reset_peak_memory_stats`` —
+    a world of one for ``(1, 1)``, else rank 0 of a fake world on real
+    card tensors (its collectives move nothing, so the values are
+    meaningless, but every tensor a rank of that mesh makes is made)."""
     import numpy as np
 
     from parameter_server_tpu_torch.parallel import mesh as mesh_lib
@@ -330,11 +344,21 @@ def body_train_step_memory(cfg, mesh: Sequence[int], batch: int, seq: int, *,
 
 
 def _measured_body(cfg, shape, batch, seq, learning_rate, loss_chunk, fsdp) -> dict:
+    import numpy as np
+
     from parameter_server_tpu_torch.parallel import mesh as mesh_lib
 
-    if not torch.cuda.is_available() or shape != (1, 1):
-        raise ValueError("method='measured' runs one card: a (1, 1) mesh on a CUDA host")
-    m = mesh_lib.make_mesh((1, 1), device="cuda")
+    if not torch.cuda.is_available():
+        raise ValueError("method='measured' runs on the card: no CUDA device is visible")
+    if shape == (1, 1):
+        return _measured_rank(cfg, mesh_lib.make_mesh((1, 1), device="cuda"), batch, seq,
+                              learning_rate, loss_chunk, fsdp)
+    with fake_world(int(np.prod(shape))):
+        m = mesh_lib.make_mesh(shape, device="cuda")
+        return _measured_rank(cfg, m, batch, seq, learning_rate, loss_chunk, fsdp)
+
+
+def _measured_rank(cfg, m, batch, seq, learning_rate, loss_chunk, fsdp) -> dict:
     step, inputs, state, n = make_body_step(cfg, m, batch, seq, learning_rate=learning_rate,
                                             loss_chunk=loss_chunk, fsdp=fsdp)
     torch.cuda.synchronize()
@@ -536,8 +560,8 @@ def pp_tp_feasibility(*, n_stages: int = 8, tp: int = 8, n_micro: int = 8,
                       budget_bytes: Optional[int] = None) -> dict:
     """Depth x width: a ~26B fp32-AdamW LM over ``(pp, model)``, each stage's
     blocks placed over ``model`` (``PipelinedLMTrainer(tp=True)``, 1/(S x TP)
-    of the stack a rank).  The port's model axis computes replicated: a
-    step materialises its stage in full (``parallel/tp.py``)."""
+    of the stack a rank), each rank computing its stage's Megatron split
+    (``parallel/tp.py``)."""
     from parameter_server_tpu_torch.models import transformer as tfm
     from parameter_server_tpu_torch.parallel.pp import PP_AXIS
 
@@ -579,7 +603,8 @@ def main(argv=None) -> int:
     p.add_argument("--scan-blocks", action=argparse.BooleanOptionalAction, default=True)
     p.add_argument("--dtype", default=None, help="e.g. bfloat16")
     p.add_argument("--method", default="fake_trace", choices=["fake_trace", "measured"],
-                   help="llama3-8b: measured runs a real step on the card (--mesh 1,1)")
+                   help="llama3-8b: measured runs a real step on the card (rank 0 of a "
+                   "fake world of --mesh on real card tensors; a world of one at 1,1)")
     p.add_argument("--budget-gb", type=float, default=None,
                    help="the memory to judge against (default: the card's)")
     args = p.parse_args(argv)

@@ -44,9 +44,11 @@ every rank takes the same AdamW update.  ``optax.adamw``'s rule runs as
 Meshes.  ``("pp",)``; ``("data", "pp")`` splits each microbatch's rows over
 ``data`` and averages the loss and the gradients there; ``("pp", "model")``
 with ``tp=True`` places each stage's blocks over ``model`` by
-``parallel/tp.py``'s rules (DTensors; a step materialises them, computes
-replicated and slices the gradients back onto the shards).  An axis of
-another name holds replicas that compute the whole step each.
+``parallel/tp.py``'s rules (DTensors) and computes them as Megatron splits:
+each rank runs its stage on its own heads and slice of ``d_ff``
+(``models/transformer.py``), and the gradients land on its shards.  The
+embedding, the head and the final norm stay replicated, as in JAX.  An axis
+of another name holds replicas that compute the whole step each.
 """
 
 from __future__ import annotations
@@ -62,6 +64,7 @@ from torch.utils.checkpoint import checkpoint
 from parameter_server_tpu_torch.learner.lm import adamw
 from parameter_server_tpu_torch.models import transformer as tfm
 from parameter_server_tpu_torch.parallel import mesh as mesh_lib
+from parameter_server_tpu_torch.parallel import tp as tp_lib
 from parameter_server_tpu_torch.utils import metrics as metrics_lib
 
 PP_AXIS = "pp"
@@ -425,12 +428,7 @@ class PPStep:
         """This rank's stage (:func:`_stage_generator`), the replicated
         tail (:func:`_init_tail`), the TP placement and AdamW."""
         cfg, dev = self.cfg, self.device
-        self.stage = Stage(cfg, self.per_stage, device=dev,
-                           generator=_stage_generator(dev, seed, self.stage_index))
-        self.embed, self.head, self.norm = _init_tail(cfg, dev, seed)
         if self.tp:
-            from parameter_server_tpu_torch.parallel import tp as tp_lib
-
             from torch._subclasses.fake_tensor import unset_fake_temporarily
             from torch.distributed.device_mesh import DeviceMesh
 
@@ -441,6 +439,12 @@ class PPStep:
                 line = DeviceMesh.from_group(self.mesh.group(mesh_lib.MODEL_AXIS), dev.type,
                                              mesh_dim_names=(mesh_lib.MODEL_AXIS,))
             self.model_mesh = mesh_lib.Mesh(line, dev)
+        # the blocks' config: the model line is the split they compute
+        self.stage = Stage(tp_lib.split_config(cfg, self.model_mesh if self.tp else None),
+                           self.per_stage, device=dev,
+                           generator=_stage_generator(dev, seed, self.stage_index))
+        self.embed, self.head, self.norm = _init_tail(cfg, dev, seed)
+        if self.tp:
             self.stage_shardings = tp_lib.transformer_param_shardings(self.stage,
                                                                       self.model_mesh)
             #: dotted name -> DTensor over this rank's ``model`` line
@@ -455,11 +459,14 @@ class PPStep:
 
     def _full_stage(self):
         """The stage's parameters to compute with: its own, or (TP) each
-        DTensor in full as a leaf that collects the step's gradient."""
+        DTensor as ``tp.materialize`` hands it over (the rank's ``model``
+        shard), as a leaf that collects the step's gradient over every
+        microbatch."""
         if not self.tp:
             return None
-        return {n: p.full_tensor().detach().requires_grad_(True)
-                for n, p in self.stage_params.items()}
+        with torch.no_grad():
+            local = tp_lib.materialize(self.stage_params, self.model_mesh)
+        return {n: t.detach().requires_grad_(True) for n, t in local.items()}
 
     def _rows(self, tokens_micro: torch.Tensor) -> torch.Tensor:
         if self.n_data == 1:
@@ -512,12 +519,10 @@ class PPStep:
         full = self._full_stage()
         work = self._pass(self.schedule, tokens_micro, full)
         if self.tp:
-            from torch.distributed.tensor import distribute_tensor
-
-            # every model rank computed the same full gradient: keep its shard
+            # each leaf's gradient onto its shard (a gathered k / v's
+            # reduce-scattered: every rank's queries' share)
             for n, p in self.stage_params.items():
-                p.grad = distribute_tensor(full[n].grad, p.device_mesh, p.placements,
-                                           src_data_rank=None)
+                p.grad = tp_lib.place_grad(p, full[n].grad, self.model_mesh)
         params = list(self.stage_params.values()) + self.replicated
         for p in params:
             if p.grad is None:

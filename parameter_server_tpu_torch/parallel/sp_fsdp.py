@@ -7,8 +7,9 @@ long-context trainer at scale, on an ``(sp, model)`` mesh, where
   activations a rank: ``attn_impl="ring_spmd"`` over the mesh's ``sp``
   line);
 - the **weights** are placed by ``parallel/tp.py``'s rules over ``model``
-  (DTensors; a step materialises them in full, as ``learner/lm.py`` does,
-  so the ``model`` axis computes replicated);
+  (DTensors) and computed with as Megatron splits: a step gathers them over
+  ``sp`` only, and each rank runs the ring (or Ulysses) on its own heads,
+  its slice of ``d_ff`` and of the vocabulary (the loss vocab-parallel);
 - with ``fsdp="state"`` the **AdamW moments** are split over ``sp`` as well
   (ZeRO-style): each rank keeps and updates only its ``sp`` slice of every
   parameter's moments and then gathers the updated weights back over
@@ -33,6 +34,7 @@ from torch.utils.checkpoint import checkpoint
 from parameter_server_tpu_torch.learner.lm import adamw
 from parameter_server_tpu_torch.models import transformer as tfm
 from parameter_server_tpu_torch.parallel import mesh as mesh_lib
+from parameter_server_tpu_torch.parallel import tp
 from parameter_server_tpu_torch.parallel.sp_lm import (
     SP_AXIS,
     block_positions,
@@ -61,7 +63,7 @@ class _SumToReplicated(torch.autograd.Function):
 
 def sp_chunked_causal_loss(hidden: torch.Tensor, head_kernel: torch.Tensor,
                            targets: torch.Tensor, mask: torch.Tensor, *, mesh,
-                           chunk: int) -> torch.Tensor:
+                           chunk: int, cfg=None) -> torch.Tensor:
     """Fused-head causal NLL of a sequence split over ``sp``.
 
     ``hidden`` ``[B, s_local, d]``, ``targets`` / ``mask`` ``[B, s_local]``:
@@ -70,8 +72,11 @@ def sp_chunked_causal_loss(hidden: torch.Tensor, head_kernel: torch.Tensor,
     each chunk under ``torch.utils.checkpoint`` so one ``[B, chunk, V]`` slab
     is live at a time, and the sums over ``sp`` give the global masked mean:
     ``causal_lm_loss(hidden @ head_kernel, tokens)`` up to summation order,
-    the same value on every rank."""
+    the same value on every rank.  ``cfg``: the model's; where its mesh
+    splits ``model``, ``head_kernel`` is the rank's vocabulary block and the
+    NLL vocab-parallel (``models/transformer.py``'s losses)."""
     B, s_local, _d = hidden.shape
+    hidden = tp.copy_to_model(hidden, None if cfg is None else cfg.spmd_mesh)
     c = min(chunk, s_local)
     pad = (-s_local) % c
     if pad:
@@ -80,7 +85,7 @@ def sp_chunked_causal_loss(hidden: torch.Tensor, head_kernel: torch.Tensor,
         mask = F.pad(mask, (0, pad))
     total = torch.zeros((), dtype=torch.float32, device=hidden.device)
     for s in range(0, s_local + pad, c):
-        args = (hidden[:, s:s + c], head_kernel, targets[:, s:s + c], mask[:, s:s + c])
+        args = (hidden[:, s:s + c], head_kernel, targets[:, s:s + c], mask[:, s:s + c], cfg)
         if torch.is_grad_enabled():
             total = total + checkpoint(tfm._chunk_nll, *args, use_reentrant=False)
         else:
@@ -92,7 +97,7 @@ def sp_chunked_causal_loss(hidden: torch.Tensor, head_kernel: torch.Tensor,
 
 class _Objective(torch.nn.Module):
     """The composed step's loss as a module over the model, so
-    ``torch.func.functional_call`` runs it on materialised parameters."""
+    ``torch.func.functional_call`` runs it on the rank's shards."""
 
     def __init__(self, model: tfm.Transformer, mesh, chunk: int) -> None:
         super().__init__()
@@ -102,16 +107,17 @@ class _Objective(torch.nn.Module):
         model = self.model
         B, s_local = tok.shape
         positions = block_positions(self.mesh, SP_AXIS, B, s_local, tok.device)
-        hidden = model.trunk(model.embedding[tok], positions=positions)
+        hidden = model.trunk(model.embed(tok), positions=positions)
         return sp_chunked_causal_loss(hidden, model.lm_head.kernel, tgt, msk,
-                                      mesh=self.mesh, chunk=self.chunk)
+                                      mesh=self.mesh, chunk=self.chunk, cfg=model.cfg)
 
 
 def make_sp_step(cfg_run: tfm.TransformerConfig, mesh, chunk: int):
     """The composed step's loss function, over a fresh model of
     ``cfg_run`` (which must carry ``attn_impl="ring_spmd"`` and the mesh):
-    ``loss_fn(params, tok, tgt, msk)`` with ``params`` the materialised
-    ``{dotted name: tensor}`` and the batch this rank's block.  Returns
+    ``loss_fn(params, tok, tgt, msk)`` with ``params`` the rank's
+    ``{dotted name: tensor}`` (``tp.materialize``) and the batch this rank's
+    block.  Returns
     (loss_fn, the model whose structure the parameters run in)."""
     from torch.func import functional_call
 
@@ -146,8 +152,6 @@ class SpTpLMTrainer:
         """``mesh``: an ``(sp, model)`` mesh; by default every rank of the
         world on ``sp`` and ``model`` 1 (a process with no world forms one of
         its own on ``device``)."""
-        from parameter_server_tpu_torch.parallel import tp
-
         if fsdp not in ("none", "state"):
             raise ValueError(f"fsdp must be none|state, got {fsdp!r}")
         if mesh is None:
@@ -203,9 +207,9 @@ class SpTpLMTrainer:
                      for a in (tokens, targets, mask))
 
     def _full(self):
-        from parameter_server_tpu_torch.parallel import tp
-
-        # each rank's gradient is its sequence block's share: partial over sp
+        # gathered over sp only (a no-op: the weights are replicated there),
+        # the model shards kept; each rank's gradient is its sequence block's
+        # share: partial over sp
         return tp.materialize(self.params, self.mesh, partial_over=(SP_AXIS,))
 
     def step(self, tokens: np.ndarray) -> float:

@@ -317,7 +317,8 @@ def lm_losses(shape, cfg_kw, batches, kw):
 
 def body_losses(shape, cfg_kw, params, emb, tokens, fsdp, steps):
     """A ``TransformerBody`` from flax ``params``, placed by the TP (or fsdp)
-    rules, trained by AdamW(1e-2) on one replicated batch: its losses."""
+    rules and computed as their Megatron split, trained by AdamW(1e-2) on
+    one replicated batch: its losses."""
     import torch
     from torch.func import functional_call
 
@@ -327,16 +328,17 @@ def body_losses(shape, cfg_kw, params, emb, tokens, fsdp, steps):
     from parameter_server_tpu_torch.parallel import tp
 
     m = mesh(shape)
-    body = tfm.TransformerBody(tfm.tiny_config(**cfg_kw), device="cpu")
+    body = tfm.TransformerBody(tp.split_config(tfm.tiny_config(**cfg_kw), m), device="cpu")
     transformer_from_numpy(body, params)
     placed = tp.place_params(body, m, tp.transformer_param_shardings(body, m, fsdp=fsdp))
     opt = adamw(placed.values(), 1e-2)
     e, t = torch.from_numpy(emb), torch.from_numpy(tokens).long()
     out = []
     for _ in range(steps):
-        # every rank holds the whole batch: the gradients are identical
-        full = tp.materialize(placed, m, partial_over=())
-        loss = tfm.causal_lm_loss(functional_call(body, full, (e,)), t)
+        # every rank holds the whole batch: the gradients are identical over
+        # data; each rank computes its model shards' part
+        local = tp.materialize(placed, m, partial_over=())
+        loss = tfm.causal_lm_loss(functional_call(body, local, (e,)), t, body.cfg)
         opt.zero_grad(set_to_none=True)
         loss.backward()
         opt.step()
@@ -813,3 +815,224 @@ def feasibility_cases(budget):
     step, inputs, state, _n = feas.make_body_step(cfg, m, 2, 32)
     out["calibration"] = {"fake": fake, "real": feas.traced_step(state, step, *inputs)}
     return out
+
+
+# -- the Megatron split over ``model`` (tests/test_torch_tp_compute.py) ----------------
+
+
+def split_mesh(shape):
+    """A ``(data, model)`` mesh of ``shape`` over the 8-rank world: a smaller
+    one is repeated over a leading ``rep`` axis (``(1, 4)`` is ``(rep 2,
+    data 1, model 4)``), whose ranks compute the same thing."""
+    shape = tuple(shape)
+    rep = 8 // int(np.prod(shape))
+    if rep == 1:
+        return mesh(shape)
+    return mesh((rep,) + shape, ("rep", "data", "model"))
+
+
+def _load_flat(module, flat):
+    """Copy ``{dotted flax path: array}`` into ``module``'s parameters."""
+    import torch
+
+    with torch.no_grad():
+        for n, p in module.named_parameters():
+            p.copy_(torch.from_numpy(np.asarray(flat[n])))
+
+
+def tp_block(shape, cfg_kw, flat, x, positions, mask, cot):
+    """One ``Block`` from ``flat`` placed by the TP rules on a ``(data,
+    model)`` mesh and computed as its split, on this rank's ``data`` rows of
+    ``x``: (data index, those rows of ``sum(out * cot)``'s forward and of
+    the input's gradient, every parameter's gradient summed and whole)."""
+    import torch
+    from torch.func import functional_call
+
+    from parameter_server_tpu_torch.models import transformer as tfm
+    from parameter_server_tpu_torch.parallel import distributed, tp
+
+    m = split_mesh(shape)
+    block = tfm.Block(tp.split_config(tfm.tiny_config(**cfg_kw), m), device="cpu")
+    _load_flat(block, flat)
+    placed = tp.place_params(block, m)
+    rows = distributed.local_batch_slice(m.index("data"), m.shape["data"], x.shape[0])
+    xs = torch.from_numpy(x[rows]).requires_grad_(True)
+    attn = None if mask is None else torch.from_numpy(mask[rows])
+    out = functional_call(block, tp.materialize(placed, m),
+                          (xs, torch.from_numpy(positions[rows]), attn))
+    (out * torch.from_numpy(cot[rows])).sum().backward()
+    grads = {n: p.grad.full_tensor().numpy() for n, p in placed.items()}
+    return m.index("data"), out.detach().numpy(), xs.grad.numpy(), grads
+
+
+def tp_vocab(shape, kind, vocab, hidden, weight, tokens, mask, chunk):
+    """The vocab-parallel embedding (``kind`` "embed": ``weight`` the
+    ``[vocab, d]`` table, ``hidden`` the cotangent of the lookup) or loss
+    ("causal", "chunked", "mlm": ``weight`` the ``[d, vocab]`` head) on a
+    vocabulary split over ``model``: (the lookup or the loss, the gradient
+    of ``hidden`` (None for "embed"), ``weight``'s gradient whole)."""
+    import torch
+    from torch.distributed.tensor import distribute_tensor
+
+    from parameter_server_tpu_torch.models import transformer as tfm
+    from parameter_server_tpu_torch.parallel import mesh as mesh_lib
+    from parameter_server_tpu_torch.parallel import tp
+
+    m = split_mesh(shape)
+    cfg = tfm.TransformerConfig(vocab_size=vocab, n_layers=1, n_heads=1,
+                                d_model=hidden.shape[-1], d_ff=4, spmd_mesh=m)
+    dim = 0 if kind == "embed" else 1
+    spec = [None, None]
+    spec[dim] = "model"
+    placed = torch.nn.Parameter(distribute_tensor(
+        torch.from_numpy(weight), m.device_mesh, mesh_lib.Sharding(m, spec).placements))
+    local = tp.materialize({"w": placed}, m, partial_over=())["w"]
+    tok = torch.from_numpy(tokens).long()
+    if kind == "embed":
+        out = tp.vocab_parallel_embed(local, tok, m, vocab)
+        (out * torch.from_numpy(hidden)).sum().backward()
+        return out.detach().numpy(), None, placed.grad.full_tensor().numpy()
+    h = torch.from_numpy(hidden).requires_grad_(True)
+    if kind == "chunked":
+        loss = tfm.chunked_causal_lm_loss(h, local, tok, chunk, cfg)
+    else:
+        logits = torch.einsum("bsd,dv->bsv", tp.copy_to_model(h, m), local)
+        loss = (tfm.causal_lm_loss(logits, tok, cfg) if kind == "causal"
+                else tfm.mlm_loss(logits, tok, torch.from_numpy(mask), cfg))
+    loss.backward()
+    return float(loss), h.grad.numpy(), placed.grad.full_tensor().numpy()
+
+
+def tp_model(shape, cfg_kw, params, inputs, targets, mask):
+    """An ``SpmdLMTrainer`` from the flax ``params`` on a ``(data, model)``
+    mesh: its global loss on the batch (the step's own ``_mesh_loss`` on the
+    rank's rows) and every parameter's gradient summed and whole."""
+    import torch
+
+    from parameter_server_tpu_torch.convert import placed_from_numpy
+    from parameter_server_tpu_torch.learner.lm import SpmdLMTrainer
+    from parameter_server_tpu_torch.models import transformer as tfm
+
+    m = split_mesh(shape)
+    tr = SpmdLMTrainer(tfm.tiny_config(**cfg_kw), m, device="cpu")
+    placed_from_numpy(tr, params)
+    mk = None if mask is None else torch.from_numpy(mask)
+    inp, tgt, mk = tr._local_rows(torch.from_numpy(inputs).long(),
+                                  torch.from_numpy(targets).long(), mk)
+    loss = tr._mesh_loss(inp, tgt, mk)
+    loss.backward()
+    total = m.all_reduce(loss.detach().clone(), "data")
+    return float(total), {n: p.grad.full_tensor().numpy() for n, p in tr.params.items()}
+
+
+def _shapes_made(fn):
+    """The shape of every plain tensor ``fn()``'s operators made (a
+    DTensor's operator reaches the mode with its global shape first, then
+    once more on the rank's local tensors: only those hold memory)."""
+    import torch
+    from torch.distributed.tensor import DTensor
+    from torch.utils._python_dispatch import TorchDispatchMode
+    from torch.utils._pytree import tree_leaves
+
+    shapes = set()
+
+    class Record(TorchDispatchMode):
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            out = func(*args, **(kwargs or {}))
+            shapes.update(tuple(t.shape) for t in tree_leaves(out)
+                          if isinstance(t, torch.Tensor) and not isinstance(t, DTensor))
+            return out
+
+    with Record():
+        fn()
+    return shapes
+
+
+def _tp_trace(kind, cfg, shape, batch, seq):
+    """One traced step of ``kind`` as rank 0 of a fake world of ``shape``:
+    the bytes of the parameters (the stage's for "pp") and their
+    gradients; the part of them replicated over ``model``; the whole shapes
+    of the ``model``-split parameters that an operator of the step made."""
+    import torch
+    from torch.distributed.tensor import Shard
+
+    from parameter_server_tpu_torch.parallel import feasibility as feas
+    from parameter_server_tpu_torch.parallel import mesh as mesh_lib
+
+    axes = {"sptp": ("sp", "model"), "pp": ("pp", "model")}.get(kind, ("data", "model"))
+    tokens = np.zeros((batch, seq), np.int64)
+    with feas.fake_world(int(np.prod(shape))):
+        m = mesh_lib.make_mesh(shape, axes, device="cpu")
+        with feas.fake_tensors():
+            tok = torch.from_numpy(tokens)
+            if kind == "lm":
+                from parameter_server_tpu_torch.learner.lm import SpmdLMTrainer
+
+                tr = SpmdLMTrainer(cfg, m, device="cpu")
+                params, step = tr.params, lambda: tr._update(tok, tok, None)
+            elif kind == "hybrid":
+                from parameter_server_tpu_torch.learner.hybrid import HybridLMTrainer
+
+                tr = HybridLMTrainer(cfg, object(), mesh=m, device="cpu")
+                emb = torch.zeros((batch, seq, cfg.d_model))
+                params, step = tr.params, lambda: tr._body_step(emb, tok)
+            elif kind == "body_step":
+                body_step, inputs, state, _n = feas.make_body_step(cfg, m, batch, seq)
+                params, step = state["params"], lambda: body_step(*inputs)
+            elif kind == "sptp":
+                from parameter_server_tpu_torch.parallel.sp_fsdp import SpTpLMTrainer
+
+                tr = SpTpLMTrainer(cfg, m, loss_chunk=4, device="cpu")
+                params, step = tr.params, lambda: tr._update(tokens)
+            else:
+                from parameter_server_tpu_torch.parallel.pp import PipelinedLMTrainer
+
+                tr = PipelinedLMTrainer(cfg, m, n_micro=2, tp=True, device="cpu")
+                micro = tr._micro(tokens)
+                params, step = tr.stage_params, lambda: tr.pp.step(micro)
+            made = _shapes_made(step)
+            split = {n for n, p in params.items()
+                     if any(isinstance(pl, Shard) and a == "model" for a, pl in
+                            zip(p.device_mesh.mesh_dim_names, p.placements))}
+            held = feas.held_bytes([list(params.values()),
+                                    [p.grad for p in params.values()]])
+            replicated = feas.held_bytes([[params[n], params[n].grad]
+                                          for n in params if n not in split])
+            whole = sorted({tuple(params[n].shape) for n in split} & made)
+    return {"bytes": held, "replicated": replicated, "whole_shapes_made": whole,
+            "n_split": len(split)}
+
+
+def tp_trace_cases():
+    """:func:`_tp_trace` of every trainer that computes the split, on a
+    ``(1, 1)`` and a ``(1, 4)`` fake world, in one process (no world of its
+    own)."""
+    from parameter_server_tpu_torch.models import transformer as tfm
+
+    # 8 query and 4 KV heads: whole KV groups a rank at model 4; B * S (24)
+    # is no dimension of a parameter
+    cfg = tfm.tiny_config(causal=True, tie_embeddings=False, n_heads=8, n_kv_heads=4,
+                          d_model=64, d_ff=128, n_layers=2)
+    out = {kind: {f"{s[0]},{s[1]}": _tp_trace(kind, cfg, s, 2, 12) for s in ((1, 1), (1, 4))}
+           for kind in ("lm", "hybrid", "body_step", "sptp", "pp")}
+    out["dtensor_op"] = _dtensor_op_bytes()
+    return out
+
+
+def _dtensor_op_bytes():
+    """The tracker's bytes for one DTensor operator (``zeros_like`` of a
+    ``[1024, 64]`` float32 split over ``model`` 4, rank 0 of a fake world)
+    and that rank's shard's bytes."""
+    import torch
+    from torch.distributed.tensor import Replicate, Shard, distribute_tensor
+
+    from parameter_server_tpu_torch.parallel import feasibility as feas
+    from parameter_server_tpu_torch.parallel import mesh as mesh_lib
+
+    with feas.fake_world(4):
+        m = mesh_lib.make_mesh((1, 4), device="cpu")
+        with feas.fake_tensors():
+            d = distribute_tensor(torch.ones(1024, 64), m.device_mesh, [Replicate(), Shard(0)])
+            _, peak = feas.peak_live_bytes(lambda: torch.zeros_like(d))
+            shard = d.to_local().numel() * d.element_size()
+    return {"peak": peak, "shard": shard}
