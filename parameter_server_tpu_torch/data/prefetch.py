@@ -33,6 +33,8 @@ from typing import Any, Callable, Iterator, List, Optional
 import numpy as np
 import torch
 
+from parameter_server_tpu_torch.utils.trace import NULL_TRACER
+
 #: queue sentinel: producer finished (``limit`` reached).
 _DONE = object()
 
@@ -86,6 +88,10 @@ class PrefetchPipeline:
         to ``device``); tests pass an identity to run device-free.
     device:
         where blocks are staged (keyword-only; default ``"cuda"``).
+    tracer:
+        records ``prefetch.stage`` (the producer building and staging a
+        block) and ``prefetch.wait`` (the consumer waiting on an empty
+        queue: the time the ``prefetch_stall_s`` counter adds up).
     """
 
     def __init__(
@@ -96,11 +102,13 @@ class PrefetchPipeline:
         limit: Optional[int] = None,
         device_put: Optional[Callable[[Any], Any]] = None,
         device: str | torch.device = "cuda",
+        tracer=None,
     ) -> None:
         if depth < 1:
             raise ValueError(f"prefetch depth must be >= 1, got {depth}")
         self._make_block = make_block
         self._limit = limit
+        self.tracer = tracer or NULL_TRACER
         self.device = torch.device(device)
         self._stream = None
         if device_put is None:
@@ -165,7 +173,8 @@ class PrefetchPipeline:
                 if self._limit is not None and i >= self._limit:
                     self._put(_DONE)
                     return
-                block = self._device_put(self._make_block(i))
+                with self.tracer.span("prefetch.stage"):
+                    block = self._device_put(self._make_block(i))
                 if not self._put(block):
                     return  # stopped while waiting on a full queue
                 with self._lock:
@@ -195,7 +204,8 @@ class PrefetchPipeline:
             item = self._q.get_nowait()
         except queue.Empty:
             t0 = time.perf_counter()
-            item = self._q.get()
+            with self.tracer.span("prefetch.wait"):
+                item = self._q.get()
             with self._lock:
                 self._stalls += 1
                 self._stall_s += time.perf_counter() - t0

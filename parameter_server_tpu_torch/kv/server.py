@@ -86,8 +86,11 @@ trace id rides into the apply ledger, whose retirement records the device
 child ``trace.apply`` from the apply's CUDA event.  ``tracer=`` records the
 host spans ``kv.server.push`` / ``kv.server.pull`` / ``kv.server.pull_ro``
 / ``kv.server.push_batch``: they time the launch on the host (CUDA work is
-asynchronous), never the card.  All of it is host dict and int work: no
-span or record reads a tensor's value.
+asynchronous).  The card's time under them is found after the run, by a
+profiling harness that gives each kernel to the span open on the receive
+thread that launched it (``utils/trace.py``); the handlers themselves never
+read the card.  All of it is host dict and int work: no span or record
+reads a tensor's value.
 """
 
 from __future__ import annotations

@@ -128,7 +128,14 @@ class HybridLMTrainer:
         chunked loss (``chunked_causal_lm_loss``): the f32 [B, S, vocab]
         logits never exist whole.  ``mesh``: a ``(data, model)`` mesh to run
         the body on (``device`` is then the mesh's); ``worker`` may be None
-        on a rank that does not talk to the Van (``model`` index > 0)."""
+        on a rank that does not talk to the Van (``model`` index > 0).
+        ``tracer``: records a step's phases (``hybrid.pull``: a pull's or a
+        prefetch's submit; ``hybrid.pull_wait``, ``hybrid.forward``,
+        ``hybrid.backward``, ``hybrid.optimizer``, ``hybrid.push``,
+        ``hybrid.inflight_wait``, ``hybrid.loss_sync``).  The body's blocks
+        stay untraced (their markers cost on autograd's thread); a profiling
+        harness that wants ``tfm.attention`` / ``tfm.mlp`` sets a tracer on
+        them (:class:`~parameter_server_tpu_torch.models.transformer.Block`)."""
         if cfg.tie_embeddings:
             raise ValueError(
                 "hybrid requires untied embeddings: the lm_head is dense, "
@@ -192,27 +199,30 @@ class HybridLMTrainer:
         before AdamW; the returned loss is the global one."""
         self.body.train()
         emb = emb.detach().to(torch.float32).requires_grad_(True)
-        if self.mesh is None:
-            loss = self._loss(emb, tok)
-        else:
-            from torch.func import functional_call
+        with self.tracer.span("hybrid.forward"):
+            if self.mesh is None:
+                loss = self._loss(emb, tok)
+            else:
+                from torch.func import functional_call
 
-            from parameter_server_tpu_torch.parallel import tp
+                from parameter_server_tpu_torch.parallel import tp
 
-            # the gradients arrive on the model shards unsummed over data;
-            # the all-reduce over data follows
-            local = {f"body.{n}": t for n, t in
-                     tp.materialize(self.params, self.mesh, partial_over=()).items()}
-            loss = functional_call(self._objective, local, (emb, tok)) / self._n_data
-        self.optimizer.zero_grad(set_to_none=True)
-        loss.backward()
-        if self.mesh is not None:
-            from parameter_server_tpu_torch.parallel import mesh as mesh_lib
+                # the gradients arrive on the model shards unsummed over data;
+                # the all-reduce over data follows
+                local = {f"body.{n}": t for n, t in
+                         tp.materialize(self.params, self.mesh, partial_over=()).items()}
+                loss = functional_call(self._objective, local, (emb, tok)) / self._n_data
+        with self.tracer.span("hybrid.backward"):
+            self.optimizer.zero_grad(set_to_none=True)
+            loss.backward()
+            if self.mesh is not None:
+                from parameter_server_tpu_torch.parallel import mesh as mesh_lib
 
-            for p in self.params.values():
-                self.mesh.all_reduce(p.grad.to_local(), mesh_lib.DATA_AXIS)
-            loss = self.mesh.all_reduce(loss.detach().clone(), mesh_lib.DATA_AXIS)
-        self.optimizer.step()
+                for p in self.params.values():
+                    self.mesh.all_reduce(p.grad.to_local(), mesh_lib.DATA_AXIS)
+                loss = self.mesh.all_reduce(loss.detach().clone(), mesh_lib.DATA_AXIS)
+        with self.tracer.span("hybrid.optimizer"):
+            self.optimizer.step()
         return loss.detach(), emb.grad
 
     # -- the hybrid hot path -------------------------------------------------
@@ -246,25 +256,27 @@ class HybridLMTrainer:
             else:  # the caller deviated from the announced batch: drain + repull
                 self.worker.pull_result(pts, timeout=pull_timeout)
         if ts is None:
-            ts = self.worker.pull(self.table, tokens)
+            with self.tracer.span("hybrid.pull"):
+                ts = self.worker.pull(self.table, tokens)
         with self.tracer.span("hybrid.pull_wait"):
             emb_in = self.worker.pull_result_device(ts, timeout=pull_timeout)
         tok = torch.as_tensor(tokens.astype(np.int64)).to(self.device)
         # 2) dense plane: the body step, queued on the card (the host goes on
         # to the push and prefetch while it runs)
-        with self.tracer.span("hybrid.body_dispatch"):
-            loss, g_emb = self._body_step(emb_in.to(self.device), tok)
+        loss, g_emb = self._body_step(emb_in.to(self.device), tok)
         # 3) PS plane: push the per-position embedding gradients as card
         # tensors.  The push MUST precede the prefetch pull: both are async
         # submits, and per-link FIFO then makes the prefetched rows include
         # this step's update (pull-before-push would hand back rows one
         # update stale even at max_delay=0)
-        ts = self.worker.push_device(self.table, tokens.reshape(-1),
-                                     g_emb.reshape(-1, self.cfg.d_model))
+        with self.tracer.span("hybrid.push"):
+            ts = self.worker.push_device(self.table, tokens.reshape(-1),
+                                         g_emb.reshape(-1, self.cfg.d_model))
         # 4) prefetch the next batch's rows
         if next_tokens is not None:
             next_tokens = np.asarray(next_tokens)
-            self._prefetch = (self.worker.pull(self.table, next_tokens), next_tokens)
+            with self.tracer.span("hybrid.pull"):
+                self._prefetch = (self.worker.pull(self.table, next_tokens), next_tokens)
         self._inflight.append(ts)
         self._bound_inflight()
         with self.tracer.span("hybrid.loss_sync"):
@@ -273,10 +285,11 @@ class HybridLMTrainer:
         return loss_f
 
     def _bound_inflight(self) -> None:
-        while len(self._inflight) > self.max_delay:
-            old = self._inflight.popleft()
-            if not self.worker.wait(old, timeout=self.push_timeout):
-                raise TimeoutError(f"embedding push ts={old} not acked")
+        with self.tracer.span("hybrid.inflight_wait"):
+            while len(self._inflight) > self.max_delay:
+                old = self._inflight.popleft()
+                if not self.worker.wait(old, timeout=self.push_timeout):
+                    raise TimeoutError(f"embedding push ts={old} not acked")
 
     def _record(self, tokens: np.ndarray, loss_f: float) -> None:
         self.step_count += 1
@@ -309,7 +322,8 @@ class HybridLMTrainer:
                 else:  # the caller deviated from the announced batch
                     self.worker.pull_result(pts, timeout=pull_timeout)
             if ts is None:
-                ts = self.worker.pull(self.table, feed)
+                with self.tracer.span("hybrid.pull"):
+                    ts = self.worker.pull(self.table, feed)
             with self.tracer.span("hybrid.pull_wait"):
                 rows = np.asarray(self.worker.pull_result(ts, timeout=pull_timeout), np.float32)
             emb = torch.from_numpy(rows.reshape(feed.shape + (d,))).to(self.device)
@@ -319,20 +333,21 @@ class HybridLMTrainer:
             group = self.mesh.group(mesh_lib.MODEL_AXIS)
             dist.broadcast(emb, dist.get_global_rank(group, 0), group=group)
         tok = torch.as_tensor(feed.astype(np.int64)).to(self.device)
-        with self.tracer.span("hybrid.body_dispatch"):
-            loss, g_emb = self._body_step(emb, tok)
+        loss, g_emb = self._body_step(emb, tok)
         if self.van_rank:
             # push before the prefetch pull (per-link FIFO: the prefetched
             # rows include this step's update)
-            self._inflight.append(self.worker.push(
-                self.table, feed.reshape(-1), g_emb.cpu().numpy().reshape(-1, d)))
+            with self.tracer.span("hybrid.push"):
+                self._inflight.append(self.worker.push(
+                    self.table, feed.reshape(-1), g_emb.cpu().numpy().reshape(-1, d)))
             if next_tokens is not None:
                 next_tokens = np.asarray(next_tokens)
                 # the NEXT batch's slice: its size may differ from this one's
                 nsl = distributed.local_batch_slice(self._data_index, self._n_data,
                                                     next_tokens.shape[0])
-                self._prefetch = (self.worker.pull(self.table, next_tokens[nsl]),
-                                  next_tokens)
+                with self.tracer.span("hybrid.pull"):
+                    self._prefetch = (self.worker.pull(self.table, next_tokens[nsl]),
+                                      next_tokens)
             self._bound_inflight()
         with self.tracer.span("hybrid.loss_sync"):
             return float(loss)

@@ -38,6 +38,7 @@ from parameter_server_tpu_torch.utils.keys import (
     localize_to_slots,
 )
 from parameter_server_tpu_torch.utils.threads import run_threads
+from parameter_server_tpu_torch.utils.trace import NULL_TRACER
 
 Batch = Tuple[np.ndarray, np.ndarray]  # (keys [B, nnz], labels [B])
 BatchFn = Callable[[], Batch]
@@ -54,13 +55,16 @@ class LocalLRTrainer:
         dashboard: Optional[metrics_lib.Dashboard] = None,
         mode: str = "rows",
         device_hash: bool = False,
+        tracer=None,
         device: str | torch.device = "cuda",
     ) -> None:
         """``mode="rows"``: bucketed-unique gather/apply/scatter (general).
         ``mode="dense"``: per-position hashed slots + full-table apply — no
         host dedup; requires l1 == l2 == 0 and a g=0-stable optimizer.
         ``device_hash``: hash raw uint32 keys on the device (dense mode);
-        :meth:`step_block` runs K steps per call."""
+        :meth:`step_block` runs K steps per call.  ``tracer``: the dense
+        steps' spans (``lr.hash``, ``lr.forward``, ``lr.segment_sum``,
+        ``lr.apply``)."""
         if table_cfg.dim != 1:
             raise ValueError("LR weight table must have dim=1")
         if mode not in ("rows", "dense"):
@@ -85,6 +89,7 @@ class LocalLRTrainer:
             for k in self.optimizer.state_shapes()
         }
         self.dashboard = dashboard or metrics_lib.Dashboard(print_every=0)
+        self.tracer = tracer or NULL_TRACER
         self.step_count = 0
 
     def _to_device(self, arr: np.ndarray) -> torch.Tensor:
@@ -96,7 +101,7 @@ class LocalLRTrainer:
             t.value, t.state, self.bias, self.bias_state,
             self._to_device(self.localizer.assign(keys)),  # [B, nnz], no dedup
             self._to_device(np.asarray(labels, np.float32)),
-            self.optimizer, self.cfg.rows,
+            self.optimizer, self.cfg.rows, self.tracer,
         )
         self.step_count += 1
         return loss
@@ -157,6 +162,7 @@ class LocalLRTrainer:
         losses = linear.dense_scan_train_step(
             t.value, t.state, self.bias, self.bias_state, keys_block,
             labels_block, self.optimizer, self.cfg.rows, self.localizer.seed,
+            self.tracer,
         )
         self.step_count += keys_block.shape[0]
         return losses

@@ -31,6 +31,7 @@ import torch
 from parameter_server_tpu_torch.kv.optim import ServerOptimizer
 from parameter_server_tpu_torch.ops import scatter
 from parameter_server_tpu_torch.utils.keys import MIX32_A, MIX32_B
+from parameter_server_tpu_torch.utils.trace import NULL_TRACER, Tracer
 
 Planes = Dict[str, torch.Tensor]
 _MASK32 = 0xFFFF_FFFF
@@ -131,6 +132,7 @@ def dense_fused_step(
     labels: torch.Tensor,
     optimizer: ServerOptimizer,
     trash_row: int,
+    tracer: Tracer = NULL_TRACER,
 ) -> torch.Tensor:
     """Dense-apply LR step, in place: no host dedup, no row gather/scatter of
     updates.  Returns the loss as a device tensor.
@@ -142,24 +144,29 @@ def dense_fused_step(
     elementwise over the whole table.  Rows with zero gradient stay exactly
     as they were under a ``g0_stable`` rule with ``l1 == l2 == 0`` (see
     ``kv.optim.require_dense_apply``), which the caller enforces.
+    ``tracer``: the spans ``lr.forward``, ``lr.segment_sum`` and
+    ``lr.apply``.
     """
-    flat = slots_pos.reshape(-1).long()
     names = list(state)
-    # pull_weights is elementwise: on the gathered positions it gives the
-    # same bits as on the whole table, at a fraction of the bytes
-    w_pos = optimizer.pull_weights(
-        torch.index_select(value, 0, flat),
-        {k: torch.index_select(state[k], 0, flat) for k in names},
-    )[:, 0].reshape(labels.shape[0], -1)
-    loss, residual = _loss_and_residual(w_pos, bias, bias_state, labels, optimizer)
-    g_pos = residual[:, None].expand(w_pos.shape).reshape(-1, 1)
-    grad = scatter.segment_combine(g_pos, flat, value.shape[0])
-    grad[trash_row].zero_()  # drop PAD contributions
-    new_v, new_s = optimizer.apply(value, state, grad)
-    value.copy_(new_v)
-    for k in names:
-        state[k].copy_(new_s[k])
-    _apply_bias(bias, bias_state, residual, optimizer)
+    with tracer.span("lr.forward"):
+        flat = slots_pos.reshape(-1).long()
+        # pull_weights is elementwise: on the gathered positions it gives the
+        # same bits as on the whole table, at a fraction of the bytes
+        w_pos = optimizer.pull_weights(
+            torch.index_select(value, 0, flat),
+            {k: torch.index_select(state[k], 0, flat) for k in names},
+        )[:, 0].reshape(labels.shape[0], -1)
+        loss, residual = _loss_and_residual(w_pos, bias, bias_state, labels, optimizer)
+        g_pos = residual[:, None].expand(w_pos.shape).reshape(-1, 1)
+    with tracer.span("lr.segment_sum"):
+        grad = scatter.segment_combine(g_pos, flat, value.shape[0])
+        grad[trash_row].zero_()  # drop PAD contributions
+    with tracer.span("lr.apply"):
+        new_v, new_s = optimizer.apply(value, state, grad)
+        value.copy_(new_v)
+        for k in names:
+            state[k].copy_(new_s[k])
+        _apply_bias(bias, bias_state, residual, optimizer)
     return loss
 
 
@@ -216,6 +223,7 @@ def dense_scan_train_step(
     optimizer: ServerOptimizer,
     num_rows: int,
     seed: int = 0,
+    tracer: Tracer = NULL_TRACER,
 ) -> torch.Tensor:
     """K dense-apply LR steps on raw 32-bit keys ``[K, B, nnz]`` (int32 views
     of uint32) and labels ``[K, B]``, in place.
@@ -225,12 +233,13 @@ def dense_scan_train_step(
     must be < 2**32 - 1.  Then K :func:`dense_fused_step` calls are enqueued
     back to back.  Returns the losses ``[K]`` as a device tensor: nothing
     here waits on the device, so the host can stage the next block while
-    this one runs.
+    this one runs.  ``tracer``: the span ``lr.hash`` and each step's.
     """
-    slots = device_slots(keys_block, num_rows, seed)
+    with tracer.span("lr.hash"):
+        slots = device_slots(keys_block, num_rows, seed)
     losses = [
         dense_fused_step(value, state, bias, bias_state, slots[k], labels_block[k],
-                         optimizer, num_rows)
+                         optimizer, num_rows, tracer)
         for k in range(keys_block.shape[0])
     ]
     return torch.stack(losses)

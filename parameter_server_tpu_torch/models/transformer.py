@@ -58,6 +58,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
+import time
 from typing import Any, Dict, Optional
 
 import torch
@@ -67,6 +68,7 @@ from torch.utils.checkpoint import checkpoint
 
 from parameter_server_tpu_torch.models.layers import lecun_normal_
 from parameter_server_tpu_torch.parallel import tp as tp_lib
+from parameter_server_tpu_torch.utils.trace import NULL_TRACER, Tracer
 
 #: attention modes that split the sequence over ``spmd_mesh``'s ``sp_axis``
 SEQ_PARALLEL_IMPLS = ("ring", "ulysses", "ring_spmd")
@@ -310,12 +312,49 @@ def _mlp(cfg: TransformerConfig, w: Dict[str, torch.Tensor], x: torch.Tensor) ->
     return _row_parallel(cfg, _sub(w, "down"), h, 1, mesh)
 
 
+class _BackwardSpan(torch.autograd.Function):
+    """Identity whose backward opens (``opens``) or closes a span: placed
+    on a region's output it opens when the region's backward starts, on
+    its input it closes when that backward is done, on the thread autograd
+    runs it on.  ``mark`` is the region's (tracer, name, start)."""
+
+    @staticmethod
+    def forward(ctx, x, mark: list, opens: bool):
+        ctx.mark, ctx.opens = mark, opens
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, grad):
+        tracer, name, start = ctx.mark
+        if ctx.opens:
+            ctx.mark[2] = time.perf_counter()
+        elif start is not None:
+            tracer.record(name, time.perf_counter() - start, start_s=start)
+        return grad, None, None
+
+
+def _traced(tracer: Tracer, name: str, fn, cfg, w, x: torch.Tensor, *rest) -> torch.Tensor:
+    """``fn(cfg, w, x, *rest)`` as span ``name`` of ``tracer``, forward and,
+    where autograd records, backward (:class:`_BackwardSpan` markers on
+    ``x`` and on the result).  A disabled tracer adds nothing to the graph."""
+    if not tracer.enabled:
+        return fn(cfg, w, x, *rest)
+    with tracer.span(name):
+        if not torch.is_grad_enabled():
+            return fn(cfg, w, x, *rest)
+        mark = [tracer, name, None]
+        out = fn(cfg, w, _BackwardSpan.apply(x, mark, False), *rest)
+        return _BackwardSpan.apply(out, mark, True)
+
+
 def _block(cfg: TransformerConfig, w: Dict[str, torch.Tensor], x: torch.Tensor,
-           positions: torch.Tensor, attn_mask: Optional[torch.Tensor]) -> torch.Tensor:
+           positions: torch.Tensor, attn_mask: Optional[torch.Tensor],
+           tracer: Tracer = NULL_TRACER) -> torch.Tensor:
     h = _norm(cfg, _sub(w, "attn_norm"), x)
-    x = x + _attention(cfg, _sub(w, "attn"), h, positions, attn_mask)
+    x = x + _traced(tracer, "tfm.attention", _attention, cfg, _sub(w, "attn"), h,
+                    positions, attn_mask)
     h = _norm(cfg, _sub(w, "mlp_norm"), x)
-    return x + _mlp(cfg, _sub(w, "mlp"), h)
+    return x + _traced(tracer, "tfm.mlp", _mlp, cfg, _sub(w, "mlp"), h)
 
 
 # -- modules: parameters at their flax paths -----------------------------------
@@ -392,7 +431,13 @@ class MLPBlock(nn.Module):
 class Block(nn.Module):
     """Pre-norm block: ``x + attn(norm(x))``, then ``x + mlp(norm(x))``.
     ``stack`` > 0 holds that many layers' parameters on a leading axis (the
-    ``scan_blocks`` layout); ``forward`` then runs them in order."""
+    ``scan_blocks`` layout); ``forward`` then runs them in order.
+    ``tracer``: records the spans ``tfm.attention`` and ``tfm.mlp``, forward
+    and backward; a profiling harness sets it on a built model's blocks."""
+
+    #: a class default, so an untraced block holds no tracer of its own
+    #: (a tracer's lock neither copies nor pickles)
+    tracer: Tracer = NULL_TRACER
 
     def __init__(self, cfg: TransformerConfig, *, stack: int = 0, device="cuda",
                  generator: Optional[torch.Generator] = None) -> None:
@@ -406,19 +451,20 @@ class Block(nn.Module):
     def forward(self, x, positions, attn_mask=None):
         w = dict(self.named_parameters())
         if not self.stack:
-            return _run_block(self.cfg, w, x, positions, attn_mask)
+            return _run_block(self.cfg, w, x, positions, attn_mask, self.tracer)
         # unbind once: its backward stacks the per-layer gradients in one op
         per_layer = {k: v.unbind(0) for k, v in w.items()}
         for i in range(self.stack):
             x = _run_block(self.cfg, {k: v[i] for k, v in per_layer.items()}, x,
-                           positions, attn_mask)
+                           positions, attn_mask, self.tracer)
         return x
 
 
-def _run_block(cfg, w, x, positions, attn_mask):
+def _run_block(cfg, w, x, positions, attn_mask, tracer):
     if cfg.remat and torch.is_grad_enabled():
-        return checkpoint(_block, cfg, w, x, positions, attn_mask, use_reentrant=False)
-    return _block(cfg, w, x, positions, attn_mask)
+        return checkpoint(_block, cfg, w, x, positions, attn_mask, tracer,
+                          use_reentrant=False)
+    return _block(cfg, w, x, positions, attn_mask, tracer)
 
 
 class _BodyModule(nn.Module):

@@ -14,10 +14,22 @@ measures its submit; the card's time for an apply is the apply ledger's
 device side of a window is :func:`torch_profile`, the counterpart of the
 JAX module's ``jax_profile``.
 
+Device time by span: :class:`TraceClock` places ``perf_counter`` seconds
+on a ``torch.profiler`` trace's time axis from a CUDA runtime call
+bracketed by ``perf_counter`` readings, and :meth:`Tracer.timeline` gives
+the spans on that axis with the thread each ran on (the :data:`Span`
+tuple's thread ident, ``pthread_self``; the trace stamps a runtime call
+with that ident's low 32 bits, read as signed, without their sign).  A
+profiling harness then gives each kernel, copy and memset to the span
+open on its launching thread when the runtime call that launched it ran
+(the trace pairs the two by correlation id).  That happens after the run,
+in the harness: nothing on the hot path reads the card or its clock.
+
 Design: recording a span is two ``perf_counter`` calls and one deque append
 under a lock (~1 microsecond) so the tracer can stay on in production; the
 module-level :data:`NULL_TRACER` short-circuits to nothing for hot loops
-that want zero overhead.
+that want zero overhead: a disabled tracer's :meth:`Tracer.span` returns one
+shared do-nothing context manager and reads no clock.
 """
 
 from __future__ import annotations
@@ -33,6 +45,11 @@ from typing import Dict, Iterator, List, Optional, Tuple
 
 #: one recorded span: (name, start_s, duration_s, thread_id, attrs)
 Span = Tuple[str, float, float, int, Optional[dict]]
+#: a span on a profiler trace's time axis: (name, start_us, end_us, thread_id)
+PlacedSpan = Tuple[str, float, float, int]
+
+#: what a disabled tracer's ``span`` returns: one shared, reusable no-op
+_NO_SPAN = contextlib.nullcontext()
 
 
 class LatencyHistogram:
@@ -177,25 +194,20 @@ class Tracer:
         self._lock = threading.Lock()
         self._t0 = time.perf_counter()
 
-    @contextlib.contextmanager
-    def span(self, name: str, **attrs) -> Iterator[None]:
+    def span(self, name: str, **attrs):
+        """Context manager timing its block as span ``name``; a disabled
+        tracer returns one shared no-op and reads no clock."""
         if not self.enabled:
-            yield
-            return
+            return _NO_SPAN
+        return self._span(name, attrs)
+
+    @contextlib.contextmanager
+    def _span(self, name: str, attrs: dict) -> Iterator[None]:
         start = time.perf_counter()
         try:
             yield
         finally:
-            dur = time.perf_counter() - start
-            with self._lock:
-                self._spans.append(
-                    (name, start - self._t0, dur, threading.get_ident(),
-                     attrs or None)
-                )
-                h = self._hists.get(name)
-                if h is None:
-                    h = self._hists[name] = LatencyHistogram()
-                h.record(dur)
+            self._add(name, start, time.perf_counter() - start, attrs)
 
     def record(self, name: str, duration_s: float,
                start_s: Optional[float] = None, **attrs) -> None:
@@ -209,10 +221,13 @@ class Tracer:
             return
         if start_s is None:
             start_s = time.perf_counter() - duration_s
+        self._add(name, start_s, duration_s, attrs)
+
+    def _add(self, name: str, start_s: float, duration_s: float, attrs: dict) -> None:
         with self._lock:
             self._spans.append(
-                (name, start_s - self._t0, duration_s,
-                 threading.get_ident(), attrs or None)
+                (name, start_s - self._t0, duration_s, threading.get_ident(),
+                 attrs or None)
             )
             h = self._hists.get(name)
             if h is None:
@@ -228,6 +243,12 @@ class Tracer:
         with self._lock:
             out = list(self._spans)
         return out if name is None else [s for s in out if s[0] == name]
+
+    def timeline(self, clock: "TraceClock") -> List[PlacedSpan]:
+        """The recorded spans on a profiler trace's time axis (``clock``),
+        each with the ident of the thread it ran on."""
+        return [(name, clock(self._t0 + start), clock(self._t0 + start + dur), tid)
+                for name, start, dur, tid, _attrs in self.spans()]
 
     def clear(self) -> None:
         with self._lock:
@@ -300,6 +321,33 @@ class Tracer:
 
 #: shared do-nothing tracer for hot paths with tracing off
 NULL_TRACER = Tracer(enabled=False)
+
+
+class TraceClock:
+    """``time.perf_counter()`` seconds on a ``torch.profiler`` trace's time
+    axis (the trace's ``ts``, microseconds), from one anchor: a pair
+    (perf_counter seconds, trace microseconds) of one instant.
+
+    :meth:`bracket` makes the anchor from a CUDA runtime call bracketed by
+    two ``perf_counter`` readings and that call's event in the trace, so
+    the clock the profiler stamps host events with need not be known.
+    Over a traced stretch of seconds the two clocks stay within tens of
+    microseconds of this line (an H100 host, torch 2.11).
+    """
+
+    def __init__(self, perf_s: float, trace_us: float) -> None:
+        self.perf_s, self.trace_us = perf_s, trace_us
+
+    @classmethod
+    def bracket(cls, before_s: float, after_s: float, event: dict) -> "TraceClock":
+        """The clock of one runtime call: ``perf_counter`` readings taken
+        just before and just after it, and its trace event (``ts`` and
+        ``dur`` in microseconds).  Midpoint to midpoint: off by at most
+        half of the readings' spread less the call's length."""
+        return cls((before_s + after_s) / 2, event["ts"] + event["dur"] / 2)
+
+    def __call__(self, perf_s: float) -> float:
+        return self.trace_us + (perf_s - self.perf_s) * 1e6
 
 
 #: Chrome-trace categories of work that ran on the card (kernels, copies and

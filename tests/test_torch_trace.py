@@ -14,7 +14,13 @@ on the port's ``utils/trace.py`` and ``utils/metrics.py``, plus:
 - the peak table: the H100's data-sheet figures by math mode, 0 for an
   unknown card, the nominal 1e11 on the CPU;
 - ``torch_profile`` exports a trace on the CPU and raises when CUDA activity
-  was asked for and the trace holds no device event.
+  was asked for and the trace holds no device event;
+- device time by span: a disabled tracer's span is one shared object,
+  :class:`TraceClock` places ``perf_counter`` seconds on a trace's axis and
+  the timeline each span there with its thread,
+  and the hybrid trainer (its body's attention and MLP forward and
+  backward), the dense LR steps and the prefetch wait record their spans
+  every step, with losses bitwise those of the same runs untraced.
 """
 
 import builtins
@@ -37,6 +43,7 @@ from parameter_server_tpu_torch.utils import metrics as metrics_lib
 from parameter_server_tpu_torch.utils.trace import (
     NULL_TRACER,
     LatencyHistogram,
+    TraceClock,
     Tracer,
     resource_usage,
 )
@@ -543,3 +550,229 @@ def test_torch_profile_raises_when_the_card_left_no_trace(tmp_path):
     with pytest.raises(RuntimeError, match="no device event"):
         with torch_profile(str(tmp_path), device="cuda"):
             torch.ones(8) + 1
+
+
+# ------------------------------------------------------- device time by span
+
+
+def test_a_disabled_span_is_one_shared_no_op():
+    off = Tracer(enabled=False)
+    assert off.span("a") is off.span("b", n=1) is NULL_TRACER.span("c")
+    with off.span("a"):
+        with off.span("a"):  # reusable and re-entrant
+            pass
+    assert off.spans() == [] and off.totals() == {}
+
+
+def test_the_timeline_places_each_span_with_its_thread(tmp_path):
+    tr = Tracer()
+    ids = {}
+
+    def work(tag):
+        ids[tag] = threading.get_ident()
+        with tr.span(tag):
+            pass
+        tr.record(tag + ".cb", 1e-6)
+
+    t = threading.Thread(target=work, args=("other",))
+    t.start()
+    t.join(timeout=10)
+    assert not t.is_alive()
+    work("main")
+    want = {"other": ids["other"], "other.cb": ids["other"],
+            "main": ids["main"], "main.cb": ids["main"]}
+    assert {s[0]: s[3] for s in tr.spans()} == want
+    placed = tr.timeline(TraceClock(tr._t0, 0.0))
+    assert {name: tid for name, _s, _e, tid in placed} == want
+    for (name, start, dur, _tid, _a), (pname, s0, s1, _n) in zip(tr.spans(), placed):
+        assert pname == name
+        assert s0 == pytest.approx(1e6 * start) and s1 - s0 == pytest.approx(1e6 * dur)
+    # the exports are as they were
+    tr.dump_jsonl(str(tmp_path / "t.jsonl"))
+    rows = [json.loads(line) for line in (tmp_path / "t.jsonl").read_text().splitlines()]
+    assert set(rows[0]) == {"name", "start_s", "dur_s", "tid", "attrs"}
+    assert [r["tid"] for r in rows] == [s[3] for s in tr.spans()]
+    tr.clear()
+    assert tr.timeline(TraceClock(0.0, 0.0)) == []
+
+
+def test_trace_clock_maps_on_a_synthetic_anchor():
+    # a sync bracketed at perf 10.000100 / 10.000140 s, traced at 5000-5020 us
+    clock = TraceClock.bracket(10.0001, 10.00014, {"ts": 5000.0, "dur": 20.0})
+    assert (clock.perf_s, clock.trace_us) == pytest.approx((10.00012, 5010.0))
+    assert clock(10.00012) == pytest.approx(5010.0)
+    assert clock(12.0) == pytest.approx(5010.0 + 1e6 * (12.0 - 10.00012))
+    assert clock(10.0) == pytest.approx(5010.0 - 120.0)
+
+
+def _lm_cluster(cfg):
+    from parameter_server_tpu_torch.learner import hybrid
+
+    van = LoopbackVan()
+    tables = {"emb": hybrid.embedding_table_cfg(cfg, learning_rate=0.1)}
+    servers = [KVServer(Postoffice(f"S{s}", van), tables, s, 2, device_replies=True,
+                        device="cpu") for s in range(2)]
+    worker = KVWorker(Postoffice("W0", van), tables, 2,
+                      localizers=hybrid.embedding_localizers(cfg), device="cpu")
+    return van, servers, worker
+
+
+def _hybrid_losses(tracer, steps=3, body=False):
+    """A tiny hybrid run's losses; ``body``: ``tracer`` also set on the
+    body's blocks, as a profiling harness sets it."""
+    from parameter_server_tpu_torch.learner import hybrid
+    from parameter_server_tpu_torch.models import transformer as tfm
+
+    cfg = tfm.tiny_config(causal=True, tie_embeddings=False)
+    van, servers, worker = _lm_cluster(cfg)
+    try:
+        tr = hybrid.HybridLMTrainer(cfg, worker, learning_rate=1e-2, max_delay=1, seed=0,
+                                    tracer=tracer, device="cpu")
+        if body:
+            for block in tr.body.modules():
+                if isinstance(block, tfm.Block):
+                    block.tracer = tracer
+        rng = np.random.default_rng(4)
+        batches = [rng.integers(0, cfg.vocab_size, size=(2, 16)) for _ in range(steps + 1)]
+        losses = [tr.step(batches[i], next_tokens=batches[i + 1]) for i in range(steps)]
+        tr.drain()
+        return losses, cfg
+    finally:
+        van.close()
+
+
+HYBRID_SPANS = ("hybrid.pull_wait", "hybrid.forward", "hybrid.backward", "hybrid.optimizer",
+                "hybrid.push", "hybrid.inflight_wait", "hybrid.loss_sync")
+
+
+def test_hybrid_records_its_phases_every_step_and_trains_as_untraced():
+    phases_only = Tracer()
+    _hybrid_losses(phases_only)
+    # the trainer's tracer leaves the body's blocks untraced
+    assert not {"tfm.attention", "tfm.mlp"} & set(phases_only.totals())
+    tracer = Tracer()
+    traced, cfg = _hybrid_losses(tracer, body=True)
+    plain, _ = _hybrid_losses(None)
+    assert traced == plain  # bitwise: the markers are identities
+    counts = {k: v["count"] for k, v in tracer.summary().items()}
+    for name in HYBRID_SPANS:
+        assert counts[name] == 3, name
+    assert counts["hybrid.pull"] == 3 + 1  # each step's prefetch, and the first pull
+    assert "hybrid.body_dispatch" not in counts
+    # each layer's attention and MLP: once forward, once backward, a step
+    assert counts["tfm.attention"] == counts["tfm.mlp"] == 3 * 2 * cfg.n_layers
+    phases = {name: [(s[1], s[1] + s[2]) for s in tracer.spans(name)]
+              for name in ("hybrid.forward", "hybrid.backward")}
+
+    def within(name, phase):
+        return sum(any(a <= s[1] and s[1] + s[2] <= b for a, b in phases[phase])
+                   for s in tracer.spans(name))
+
+    for name in ("tfm.attention", "tfm.mlp"):
+        assert within(name, "hybrid.forward") == within(name, "hybrid.backward") \
+            == 3 * cfg.n_layers
+
+
+def _traced_body(cfg, tracer):
+    """A tiny body with ``tracer`` set on its blocks (None: left unset)."""
+    from parameter_server_tpu_torch.models import transformer as tfm
+
+    body = tfm.TransformerBody(cfg, device="cpu", generator=tfm.make_generator("cpu", 0))
+    for block in body.modules():
+        if isinstance(block, tfm.Block) and tracer is not None:
+            block.tracer = tracer
+    return body
+
+
+def test_the_body_marks_its_backward_on_the_thread_that_runs_it():
+    """The forward on this thread, the backward on another: the backward's
+    ``tfm.attention`` / ``tfm.mlp`` carry the other thread's id."""
+    from parameter_server_tpu_torch.models import transformer as tfm
+
+    cfg = tfm.tiny_config(causal=True, tie_embeddings=False)
+    tracer = Tracer()
+    body = _traced_body(cfg, tracer)
+    x = torch.randn(2, 8, cfg.d_model, requires_grad=True)
+    loss = body(x).square().mean()
+    here = threading.get_ident()
+    there = {}
+
+    def backward():
+        there["id"] = threading.get_ident()
+        loss.backward()
+
+    t = threading.Thread(target=backward)
+    t.start()
+    t.join(timeout=60)
+    assert not t.is_alive() and x.grad is not None
+    placed = tracer.timeline(TraceClock(0.0, 0.0))
+    for name in ("tfm.attention", "tfm.mlp"):
+        tids = sorted(tid == there["id"] for n, _s, _e, tid in placed if n == name)
+        assert tids == [False] * cfg.n_layers + [True] * cfg.n_layers, name
+        assert all(tid in (here, there["id"]) for n, _s, _e, tid in placed if n == name)
+
+
+def test_an_untraced_body_adds_no_marker_to_the_graph():
+    from parameter_server_tpu_torch.models import transformer as tfm
+
+    cfg = tfm.tiny_config(causal=True, tie_embeddings=False)
+    graphs = []
+    for tracer in (None, NULL_TRACER, Tracer()):
+        body = _traced_body(cfg, tracer)
+        out = body(torch.randn(1, 4, cfg.d_model, requires_grad=True))
+        seen, stack = set(), [out.grad_fn]
+        while stack:
+            fn = stack.pop()
+            if fn is None or fn in seen:
+                continue
+            seen.add(fn)
+            stack.extend(f for f, _ in fn.next_functions)
+        graphs.append(sum(type(fn).__name__ == "_BackwardSpanBackward" for fn in seen))
+        if tracer is None:  # the class default: the block holds no tracer
+            assert "tracer" not in vars(body.layer_0)
+    assert graphs == [0, 0, 4 * cfg.n_layers]
+
+
+def _lr_losses(tracer, blocks=2):
+    from parameter_server_tpu_torch.learner.sgd import LocalLRTrainer
+
+    table = TableConfig(name="w", rows=1024, dim=1,
+                        optimizer=OptimizerConfig(kind="adagrad", learning_rate=0.05))
+    tr = LocalLRTrainer(table, mode="dense", device_hash=True, tracer=tracer, device="cpu")
+    rng = np.random.default_rng(2)
+    out = []
+    for _ in range(blocks):
+        keys = rng.integers(0, 2**32 - 1, size=(4, 32, 5), dtype=np.uint64).astype(np.uint32)
+        labels = rng.integers(0, 2, size=(4, 32)).astype(np.float32)
+        out.append(tr.step_block(keys, labels))
+    out.append(tr.step_async(keys[0], labels[0])[None])
+    return torch.cat(out), tr
+
+
+def test_dense_lr_steps_record_their_phases_and_train_as_untraced():
+    tracer = Tracer()
+    traced, tr = _lr_losses(tracer)
+    plain, plain_tr = _lr_losses(None)
+    assert torch.equal(traced, plain)
+    assert torch.equal(tr.table.value, plain_tr.table.value)
+    counts = {k: v["count"] for k, v in tracer.summary().items()}
+    # 2 blocks of 4 steps, then one step alone
+    assert counts == {"lr.hash": 2, "lr.forward": 9, "lr.segment_sum": 9, "lr.apply": 9}
+
+
+def test_the_prefetch_wait_is_a_span_beside_its_counter():
+    from parameter_server_tpu_torch.data.prefetch import PrefetchPipeline
+
+    def slow(i):
+        time.sleep(0.02)
+        return (np.full(4, i, np.int32),)
+
+    tracer = Tracer()
+    with PrefetchPipeline(slow, depth=1, limit=4, device="cpu", tracer=tracer) as pipe:
+        got = [int(b[0][0]) for b in pipe]
+        counters = pipe.counters()
+    assert got == [0, 1, 2, 3]
+    waits = tracer.spans("prefetch.wait")
+    assert len(waits) == counters["prefetch_stalls"] > 0
+    assert sum(s[2] for s in waits) <= counters["prefetch_stall_s"] + 1e-3
+    assert len(tracer.spans("prefetch.stage")) >= 4
