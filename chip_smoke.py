@@ -93,6 +93,7 @@ Phases, each printing one JSON line (``"phase": ...``):
    local_reference  one 4-step block from the trained state on the card and
              on the CPU (losses 1e-4, every row 1e-5, trash row exactly 0);
              the same block twice on the card gives bitwise-equal tables;
+             one ``ps_segment_sum`` and one ``ps_apply`` launch a step;
              ``mix32_torch`` and ``device_slots`` on the card equal the host
              hash bit for bit.
    local_sync_free  one ``step_block_device`` under
@@ -101,7 +102,14 @@ Phases, each printing one JSON line (``"phase": ...``):
              one state: one gather and one apply launch per step (three-pass:
              one gather and one scatter-set), card and CPU agree.
    local_profile  ``torch.profiler`` over 2 blocks of the local path: wall,
-             device busy, idle share, top device ops, the segment sum's share.
+             device busy, idle share, top device ops; no ``segment_reduce``,
+             the segment-sum and apply kernels once a step.
+   segsum    ``ps_segment_sum`` at the dense step's shape (16384 x 39
+             Zipf(1.3) positions hashed into 2^28 + 1 rows): bitwise equal
+             to its plain version on the CPU and twice in a row; its ms in
+             CUDA-graph replay beside the byte bound, the plain version's,
+             ``segment_reduce`` over the unique rows and the full-table
+             ``segment_combine``.
    dlrm      BASELINE config #3 at bench.py's stepped shape through
              ``parallel/dlrm_scale.scale_run``: ``SpmdDLRMTrainer`` over a
              2^28 x 16 AdaGrad table (value + sum_sq, 32 GiB on the card, read
@@ -469,6 +477,10 @@ LEDGER_STEPS, LEDGER_PAIRS, COALESCE_STEPS, ORDERED_STEPS = 4, 10, 4, 3
 #: pool, warm-up and timed blocks, steps of the reference and rows legs
 BLOCK, LOCAL_POOL, LOCAL_WARM, LOCAL_TIMED = 32, 4, 2, 8
 LOCAL_REF_STEPS, LOCAL_ROWS_STEPS = 4, 4
+#: the dense LR step's segment sum at the benchmark's shape: one 16384 x 39
+#: batch of Zipf(1.3) keys over the 32-bit key space, hashed into 2^28 + 1
+#: rows; id sets cycled in the timings
+SEGSUM_ROWS, SEGSUM_KEY_SPACE, SEGSUM_SETS = 1 << 28, 2**32 - 1, 4
 #: the synchronous push plane: bench.py's hierarchical-push arm (4 workers x
 #: 2 servers, group sizes 1, 2, 4; warm-up and timed steps) and its
 #: consistency arms (3 workers x 2 servers, steps a worker, worker 0's
@@ -732,6 +744,10 @@ def main() -> int:
     scatter.reset_launch_counts()
     trainer, fields = local_phase(torch, dev, pool)
     counts = scatter.launch_counts()
+    steps = (LOCAL_WARM + LOCAL_TIMED) * BLOCK
+    check(counts["segment_sum"] == counts["apply"] == steps,
+          f"local launches {counts} for {steps} dense steps")
+    local_launches = counts
     emit("local", launches=counts, **fields)
     state = trained_state(trainer)
     emit("local_reference", **local_reference(torch, dev, state, pool))
@@ -740,6 +756,9 @@ def main() -> int:
     emit("local_rows", **rows)
     emit("local_profile", **local_profile(torch, dev, trainer, pool))
     del trainer, state, pool
+    torch.cuda.empty_cache()
+    segsum = segsum_phase(torch, scatter, dev)
+    emit("segsum", **segsum)
     torch.cuda.empty_cache()
 
     # -- 8b. BASELINE config #3: DLRM over a 2^28-row embedding table -----------
@@ -911,6 +930,9 @@ def main() -> int:
         if k["name"] in ("gather", "scatter_set"):
             k["dlrm_launches"] = dlrm_launches[k["name"]]
             k["dlrm"] = dlrm["kernel_times"][k["name"]]
+    # the fifth kernel replaces no Pallas kernel; only the dense LR step runs it
+    segsum["launches"] = local_launches["segment_sum"]
+    kernels.append(segsum)
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60,
@@ -1195,9 +1217,11 @@ def run_loop(torch, dev, *, fused, steps, devobs=None, coalesce=False):
         close_cluster(van, servers)
 
 
-def _device_profile(torch, fn, top_n):
+def _device_profile(torch, fn, top_n, count=()):
     """``torch.profiler`` over ``fn()``: wall, device busy, idle share, the
-    segment sum's share of busy and the top ``top_n`` device ops."""
+    segment sum's share of busy and the top ``top_n`` device ops; for each
+    name in ``count``, the calls and device ms of the ops whose name holds
+    it."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -1219,6 +1243,9 @@ def _device_profile(torch, fn, top_n):
         "device_idle_share": 1 - busy_ms / wall_ms if measured else "not measured",
         "segment_sum_share": seg_ms / busy_ms if measured else "not measured",
         "top_device_ms": [[e.key[:70], e.self_device_time_total / 1e3, e.count] for e in top],
+        **({"counted": {k: [sum(e.count for e in on_device if k in e.key),
+                            sum(e.self_device_time_total for e in on_device if k in e.key) / 1e3]
+                        for k in count}} if count else {}),
     }
 
 
@@ -2359,18 +2386,27 @@ def local_reference(torch, dev, state, pool):
     against the host hash."""
     from parameter_server_tpu_torch.convert import trainer_from_numpy
     from parameter_server_tpu_torch.models import linear
+    from parameter_server_tpu_torch.ops import scatter
     from parameter_server_tpu_torch.utils.keys import (
         PAD_KEY, HashLocalizer, ensure_uint32_keys, mix32)
 
     keys, labels = pool[0][0][:LOCAL_REF_STEPS], pool[0][1][:LOCAL_REF_STEPS]
-    runs = []
+    runs, launches = [], []
     for device in (dev, dev, torch.device("cpu")):
         tr = _dense_trainer(device)
         trainer_from_numpy(tr, *state)
+        torch.cuda.synchronize()
+        scatter.reset_launch_counts()
         losses = tr.step_block(keys, labels)
         runs.append((losses.cpu(), [p.cpu() for p in _planes(tr)]))
+        launches.append(scatter.launch_counts())
         del tr
     (l1, p1), (l2, p2), (lc, pc) = runs
+    # a dense step is one segment sum and one apply on the card, none on the CPU
+    want = dict.fromkeys(launches[0], 0)
+    want.update(segment_sum=LOCAL_REF_STEPS, apply=LOCAL_REF_STEPS)
+    check(launches[:2] == [want, want] and launches[2] == dict.fromkeys(want, 0),
+          f"dense block launches {launches}, want {want} a card run")
     check(torch.equal(l1, l2) and all(torch.equal(a, b) for a, b in zip(p1, p2)),
           "the same block twice on the card gave different tables")
     loss_err = float((l1 - lc).abs().max())
@@ -2397,7 +2433,7 @@ def local_reference(torch, dev, state, pool):
                               ROWS, 0)
     check(np.array_equal(got.cpu().numpy(), HashLocalizer(ROWS, hash_bits=32).assign(k64)),
           "device_slots vs HashLocalizer")
-    return {"steps": LOCAL_REF_STEPS, "loss_max_abs_err": loss_err,
+    return {"steps": LOCAL_REF_STEPS, "launches": launches[0], "loss_max_abs_err": loss_err,
             "table_max_abs_err": table_err, "loss_tol": 1e-4, "table_tol": 1e-5,
             "bitwise_equal_runs": True, "trash_row_zero": True,
             "mix32_keys": int(hkeys.size), "mix32_bit_equal": True,
@@ -2457,7 +2493,8 @@ def local_rows(torch, scatter, dev, pool):
             del tr
         (lg, pg, counts, wall), (lc, pc, cpu_counts, _) = runs["card"], runs["cpu"]
         check(cpu_counts == dict.fromkeys(cpu_counts, 0), f"cpu rows steps launched {cpu_counts}")
-        want = {"apply": steps, "gather": steps, "scatter_set": 0, "scatter_add": 0}
+        want = {"apply": steps, "gather": steps, "scatter_set": 0, "scatter_add": 0,
+                "segment_sum": 0}
         if not fused:
             want.update(apply=0, scatter_set=steps)
         check(counts == want, f"rows-mode launches {counts}, want {want}")
@@ -2477,33 +2514,24 @@ def local_rows(torch, scatter, dev, pool):
 
 def local_profile(torch, dev, trainer, pool, blocks=2):
     """Device busy time, idle share and the top device ops over ``blocks``
-    prefetch-fed blocks (after one warm block); then the dense segment sum
-    of one batch timed alone in its shipped [N, 1] form and as 1-D data."""
+    prefetch-fed blocks (after one warm block).  The step walks no table:
+    no ``segment_reduce`` may show, and the segment-sum and apply kernels
+    run once a step."""
     from parameter_server_tpu_torch.data.prefetch import PrefetchPipeline
-    from parameter_server_tpu_torch.models import linear
-    from parameter_server_tpu_torch.ops.scatter import segment_combine
 
+    names = ("segsum_vals_kernel", "segsum_seq_kernel", "apply_dim1_kernel")
     with PrefetchPipeline(lambda i: pool[(i + 2) % LOCAL_POOL], depth=2, device=dev) as pf:
         trainer.step_block_device(*pf.get())
         out = _device_profile(torch, lambda: [trainer.step_block_device(*pf.get())
-                                              for _ in range(blocks)], top_n=10)
-    # the segment sum of one batch alone: [N, 1] (as shipped) and 1-D data
-    slots = linear.device_slots(torch.from_numpy(pool[0][0][0].view(np.int32)).to(dev),
-                                ROWS).reshape(-1)
-    vals = torch.randn((slots.numel(), 1), generator=torch.Generator(device=dev).manual_seed(3),
-                       device=dev) / BATCH
-    seg = {
-        "rows_2d_ms": _time_ms(torch, lambda: segment_combine(vals, slots, ROWS + 1),
-                               reps=20, warmup=3),
-        "flat_1d_ms": _time_ms(torch, lambda: segment_combine(vals.reshape(-1), slots,
-                                                              ROWS + 1), reps=20, warmup=3),
-    }
-    a = segment_combine(vals, slots, ROWS + 1).reshape(-1)
-    b = segment_combine(vals.reshape(-1), slots, ROWS + 1)
-    seg["flat_vs_2d_max_abs_err"] = float((a - b).abs().max())
-    return {"blocks": blocks, "steps": blocks * BLOCK, **out,
-            "examples_per_s": blocks * BLOCK * BATCH / (out["wall_ms"] / 1e3),
-            "segment_sum_one_batch": seg}
+                                              for _ in range(blocks)], top_n=10,
+                              count=names)
+    steps = blocks * BLOCK
+    if out["device_busy_ms"] != "not measured":
+        check(out["segment_sum_share"] == 0.0, f"segment_reduce in the dense step: {out}")
+        check(all(out["counted"][k][0] == steps for k in names),
+              f"dense step kernels {out['counted']} for {steps} steps")
+    return {"blocks": blocks, "steps": steps, **out,
+            "examples_per_s": steps * BATCH / (out["wall_ms"] / 1e3)}
 
 
 # ---------------------------------------------------------------------------
@@ -2557,7 +2585,8 @@ def dlrm_phase(torch, scatter, dev):
                              DLRM_MIN_BUCKET, "zeros", dev)
     counts = scatter.launch_counts()
     runs = DLRM_STEPS + 1
-    check(counts == {"apply": 0, "gather": runs, "scatter_set": runs, "scatter_add": 0},
+    check(counts == {"apply": 0, "gather": runs, "scatter_set": runs, "scatter_add": 0,
+                     "segment_sum": 0},
           f"dlrm launches {counts} for {runs} steps")
     rows = 1 << DLRM_ROWS_LOG2
     planes = {"value": trainer.emb_value, **trainer.emb_state}
@@ -6796,6 +6825,78 @@ def apply_spec(torch, scatter, value, state, ids, grads, opt):
     )
 
 
+def segsum_bytes(n, batch):
+    """The bytes ``ps_segment_sum`` must move: each sorted entry's position
+    and unique index (int64) read once and one float written, and the
+    batch's residual read once."""
+    return 20 * n + 4 * batch
+
+
+def segsum_phase(torch, scatter, dev):
+    """``ps_segment_sum`` at the dense LR step's shape (SEGSUM_*): for each of
+    SEGSUM_SETS batches, the slots grouped on the card, the kernel bitwise
+    equal to its plain version (position-ordered float32 sums) on the CPU,
+    and to itself on a second launch; then its device ms (CUDA-graph replay,
+    the sets cycled) beside the byte bound and the hot row's chain of adds,
+    the plain version's on the card, ``torch.segment_reduce`` over the same
+    unique rows (the library call) and the full-table ``segment_combine``
+    the step ran before."""
+    from parameter_server_tpu_torch.data.synthetic import SyntheticCTR
+    from parameter_server_tpu_torch.models import linear
+    from parameter_server_tpu_torch.utils.keys import ensure_uint32_keys
+
+    data = SyntheticCTR(key_space=SEGSUM_KEY_SPACE, nnz=NNZ, batch_size=BATCH, seed=31,
+                        informative=0.1)
+    gen = torch.Generator(device=dev).manual_seed(31)
+    sets, hot = [], 0
+    for _ in range(SEGSUM_SETS):
+        keys = ensure_uint32_keys(data.next_batch()[0])
+        slots = linear.device_slots(torch.from_numpy(keys.view(np.int32)).to(dev),
+                                    SEGSUM_ROWS).to(torch.int32).reshape(1, -1)
+        order, uid, _ids = (g[0] for g in scatter.group_slots(slots, SEGSUM_ROWS))
+        residual = (torch.rand(BATCH, generator=gen, device=dev) - 0.5) / BATCH
+        got = scatter.cuda_segment_sum(residual, order, uid, NNZ)
+        again = scatter.cuda_segment_sum(residual, order, uid, NNZ)
+        want = scatter.segment_sum_sorted_torch(residual.cpu(), order.cpu(), uid.cpu(), NNZ)
+        check(torch.equal(got.view(torch.int32), again.view(torch.int32)),
+              "two segment-sum launches differ")
+        check(torch.equal(got.cpu().view(torch.int32), want.view(torch.int32)),
+              f"segment sum vs plain: {(got.cpu() - want).abs().max()}")
+        u = int(uid[-1]) + 1
+        lengths = torch.bincount(uid, minlength=u)
+        hot = max(hot, int(lengths.max()))
+        values = residual[torch.div(order, NNZ, rounding_mode="floor")].reshape(-1, 1)
+        sets.append(dict(order=order, uid=uid, residual=residual, u=u, lengths=lengths,
+                         values=values, slots=slots.reshape(-1)))
+    n = sets[0]["order"].numel()
+
+    def cycle(fn):
+        it = itertools.cycle(range(SEGSUM_SETS))
+        return lambda: fn(sets[next(it)])
+
+    ms = _graph_ms(torch, cycle(lambda c: scatter.cuda_segment_sum(
+        c["residual"], c["order"], c["uid"], NNZ)), per_graph=2 * SEGSUM_SETS, replays=10)
+    plain_ms = _graph_ms(torch, cycle(lambda c: scatter.segment_sum_sorted_torch(
+        c["residual"], c["order"], c["uid"], NNZ)), per_graph=2 * SEGSUM_SETS, replays=5)
+    library_ms = _graph_ms(torch, cycle(lambda c: torch.segment_reduce(
+        c["values"], "sum", lengths=c["lengths"], axis=0, unsafe=True)),
+        per_graph=2 * SEGSUM_SETS, replays=5)
+    full_table_ms = _time_ms(torch, cycle(lambda c: scatter.segment_combine(
+        c["values"], c["slots"], SEGSUM_ROWS + 1)), reps=2 * SEGSUM_SETS, warmup=2)
+    nbytes = segsum_bytes(n, BATCH)
+    bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    return {"name": "segment_sum", "route": "cuda", "source": SOURCE, "replaces": None,
+            "positions": int(n), "table_rows": SEGSUM_ROWS + 1, "id_sets": SEGSUM_SETS,
+            "unique_rows_mean": float(np.mean([c["u"] for c in sets])),
+            "hot_row_positions": hot, "hot_row_share": hot / n,
+            "bitwise_plain": True, "bitwise_repeat": True, "max_abs_err": 0.0,
+            "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
+            "library": "torch.segment_reduce over the unique rows",
+            "full_table_segment_combine_ms": full_table_ms,
+            "bytes": int(nbytes), "bound_ms": bound_ms, "bound_by": "the hot row's add chain",
+            "share_of_byte_bound": bound_ms / ms}
+
+
 def spec_times(torch, spec):
     """Device time per call (CUDA-graph replay) of a spec's kernel, plain
     version and library call, beside the byte bound at HBM_BYTES_PER_S and
@@ -6953,7 +7054,7 @@ def spmd_dlrm_leg(torch, scatter, mesh, errs):
                                                              "launches"))
     otr, o_losses, o_ms = (runs["one_card"][k] for k in ("trainer", "losses", "ms"))
     n = len(batches)
-    want = {"apply": 0, "gather": n, "scatter_set": n, "scatter_add": 0}
+    want = {"apply": 0, "gather": n, "scatter_set": n, "scatter_add": 0, "segment_sum": 0}
     check(counts == want and runs["mesh"]["repeat_launches"] == want,
           f"spmd dlrm launches {counts}, {runs['mesh']['repeat_launches']} for {n} steps")
     bitwise = (m_losses == o_losses and torch.equal(mtr.emb_value, otr.emb_value)

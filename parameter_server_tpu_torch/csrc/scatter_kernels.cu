@@ -5,6 +5,8 @@
 //   ps_scatter_set <- _scatter_set_kernel  / _pallas_scatter_set  table_p[ids[k]] = rows_p[k]
 //   ps_scatter_add <- _scatter_add_kernel  / _pallas_scatter_add  table[ids[k]] += rows[k]
 //   ps_apply       <- _apply_kernel        / _pallas_apply        fused gather -> rule -> scatter
+// and ps_segment_sum, which replaces none (see its section): the dense LR
+// step's per-row gradient sums over its sorted positions.
 //
 // Contract shared with the Pallas kernels: float32 tables of shape
 // [rows + 1, dim] (the last row is the trash row), int32 ids that are unique
@@ -430,6 +432,173 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
+// -- segment sum of the dense LR step ----------------------------------------
+//
+// ps_segment_sum replaces no Pallas kernel: the JAX dense step sums its
+// gradient with XLA's scatter-add.  It was added because torch's
+// segment_reduce sums a segment in one thread that waits on each load, and
+// under Zipf keys one row holds about a quarter of a batch's positions
+// (~1.6e5): 7.6 ms a step.
+//
+// Input: the step's positions sorted by row slot (order[i] = the position,
+// stable, so a segment's positions ascend) and the unique index of each
+// sorted entry (uid, nondecreasing from 0); out[u] is the sum over segment
+// u of residual[order[i] / nnz], and 0 for u past the last segment.
+//
+// Each sum is the float32 running sum from 0 in position order, the plain
+// version's (segment_combine) bit for bit: a float32 sum in any other order
+// (a tree, or float64 rounded once) moved the LR table's first-block
+// gradient norm by ~3e-4 of itself against the sequential float32 sums,
+// because the hot row adds the same few residual values in one binade and
+// so rounds the same way again and again.  So the adds of one segment form
+// one dependent chain, and the kernels' work is to keep that chain fed.
+// The first launch writes each sorted entry's value, vals[i] =
+// residual[order[i] / nnz].  In the second a warp takes a window of 32
+// sorted entries: each lane puts its entry's value in shared memory, and the
+// warp sums each segment whose head is in the window, every lane adding the
+// same values, read as float4s ahead of the adds.  A segment that runs past
+// the window is read on for one round of 32, and past that in batches of
+// kSeqRounds rounds, each loaded a batch ahead of its adds and read from
+// shared memory a round ahead.  Bound: the hot row's chain of dependent
+// float adds (4.5 cycles each on an H100, 2.27 ns at 1.98 GHz: 0.37 ms at
+// 1.6e5 adds); the bytes, 8 + 8 of order and uid read, 4 of the values
+// written and read, and 4 written an entry (the [B] residual stays in L2),
+// would take ~5 us.
+constexpr int kSeqThreads = 256;
+constexpr int kSeqRounds = 16;
+
+// The 32 values of a round, from shared memory.
+__device__ __forceinline__ void read_round(float4 (&q)[8], const float* v) {
+#pragma unroll
+  for (int k = 0; k < 8; ++k) q[k] = reinterpret_cast<const float4*>(v)[k];
+}
+
+__device__ __forceinline__ float add_round(float acc, const float4 (&q)[8]) {
+#pragma unroll
+  for (int k = 0; k < 8; ++k) {
+    acc = acc + q[k].x;
+    acc = acc + q[k].y;
+    acc = acc + q[k].z;
+    acc = acc + q[k].w;
+  }
+  return acc;
+}
+
+// acc + v[from], ..., v[to - 1] in order; a whole round is read before its
+// adds, so only the adds wait on each other.
+__device__ __forceinline__ float chain(float acc, const float* v, int from, int to) {
+  if (from == 0 && to == 32) {
+    float4 q[8];
+    read_round(q, v);
+    return add_round(acc, q);
+  }
+  for (int j = from; j < to; ++j) acc = acc + v[j];
+  return acc;
+}
+
+__global__ void __launch_bounds__(kSeqThreads)
+    segsum_vals_kernel(const int64_t* __restrict__ order, const float* __restrict__ residual,
+                       int32_t per, int64_t n, float* __restrict__ vals) {
+  const int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (i < n) vals[i] = residual[static_cast<int32_t>(order[i]) / per];
+}
+
+// acc + segment seg's entries from p on, in order, in batches of kSeqRounds
+// rounds of 32.  While a batch is added, the next batch's values and uids
+// are in flight, and each round's values are read from shared memory a
+// round ahead of its adds; entries past the segment add 0, which leaves a
+// running sum from +0 as it was (it is never -0).  Indices are 32-bit
+// (n < 2^31), and a uid is compared by its low word (uids are below n).
+__device__ __forceinline__ float chain_long(float acc, float* v, const float* __restrict__ vals,
+                                            const int64_t* __restrict__ uid, int64_t seg,
+                                            int64_t p, int64_t n, int lane) {
+  const unsigned full = 0xffffffffu;
+  const int32_t* uid_lo = reinterpret_cast<const int32_t*>(uid);  // little-endian low words
+  const int32_t m = static_cast<int32_t>(n);
+  const int32_t s = static_cast<int32_t>(seg);
+  int32_t at = static_cast<int32_t>(p) + lane;
+  float x[kSeqRounds];
+  int32_t u[kSeqRounds];
+#pragma unroll
+  for (int r = 0; r < kSeqRounds; ++r) {
+    const int32_t q = at + r * 32;
+    const int32_t c = q < m ? q : m - 1;
+    x[r] = vals[c];
+    u[r] = q < m ? uid_lo[2 * c] : -1;
+  }
+  for (;;) {
+    const bool more = __ballot_sync(full, u[kSeqRounds - 1] == s) == full;
+    __syncwarp();  // every lane is done reading the last batch
+#pragma unroll
+    for (int r = 0; r < kSeqRounds; ++r) v[r * 32 + lane] = u[r] == s ? x[r] : 0.f;
+    __syncwarp();
+    at += kSeqRounds * 32;
+#pragma unroll
+    for (int r = 0; r < kSeqRounds; ++r) {
+      const int32_t q = at + r * 32;
+      const int32_t c = q < m ? q : m - 1;
+      x[r] = vals[c];
+      u[r] = q < m ? uid_lo[2 * c] : -1;
+    }
+    float4 cur[8];
+    read_round(cur, v);
+#pragma unroll
+    for (int r = 0; r < kSeqRounds; ++r) {
+      float4 ahead[8];
+      if (r + 1 < kSeqRounds) read_round(ahead, v + (r + 1) * 32);
+      acc = add_round(acc, cur);
+      if (r + 1 < kSeqRounds) {
+#pragma unroll
+        for (int k = 0; k < 8; ++k) cur[k] = ahead[k];
+      }
+    }
+    if (!more) return acc;
+  }
+}
+
+__global__ void __launch_bounds__(kSeqThreads)
+    segsum_seq_kernel(const float* __restrict__ vals, const int64_t* __restrict__ uid,
+                      int64_t n, float* __restrict__ out) {
+  // a warp's values: its window, then a batch of kSeqRounds rounds of 32
+  __shared__ __align__(16) float buf[kSeqThreads / 32][kSeqRounds * 32];
+  const unsigned full = 0xffffffffu;
+  const int64_t base = ((static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x) >> 5) * 32;
+  const int lane = threadIdx.x & 31;
+  float* v = buf[threadIdx.x >> 5];
+  if (base >= n) return;  // whole warps leave together
+  const int64_t i = base + lane;
+  const int64_t segments = uid[n - 1] + 1;
+  if (i < n && i >= segments) out[i] = 0.f;  // past the last segment
+  const int64_t u = i < n ? uid[i] : -1;
+  const bool head = i < n && (i == 0 || uid[i - 1] != u);
+  unsigned heads = __ballot_sync(full, head);
+  if (!heads) return;  // the window lies inside a segment an earlier warp sums
+  v[lane] = i < n ? vals[i] : 0.f;
+  __syncwarp();
+  const int live = n - base < 32 ? static_cast<int>(n - base) : 32;
+  const int64_t next = base + 32;
+  const int64_t seg_after = next < n ? uid[next] : -1;
+  while (heads) {
+    const int b = __ffs(heads) - 1;
+    heads &= heads - 1;
+    const int e = heads ? __ffs(heads) - 1 : 32;
+    const int64_t seg = __shfl_sync(full, u, b);
+    float acc = chain(0.f, v, b, e < live ? e : live);
+    if (e == 32 && seg_after == seg) {
+      // the segment runs on past the window: most end within one more round
+      const int64_t q = next + lane;
+      const bool in = q < n && uid[q] == seg;
+      const int cnt = __popc(__ballot_sync(full, in));
+      __syncwarp();
+      v[lane] = in ? vals[q] : 0.f;
+      __syncwarp();
+      acc = chain(acc, v, 0, cnt);
+      if (cnt == 32) acc = chain_long(acc, v, vals, uid, seg, next + 32, n, lane);
+    }
+    if (lane == 0) out[seg] = acc;
+  }
+}
+
 __global__ void noop_kernel() {}
 
 // A plane pointer as the kernels take it; which side of a move is written is
@@ -579,6 +748,27 @@ int ps_apply(int kind, void* value, void* s0, void* s1, void* s2,
     case kFtrl: launch_apply<kFtrl>(p, i, n, dim, live_rows, h, vec, st); break;
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// out[u] = the float32 running sum, from 0 in position order, of
+// residual[order[i] / nnz] over the sorted entries i with uid[i] == u, for
+// u < uid[n - 1] + 1, and 0 for the rest of out[0, n).  order: int64
+// positions sorted by row slot (stably), n < 2^31; uid: int64, 0 at the
+// first entry and one more at each new slot; residual: float [n / nnz];
+// vals: n floats of scratch (each sorted entry's value).  Two launches.
+int ps_segment_sum(const void* order, const void* uid, const void* residual, int64_t nnz,
+                   int64_t n, void* out, void* vals, void* stream) {
+  if (nnz <= 0 || n >= (int64_t{1} << 31)) return static_cast<int>(cudaErrorInvalidValue);
+  if (n <= 0) return static_cast<int>(cudaGetLastError());
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const unsigned blocks = static_cast<unsigned>((n + kSeqThreads - 1) / kSeqThreads);
+  segsum_vals_kernel<<<blocks, kSeqThreads, 0, st>>>(
+      static_cast<const int64_t*>(order), static_cast<const float*>(residual),
+      static_cast<int32_t>(nnz), n, static_cast<float*>(vals));
+  segsum_seq_kernel<<<blocks, kSeqThreads, 0, st>>>(
+      static_cast<const float*>(vals), static_cast<const int64_t*>(uid), n,
+      static_cast<float*>(out));
   return static_cast<int>(cudaGetLastError());
 }
 

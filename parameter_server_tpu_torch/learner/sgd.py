@@ -5,9 +5,10 @@ Torch counterpart of ``parameter_server_tpu/learner/sgd.py``:
 - :class:`LocalLRTrainer`: the table lives on ``device`` and each step is
   one :mod:`~parameter_server_tpu_torch.models.linear` step updating it in
   place: rows mode (host dedup, one gather launch and the fused apply
-  kernel per step) or dense mode (per-position hashed slots, full-table
-  elementwise apply), optionally hashing raw 32-bit keys on the device and
-  running K steps per call (``step_block``).  This is the bench path.
+  kernel per step) or dense mode (per-position hashed slots, grouped on the
+  device; the rule applied to the step's touched rows), optionally hashing
+  raw 32-bit keys on the device and running K steps per call
+  (``step_block``).  This is the bench path.
 - :class:`AsyncLRLearner`: N worker threads each run
   ``wait_turn -> pull(w) -> grad -> push(g) -> advance`` through a
   :class:`~parameter_server_tpu_torch.kv.worker.KVWorker`, gated by a
@@ -59,7 +60,8 @@ class LocalLRTrainer:
         device: str | torch.device = "cuda",
     ) -> None:
         """``mode="rows"``: bucketed-unique gather/apply/scatter (general).
-        ``mode="dense"``: per-position hashed slots + full-table apply — no
+        ``mode="dense"``: per-position hashed slots, grouped on the device,
+        and the rule on the touched rows (the full-table rule's bits) — no
         host dedup; requires l1 == l2 == 0 and a g=0-stable optimizer.
         ``device_hash``: hash raw uint32 keys on the device (dense mode);
         :meth:`step_block` runs K steps per call.  ``tracer``: the dense

@@ -12,10 +12,12 @@ holding key k.
   the kernel dispatchers (:func:`~parameter_server_tpu_torch.ops.scatter.apply_rows`,
   or the three-pass write-back with ``fused_apply=False``).
 - :func:`dense_fused_step` / :func:`dense_scan_train_step`: dense mode.
-  Per-position hashed slots index the whole table; the deterministic
-  segment sum of ``ops/scatter.py`` builds the full-size gradient and the
-  rule applies elementwise over every row.  These are plain PyTorch: the
-  JAX step they mirror reaches no Pallas kernel.
+  Per-position hashed slots index the whole table with no host dedup; the
+  slots are sorted on the device (once a block), the segment-sum kernel of
+  ``ops/scatter.py`` sums each touched row's gradient in position order, and
+  the fused apply kernel runs the rule on the touched rows alone, which
+  gives the JAX step's full-table rule bit for bit on every row.  Nothing in
+  the step grows with the table.
 
 Where the JAX steps donate their buffers and return new arrays, these update
 ``value``, ``state``, ``bias`` and ``bias_state`` in place and return the
@@ -42,12 +44,12 @@ def predict_logits(w_pos: torch.Tensor, bias) -> torch.Tensor:
     return torch.sum(w_pos, dim=-1) + bias
 
 
-def logloss(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
-    """Mean binary cross-entropy from logits (numerically stable)."""
-    return torch.mean(
-        torch.clamp_min(logits, 0) - logits * labels
-        + torch.log1p(torch.exp(-torch.abs(logits)))
-    )
+def logloss(logits: torch.Tensor, labels: torch.Tensor, dim=None) -> torch.Tensor:
+    """Mean binary cross-entropy from logits (numerically stable); over
+    ``dim`` alone where one is given."""
+    terms = (torch.clamp_min(logits, 0) - logits * labels
+             + torch.log1p(torch.exp(-torch.abs(logits))))
+    return torch.mean(terms) if dim is None else torch.mean(terms, dim=dim)
 
 
 def grad_rows(
@@ -123,6 +125,37 @@ def fused_train_step(
     return loss
 
 
+def _dense_touched_step(value, state, bias, bias_state, flat, labels, optimizer,
+                        trash_row, tracer, logits, groups=None):
+    """One dense step over the touched rows, in place (see
+    :func:`dense_fused_step`): writes the step's logits into ``logits``
+    (``[B]``; the caller takes the loss from them), and takes ``groups``,
+    the step's ``(order, uid, ids)``, if a block's sort made them, else
+    groups its ``flat`` slots itself."""
+    # only a rule whose weights are derived from its state (FTRL) needs the
+    # state at the positions
+    reads_state = type(optimizer).pull_weights is not ServerOptimizer.pull_weights
+    names = list(state) if reads_state else []
+    with tracer.span("lr.forward"):
+        # pull_weights is elementwise: on the gathered positions it gives the
+        # same bits as on the whole table, at a fraction of the bytes
+        w_pos = optimizer.pull_weights(
+            torch.index_select(value, 0, flat),
+            {k: torch.index_select(state[k], 0, flat) for k in names},
+        )[:, 0].reshape(labels.shape[0], -1)
+        bias_w = optimizer.pull_weights(bias, bias_state)
+        torch.sum(w_pos, dim=-1, out=logits).add_(bias_w[0, 0])
+        residual = (torch.sigmoid(logits) - labels) / labels.shape[0]
+    with tracer.span("lr.segment_sum"):
+        if groups is None:
+            groups = [g[0] for g in scatter.group_slots(flat[None], trash_row)]
+        order, uid, ids = groups
+        grads = scatter.segment_sum_sorted(residual, order, uid, w_pos.shape[1])
+    with tracer.span("lr.apply"):
+        scatter.apply_rows(value, state, ids, grads, optimizer)
+        _apply_bias(bias, bias_state, residual, optimizer)
+
+
 def dense_fused_step(
     value: torch.Tensor,
     state: Planes,
@@ -134,40 +167,25 @@ def dense_fused_step(
     trash_row: int,
     tracer: Tracer = NULL_TRACER,
 ) -> torch.Tensor:
-    """Dense-apply LR step, in place: no host dedup, no row gather/scatter of
-    updates.  Returns the loss as a device tensor.
+    """Dense-apply LR step, in place: no host dedup, and no work that grows
+    with the table.  Returns the loss as a device tensor.
 
     Per-position hashed row slots ``slots_pos`` ``[B, nnz]`` index the table
-    directly; ``scatter.segment_combine`` (a deterministic, sync-free
-    segment sum) combines duplicate slots into a full-size gradient, whose
-    ``trash_row`` (the PAD slot) is zeroed, and the optimizer applies
-    elementwise over the whole table.  Rows with zero gradient stay exactly
-    as they were under a ``g0_stable`` rule with ``l1 == l2 == 0`` (see
-    ``kv.optim.require_dense_apply``), which the caller enforces.
-    ``tracer``: the spans ``lr.forward``, ``lr.segment_sum`` and
-    ``lr.apply``.
+    directly.  :func:`~parameter_server_tpu_torch.ops.scatter.group_slots`
+    sorts them and gives the step's unique rows at a static length (pads at
+    ``trash_row``, the PAD slot); ``segment_sum_sorted`` sums each row's
+    gradient in position order; ``apply_rows`` runs the rule on those rows
+    alone and leaves the trash row as it was.  That is the full-table rule's
+    arithmetic on every row, bit for bit: the rows it would give a zero
+    gradient stay exactly as they were under a ``g0_stable`` rule with
+    ``l1 == l2 == 0`` (see ``kv.optim.require_dense_apply``), which the
+    caller enforces.  ``tracer``: the spans ``lr.forward``,
+    ``lr.segment_sum`` (the grouping and the sum) and ``lr.apply``.
     """
-    names = list(state)
-    with tracer.span("lr.forward"):
-        flat = slots_pos.reshape(-1).long()
-        # pull_weights is elementwise: on the gathered positions it gives the
-        # same bits as on the whole table, at a fraction of the bytes
-        w_pos = optimizer.pull_weights(
-            torch.index_select(value, 0, flat),
-            {k: torch.index_select(state[k], 0, flat) for k in names},
-        )[:, 0].reshape(labels.shape[0], -1)
-        loss, residual = _loss_and_residual(w_pos, bias, bias_state, labels, optimizer)
-        g_pos = residual[:, None].expand(w_pos.shape).reshape(-1, 1)
-    with tracer.span("lr.segment_sum"):
-        grad = scatter.segment_combine(g_pos, flat, value.shape[0])
-        grad[trash_row].zero_()  # drop PAD contributions
-    with tracer.span("lr.apply"):
-        new_v, new_s = optimizer.apply(value, state, grad)
-        value.copy_(new_v)
-        for k in names:
-            state[k].copy_(new_s[k])
-        _apply_bias(bias, bias_state, residual, optimizer)
-    return loss
+    logits = torch.empty((1, labels.shape[0]), dtype=torch.float32, device=labels.device)
+    _dense_touched_step(value, state, bias, bias_state, slots_pos.reshape(-1), labels,
+                        optimizer, trash_row, tracer, logits[0])
+    return logloss(logits, labels[None], dim=1)[0]
 
 
 def _mul32(x: torch.Tensor, c: int) -> torch.Tensor:
@@ -230,19 +248,24 @@ def dense_scan_train_step(
 
     The block's keys are hashed on the device in one pass
     (:func:`device_slots`); PAD keys route to the trash row, so real keys
-    must be < 2**32 - 1.  Then K :func:`dense_fused_step` calls are enqueued
-    back to back.  Returns the losses ``[K]`` as a device tensor: nothing
-    here waits on the device, so the host can stage the next block while
-    this one runs.  ``tracer``: the span ``lr.hash`` and each step's.
+    must be < 2**32 - 1.  One sort groups every step's slots, and K
+    :func:`dense_fused_step` steps are enqueued back to back.  Returns the
+    losses ``[K]`` as a device tensor: nothing here waits on the device, so
+    the host can stage the next block while this one runs.  ``tracer``: the
+    span ``lr.hash`` (the hash and the grouping) and each step's.
     """
+    k_steps = keys_block.shape[0]
     with tracer.span("lr.hash"):
-        slots = device_slots(keys_block, num_rows, seed)
-    losses = [
-        dense_fused_step(value, state, bias, bias_state, slots[k], labels_block[k],
-                         optimizer, num_rows, tracer)
-        for k in range(keys_block.shape[0])
-    ]
-    return torch.stack(losses)
+        # int32 slots: what the step's gather and sort take; one sort
+        # groups every step's slots
+        slots = device_slots(keys_block, num_rows, seed).to(torch.int32).reshape(k_steps, -1)
+        order, uid, ids = scatter.group_slots(slots, num_rows)
+    logits = torch.empty(labels_block.shape, dtype=torch.float32, device=labels_block.device)
+    for k in range(k_steps):
+        _dense_touched_step(value, state, bias, bias_state, slots[k], labels_block[k],
+                            optimizer, num_rows, tracer, logits[k], (order[k], uid[k], ids[k]))
+    # the losses need nothing of the updates: one pass over the block's logits
+    return logloss(logits, labels_block, dim=1)
 
 
 def eval_logits(

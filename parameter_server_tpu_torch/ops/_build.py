@@ -47,6 +47,7 @@ _SIGNATURES = {
     "ps_apply": [ctypes.c_int, _P, _P, _P, _P, _P, _P, _I64, _I64, _I64]
     + [_F] * 10
     + [ctypes.c_int, _P],
+    "ps_segment_sum": [_P, _P, _P, _I64, _I64, _P, _P, _P],
     "ps_noop": [_P],
 }
 

@@ -1,10 +1,12 @@
-"""Device-side sparse table primitives: row gather, scatter-set, scatter-add
-and the fused push apply.
+"""Device-side sparse table primitives: row gather, scatter-set, scatter-add,
+the fused push apply, and the dense LR step's grouping and segment sum.
 
 Torch counterpart of ``parameter_server_tpu/ops/scatter.py``.  Each of its
 four Pallas kernels is a hand-written CUDA kernel here
 (``csrc/scatter_kernels.cu``, built by ``ops/_build.py``), and each kernel has
-a plain PyTorch version in this module.  The dispatchers pick by where the
+a plain PyTorch version in this module.  A fifth kernel, the segment sum of
+:func:`segment_sum_sorted`, replaces no Pallas kernel (the JAX dense step
+sums with XLA's scatter-add).  The dispatchers pick by where the
 table lies and by nothing else: a CUDA tensor always goes to the kernel (or
 the wrapper raises), a CPU tensor always goes to the plain version.  There is
 no fallback from one to the other, and no option that selects the plain
@@ -29,7 +31,8 @@ import torch
 from parameter_server_tpu_torch.ops import _build
 
 #: launches per kernel wrapper; incremented only where a kernel is launched
-LAUNCHES: Dict[str, int] = {"apply": 0, "gather": 0, "scatter_set": 0, "scatter_add": 0}
+LAUNCHES: Dict[str, int] = {"apply": 0, "gather": 0, "scatter_set": 0, "scatter_add": 0,
+                            "segment_sum": 0}
 _launch_lock = threading.Lock()
 #: planes one gather or scatter-set launch takes (a value table and up to 3
 #: state planes)
@@ -70,6 +73,41 @@ def segment_combine(
     return torch.segment_reduce(
         torch.index_select(values, 0, order), "sum", lengths=counts, axis=0, unsafe=True
     )
+
+
+def group_slots(
+    slots: torch.Tensor, trash_row: int
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Group each row of per-position row slots ``[K, n]`` (one row a step)
+    by slot, on the slots' device, at static shapes and with no size read
+    back.
+
+    Returns ``(order, uid, ids)``, each ``[K, n]``: ``order`` (int64) each
+    row's positions sorted by slot, stably, so a slot's positions ascend;
+    ``uid`` (int64) each sorted entry's unique index in its row, 0 at the
+    first and one more at each new slot; ``ids`` (int32) the row's unique
+    slots in ascending order, then ``trash_row`` for the rest.  A slot is
+    taken as int32 (a table of up to 2**31 rows), which halves the sort's
+    radix passes against int64; one sort takes all K rows.
+    """
+    rows = slots.to(torch.int32)
+    sorted_slots, order = torch.sort(rows, dim=1, stable=True)
+    new = torch.zeros_like(order)
+    torch.ne(sorted_slots[:, 1:], sorted_slots[:, :-1], out=new[:, 1:])
+    uid = torch.cumsum(new, 1)
+    # every entry of a segment writes its slot at the segment's index: the
+    # same value, so the repeats are harmless
+    ids = torch.full_like(rows, trash_row).scatter_(1, uid, sorted_slots)
+    return order, uid, ids
+
+
+def segment_sum_sorted_torch(
+    residual: torch.Tensor, order: torch.Tensor, uid: torch.Tensor, nnz: int
+) -> torch.Tensor:
+    """Plain version of :func:`segment_sum_sorted`: each segment summed
+    sequentially in position order (:func:`segment_combine`)."""
+    values = torch.index_select(residual, 0, torch.div(order, nnz, rounding_mode="floor"))
+    return segment_combine(values.reshape(-1, 1), uid, order.shape[0])
 
 
 def _merge_repeats(
@@ -323,6 +361,44 @@ def cuda_apply(
     return value, state
 
 
+# Replaces no Pallas kernel: the JAX dense step sums its gradient with XLA's
+# scatter-add.  Added because torch's segment_reduce sums a segment in one
+# thread that waits on each load, and one Zipf row holds about a quarter of a
+# batch's positions.  Each row's sum is the float32 running sum in position
+# order, the plain version's bit for bit (another float order moves the LR
+# cell's first-block gradient norm past its limit).  Bound: the hot row's
+# chain of dependent adds; the bytes, ~24 an entry, take far less.  Design:
+# one launch writes each sorted entry's value; then a warp sums the segments
+# whose heads lie in its 32 sorted entries, all lanes adding the same values
+# from shared memory, and reads a segment that runs on in batches of rounds
+# of 32, the next batch's loads in flight during the adds
+# (csrc/scatter_kernels.cu).
+def cuda_segment_sum(
+    residual: torch.Tensor, order: torch.Tensor, uid: torch.Tensor, nnz: int
+) -> torch.Tensor:
+    if not residual.is_cuda:
+        raise ValueError(f"segment_sum: residual must be a CUDA tensor, got {residual.device}")
+    if residual.dtype != torch.float32 or residual.dim() != 1 or not residual.is_contiguous():
+        raise ValueError("segment_sum: residual must be contiguous 1-D float32")
+    n = int(order.shape[0])
+    for name, t in (("order", order), ("uid", uid)):
+        if (t.device != residual.device or t.dtype != torch.int64 or t.dim() != 1
+                or not t.is_contiguous() or t.shape[0] != n):
+            raise ValueError(f"segment_sum: {name} must be contiguous 1-D int64 [{n}] "
+                             f"on {residual.device}")
+    if nnz <= 0 or n != residual.shape[0] * nnz or n >= 2**31:
+        raise ValueError(f"segment_sum: {n} positions for {residual.shape[0]} x {nnz}")
+    out = torch.empty((n, 1), dtype=torch.float32, device=residual.device)
+    if n:
+        vals = torch.empty(n, dtype=torch.float32, device=residual.device)
+        _launch(
+            "segment_sum", _build.load_library().ps_segment_sum, residual.device,
+            order.data_ptr(), uid.data_ptr(), residual.data_ptr(), nnz, n, out.data_ptr(),
+            vals.data_ptr(),
+        )
+    return out
+
+
 # ---------------------------------------------------------------------------
 # Public dispatchers
 # ---------------------------------------------------------------------------
@@ -400,6 +476,21 @@ def apply_rows(value, state, ids, grads, optimizer):
     if _on_card(value, "apply_rows"):
         return cuda_apply(value, state, ids, grads, optimizer)
     return apply_rows_torch(value, state, ids, grads, optimizer)
+
+
+def segment_sum_sorted(
+    residual: torch.Tensor, order: torch.Tensor, uid: torch.Tensor, nnz: int
+) -> torch.Tensor:
+    """The dense LR step's per-row gradient: ``out[u]``, ``[n, 1]``, sums
+    ``residual[order[i] // nnz]`` over the sorted entries ``i`` with
+    ``uid[i] == u`` (``order`` and ``uid`` from :func:`group_slots`; each
+    position's value is its example's residual), and is 0 past the last
+    segment.  Each sum is the float32 running sum in position order, on
+    the card (the kernel) and on the CPU (the plain version) alike, so both
+    give the same bits."""
+    if _on_card(residual, "segment_sum_sorted"):
+        return cuda_segment_sum(residual, order, uid, nnz)
+    return segment_sum_sorted_torch(residual, order, uid, nnz)
 
 
 def combine_and_scatter_add(

@@ -69,7 +69,8 @@ def test_multiprocess_launch_trains_and_checkpoints(tmp_path):
         with open(os.path.join(outdir, f"{node}.json")) as f:
             row = json.load(f)
         assert row["device"] == "cpu", row
-        assert set(row["launches"]) == {"apply", "gather", "scatter_set", "scatter_add"}
+        assert set(row["launches"]) == {"apply", "gather", "scatter_set", "scatter_add",
+                                        "segment_sum"}
         assert not any(row["launches"].values()), row
 
 

@@ -205,6 +205,128 @@ def test_segment_combine_is_position_ordered_and_counts_every_row():
         assert got[r, 0].item() == acc
 
 
+def _hot_slots(rng, rows, batch, nnz):
+    """Slots ``[batch, nnz]`` in ``[0, rows]``: one hot row at 30% of the
+    positions, PAD (the trash row ``rows``) at every 7th, the rest spread
+    over half the table, so many rows stay untouched."""
+    slots = rng.integers(0, rows // 2, size=(batch, nnz))
+    flat = slots.reshape(-1)
+    flat[rng.random(flat.size) < 0.3] = rows // 3
+    flat[::7] = rows
+    return slots
+
+
+def _full_table_dense_step(value, state, bias, bias_state, slots, labels, opt, rows):
+    """The dense step as a full-table rule: the per-row gradient of every
+    row by ``segment_combine``, the trash row's zeroed, the rule over the
+    whole table, copied back."""
+    flat = slots.reshape(-1).long()
+    w_pos = opt.pull_weights(torch.index_select(value, 0, flat),
+                             {k: torch.index_select(p, 0, flat) for k, p in state.items()})
+    w_pos = w_pos[:, 0].reshape(labels.shape[0], -1)
+    loss, residual = linear._loss_and_residual(w_pos, bias, bias_state, labels, opt)
+    g_pos = residual[:, None].expand(w_pos.shape).reshape(-1, 1)
+    grad = scatter.segment_combine(g_pos, flat, value.shape[0])
+    grad[rows].zero_()
+    new_v, new_s = opt.apply(value, state, grad)
+    value.copy_(new_v)
+    for k in state:
+        state[k].copy_(new_s[k])
+    linear._apply_bias(bias, bias_state, residual, opt)
+    return loss
+
+
+def _bits(t):
+    return t.view(torch.int32)
+
+
+@pytest.mark.parametrize("kind", sorted(DENSE_OPTS))
+def test_dense_step_over_touched_rows_is_the_full_table_rule_bit_for_bit(kind):
+    """The step that sums and applies at the touched rows alone gives every
+    row the bits of the full-table rule, under a hot row and PAD keys; the
+    rows outside the batch and the trash row keep their bytes."""
+    rows, batch, nnz = 600, 96, 13
+    rng = np.random.default_rng(11)
+    value, state, bias, bias_state = _random_state(rng, rows, kind)
+    slots = torch.from_numpy(_hot_slots(rng, rows, batch, nnz))
+    assert float((slots == rows // 3).float().mean()) >= 0.25 and (slots == rows).any()
+    labels = torch.from_numpy(rng.integers(0, 2, size=batch).astype(np.float32))
+    opt = make_optimizer(OptimizerConfig(**DENSE_OPTS[kind]))
+    planes = [(torch.tensor(value), {k: torch.tensor(v) for k, v in state.items()},
+               torch.tensor(bias), {k: torch.tensor(v) for k, v in bias_state.items()})
+              for _ in range(2)]
+    (nv, ns, nb, nbs), (ov, os_, ob, obs) = planes
+    new_loss = linear.dense_fused_step(nv, ns, nb, nbs, slots, labels, opt, rows)
+    old_loss = _full_table_dense_step(ov, os_, ob, obs, slots, labels, opt, rows)
+    assert torch.equal(_bits(new_loss), _bits(old_loss))
+    for a, b in [(nv, ov), (nb, ob), *((ns[k], os_[k]) for k in ns),
+                 *((nbs[k], obs[k]) for k in nbs)]:
+        assert torch.equal(_bits(a), _bits(b))
+    untouched = torch.ones(rows + 1, dtype=torch.bool)
+    untouched[slots.reshape(-1)] = False
+    untouched[rows] = True  # the trash row keeps its fill
+    assert int(untouched.sum()) > rows // 2
+    for got, before in [(nv, value), *((ns[k], state[k]) for k in ns)]:
+        assert torch.equal(_bits(got[untouched]), _bits(torch.from_numpy(before)[untouched]))
+    assert not torch.equal(nv, torch.from_numpy(value))
+
+
+def test_group_slots_gives_the_unique_rows_at_a_static_length():
+    """``group_slots``, row by row: the positions sorted by slot (stably),
+    each entry's unique index pointing at its slot in ``ids``, ``ids`` the
+    unique slots ascending and then the trash row, every output the input's
+    shape, and nothing read back from the tensors on the way."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    class Ops(TorchDispatchMode):
+        def __init__(self):
+            super().__init__()
+            self.seen = set()
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            self.seen.add(str(func.overloadpacket))
+            return func(*args, **(kwargs or {}))
+
+    rows = 500
+    rng = np.random.default_rng(12)
+    slots = torch.from_numpy(np.stack([_hot_slots(rng, rows, 64, 9).reshape(-1)
+                                       for _ in range(3)]))
+    with Ops() as ops:
+        order, uid, ids = scatter.group_slots(slots, rows)
+    assert not {s for s in ops.seen
+                if any(w in s for w in ("local_scalar", "unique", "bincount", "nonzero"))}
+    assert order.shape == uid.shape == ids.shape == slots.shape
+    assert (order.dtype, uid.dtype, ids.dtype) == (torch.int64, torch.int64, torch.int32)
+    for k in range(slots.shape[0]):
+        flat = slots[k]
+        want_ids, want_inv = np.unique(flat.numpy(), return_inverse=True)
+        np.testing.assert_array_equal(order[k].numpy(), np.argsort(flat.numpy(), kind="stable"))
+        np.testing.assert_array_equal(uid[k].numpy(), want_inv[order[k].numpy()])
+        assert torch.equal(ids[k][uid[k]], flat[order[k]].to(torch.int32))  # entry -> its slot
+        u = want_ids.size
+        np.testing.assert_array_equal(ids[k][:u].numpy(), want_ids)
+        assert (ids[k][u:] == rows).all() and u < flat.numel()
+
+
+def test_segment_sum_sorted_sums_each_row_in_position_order():
+    """The plain segment sum: each unique row's positions summed in position
+    order from its example's residual, zeros past the last row."""
+    rows, batch, nnz = 300, 40, 7
+    rng = np.random.default_rng(13)
+    slots = torch.from_numpy(_hot_slots(rng, rows, batch, nnz))
+    residual = torch.from_numpy(rng.normal(size=batch).astype(np.float32))
+    order, uid, ids = (g[0] for g in scatter.group_slots(slots.reshape(1, -1), rows))
+    got = scatter.segment_sum_sorted(residual, order, uid, nnz)
+    assert got.shape == (batch * nnz, 1)
+    flat, u = slots.reshape(-1).numpy(), int(uid[-1]) + 1
+    for j in range(u):
+        acc = np.float32(0)
+        for p in np.flatnonzero(flat == int(ids[j])):
+            acc = np.float32(acc + residual[p // nnz].numpy())
+        assert got[j, 0].item() == acc
+    assert (got[u:] == 0).all()
+
+
 @pytest.mark.parametrize("kind", sorted(DENSE_OPTS))
 def test_step_block_matches_jax(kind):
     rows, K, batch, nnz = 700, 4, 48, 10

@@ -186,5 +186,6 @@ def test_card_mesh_dlrm_launches_its_kernels_on_owned_rows():
     out = subprocess.run([sys.executable, "-c", _CARD_DLRM], capture_output=True, text=True,
                          timeout=300, check=True, env=dict(os.environ, PYTHONPATH=str(root)))
     launches, peak, table, err = json.loads(out.stdout.strip().splitlines()[-1])
-    assert launches == {"apply": 0, "gather": 3, "scatter_set": 3, "scatter_add": 0}
+    assert launches == {"apply": 0, "gather": 3, "scatter_set": 3, "scatter_add": 0,
+                        "segment_sum": 0}
     assert err == 0.0 and peak < table / 8, (peak, table)

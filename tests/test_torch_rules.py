@@ -538,7 +538,9 @@ def test_dense_block_path_is_sync_free():
             todo += [linear_fns[c] for c in called if c in linear_fns]
     assert {"step_block_device", "dense_scan_train_step", "dense_fused_step",
             "segment_combine", "device_slots", "_fmix32", "_mul32",
-            "_loss_and_residual", "_apply_bias", "logloss"} <= seen
+            "_dense_touched_step", "_apply_bias", "logloss", "group_slots",
+            "segment_sum_sorted", "cuda_segment_sum", "segment_sum_sorted_torch",
+            "apply_rows", "cuda_apply"} <= seen
     assert not bad, f"host syncs on the dense block path: {bad}"
 
 

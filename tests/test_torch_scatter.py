@@ -285,7 +285,7 @@ def test_cpu_tensors_never_touch_the_kernel_library(monkeypatch):
     scatter.apply_rows(t, state, i, r, opt)
     scatter.combine_and_scatter_add(t, i, torch.arange(8, dtype=torch.int32), r, 8)
     assert scatter.launch_counts() == {
-        "apply": 0, "gather": 0, "scatter_set": 0, "scatter_add": 0
+        "apply": 0, "gather": 0, "scatter_set": 0, "scatter_add": 0, "segment_sum": 0
     }
 
 
@@ -353,7 +353,7 @@ def test_cuda_tensors_always_launch_the_kernels():
     scatter.apply_rows(t, state, i, r, opt)
     torch.cuda.synchronize()
     assert scatter.launch_counts() == {
-        "apply": 1, "gather": 2, "scatter_set": 2, "scatter_add": 2
+        "apply": 1, "gather": 2, "scatter_set": 2, "scatter_add": 2, "segment_sum": 0
     }
     # pads point at the trash row; a marker there must survive every rule
     for dim in (1, 128):
@@ -370,3 +370,20 @@ def test_cuda_tensors_always_launch_the_kernels():
             torch.cuda.synchronize()
             for p in planes:
                 assert bool((p[ROWS] == 7.0).all()), f"{kind} dim {dim} wrote the trash row"
+
+
+
+def test_segment_sum_on_the_cpu_never_loads_the_kernel_library(monkeypatch):
+    def refuse():
+        raise AssertionError("kernel library loaded for a CPU tensor")
+
+    monkeypatch.setattr(_build, "load_library", refuse)
+    scatter.reset_launch_counts()
+    slots = (np.arange(33 * 7) // 33).reshape(1, -1)  # rows of 33 positions
+    order, uid, _ids = (g[0] for g in scatter.group_slots(torch.from_numpy(slots), 1 << 20))
+    residual = torch.ones(33)
+    got = scatter.segment_sum_sorted(residual, order, uid, 7)
+    assert got[:8, 0].tolist() == [33.0] * 7 + [0.0]
+    assert scatter.launch_counts()["segment_sum"] == 0
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        scatter.cuda_segment_sum(residual, order, uid, 7)
