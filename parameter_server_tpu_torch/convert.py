@@ -146,7 +146,12 @@ def transformer_from_numpy(module, params) -> None:
     The two must hold the same paths (the same model class, the same layout
     of the block stack) and shapes: ``DenseGeneral`` kernels ``[d, H, D]``
     for q / k / v and ``[H, D, d]`` for ``o``, ``Dense`` kernels ``[in,
-    out]``, a LayerNorm's leaves under ``LayerNorm_0``."""
+    out]``, a LayerNorm's leaves under ``LayerNorm_0``.  The JAX package has
+    no latent attention and no expert layer: a module with either is
+    refused."""
+    from parameter_server_tpu_torch.models import transformer as tfm
+
+    tfm.refuse_deepseek(module.cfg, "convert")
     _copy_tree(dict(module.named_parameters()), params, "transformer params")
 
 

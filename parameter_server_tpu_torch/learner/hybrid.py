@@ -45,6 +45,12 @@ Each data block's parameter gradients are summed over ``data`` with
 ``Mesh.all_reduce``; the loss is the global batch's.  A prefetch pulls the next batch's slice.
 ``launch_hybrid.py`` runs this across processes with the embedding servers
 behind ``TcpVan``.
+
+A body with expert layers (``cfg.n_experts``, one card only) trains as
+DeepSeek-V3 does (arXiv:2412.19437, sections 2.1.2 and 4.2): the loss adds
+each layer's sequence-wise balance loss, and after AdamW each layer's route
+bias moves by ``cfg.bias_rate`` times the sign of the mean load less the
+expert's load, from the step's loads over every expert (the router's).
 """
 
 from __future__ import annotations
@@ -131,8 +137,8 @@ class HybridLMTrainer:
         on a rank that does not talk to the Van (``model`` index > 0).
         ``tracer``: records a step's phases (``hybrid.pull``: a pull's or a
         prefetch's submit; ``hybrid.pull_wait``, ``hybrid.forward``,
-        ``hybrid.backward``, ``hybrid.optimizer``, ``hybrid.push``,
-        ``hybrid.inflight_wait``, ``hybrid.loss_sync``).  The body's blocks
+        ``hybrid.backward``, ``hybrid.optimizer``, ``hybrid.moe_balance``,
+        ``hybrid.push``, ``hybrid.inflight_wait``, ``hybrid.loss_sync``).  The body's blocks
         stay untraced (their markers cost on autograd's thread); a profiling
         harness that wants ``tfm.attention`` / ``tfm.mlp`` sets a tracer on
         them (:class:`~parameter_server_tpu_torch.models.transformer.Block`)."""
@@ -141,6 +147,9 @@ class HybridLMTrainer:
                 "hybrid requires untied embeddings: the lm_head is dense, "
                 "the input table is PS-served"
             )
+        if cfg.n_experts and mesh is not None:
+            raise ValueError("an expert body trains on one card: the multi-process branch "
+                             "does not sum the experts' loads over data")
         self.cfg = cfg
         self.mesh = mesh
         self.device = torch.device(device) if mesh is None else mesh.device
@@ -155,9 +164,20 @@ class HybridLMTrainer:
         # the blocks' config: the mesh's model axis is the split they compute
         self.body = tfm.TransformerBody(tp.split_config(cfg, mesh), device=self.device,
                                         generator=tfm.make_generator(self.device, seed))
+        #: the expert layers, in layer order
+        self._moe = self.body.moe_layers()
         #: body parameter count for the MFU column (6ND: train FLOPs ~ 6 x
-        #: params x tokens, set a step since the sequence rides the batch)
+        #: params x tokens, set a step since the sequence rides the batch):
+        #: the active ones, so of a layer's held experts the share a token
+        #: reaches, top_k x held / n_experts of them
         self.n_body_params = sum(int(p.numel()) for p in self.body.parameters())
+        if self._moe:
+            held = cfg.experts_held[1]
+            idle = held - cfg.top_k * held / cfg.n_experts
+            self.n_body_params -= len(self._moe) * idle * 3 * cfg.d_model * cfg.moe_d_ff
+        #: the assignments computed on held experts, summed over the steps on
+        #: the card (the balance update adds each step's)
+        self.held_assignments = torch.zeros((), dtype=torch.int64, device=self.device)
         if mesh is None:
             self.params = None
             self.optimizer = adamw(self.body.parameters(), learning_rate)
@@ -184,12 +204,29 @@ class HybridLMTrainer:
         self.step_count = 0
 
     def _loss(self, emb_in: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
+        """The LM loss, plus each expert layer's balance loss (its value: the
+        layer puts its gradient into the backward itself)."""
         cfg = self.body.cfg
         if self.loss_chunk > 0:
-            return tfm.chunked_causal_lm_loss(self.body.trunk(emb_in),
+            loss = tfm.chunked_causal_lm_loss(self.body.trunk(emb_in),
                                               self.body.lm_head.kernel, targets,
                                               self.loss_chunk, cfg)
-        return tfm.causal_lm_loss(self.body(emb_in), targets, cfg)
+        else:
+            loss = tfm.causal_lm_loss(self.body(emb_in), targets, cfg)
+        for moe in self._moe:
+            loss = loss + moe.balance
+        return loss
+
+    @torch.no_grad()
+    def _balance_experts(self) -> None:
+        """Each expert layer's route bias a step toward the mean load, from
+        the loads of the step's forward; the held experts' assignments into
+        ``held_assignments``.  All on the card, nothing read back."""
+        first, held = self.cfg.experts_held
+        for moe in self._moe:
+            loads = moe.loads.to(torch.float32)
+            moe.route_bias.add_(torch.sign(loads.mean() - loads), alpha=self.cfg.bias_rate)
+            self.held_assignments += moe.loads[first:first + held].sum()
 
     def _body_step(self, emb: torch.Tensor, tok: torch.Tensor):
         """Loss, AdamW on the body, and the gradient with respect to the
@@ -223,6 +260,9 @@ class HybridLMTrainer:
                 loss = self.mesh.all_reduce(loss.detach().clone(), mesh_lib.DATA_AXIS)
         with self.tracer.span("hybrid.optimizer"):
             self.optimizer.step()
+        if self._moe:
+            with self.tracer.span("hybrid.moe_balance"):
+                self._balance_experts()
         return loss.detach(), emb.grad
 
     # -- the hybrid hot path -------------------------------------------------

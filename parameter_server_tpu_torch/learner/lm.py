@@ -112,6 +112,9 @@ class SpmdLMTrainer:
                 "loss_chunk requires a causal model with untied embeddings "
                 "(the fused head reads params['lm_head'])"
             )
+        # the route bias's balance update and the balance loss live in
+        # HybridLMTrainer
+        tfm.refuse_deepseek(cfg, "SpmdLMTrainer")
         self.cfg = cfg
         self.mesh = mesh
         self.device = torch.device(device) if mesh is None else mesh.device

@@ -27,6 +27,17 @@ What it keeps of flax, so one set of weights gives the same function:
   LayerNorm is flax's: epsilon 1e-6, the variance as ``E[x²] - E[x]²``
   clipped at 0; GELU is the tanh approximation.  DenseGeneral / Dense carry
   a bias only when ``norm == "ln"`` (BERT).
+- **Latent attention and experts** (DeepSeek-V3's block, off by default):
+  ``attn_kind="mla"`` compresses K / V into ``kv_lora_rank`` (RMS-normed,
+  then up-projected per head) beside one ``qk_rope_dim`` rotary key that all
+  heads share; with ``n_experts`` the blocks from ``first_dense`` on hold an
+  expert layer (:class:`MoEBlock`): a sigmoid router over all ``n_experts``,
+  the top ``top_k`` of score + a selection-only bias, and the SwiGLU of the
+  experts this card holds (``experts_held``) on their tokens, none dropped,
+  beside ``n_shared`` shared experts.  Tokens routed to experts held
+  elsewhere get nothing from them here (an expert-parallel rank's part of
+  the layer; no exchange stands in for the other ranks).  Neither runs
+  under ``scan_blocks``, a ``model`` split or sequence parallelism.
 - **Initialisation.**  Kernels ``lecun_normal`` over their contracted axes,
   biases zero, norm scales one, embeddings ``normal(0.02)``; draws from an
   explicit ``torch.Generator`` on the parameters' device.
@@ -59,7 +70,7 @@ from __future__ import annotations
 import dataclasses
 import math
 import time
-from typing import Any, Dict, Optional
+from typing import Any, Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -106,6 +117,32 @@ class TransformerConfig:
     attn_impl: str = "dense"
     sp_axis: str = "sp"
     spmd_mesh: Any = None
+    #: the RMS norm's and LayerNorm's epsilon
+    norm_eps: float = NORM_EPS
+    #: "gqa" (q / k / v heads, ``n_kv_heads``) or "mla" (latent attention:
+    #: a compressed KV of ``kv_lora_rank``, per-head keys of ``qk_nope_dim``
+    #: beside a shared rotary key of ``qk_rope_dim``, values of ``v_head_dim``)
+    attn_kind: str = "gqa"
+    kv_lora_rank: int = 0
+    qk_nope_dim: int = 0
+    qk_rope_dim: int = 0
+    v_head_dim: int = 0
+    #: the expert layer, in the blocks from ``first_dense`` on (0: none).
+    #: ``n_experts`` is the router's width; this card holds the experts
+    #: ``experts_held`` = (first, count) of it, each a SwiGLU of ``moe_d_ff``;
+    #: ``n_shared`` shared experts form one SwiGLU of ``n_shared * moe_d_ff``.
+    #: The chosen scores are divided by their sum and scaled by
+    #: ``routed_scale``.  ``balance_alpha`` weighs the sequence-wise
+    #: balance loss; ``bias_rate`` is the route bias's step (the trainer's)
+    n_experts: int = 0
+    experts_held: Tuple[int, int] = (0, 0)
+    top_k: int = 0
+    moe_d_ff: int = 0
+    n_shared: int = 0
+    routed_scale: float = 1.0
+    first_dense: int = 0
+    balance_alpha: float = 0.0
+    bias_rate: float = 0.0
 
     @property
     def head_dim(self) -> int:
@@ -114,6 +151,18 @@ class TransformerConfig:
     @property
     def kv_heads(self) -> int:
         return self.n_kv_heads or self.n_heads
+
+    def moe_layer(self, i: int) -> bool:
+        """Whether block ``i`` holds the expert layer."""
+        return self.n_experts > 0 and i >= self.first_dense
+
+
+def refuse_deepseek(cfg: TransformerConfig, path: str) -> None:
+    """Raise for a config with latent attention or experts on ``path``, which
+    runs dense GQA blocks only."""
+    if cfg.attn_kind != "gqa" or cfg.n_experts:
+        raise ValueError(f"{path} runs dense GQA blocks only, not attn_kind="
+                         f"{cfg.attn_kind!r} with n_experts={cfg.n_experts}")
 
 
 def bert_base(vocab_size: int = 30522, **kw) -> TransformerConfig:
@@ -216,14 +265,14 @@ def _dense(cfg: TransformerConfig, w: Dict[str, torch.Tensor], x: torch.Tensor,
 def _norm(cfg: TransformerConfig, w: Dict[str, torch.Tensor], x: torch.Tensor) -> torch.Tensor:
     if cfg.norm == "rms":
         var = torch.mean(torch.square(x.to(torch.float32)), dim=-1, keepdim=True)
-        return (x * torch.rsqrt(var + NORM_EPS)).to(cfg.dtype) * w["scale"]
+        return (x * torch.rsqrt(var + cfg.norm_eps)).to(cfg.dtype) * w["scale"]
     # flax nn.LayerNorm: f32 statistics, the fast variance, scale folded
     # into the reciprocal before it multiplies
     xf = x.to(torch.float32)
     mean = xf.mean(dim=-1, keepdim=True)
     mean2 = torch.square(xf).mean(dim=-1, keepdim=True)
     var = torch.clamp(mean2 - torch.square(mean), min=0.0)
-    mul = torch.rsqrt(var + NORM_EPS) * w["LayerNorm_0.scale"]
+    mul = torch.rsqrt(var + cfg.norm_eps) * w["LayerNorm_0.scale"]
     y = (x - mean) * mul + w["LayerNorm_0.bias"]
     return y.to(cfg.dtype)
 
@@ -250,8 +299,6 @@ def _repeat_kv(t: torch.Tensor, heads: int) -> torch.Tensor:
 
 def _attention(cfg: TransformerConfig, w: Dict[str, torch.Tensor], x: torch.Tensor,
                positions: torch.Tensor, attn_mask: Optional[torch.Tensor]) -> torch.Tensor:
-    B, S, _ = x.shape
-    D = cfg.head_dim
     mesh = _tp_mesh(cfg)
     x = tp_lib.copy_to_model(x, mesh)
     q = _dense(cfg, _sub(w, "q"), x, 1)  # [B, S, H (this rank's), D]
@@ -275,15 +322,44 @@ def _attention(cfg: TransformerConfig, w: Dict[str, torch.Tensor], x: torch.Tens
                              "(padding masks are a dense-impl feature)")
         out = _seq_parallel_attention(cfg, q, k, v).to(cfg.dtype)
         return _row_parallel(cfg, _sub(w, "o"), out, 2, mesh)
-    scores = torch.einsum("bshd,bthd->bhst", q, k).to(torch.float32) / math.sqrt(D)
+    return _row_parallel(cfg, _sub(w, "o"), _dense_attention(cfg, q, k, v, attn_mask), 2, mesh)
+
+
+def _dense_attention(cfg: TransformerConfig, q, k, v,
+                     attn_mask: Optional[torch.Tensor]) -> torch.Tensor:
+    """Softmax attention of ``q`` / ``k`` [B, S, H, Dk] over ``v`` [B, S, H,
+    Dv]: scores in f32 over sqrt(Dk), masked to ``MASK_VALUE``."""
+    S = q.shape[1]
+    scores = torch.einsum("bshd,bthd->bhst", q, k).to(torch.float32) / math.sqrt(q.shape[-1])
     if cfg.causal:
-        causal = torch.tril(torch.ones((S, S), dtype=torch.bool, device=x.device))
+        causal = torch.tril(torch.ones((S, S), dtype=torch.bool, device=q.device))
         scores = torch.where(causal[None, None], scores, MASK_VALUE)
     if attn_mask is not None:  # [B, S] True = attend
         scores = torch.where(attn_mask[:, None, None, :].to(torch.bool), scores, MASK_VALUE)
     probs = torch.softmax(scores, dim=-1).to(cfg.dtype)
-    out = torch.einsum("bhst,bthd->bshd", probs, v.to(cfg.dtype)).to(cfg.dtype)
-    return _row_parallel(cfg, _sub(w, "o"), out, 2, mesh)
+    return torch.einsum("bhst,bthd->bshd", probs, v.to(cfg.dtype)).to(cfg.dtype)
+
+
+def _mla(cfg: TransformerConfig, w: Dict[str, torch.Tensor], x: torch.Tensor,
+         positions: torch.Tensor, attn_mask: Optional[torch.Tensor]) -> torch.Tensor:
+    """Latent attention (DeepSeek-V3's, no q compression): q per head in
+    ``qk_nope_dim + qk_rope_dim``; ``kv_a`` gives the compressed KV and the
+    rotary key, the KV is RMS-normed and ``kv_b`` up-projects it to each
+    head's ``qk_nope_dim`` key and ``v_head_dim`` value; the one rotary key
+    is every head's.  The rotary rotates interleaved pairs: DeepSeek's
+    rotate-half over de-interleaved pairs permutes q's and k's rope
+    dimensions alike, which leaves q.k as it is."""
+    B, S, _ = x.shape
+    nope, rope, rank = cfg.qk_nope_dim, cfg.qk_rope_dim, cfg.kv_lora_rank
+    q = _dense(cfg, _sub(w, "q"), x, 1)  # [B, S, H, nope + rope]
+    c = _dense(cfg, _sub(w, "kv_a"), x, 1)  # [B, S, rank + rope]
+    kv = _dense(cfg, _sub(w, "kv_b"), _norm(cfg, _sub(w, "kv_norm"), c[..., :rank]), 1)
+    H = q.shape[2]
+    q = torch.cat([q[..., :nope], _rotary(q[..., nope:], positions, cfg.rope_theta)], dim=-1)
+    k_pe = _rotary(c[:, :, None, rank:], positions, cfg.rope_theta).expand(B, S, H, rope)
+    k = torch.cat([kv[..., :nope], k_pe], dim=-1)
+    out = _dense_attention(cfg, q, k, kv[..., nope:], attn_mask)  # [B, S, H, v_head_dim]
+    return _dense(cfg, _sub(w, "o"), out, 2)
 
 
 def _seq_parallel_attention(cfg: TransformerConfig, q, k, v) -> torch.Tensor:
@@ -310,6 +386,180 @@ def _mlp(cfg: TransformerConfig, w: Dict[str, torch.Tensor], x: torch.Tensor) ->
     else:
         h = F.gelu(_dense(cfg, _sub(w, "up"), x, 1), approximate="tanh")
     return _row_parallel(cfg, _sub(w, "down"), h, 1, mesh)
+
+
+# -- the expert layer: a token's ``k`` choices are its slots ``t * k + j`` ------
+
+
+def _route(cfg: TransformerConfig, w: Dict[str, torch.Tensor], x: torch.Tensor,
+           moe: "MoEBlock", plan: dict) -> torch.Tensor:
+    """Sigmoid scores of ``x`` [T, d] over every expert, in f32; the top
+    ``top_k`` of score + ``moe.route_bias`` (the bias only chooses); the
+    chosen scores over their sum (+1e-20) times ``routed_scale``: [T, k].
+    Sets ``moe``'s step record and the grouping (:func:`_group`)."""
+    s = torch.sigmoid(_dense(cfg, _sub(w, "router"), x, 1).to(torch.float32))
+    idx = torch.topk(s + moe.route_bias, cfg.top_k, dim=-1).indices
+    weights = torch.gather(s, 1, idx)
+    weights = weights / (weights.sum(dim=-1, keepdim=True) + 1e-20)
+    balance = _balance_loss(cfg, s, idx, plan["batch"])
+    moe.record(idx, balance.detach())
+    _group(cfg, idx, plan)
+    return _AddLoss.apply(weights * cfg.routed_scale, balance)
+
+
+def _group(cfg: TransformerConfig, idx: torch.Tensor, plan: dict) -> None:
+    """The held experts' assignments grouped by expert: a stable sort of the
+    slots by held expert (the others last), ``plan["order"]``; each group's
+    size on its way to the host, and ``plan["read_sizes"]``, which waits for
+    and returns them (the matmuls' shapes).  The copy is queued here and read in
+    :func:`_dispatch`, so the shared experts' work is queued on the card
+    before the host waits."""
+    first, held = cfg.experts_held
+    local = idx.reshape(-1) - first
+    key = torch.where((local >= 0) & (local < held), local, held)
+    plan["order"] = torch.sort(key.to(torch.int32), stable=True).indices
+    counts = torch.bincount(key, minlength=held + 1)[:held]
+    if counts.device.type != "cuda":
+        plan["read_sizes"] = counts.tolist
+        return
+    host = counts.to("cpu", non_blocking=True)
+    copied = torch.cuda.Event()
+    copied.record()
+
+    def sizes() -> list:
+        copied.synchronize()
+        return host.tolist()
+
+    plan["read_sizes"] = sizes
+
+
+class _AddLoss(torch.autograd.Function):
+    """Identity on ``y`` whose backward also gives ``loss`` (a scalar term of
+    the training loss) its gradient, 1: the term's gradient joins the
+    backward where ``y``'s passes.  The term itself leaves the layer only as
+    a value, since a graph kept outside the layer would keep alive every
+    tensor a recompute under remat makes."""
+
+    @staticmethod
+    def forward(ctx, y, loss):
+        return y.view_as(y)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad, torch.ones((), dtype=grad.dtype, device=grad.device)
+
+
+def _balance_loss(cfg: TransformerConfig, s: torch.Tensor, idx: torch.Tensor,
+                  batch: int) -> torch.Tensor:
+    """DeepSeek-V3's sequence-wise balance loss ``alpha * sum_i f_i P_i``,
+    averaged over the sequences: ``f_i`` is ``E / (k S)`` times the tokens
+    of the sequence that chose expert ``i``, ``P_i`` the mean over them of
+    ``i``'s score over the token's score sum."""
+    E, k = cfg.n_experts, cfg.top_k
+    probs = (s / s.sum(dim=-1, keepdim=True)).view(batch, -1, E).mean(dim=1)
+    seq_idx = idx.reshape(batch, -1)
+    chosen = torch.zeros_like(probs).scatter_add_(
+        1, seq_idx, torch.ones(seq_idx.shape, dtype=probs.dtype, device=probs.device))
+    f = chosen * (E / seq_idx.shape[1])  # seq_idx.shape[1] is k S
+    return cfg.balance_alpha * (f * probs).sum(dim=1).mean()
+
+
+def _slots_to_tokens(rows: torch.Tensor, sel: torch.Tensor, T: int, k: int) -> torch.Tensor:
+    """Each of ``rows`` at its slot ``sel`` (distinct slots) of a ``[T, k]``
+    grid, zeros elsewhere, the ``k`` slots of a token summed in slot order:
+    no atomic add, so the sum's bits do not change from run to run."""
+    grid = rows.new_zeros(T * k, rows.shape[1]).index_copy_(0, sel, rows).view(T, k, -1)
+    out = grid[:, 0].clone()
+    for j in range(1, k):
+        out += grid[:, j]
+    return out
+
+
+def _token_rows(x: torch.Tensor, sel: torch.Tensor, k: int) -> torch.Tensor:
+    """The row of ``x`` [T, d] of each slot in ``sel``: its token's."""
+    return x.index_select(0, torch.div(sel, k, rounding_mode="floor"))
+
+
+class _SlotRows(torch.autograd.Function):
+    """:func:`_token_rows`, whose backward is :func:`_slots_to_tokens`
+    (``index_select``'s would add a token's slots with atomics)."""
+
+    @staticmethod
+    def forward(ctx, x, sel, k: int):
+        ctx.save_for_backward(sel)
+        ctx.T, ctx.k = x.shape[0], k
+        return _token_rows(x, sel, k)
+
+    @staticmethod
+    def backward(ctx, grad):
+        (sel,) = ctx.saved_tensors
+        return _slots_to_tokens(grad, sel, ctx.T, ctx.k), None, None
+
+
+class _SlotSum(torch.autograd.Function):
+    """:func:`_slots_to_tokens`, whose backward is :func:`_token_rows`: the
+    two are each other's adjoint, and neither backward builds the ``[T, k,
+    d]`` grid a slice's backward would, once a slot."""
+
+    @staticmethod
+    def forward(ctx, rows, sel, T: int, k: int):
+        ctx.save_for_backward(sel)
+        ctx.k = k
+        return _slots_to_tokens(rows, sel, T, k)
+
+    @staticmethod
+    def backward(ctx, grad):
+        (sel,) = ctx.saved_tensors
+        return _token_rows(grad, sel, ctx.k), None, None, None
+
+
+def _dispatch(cfg: TransformerConfig, plan: dict, x: torch.Tensor) -> torch.Tensor:
+    """The rows of the held experts' assignments in group order: the groups'
+    sizes read (:func:`_group`), then their slots' token rows.  Sets
+    ``plan["sel"]`` (the slots, in group order) and ``plan["sizes"]``."""
+    sizes = plan["read_sizes"]()
+    plan["sel"], plan["sizes"] = plan["order"][: sum(sizes)], sizes
+    return _SlotRows.apply(x, plan["sel"], cfg.top_k)
+
+
+def _experts(cfg: TransformerConfig, w: Dict[str, torch.Tensor], xs: torch.Tensor,
+             plan: dict) -> torch.Tensor:
+    """Each held expert's SwiGLU over its group of ``xs``: one matmul chain a
+    group, the groups' outputs in group order."""
+    gate, up, down = (w[f"{n}.kernel"].to(cfg.dtype).unbind(0) for n in ("gate", "up", "down"))
+    outs, lo = [], 0
+    for e, n in enumerate(plan["sizes"]):
+        xe = xs[lo: lo + n]
+        outs.append((F.silu(xe @ gate[e]) * (xe @ up[e])) @ down[e])
+        lo += n
+    return torch.cat(outs)
+
+
+def _combine(cfg: TransformerConfig, plan: dict, ys: torch.Tensor,
+             weights: torch.Tensor) -> torch.Tensor:
+    """The held experts' outputs times their weights, back at their slots,
+    summed over each token's slots: [T, d]."""
+    sel = plan["sel"]
+    rows = ys * weights.reshape(-1).index_select(0, sel)[:, None]
+    return _SlotSum.apply(rows, sel, weights.shape[0], cfg.top_k)
+
+
+def _moe(cfg: TransformerConfig, w: Dict[str, torch.Tensor], x: torch.Tensor,
+         moe: "MoEBlock", tracer: Tracer) -> torch.Tensor:
+    """The expert layer of ``x`` [B, S, d]: the shared experts plus the held
+    experts' weighted outputs, each stage a span under ``tfm.mlp``."""
+    B, S, d = x.shape
+    flat = x.reshape(B * S, d)
+    plan = {"batch": B}
+    weights = _traced(tracer, "tfm.moe.route", _route, cfg, w, flat, moe, plan)
+    if cfg.n_shared:  # queued before the host waits for the groups' sizes
+        shared = _traced(tracer, "tfm.moe.shared", _mlp, cfg, _sub(w, "shared"), flat)
+    xs = _traced(tracer, "tfm.moe.dispatch", _dispatch, cfg, plan, flat)
+    ys = _traced(tracer, "tfm.moe.experts", _experts, cfg, _sub(w, "experts"), xs, plan)
+    out = _traced(tracer, "tfm.moe.combine", _combine, cfg, plan, ys, weights)
+    if cfg.n_shared:
+        out = out + shared
+    return out.reshape(B, S, d)
 
 
 class _BackwardSpan(torch.autograd.Function):
@@ -349,11 +599,15 @@ def _traced(tracer: Tracer, name: str, fn, cfg, w, x: torch.Tensor, *rest) -> to
 
 def _block(cfg: TransformerConfig, w: Dict[str, torch.Tensor], x: torch.Tensor,
            positions: torch.Tensor, attn_mask: Optional[torch.Tensor],
-           tracer: Tracer = NULL_TRACER) -> torch.Tensor:
+           tracer: Tracer = NULL_TRACER, moe: Optional["MoEBlock"] = None) -> torch.Tensor:
+    """One pre-norm block; ``moe``: the block's expert layer, if it has one."""
     h = _norm(cfg, _sub(w, "attn_norm"), x)
-    x = x + _traced(tracer, "tfm.attention", _attention, cfg, _sub(w, "attn"), h,
+    attention = _mla if cfg.attn_kind == "mla" else _attention
+    x = x + _traced(tracer, "tfm.attention", attention, cfg, _sub(w, "attn"), h,
                     positions, attn_mask)
     h = _norm(cfg, _sub(w, "mlp_norm"), x)
+    if moe is not None:
+        return x + _traced(tracer, "tfm.mlp", _moe, cfg, _sub(w, "mlp"), h, moe, tracer)
     return x + _traced(tracer, "tfm.mlp", _mlp, cfg, _sub(w, "mlp"), h)
 
 
@@ -412,20 +666,91 @@ class Attention(nn.Module):
         return _attention(self.cfg, dict(self.named_parameters()), x, positions, attn_mask)
 
 
-class MLPBlock(nn.Module):
-    def __init__(self, cfg: TransformerConfig, *, stack: int = 0, device="cuda",
+class MLAttention(nn.Module):
+    """Latent attention's parameters (:func:`_mla`): ``q`` [d, H, nope +
+    rope], ``kv_a`` [d, rank + rope], ``kv_norm.scale`` [rank], ``kv_b``
+    [rank, H, nope + v], ``o`` [H, v, d]."""
+
+    def __init__(self, cfg: TransformerConfig, *, device="cuda",
                  generator: Optional[torch.Generator] = None) -> None:
+        super().__init__()
+        self.cfg = cfg
+        H, d, rank = cfg.n_heads, cfg.d_model, cfg.kv_lora_rank
+        kw = dict(stack=0, device=device, generator=generator)
+        self.q = _DenseGeneral((d,), (H, cfg.qk_nope_dim + cfg.qk_rope_dim), False, **kw)
+        self.kv_a = _DenseGeneral((d,), (rank + cfg.qk_rope_dim,), False, **kw)
+        self.kv_norm = nn.Module()
+        self.kv_norm.scale = nn.Parameter(torch.ones(rank, device=device))
+        self.kv_b = _DenseGeneral((rank,), (H, cfg.qk_nope_dim + cfg.v_head_dim), False, **kw)
+        self.o = _DenseGeneral((H, cfg.v_head_dim), (d,), False, **kw)
+
+    def forward(self, x, positions, attn_mask=None):
+        return _mla(self.cfg, dict(self.named_parameters()), x, positions, attn_mask)
+
+
+class MLPBlock(nn.Module):
+    """``d_ff``: the width, by default the config's."""
+
+    def __init__(self, cfg: TransformerConfig, *, stack: int = 0, device="cuda",
+                 generator: Optional[torch.Generator] = None,
+                 d_ff: Optional[int] = None) -> None:
         super().__init__()
         self.cfg = cfg
         kw = dict(stack=stack, device=device, generator=generator)
         bias = cfg.norm == "ln"
+        d_ff = d_ff or cfg.d_ff
         if cfg.activation == "swiglu":
-            self.gate = _DenseGeneral((cfg.d_model,), (cfg.d_ff,), bias, **kw)
-        self.up = _DenseGeneral((cfg.d_model,), (cfg.d_ff,), bias, **kw)
-        self.down = _DenseGeneral((cfg.d_ff,), (cfg.d_model,), bias, **kw)
+            self.gate = _DenseGeneral((cfg.d_model,), (d_ff,), bias, **kw)
+        self.up = _DenseGeneral((cfg.d_model,), (d_ff,), bias, **kw)
+        self.down = _DenseGeneral((d_ff,), (cfg.d_model,), bias, **kw)
 
     def forward(self, x):
         return _mlp(self.cfg, dict(self.named_parameters()), x)
+
+
+class MoEBlock(nn.Module):
+    """The expert layer's parameters (:func:`_moe`): ``router`` [d,
+    n_experts]; the held experts' ``experts.gate`` / ``up`` [held, d,
+    moe_d_ff] and ``down`` [held, moe_d_ff, d]; ``shared`` one SwiGLU of
+    ``n_shared * moe_d_ff``; and the buffer ``route_bias`` [n_experts], which
+    only chooses and which the trainer's balance update moves.
+
+    Each forward records ``loads`` (int64 [n_experts]: every expert's
+    assignments, held or not) and ``balance`` (the balance loss's value; its
+    gradient joins the routing weights' backward); a recompute under remat
+    records the same again.  ``choice_hook``, where set, is called with
+    each forward's choices [T, top_k]."""
+
+    #: a class default: no hook, and no copy of the choices
+    choice_hook = None
+
+    def __init__(self, cfg: TransformerConfig, *, device="cuda",
+                 generator: Optional[torch.Generator] = None) -> None:
+        super().__init__()
+        self.cfg = cfg
+        d, f, held = cfg.d_model, cfg.moe_d_ff, cfg.experts_held[1]
+        kw = dict(device=device, generator=generator)
+        self.router = _DenseGeneral((d,), (cfg.n_experts,), False, stack=0, **kw)
+        self.experts = nn.Module()
+        self.experts.gate = _DenseGeneral((d,), (f,), False, stack=held, **kw)
+        self.experts.up = _DenseGeneral((d,), (f,), False, stack=held, **kw)
+        self.experts.down = _DenseGeneral((f,), (d,), False, stack=held, **kw)
+        if cfg.n_shared:
+            self.shared = MLPBlock(cfg, d_ff=cfg.n_shared * f, **kw)
+        self.register_buffer("route_bias", torch.zeros(cfg.n_experts, device=device))
+        self.loads = torch.zeros(cfg.n_experts, dtype=torch.int64, device=device)
+        self.balance: Optional[torch.Tensor] = None
+
+    def record(self, idx: torch.Tensor, balance: torch.Tensor) -> None:
+        """A forward's record: the loads of choices ``idx`` [T, top_k], the
+        balance loss's value."""
+        self.loads = torch.bincount(idx.reshape(-1), minlength=self.cfg.n_experts)
+        self.balance = balance
+        if self.choice_hook is not None:
+            self.choice_hook(idx)
+
+    def forward(self, x):
+        return _moe(self.cfg, dict(self.named_parameters()), x, self, NULL_TRACER)
 
 
 class Block(nn.Module):
@@ -440,18 +765,24 @@ class Block(nn.Module):
     tracer: Tracer = NULL_TRACER
 
     def __init__(self, cfg: TransformerConfig, *, stack: int = 0, device="cuda",
-                 generator: Optional[torch.Generator] = None) -> None:
+                 generator: Optional[torch.Generator] = None, moe: bool = False) -> None:
+        """``moe``: the block holds the expert layer in place of the MLP."""
         super().__init__()
         self.cfg, self.stack = cfg, stack
+        kw = dict(device=device, generator=generator)
         self.attn_norm = Norm(cfg, stack=stack, device=device)
-        self.attn = Attention(cfg, stack=stack, device=device, generator=generator)
+        if cfg.attn_kind == "mla":
+            self.attn = MLAttention(cfg, **kw)
+        else:
+            self.attn = Attention(cfg, stack=stack, **kw)
         self.mlp_norm = Norm(cfg, stack=stack, device=device)
-        self.mlp = MLPBlock(cfg, stack=stack, device=device, generator=generator)
+        self.mlp = MoEBlock(cfg, **kw) if moe else MLPBlock(cfg, stack=stack, **kw)
 
     def forward(self, x, positions, attn_mask=None):
         w = dict(self.named_parameters())
         if not self.stack:
-            return _run_block(self.cfg, w, x, positions, attn_mask, self.tracer)
+            moe = self.mlp if isinstance(self.mlp, MoEBlock) else None
+            return _run_block(self.cfg, w, x, positions, attn_mask, self.tracer, moe)
         # unbind once: its backward stacks the per-layer gradients in one op
         per_layer = {k: v.unbind(0) for k, v in w.items()}
         for i in range(self.stack):
@@ -460,11 +791,11 @@ class Block(nn.Module):
         return x
 
 
-def _run_block(cfg, w, x, positions, attn_mask, tracer):
+def _run_block(cfg, w, x, positions, attn_mask, tracer, moe=None):
     if cfg.remat and torch.is_grad_enabled():
-        return checkpoint(_block, cfg, w, x, positions, attn_mask, tracer,
+        return checkpoint(_block, cfg, w, x, positions, attn_mask, tracer, moe,
                           use_reentrant=False)
-    return _block(cfg, w, x, positions, attn_mask, tracer)
+    return _block(cfg, w, x, positions, attn_mask, tracer, moe)
 
 
 class _BodyModule(nn.Module):
@@ -474,6 +805,8 @@ class _BodyModule(nn.Module):
     in any of them."""
 
     def _build_body(self, cfg: TransformerConfig, device, generator) -> None:
+        if cfg.scan_blocks or cfg.attn_impl != "dense" or _tp_mesh(cfg) is not None:
+            refuse_deepseek(cfg, "scan_blocks, sequence parallelism or a model split")
         self.cfg = cfg
         if cfg.positional == "learned":
             self.pos_embedding = nn.Parameter(torch.empty(cfg.max_seq, cfg.d_model,
@@ -485,8 +818,13 @@ class _BodyModule(nn.Module):
                                                         device=device, generator=generator)})
         else:
             for i in range(cfg.n_layers):
-                self.add_module(f"layer_{i}", Block(cfg, device=device, generator=generator))
+                self.add_module(f"layer_{i}", Block(cfg, device=device, generator=generator,
+                                                    moe=cfg.moe_layer(i)))
         self.final_norm = Norm(cfg, device=device)
+
+    def moe_layers(self) -> list:
+        """The expert layers (:class:`MoEBlock`), in layer order."""
+        return [m for m in self.modules() if isinstance(m, MoEBlock)]
 
     def trunk(self, x: torch.Tensor, attn_mask: Optional[torch.Tensor] = None,
               positions: Optional[torch.Tensor] = None) -> torch.Tensor:

@@ -600,6 +600,7 @@ class PipelinedLMTrainer:
     ) -> None:
         """``mesh``: a mesh with a ``pp`` axis; by default every rank of the
         world on ``pp`` (a process with no world forms one on ``device``)."""
+        tfm.refuse_deepseek(cfg, "PipelinedLMTrainer")
         if mesh is None:
             mesh = mesh_lib.make_mesh(None, (PP_AXIS,), device=device)
         self.pp = make_pp_step(cfg, mesh, learning_rate=learning_rate, schedule=schedule,
